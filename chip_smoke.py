@@ -18,7 +18,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    the same chunk traced with the plain PyTorch versions on the card;
 5. at the main path's shapes (one chunk of the frame), holds each kernel against its plain
    version and times kernel, plain version and, for the compaction, ``torch.nonzero``
-   with CUDA events after warm-up;
+   after warm-up: ``ms`` is device time a call (``timed``: the kernels' own time under
+   torch.profiler), with the CUDA-event time of back-to-back calls beside it as
+   ``event_ms``;
 6. training path: builds the flagship-width trainer (the same config, AMP, AdamW with the
    scheduler, adaptive rays and compaction, sample-fed pruning) on a ``make_dense`` level-7
    octree and a 4-view 512x512 lego-proxy dataset (the config has 100 views: a cut of
@@ -28,10 +30,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
 7. profiles step 20 and, after the counts are read, holds each training kernel (K1, K3
    and K4 backward, K5, and the jittered march) against its plain version at the shapes
    of step 25 and times it;
-8. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
-   forward kernels and from the training run for the others), the main-path and
-   ``train_path`` JSON lines, the nvidia-smi line and, last,
-   ``{"ok": true, "device": {...}}``.
+8. SDF path: builds the NGLOD pipeline of app/nglod/configs/nglod_octree.yaml at full
+   width on main_nglod.py's procedural icosphere (octree level 7; OctreeGrid 16 features
+   x 6 LODs, 'sum'; NeuralSDF hidden 128; PackedSDFTracer 32 steps, step 0.8) with the
+   sphere decoder of ``interop.sphere_sdf_decoder``, renders a warm-up frame, sets the
+   counts to 0, renders one 512x512 frame and reads the counts (the query, interpolation,
+   free-space field, walk and step kernels must all have run); checks the frame (shapes,
+   finite, unit normals, alpha = hit, and the sphere's geometry), one chunk against the
+   plain versions, then holds each SDF kernel against its plain version at that chunk's
+   shapes, times it, profiles a frame on the card and one frame's host side (cProfile);
+9. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+   forward kernels, from the training run for the training kernels and from the SDF frame
+   for the SDF kernels), the main-path, ``train_path`` and ``sdf_path`` JSON lines, the
+   nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -51,6 +62,8 @@ EYE = (0.0, 0.6, -3.0)
 CHUNK_INDEX = 7                # a chunk through the middle of the frame
 OCCUPANCY = 0.04
 RENDER_KERNELS = ("raymarch_ray", "compact", "scatter_back", "hashgrid_fwd", "integrate_fwd")
+TRAIN_KERNELS = RENDER_KERNELS + ("hashgrid_bwd", "scatter_back_bwd", "integrate_bwd",
+                                  "scatter_max")
 
 
 class SmokeFailure(Exception):
@@ -125,10 +138,42 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, event ms) of one call of ``fn``. The device time is the kernels' own
+    device time under torch.profiler over ``iters`` calls, divided by ``iters``: the card's
+    work alone. The event time brackets back-to-back calls with CUDA events; for a short
+    kernel it measures the wrapper's host time instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    event_ms = cuda_ms(fn, iters, warmup)
+    for _ in range(3):       # a profiling session now and then records no kernel at all
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_ms, _ = device_kernels(prof, 0)
+        if busy_ms > 0.0:
+            return busy_ms / iters, event_ms
+    raise SmokeFailure("three profiling sessions saw no device time")
+
+
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_row(name, source, replaces, err, tol, ms, plain_ms, nbytes, ops, library_ms=None):
+    """One entry of the ``kernels`` line; ``ms``, ``plain_ms`` and ``library_ms`` are
+    ``timed`` pairs (device ms, event ms)."""
+    bms, by = bound(nbytes, ops)
+    require(err <= tol, f"{name}: max_abs_err {err} above its tolerance {tol}")
+    lib = library_ms if library_ms is not None else (None, None)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": err, "tol": tol, "ms": ms[0], "plain_ms": plain_ms[0],
+            "bound_ms": bms, "bound_by": by, "library_ms": lib[0], "event_ms": ms[1],
+            "plain_event_ms": plain_ms[1], "library_event_ms": lib[1], "bytes": nbytes,
+            "ops": ops}
 
 
 @contextmanager
@@ -190,12 +235,8 @@ def kernel_phase(pipeline, rays):
     rows = []
 
     def row(name, source, replaces, err, tol, ms, plain_ms, nbytes, ops, library_ms=None):
-        bms, by = bound(nbytes, ops)
-        require(err <= tol, f"{name}: max_abs_err {err} above its tolerance {tol}")
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-                     "bytes": nbytes, "ops": ops})
+        rows.append(kernel_row(name, source, replaces, err, tol, ms, plain_ms, nbytes, ops,
+                               library_ms))
 
     # K2 march
     mr = raymarch_ray(o, d, rays.dist_min, rays.dist_max, s, stride, field, level)
@@ -208,9 +249,9 @@ def kernel_phase(pipeline, rays):
     nc = -(-s // stride)
     row("raymarch_ray", "wisp_tpu_torch/csrc/raymarch.cu",
         "wisp_tpu/accelstructs/octree_as.py:492", err, 1e-6,
-        cuda_ms(lambda: raymarch_ray(o, d, rays.dist_min, rays.dist_max, s, stride, field,
+        timed(lambda: raymarch_ray(o, d, rays.dist_min, rays.dist_max, s, stride, field,
                                      level)),
-        cuda_ms(lambda: raymarch_ray_plain(o, d, rays.dist_min, rays.dist_max, s, stride,
+        timed(lambda: raymarch_ray_plain(o, d, rays.dist_min, rays.dist_max, s, stride,
                                            field, level), iters=5),
         nbytes=r * 24 + field_cells_touched(mp.samples, stride, level) * 4
         + r * s * (12 + 4 + 1 + 4) + r * 4,
@@ -229,10 +270,10 @@ def kernel_phase(pipeline, rays):
               for a, b in zip(got[:3], want[:3]))
     row("compact", "wisp_tpu_torch/csrc/compaction.cu",
         "wisp_tpu/ops/compaction.py:23", err, 0.0,
-        cuda_ms(lambda: compact(mask, samples, d, budget)),
-        cuda_ms(lambda: compact_plain(mask, samples, d, budget), iters=5),
+        timed(lambda: compact(mask, samples, d, budget)),
+        timed(lambda: compact_plain(mask, samples, d, budget), iters=5),
         nbytes=r * s + r * 12 + kept * (12 + 8 + 24) + 8, ops=0.0,
-        library_ms=cuda_ms(lambda: torch.nonzero(mask.T)))
+        library_ms=timed(lambda: torch.nonzero(mask.T)))
     idx, cflat, cray_d = got[0], got[1][:kept], got[2][:kept]
 
     # K1 hash grid forward, at the main path's LODs (max_compute_lod and the 'cat' quirk)
@@ -246,8 +287,8 @@ def kernel_phase(pipeline, rays):
     f_dim = grid.feature_dim
     row("hashgrid_fwd", "wisp_tpu_torch/csrc/hashgrid.cu", "wisp_tpu/ops/grid.py:335",
         float((hk - hp).abs().max()), 1e-5,
-        cuda_ms(lambda: grid_ops.hashgrid(cflat, *args, out_lods=grid.num_lods)),
-        cuda_ms(lambda: grid_ops.hashgrid_plain(cflat, *args, out_lods=grid.num_lods),
+        timed(lambda: grid_ops.hashgrid(cflat, *args, out_lods=grid.num_lods)),
+        timed(lambda: grid_ops.hashgrid_plain(cflat, *args, out_lods=grid.num_lods),
                 iters=3),
         nbytes=kept * 12 + hash_rows_touched(cflat, grid, n_lods) * f_dim * 4
         + kept * grid.num_lods * f_dim * 4,
@@ -262,8 +303,8 @@ def kernel_phase(pipeline, rays):
     sp = scatter_back_plain(v, idx, r * s)
     row("scatter_back", "wisp_tpu_torch/csrc/compaction.cu",
         "wisp_tpu/tracers/packed_rf_tracer.py:210", float((sk - sp).abs().max()), 0.0,
-        cuda_ms(lambda: scatter_back(v, idx, r * s)),
-        cuda_ms(lambda: scatter_back_plain(v, idx, r * s)),
+        timed(lambda: scatter_back(v, idx, r * s)),
+        timed(lambda: scatter_back_plain(v, idx, r * s)),
         nbytes=kept * (12 + 8) + r * s * 12, ops=0.0)
 
     # K4 integration
@@ -276,8 +317,8 @@ def kernel_phase(pipeline, rays):
     err = max(float((ik[k] - ip[k]).abs().max()) for k in ("rgb", "alpha", "depth"))
     row("integrate_fwd", "wisp_tpu_torch/csrc/integrate.cu",
         "wisp_tpu/tracers/packed_rf_tracer.py:258", err, 1e-4,
-        cuda_ms(lambda: integrate(density, mr.deltas, depths, mask, color, tracer.bg_color)),
-        cuda_ms(lambda: integrate_plain(density, mr.deltas, depths, mask, color,
+        timed(lambda: integrate(density, mr.deltas, depths, mask, color, tracer.bg_color)),
+        timed(lambda: integrate_plain(density, mr.deltas, depths, mask, color,
                                         tracer.bg_color)),
         nbytes=r * s * (4 + 4 + 1 + 12) + r * 4 + r * (12 + 4 + 4 + 1), ops=r * s * 16)
     return rows, {"chunk_rays": r, "valid": valid, "budget": budget, "kept": kept}
@@ -387,12 +428,8 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
     rows = []
 
     def row(name, source, replaces, err, tol, ms, plain_ms, nbytes, ops, library_ms=None):
-        bms, by = bound(nbytes, ops)
-        require(err <= tol, f"{name}: max_abs_err {err} above its tolerance {tol}")
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-                     "bytes": nbytes, "ops": ops})
+        rows.append(kernel_row(name, source, replaces, err, tol, ms, plain_ms, nbytes, ops,
+                               library_ms))
 
     # the jittered march (K2 with u): exact against the plain version
     lo, hi = view.dist_min, view.dist_max
@@ -422,9 +459,9 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
     scale = max(1.0, float(hp.abs().max()))
     row("hashgrid_bwd", "wisp_tpu_torch/csrc/hashgrid.cu", "wisp_tpu/ops/grid.py:55",
         float((hk - hp).abs().max()), 1e-5 * scale,
-        cuda_ms(lambda: grid_ops.hashgrid_bwd(coords, g_feat, *args,
+        timed(lambda: grid_ops.hashgrid_bwd(coords, g_feat, *args,
                                               out_lods=grid.num_lods)),
-        cuda_ms(lambda: grid_ops.hashgrid_bwd_plain(coords, g_feat, *args,
+        timed(lambda: grid_ops.hashgrid_bwd_plain(coords, g_feat, *args,
                                                     out_lods=grid.num_lods), iters=3),
         nbytes=kept * 12 + kept * n_lods * f_dim * 4
         + hash_rows_touched(coords, grid, n_lods) * f_dim * 4,
@@ -438,10 +475,10 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
     row("scatter_back_bwd", "wisp_tpu_torch/csrc/compaction.cu",
         "wisp_tpu/tracers/packed_rf_tracer.py:214",
         float((bk - bp).abs().max()) if kept else 0.0, 0.0,
-        cuda_ms(lambda: scatter_back_bwd(g_col, idx, kept)),
-        cuda_ms(lambda: scatter_back_bwd_plain(g_col, idx, kept)),
+        timed(lambda: scatter_back_bwd(g_col, idx, kept)),
+        timed(lambda: scatter_back_bwd_plain(g_col, idx, kept)),
         nbytes=kept * (8 + 12 + 12), ops=0.0,
-        library_ms=cuda_ms(lambda: g_col.index_select(0, sel)))
+        library_ms=timed(lambda: g_col.index_select(0, sel)))
 
     # K4 backward, with the step's densities and colours and a cotangent of rgb only
     density = scatter_back(out["density"].float().contiguous(), idx, r * s).reshape(r, s)
@@ -454,9 +491,9 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
     err = max(float((ik[0] - ip[0]).abs().max()), float((ik[1] - ip[1]).abs().max()))
     row("integrate_bwd", "wisp_tpu_torch/csrc/integrate.cu",
         "wisp_tpu/tracers/packed_rf_tracer.py:258", err, 1e-5 * scale,
-        cuda_ms(lambda: integrate_bwd(density, mr.deltas, mr.depth_samples, mr.mask, color,
+        timed(lambda: integrate_bwd(density, mr.deltas, mr.depth_samples, mr.mask, color,
                                       bg, g_rgb)),
-        cuda_ms(lambda: integrate_bwd_plain(density, mr.deltas, mr.depth_samples, mr.mask,
+        timed(lambda: integrate_bwd_plain(density, mr.deltas, mr.depth_samples, mr.mask,
                                             color, bg, g_rgb)),
         nbytes=r * s * (4 + 1 + 12) + r * (4 + 12) + r * s * (4 + 12),
         ops=r * s * 40)
@@ -471,10 +508,10 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
     row("scatter_max", "wisp_tpu_torch/csrc/scatter_max.cu",
         "wisp_tpu/tracers/packed_rf_tracer.py:255",
         0.0 if torch.equal(mk, mp_) else float((mk - mp_).abs().max()), 0.0,
-        cuda_ms(lambda: scatter_max(ids, dens, size)),
-        cuda_ms(lambda: scatter_max_plain(ids, dens, size)),
+        timed(lambda: scatter_max(ids, dens, size)),
+        timed(lambda: scatter_max_plain(ids, dens, size)),
         nbytes=kept * (8 + 4) + size * 4, ops=0.0,
-        library_ms=cuda_ms(lambda: lib_grid.scatter_reduce_(0, ids, dens, "amax")))
+        library_ms=timed(lambda: lib_grid.scatter_reduce_(0, ids, dens, "amax")))
     return rows, {"rays": r, "valid": valid, "budget": budget, "kept": kept,
                   "trained_lods": n_lods}
 
@@ -533,7 +570,7 @@ def train_phase(dev):
                       "valid_fraction": valid / (rays * tracer.num_steps),
                       "loss": trainer.last_loss})
     launches = dict(kernels.LAUNCHES)
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
     require(not missing, f"kernels not launched on the training path: {missing}")
     rows, shape_info = train_kernel_phase(trainer, steps[-1]["rays"], steps[-1]["budget"])
     losses = [st["loss"] for st in steps]
@@ -559,6 +596,384 @@ def train_phase(dev):
     }
     info.update(prune)
     info.update(profiled)
+    return rows, info
+
+
+SDF_LEVEL = 7
+SDF_NUM_LODS = 6
+SDF_SAMPLES = 2_000_000
+SDF_KERNELS = ("octree_query", "octree_interp", "free_space_distance", "sdf_walk",
+               "sphere_step")
+# the icosphere's facets lie between radius 0.897 (face centres) and 0.9 (vertices): a
+# zero set off that band leaves the one-voxel shell of occupied cells, and rays that miss
+# the shell's zero crossing do not hit
+SDF_RADIUS = 0.8985
+SDF_FD_TAPS = 6                # finitediff_gradient's field queries for the normals
+SDF_HIT_MARGIN = 1e-5          # | |sdf| - min_dis | under which a hit may flip
+SDF_DEPTH_TOL = 1e-4           # depth and xyz on rays that hit in both traces
+SDF_NORMAL_TOL = 1e-4
+
+
+def nglod_pipeline(device):
+    """app/nglod/configs/nglod_octree.yaml at full width on main_nglod.py's procedural
+    icosphere (main_nglod.py:61-66: subdivisions 3, normalized to 'sphere', 2,000,000
+    surface samples, octree level 7). The feature grid keeps its config init (std 0.01,
+    seeded); the decoder is ``interop.sphere_sdf_decoder``, under which the field is close
+    to |x| - SDF_RADIUS (random decoder weights give no distance function, and a sphere
+    tracer then hits almost nothing)."""
+    import numpy as np
+    import torch
+    from wisp_tpu_torch import interop
+    from wisp_tpu_torch.accelstructs.octree_as import OctreeAS
+    from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+    from wisp_tpu_torch.models.nefs.neural_sdf import NeuralSDF
+    from wisp_tpu_torch.models.pipeline import Pipeline
+    from wisp_tpu_torch.ops.mesh.io import make_sphere_mesh
+    from wisp_tpu_torch.ops.mesh.ops import normalize, sample_surface
+    from wisp_tpu_torch.ops.spc.core import make_dual, quantize_points_np
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import PackedSDFTracer
+    v, f = make_sphere_mesh(radius=1.0, subdivisions=3)
+    v, f = normalize(v, f, "sphere")
+    samples = sample_surface(v, f, SDF_SAMPLES)
+    blas = OctreeAS.from_quantized_points(quantize_points_np(samples, SDF_LEVEL), SDF_LEVEL,
+                                          device=device)
+    gen = torch.Generator().manual_seed(2)
+    grid = OctreeGrid(blas=blas, feature_dim=16, num_lods=SDF_NUM_LODS,
+                      interpolation_type="linear",
+                      multiscale_type="sum", feature_std=0.01, generator=gen, device=device)
+    nef = NeuralSDF(grid=grid, pos_embedder="none", position_input=True,
+                    activation_type="relu", hidden_dim=128, num_layers=1, generator=gen,
+                    device=device)
+    with torch.no_grad():
+        for name, value in interop.sphere_sdf_decoder(16, 128, seed=0,
+                                                      radius=SDF_RADIUS).items():
+            nef.get_parameter(name).copy_(torch.from_numpy(value))
+    tracer = PackedSDFTracer(num_steps=32, step_size=0.8)
+    dual, _ = make_dual(blas.points)
+    stats = {"level_counts": list(blas.level_counts),
+             "active_lods": list(grid.active_lods),
+             "dual_vertex_rows": [int(len(dual[l])) for l in grid.active_lods],
+             "feature_bytes": sum(p.numel() * 4 for p in grid.features),
+             "trinket_bytes": sum(t.numel() * 4 for t in grid.trinkets),
+             "pidx_map_bytes": sum(m.numel() * 4 for m in blas.pidx_maps),
+             "occupied_fraction": blas.level_counts[-1] / 8 ** SDF_LEVEL}
+    return Pipeline(nef=nef, tracer=tracer), stats
+
+
+@contextmanager
+def plain_sdf_versions():
+    """Route the SDF path's kernel calls to the plain PyTorch versions (on the card)."""
+    from wisp_tpu_torch.accelstructs import octree_as
+    from wisp_tpu_torch.models.grids import octree_grid
+    from wisp_tpu_torch.tracers import packed_sdf_tracer as sdf
+    with mock.patch.object(octree_as, "octree_query", octree_as.octree_query_plain), \
+            mock.patch.object(octree_as, "free_space_distance",
+                              octree_as.free_space_distance_plain), \
+            mock.patch.object(octree_grid, "octree_interp", octree_grid.octree_interp_plain), \
+            mock.patch.object(sdf, "sdf_walk", sdf.sdf_walk_plain), \
+            mock.patch.object(sdf, "sphere_step", sdf.sphere_step_plain):
+        yield
+
+
+def walk_work(o, d, t, alive, t_far, free_dist, level: int, num_steps: int):
+    """(steps that the walk takes over all rays, distinct cells of the free-space field
+    that it reads): the walk's data-dependent work, counted with its plain operations."""
+    import torch
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import _fsd_at, _free_step
+    res, voxel = 2 ** level, 2.0 / 2 ** level
+    t, alive = t.clone(), alive.clone()
+    steps, cells = 0, []
+    for _ in range(num_steps):
+        k, pos = _fsd_at(o, d, t, free_dist, level)
+        inside = ((pos >= -1.0) & (pos < 1.0)).all(-1)
+        q = ((pos + 1.0) * (res / 2.0)).floor().long().clamp(0, res - 1)
+        cells.append(((q[:, 0] * res + q[:, 1]) * res + q[:, 2])[alive & inside])
+        adv = alive & (k > 0)
+        steps += int(adv.sum())
+        t = torch.where(adv, t + _free_step(k, pos, d, voxel), t)
+        alive = alive & (t <= t_far)
+    return steps, int(torch.unique(torch.cat(cells)).numel())
+
+
+def sdf_kernel_phase(pipeline, rays):
+    """Each SDF kernel against its plain version and timed, at the shapes one chunk of the
+    main path gives it: the walk from the rays' entry, a sphere step and the field's query
+    and interpolation at the rays' points after the walk and 4 sphere iterations."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import (aabb_intersect, free_space_distance,
+                                                       free_space_distance_plain,
+                                                       octree_query, octree_query_plain)
+    from wisp_tpu_torch.models.grids.octree_grid import octree_interp, octree_interp_plain
+    from wisp_tpu_torch.ops.spc.core import quantize_points
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import (sdf_walk, sdf_walk_plain,
+                                                          sphere_step, sphere_step_plain)
+    nef, tracer = pipeline.nef, pipeline.tracer
+    grid, blas = nef.grid, nef.grid.blas
+    level, steps = blas.max_level, tracer.num_steps
+    o, d = rays.origins, rays.dirs
+    n = o.shape[0]
+    rows = []
+
+    def copies(*ts, count=48):
+        """Fresh inputs for each call of an in-place kernel (timed makes 43 calls)."""
+        it = iter([tuple(x.clone() for x in ts) for _ in range(count)])
+        return lambda: next(it)
+
+    # K11 on the octree's occupancy
+    occ = blas.occ_grid
+    fk = free_space_distance(occ, level)
+    fp = free_space_distance_plain(occ, level)
+    require(torch.equal(fk, fp), "free_space_distance differs from the plain version")
+    cells = 8 ** level
+    rows.append(kernel_row(
+        "free_space_distance", "wisp_tpu_torch/csrc/octree.cu",
+        "wisp_tpu/accelstructs/octree_as.py:254", 0.0, 0.0,
+        timed(lambda: free_space_distance(occ, level)),
+        timed(lambda: free_space_distance_plain(occ, level), iters=5),
+        nbytes=cells * (1 + 4), ops=cells * 3 * 2))
+
+    # K12 walk from the rays' entry
+    t_near, t_far = aabb_intersect(o, d, rays.dist_min, rays.dist_max)
+    t0 = t_near.clamp(min=0.0) + 1e-6
+    a0 = t_far > t0
+    t_far = t_far.contiguous()
+    tk, ak = t0.clone(), a0.clone()
+    tp, ap = t0.clone(), a0.clone()
+    sdf_walk(o, d, tk, ak, t_far, fk, level, steps)
+    sdf_walk_plain(o, d, tp, ap, t_far, fk, level, steps)
+    require(torch.equal(tk, tp) and torch.equal(ak, ap),
+            "sdf_walk differs from the plain version")
+    taken, walk_cells = walk_work(o, d, t0, a0, t_far, fk, level, steps)
+    state, plain_state = copies(t0, a0), copies(t0, a0, count=16)
+    rows.append(kernel_row(
+        "sdf_walk", "wisp_tpu_torch/csrc/sphere_trace.cu",
+        "wisp_tpu/tracers/packed_sdf_tracer.py:121", 0.0, 0.0,
+        timed(lambda: sdf_walk(o, d, *state(), t_far, fk, level, steps)),
+        timed(lambda: sdf_walk_plain(o, d, *plain_state(), t_far, fk, level, steps),
+              iters=5),
+        nbytes=n * (24 + 4 + 1 + 4) + n * (4 + 1) + walk_cells * 4, ops=taken * 50))
+
+    # 4 sphere iterations with the kernels, then the field at the rays' points
+    t, alive, hit = tk, ak, torch.zeros_like(ak)
+    for _ in range(4):
+        dist = nef(channels="sdf", coords=o + t[:, None] * d)[:, 0].contiguous()
+        sphere_step(o, d, t, alive, hit, t_far, dist, fk, level, tracer.step_size,
+                    tracer.min_dis)
+    coords = (o + t[:, None] * d).contiguous()
+    dist = nef(channels="sdf", coords=coords)[:, 0].contiguous()
+
+    # K12 sphere step
+    sk, sp = (t.clone(), alive.clone(), hit.clone()), (t.clone(), alive.clone(), hit.clone())
+    sphere_step(o, d, *sk, t_far, dist, fk, level, tracer.step_size, tracer.min_dis)
+    sphere_step_plain(o, d, *sp, t_far, dist, fk, level, tracer.step_size, tracer.min_dis)
+    require(all(torch.equal(a, b) for a, b in zip(sk, sp)),
+            "sphere_step differs from the plain version")
+    live = int(alive.sum())
+    state, plain_state = copies(t, alive, hit), copies(t, alive, hit, count=16)
+    rows.append(kernel_row(
+        "sphere_step", "wisp_tpu_torch/csrc/sphere_trace.cu",
+        "wisp_tpu/tracers/packed_sdf_tracer.py:136", 0.0, 0.0,
+        timed(lambda: sphere_step(o, d, *state(), t_far, dist, fk, level, tracer.step_size,
+                                  tracer.min_dis)),
+        timed(lambda: sphere_step_plain(o, d, *plain_state(), t_far, dist, fk, level,
+                                        tracer.step_size, tracer.min_dis), iters=5),
+        nbytes=n * (1 + 1) + live * (24 + 4 + 4 + 4 + 4) + live * (4 + 1 + 1),
+        ops=live * 60))
+
+    # K9 with parents, as OctreeGrid.interpolate asks, at the last LOD
+    maps = blas.pidx_maps
+    qk = octree_query(coords, maps, level, True)
+    qp = octree_query_plain(coords, maps, level, True)
+    require(torch.equal(qk, qp), "octree_query differs from the plain version")
+    q = quantize_points(coords, level)
+    inside = ((coords >= -1.0) & (coords <= 1.0)).all(-1)
+    map_entries = 0
+    for l in range(level + 1):
+        ql = q[inside] >> (level - l)
+        map_entries += int(torch.unique((ql[:, 0] * 2 ** l + ql[:, 1]) * 2 ** l
+                                        + ql[:, 2]).numel())
+    rows.append(kernel_row(
+        "octree_query", "wisp_tpu_torch/csrc/octree.cu",
+        "wisp_tpu/accelstructs/octree_as.py:199", 0.0, 0.0,
+        timed(lambda: octree_query(coords, maps, level, True)),
+        timed(lambda: octree_query_plain(coords, maps, level, True)),
+        nbytes=n * 12 + n * (level + 1) * 4 + map_entries * 4,
+        ops=n * (3 * 4 + (level + 1) * 6)))
+
+    # K15 over the 6 LODs, 'sum'
+    lods = grid.num_lods
+    args = (coords, qk, grid.base_lod, grid.trinkets, [f.detach() for f in grid.features],
+            grid.active_lods, grid.multiscale_type)
+    ik = octree_interp(*args)
+    ip = octree_interp_plain(*args)
+    f_dim = grid.feature_dim
+    trinket_rows = feature_rows = valid = 0
+    for i in range(lods):
+        p = qk[:, grid.base_lod + i]
+        p = p[p >= 0].long()
+        valid += int(p.numel())
+        trinket_rows += int(torch.unique(p).numel())
+        feature_rows += int(torch.unique(grid.trinkets[i][p].reshape(-1)).numel())
+    rows.append(kernel_row(
+        "octree_interp", "wisp_tpu_torch/csrc/octree_grid.cu",
+        "wisp_tpu/models/grids/octree_grid.py:115", float((ik - ip).abs().max()), 1e-6,
+        timed(lambda: octree_interp(*args)), timed(lambda: octree_interp_plain(*args)),
+        nbytes=n * 12 + n * lods * 4 + trinket_rows * 32 + feature_rows * f_dim * 4
+        + n * f_dim * 4,
+        ops=valid * (3 * 5 + 8 * (2 + 2 * f_dim))))
+    return rows, {"chunk_rays": n, "walk_steps_taken": taken, "walk_cells": walk_cells,
+                  "live_rays_after_4_iterations": live, "interp_valid_lod_points": valid,
+                  "interp_trinket_rows": trinket_rows, "interp_feature_rows": feature_rows,
+                  "query_map_entries": map_entries}
+
+
+def host_top(renderer, pipeline, top: int = 12) -> dict:
+    """One frame under cProfile: its host wall time and the functions with the most host
+    time of their own (name, calls, own ms, cumulative ms)."""
+    import cProfile
+    import pstats
+    import torch
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    renderer.render_lookat(pipeline, f=EYE)
+    torch.cuda.synchronize()
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {"host_profile_frame_ms": wall_ms,
+            "host_top": [{"fn": f"{path.split('/')[-1]}:{line}({fn})", "calls": v[1],
+                          "own_ms": v[2] * 1e3, "cum_ms": v[3] * 1e3}
+                         for (path, line, fn), v in rows]}
+
+
+def sdf_phase(dev):
+    """The NGLOD render path: the pipeline at full width, a warm-up frame, then counts
+    from 0, one timed 512x512 frame, counts read after. Then the frame's checks, one chunk
+    against the plain versions, the kernels at that chunk's shapes, and a profiled frame."""
+    import numpy as np
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.core.camera import Camera
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.ops.raygen.raygen import generate_pinhole_rays
+    from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
+    t0 = time.perf_counter()
+    pipeline, stats = nglod_pipeline(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(json.dumps({"nglod_octree": stats, "setup_s": setup_s}), flush=True)
+    tracer, nef = pipeline.tracer, pipeline.nef
+    renderer = OfflineRenderer(render_res=(RES, RES), device=dev)
+    renderer.render_lookat(pipeline, f=EYE)          # warm-up
+    torch.cuda.synchronize()
+
+    # -- the SDF path: counts from 0, one frame, counts read right after ----------------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rb = renderer.render_lookat(pipeline, f=EYE)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in SDF_KERNELS if launches[k] <= 0]
+    require(not missing, f"kernels not launched on the SDF path: {missing}")
+    chunks = -(-RES * RES // renderer.render_batch)
+    queries = chunks * (tracer.num_steps + SDF_FD_TAPS)
+    expected = {"octree_query": queries, "octree_interp": queries,
+                "free_space_distance": chunks, "sdf_walk": chunks,
+                "sphere_step": chunks * tracer.num_steps}
+
+    # -- the frame ----------------------------------------------------------------------
+    for key, c in (("depth", 1), ("normal", 3), ("xyz", 3), ("rgb", 3), ("alpha", 1),
+                   ("hit", 1)):
+        require(tuple(rb.channels[key].shape) == (RES, RES, c),
+                 f"{key}: shape {tuple(rb.channels[key].shape)}")
+    finite = all(bool(torch.isfinite(rb.channels[k]).all())
+                 for k in ("depth", "normal", "xyz", "rgb", "alpha"))
+    require(finite, "non-finite SDF channels")
+    hit = rb.hit[..., 0]
+    hit_frac = float(hit.float().mean())
+    require(0.0 < hit_frac < 1.0, f"SDF hit fraction {hit_frac}: blank or full")
+    alpha = rb.alpha[..., 0]
+    require(bool(((alpha == 0.0) | (alpha == 1.0)).all())
+            and torch.equal(alpha == 1.0, hit), "alpha is not the hit mask in {0, 1}")
+    norm_err = float((rb.normal[hit].norm(dim=-1) - 1.0).abs().max())
+    require(norm_err <= 1e-4, f"normals on hits are not unit: {norm_err}")
+
+    # geometry: the field approximates the sphere of radius 0.9
+    cam = Camera.from_args(eye=EYE, at=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0), width=RES,
+                           height=RES, fov=np.radians(30.0), near=0.0, far=10.0)
+    all_rays = generate_pinhole_rays(cam, device=dev)
+    o_all, d_all = all_rays.origins, all_rays.dirs
+    c = RES // 2
+    centre = c * RES + c
+    centre_depth = float(rb.depth[c, c, 0])
+    want_depth = float(np.linalg.norm(EYE)) - 0.9
+    centre_dot = float((rb.normal[c, c] * -d_all[centre]).sum())
+    closest = (o_all - (o_all * d_all).sum(-1, keepdim=True) * d_all).norm(dim=-1)
+    far_hits = int((hit.reshape(-1) & (closest > 0.95)).sum())
+    require(hit_frac >= 0.8, f"SDF geometry: {hit_frac} of rays hit, want >= 0.8")
+    require(abs(centre_depth - want_depth) <= 0.02,
+            f"SDF geometry: centre depth {centre_depth}, want {want_depth} +- 0.02")
+    require(centre_dot > 0.9, f"SDF geometry: centre normal . -dir = {centre_dot}")
+    require(far_hits == 0, f"SDF geometry: {far_hits} hits on rays passing beyond 0.95")
+    more_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        renderer.render_lookat(pipeline, f=EYE)
+        torch.cuda.synchronize()
+        more_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # -- one chunk of the frame: kernels against the plain versions on the card ---------
+    n_chunk = renderer.render_batch
+    sl = slice(CHUNK_INDEX * n_chunk, (CHUNK_INDEX + 1) * n_chunk)
+    chunk = Rays(o_all[sl].contiguous(), d_all[sl].contiguous(), all_rays.dist_min,
+                 all_rays.dist_max)
+    with torch.no_grad():
+        a = pipeline(rays=chunk)
+        before = dict(kernels.LAUNCHES)
+        with plain_sdf_versions():
+            b = pipeline(rays=chunk)
+        require(dict(kernels.LAUNCHES) == before, "a plain-version trace launched a kernel")
+        sdf_a = nef(channels="sdf", coords=a.xyz)[:, 0]
+    ha, hb = a.hit[:, 0], b.hit[:, 0]
+    differ = ha != hb
+    margin = ((sdf_a.abs() - tracer.min_dis).abs())
+    require(not bool((differ & (margin > SDF_HIT_MARGIN)).any()),
+            f"{int(differ.sum())} hits differ from the plain versions' beyond the margin")
+    both = ha & hb
+    chunk_err = {k: float((a.channels[k] - b.channels[k])[both].abs().max())
+                 for k in ("depth", "xyz", "normal")}
+    require(chunk_err["depth"] <= SDF_DEPTH_TOL and chunk_err["xyz"] <= SDF_DEPTH_TOL
+            and chunk_err["normal"] <= SDF_NORMAL_TOL,
+            f"SDF chunk differs from the plain versions: {chunk_err}")
+    require(torch.equal(rb.depth.reshape(-1)[sl], a.depth[:, 0]),
+            "SDF chunk re-trace differs from the frame")
+
+    with torch.no_grad():
+        rows, shape_info = sdf_kernel_phase(pipeline, chunk)
+    for row_ in rows:
+        row_["launches"] = launches[row_["name"]]
+    info = {
+        "sdf_path": f"OfflineRenderer.render_lookat {RES}x{RES}, nglod_octree.yaml width",
+        "setup_s": setup_s, "octree": stats, "frame_ms": frame_ms, "more_frame_ms": more_ms,
+        "rays_per_s": RES * RES / (frame_ms / 1e3), "hit_fraction": hit_frac,
+        "launches": {k: launches[k] for k in SDF_KERNELS}, "expected_launches": expected,
+        "other_launches": {k: v for k, v in launches.items() if k not in SDF_KERNELS},
+        "centre_depth": centre_depth, "centre_depth_expected": want_depth,
+        "centre_normal_dot_minus_dir": centre_dot, "hits_beyond_0_95": far_hits,
+        "normal_norm_err": norm_err, "finite": finite,
+        "chunk_hits_differ": int(differ.sum()),
+        "chunk_min_margin_of_differing": float(margin[differ].min()) if differ.any()
+        else None,
+        "chunk_max_abs_err_vs_plain": chunk_err,
+        "chunk_tol": {"depth_xyz": SDF_DEPTH_TOL, "normal": SDF_NORMAL_TOL,
+                      "hit_margin": SDF_HIT_MARGIN},
+        "kernel_phase_shapes": shape_info,
+    }
+    info.update(profile_frame(renderer, pipeline))
+    info.update(host_top(renderer, pipeline))
     return rows, info
 
 
@@ -679,9 +1094,12 @@ def run() -> dict:
     main.update(profile_frame(renderer, pipeline))
     del pipeline, renderer, rb
     train_rows, train_info = train_phase(dev)
-    print(json.dumps({"kernels": rows + train_rows}), flush=True)
+    torch.cuda.empty_cache()
+    sdf_rows, sdf_info = sdf_phase(dev)
+    print(json.dumps({"kernels": rows + train_rows + sdf_rows}), flush=True)
     print(json.dumps(main), flush=True)
     print(json.dumps(train_info), flush=True)
+    print(json.dumps(sdf_info), flush=True)
     print(smi, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}

@@ -119,3 +119,67 @@ def port_name(path: str) -> str:
     """A JAX pytree path ('.nef.decoder_color.layers[0].bias') as the port's parameter
     name ('nef.decoder_color.layers.0.bias')."""
     return path.lstrip(".").replace("[", ".").replace("]", "")
+
+
+def sdf_params_from_jax(pipe):
+    """(params, config) of a JAX NGLOD pipeline (sparse OctreeAS, OctreeGrid, NeuralSDF,
+    PackedSDFTracer) for wisp_tpu_torch.interop.build_sdf_pipeline."""
+    nef, grid = pipe.nef, pipe.nef.grid
+    blas = grid.blas
+    params = {f"blas.codes.{l}": np.asarray(c).astype(np.uint64)
+              for l, c in enumerate(blas.codes)}
+    for i, feats in enumerate(grid.features):
+        params[f"grid.features.{i}"] = np.asarray(feats)
+    dec = nef.decoder
+    for name, layer in [(f"layers.{i}", l) for i, l in enumerate(dec.layers)] \
+            + [("lout", dec.lout)]:
+        params[f"decoder.{name}.weight"] = np.asarray(layer.weight)
+        params[f"decoder.{name}.bias"] = np.asarray(layer.bias)
+    t = pipe.tracer
+    config = {
+        "blas_level": blas.max_level,
+        "grid": {"feature_dim": grid.feature_dim, "num_lods": grid.num_lods,
+                 "interpolation_type": grid.interpolation_type,
+                 "multiscale_type": grid.multiscale_type},
+        "nef": {"pos_embedder": nef.pos_embedder_type,
+                "position_input": nef.pos_embed_dim == 3 and nef.pos_embedder_type == "none",
+                "activation_type": nef.activation_type, "layer_type": nef.layer_type,
+                "hidden_dim": nef.hidden_dim, "num_layers": nef.num_layers},
+        "tracer": {"num_steps": t.num_steps, "step_size": t.step_size, "min_dis": t.min_dis},
+    }
+    return params, config
+
+
+def sphere_octree_points(level: int, num_samples: int = 200_000, radius: float = 1.0):
+    """Quantized surface samples of the normalized icosphere (main_nglod.py:61-66)."""
+    from wisp_tpu.ops.mesh import make_sphere_mesh, normalize, sample_surface
+    from wisp_tpu.ops.spc.core import quantize_points
+    v, f = make_sphere_mesh(radius=radius, subdivisions=3)
+    v, f = normalize(v, f, "sphere")
+    return quantize_points(sample_surface(v, f, num_samples), level)
+
+
+def jax_sdf_pipeline(level=5, num_lods=3, hidden_dim=32, feature_dim=16,
+                     multiscale_type="sum", num_steps=32, decoder=None, seed=0,
+                     num_samples=50_000):
+    """A small NGLOD pipeline on the sphere octree (the nglod_octree.yaml shape at a small
+    size). ``decoder``: numpy weights to set (``interop.sphere_sdf_decoder``'s keys)."""
+    from wisp_tpu.accelstructs import OctreeAS as JAS
+    from wisp_tpu.models.grids import OctreeGrid as JOctreeGrid
+    from wisp_tpu.models.nefs.neural_sdf import NeuralSDF as JNeuralSDF
+    from wisp_tpu.tracers.packed_sdf_tracer import PackedSDFTracer as JSDFTracer
+    blas = JAS.from_quantized_points(sphere_octree_points(level, num_samples), level)
+    grid = JOctreeGrid(blas=blas, feature_dim=feature_dim, num_lods=num_lods,
+                       interpolation_type="linear", multiscale_type=multiscale_type,
+                       feature_std=0.01, key=jax.random.PRNGKey(seed))
+    nef = JNeuralSDF(grid=grid, pos_embedder="none", position_input=True,
+                     activation_type="relu", hidden_dim=hidden_dim, num_layers=1,
+                     key=jax.random.PRNGKey(seed + 1))
+    if decoder is not None:
+        layers = [nef.decoder.layers[0].replace(weight=jnp.asarray(decoder["decoder.layers.0.weight"]),
+                                                bias=jnp.asarray(decoder["decoder.layers.0.bias"]))]
+        lout = nef.decoder.lout.replace(weight=jnp.asarray(decoder["decoder.lout.weight"]),
+                                        bias=jnp.asarray(decoder["decoder.lout.bias"]))
+        nef = nef.replace(decoder=nef.decoder.replace(layers=layers, lout=lout))
+    tracer = JSDFTracer(num_steps=num_steps, step_size=0.8, min_dis=3e-4)
+    return JPipeline(nef=nef, tracer=tracer)

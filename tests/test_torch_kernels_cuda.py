@@ -246,3 +246,109 @@ def test_scatter_max_kernel_propagates_nan(dev):
     want = scatter_max_plain(ids.cpu(), vals.cpu(), 8)
     assert torch.isnan(got[3]) and torch.isnan(want[3])
     assert got[5].item() == want[5].item() == 2.0
+
+
+def _sphere_octree(level, device):
+    """A sparse octree of the cells a shell of radius 0.6 crosses, and its free-space
+    field."""
+    from wisp_tpu_torch.accelstructs.octree_as import OctreeAS
+    rng = np.random.default_rng(11)
+    p = rng.normal(size=(20000, 3))
+    p = 0.6 * p / np.linalg.norm(p, axis=-1, keepdims=True)
+    return OctreeAS.from_pointcloud(p.astype(np.float32), level, device=device)
+
+
+@pytest.mark.parametrize("with_parents", [False, True])
+def test_octree_query_kernel(dev, with_parents):
+    from wisp_tpu_torch.accelstructs.octree_as import octree_query, octree_query_plain
+    blas = _sphere_octree(5, dev)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    coords = (torch.rand(5000, 3, generator=g) * 2.2 - 1.1)
+    coords[:50] = torch.tensor([1.0, -1.0, 0.3])              # on the faces: inside
+    coords = coords.to(dev)
+    before = kernels.LAUNCHES["octree_query"]
+    got = octree_query(coords, blas.pidx_maps, 5, with_parents)
+    want = octree_query_plain(coords, blas.pidx_maps, 5, with_parents)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["octree_query"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want.to(torch.int32))
+
+
+@pytest.mark.parametrize("level,max_k", [(4, 31), (5, 31), (5, 6)])
+def test_free_space_distance_kernel(dev, level, max_k):
+    from wisp_tpu_torch.accelstructs.octree_as import (free_space_distance,
+                                                       free_space_distance_plain)
+    occ = _sphere_octree(level, dev).occ_grid
+    rand = (torch.rand(8 ** level, generator=torch.Generator().manual_seed(13)) < 0.01)
+    for grid in (occ, rand.to(dev)):
+        got = free_space_distance(grid, level, max_k)
+        want = free_space_distance_plain(grid, level, max_k)
+        assert torch.equal(got, want)
+
+
+def _trace_inputs(level, dev, n=3000):
+    from wisp_tpu_torch.accelstructs.octree_as import aabb_intersect
+    blas = _sphere_octree(level, dev)
+    o, d = (torch.from_numpy(a).to(dev) for a in ray_arrays(n, seed=14))
+    t_near, t_far = aabb_intersect(o, d, 0.0, 10.0)
+    t = t_near.clamp(min=0.0) + 1e-6
+    return blas, o, d, t, t_far > t, t_far
+
+
+def test_sdf_walk_kernel(dev):
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import sdf_walk, sdf_walk_plain
+    blas, o, d, t, alive, t_far = _trace_inputs(6, dev)
+    fd = blas.free_space_distance()
+    tk, ak = t.clone(), alive.clone()
+    tp, ap = t.clone(), alive.clone()
+    sdf_walk(o, d, tk, ak, t_far, fd, 6, 32)
+    sdf_walk_plain(o, d, tp, ap, t_far, fd, 6, 32)
+    assert torch.equal(tk, tp) and torch.equal(ak, ap)
+    assert bool((tk != t).any())
+
+
+def test_sphere_step_kernel(dev):
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import (sdf_walk, sphere_step,
+                                                          sphere_step_plain)
+    blas, o, d, t, alive, t_far = _trace_inputs(6, dev)
+    fd = blas.free_space_distance()
+    sdf_walk(o, d, t, alive, t_far, fd, 6, 32)
+    g = torch.Generator(device="cpu").manual_seed(15)
+    state_k = [t.clone(), alive.clone(), torch.zeros_like(alive)]
+    state_p = [t.clone(), alive.clone(), torch.zeros_like(alive)]
+    for i in range(8):
+        # the field at the ray's point: some |d| under min_dis, some negative
+        dist = ((torch.rand(t.shape[0], generator=g) - 0.1) * 0.02).to(dev)
+        sphere_step(o, d, *state_k, t_far, dist, fd, 6, 0.8, 3e-4)
+        sphere_step_plain(o, d, *state_p, t_far, dist, fd, 6, 0.8, 3e-4)
+        for a, b in zip(state_k, state_p):
+            assert torch.equal(a, b), i
+    assert bool(state_k[2].any())
+
+
+@pytest.mark.parametrize("multiscale,lod_idx", [("sum", 2), ("cat", 2), ("sum", 0)])
+def test_octree_interp_kernel(dev, multiscale, lod_idx):
+    from wisp_tpu_torch.models.grids.octree_grid import (OctreeGrid, octree_interp,
+                                                         octree_interp_plain)
+    blas = _sphere_octree(5, dev)
+    grid = OctreeGrid(blas=blas, feature_dim=16, num_lods=3, multiscale_type=multiscale,
+                      feature_std=0.5, generator=torch.Generator().manual_seed(16),
+                      device=dev)
+    g = torch.Generator(device="cpu").manual_seed(17)
+    coords = (torch.rand(4000, 3, generator=g) * 2.1 - 1.05).to(dev)
+    level = grid.active_lods[lod_idx]
+    pidx = blas.query(coords, level, with_parents=True).pidx
+    col0 = grid.base_lod
+    n = lod_idx + 1
+    args = (coords, pidx, col0, grid.trinkets[:n], [f.detach() for f in grid.features[:n]],
+            grid.active_lods[:n], multiscale)
+    before = kernels.LAUNCHES["octree_interp"]
+    got = octree_interp(*args)
+    want = octree_interp_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["octree_interp"] == before + 1
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-6
+    assert bool((want == 0).all(dim=-1).any()) and bool((want != 0).any())
+    with torch.no_grad():
+        assert torch.equal(grid.interpolate(coords, lod_idx), got)

@@ -85,6 +85,25 @@ def test_entry_points_need_a_card_or_the_cpu():
     assert OctreeAS.make_dense(2, device="cpu").occ_grid.device.type == "cpu"
 
 
+def test_sdf_entry_points_need_a_card_or_the_cpu():
+    import numpy as np
+    from wisp_tpu_torch import interop
+    from wisp_tpu_torch.accelstructs.octree_as import OctreeAS
+    from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the no-card path cannot be shown here")
+    q = np.asarray([[1, 2, 3]], np.int32)
+    blas = OctreeAS.from_quantized_points(q, 2, device="cpu")
+    for fn in (lambda: OctreeAS.from_quantized_points(q, 2),
+               lambda: OctreeGrid(blas=blas, num_lods=2),
+               lambda: interop.build_sdf_pipeline({}, {"blas_level": 2})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    assert blas.level_counts == (1, 1, 1)
+    assert all(m.device.type == "cpu" for m in blas.pidx_maps)
+    assert OctreeGrid(blas=blas, num_lods=2, device="cpu").features[0].device.type == "cpu"
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")

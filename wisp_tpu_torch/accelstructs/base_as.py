@@ -1,4 +1,5 @@
-"""Ray-march result container (counterpart of wisp_tpu/accelstructs/base_as.py)."""
+"""Ray-march and point-query result containers (counterpart of
+wisp_tpu/accelstructs/base_as.py)."""
 
 from __future__ import annotations
 
@@ -17,3 +18,10 @@ class ASRaymarchResults:
     mask: torch.Tensor           # [R, S] bool, sample inside an occupied cell
     cell_density: Optional[torch.Tensor] = None  # [R, S] density estimate of the cell
     num_overflow: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class ASQueryResults:
+    """Point query: cell index per point (-1 = unoccupied or outside), [N] or, with
+    parents, [N, level+1]."""
+    pidx: torch.Tensor

@@ -1,7 +1,12 @@
 """Weights carried across: build the port's pipeline from the JAX pipeline's parameters,
 given as numpy arrays, so that both packages compute the same function.
 
-``params`` keys (the JAX module paths):
+``build_pipeline`` builds the hash-grid NeRF and ``build_sdf_pipeline`` the NGLOD SDF
+(see each). ``sphere_sdf_decoder`` makes the deterministic decoder weights under which a
+NeuralSDF approximates the sphere |x| - 0.9 (the checks of a render need a field that
+converges; random weights do not).
+
+``build_pipeline``'s ``params`` keys (the JAX module paths):
 
 * ``grid.codebook.feats`` [total, F] — the flat hash table;
 * ``decoder_density.layers.<i>.weight`` [out, in] / ``.bias`` [out], ``decoder_density.lout.*``,
@@ -28,9 +33,13 @@ import torch
 from wisp_tpu_torch.accelstructs.octree_as import OctreeAS
 from wisp_tpu_torch.device import DeviceLike, resolve_device
 from wisp_tpu_torch.models.grids.hash_grid import HashGrid
+from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
 from wisp_tpu_torch.models.nefs.nerf import NeuralRadianceField
+from wisp_tpu_torch.models.nefs.neural_sdf import NeuralSDF
 from wisp_tpu_torch.models.pipeline import Pipeline
+from wisp_tpu_torch.ops.geometric import sample_fib_sphere
 from wisp_tpu_torch.tracers.packed_rf_tracer import PackedRFTracer
+from wisp_tpu_torch.tracers.packed_sdf_tracer import PackedSDFTracer
 
 
 def _load(param: torch.Tensor, value: np.ndarray, name: str) -> None:
@@ -77,3 +86,48 @@ def build_pipeline(params: Mapping[str, np.ndarray], config: Dict[str, Any],
         _load(nef.prune_streak, params["nef.prune_streak"], "nef.prune_streak")
     tracer = PackedRFTracer(**config.get("tracer", {}))
     return Pipeline(nef=nef, tracer=tracer)
+
+
+def build_sdf_pipeline(params: Mapping[str, np.ndarray], config: Dict[str, Any],
+                       device: DeviceLike = None) -> Pipeline:
+    """The port's NGLOD pipeline (sparse OctreeAS, OctreeGrid, NeuralSDF, PackedSDFTracer)
+    holding ``params``:
+
+    * ``blas.codes.<l>`` — the sorted morton codes of level l, for l = 0..blas_level;
+    * ``grid.features.<i>`` [V_i, F] — the dual-vertex features of active LOD i;
+    * ``decoder.layers.<i>.weight`` [out, in] / ``.bias``, ``decoder.lout.*``.
+
+    ``config`` holds ``blas_level`` and the keyword arguments of ``grid`` (OctreeGrid),
+    ``nef`` (NeuralSDF) and ``tracer`` (PackedSDFTracer)."""
+    device = resolve_device(device)
+    level = int(config["blas_level"])
+    blas = OctreeAS.from_codes([np.asarray(params[f"blas.codes.{l}"])
+                                for l in range(level + 1)], device=device)
+    grid = OctreeGrid(blas=blas, device=device, **config.get("grid", {}))
+    for i, feats in enumerate(grid.features):
+        _load(feats, params[f"grid.features.{i}"], f"grid.features.{i}")
+    nef = NeuralSDF(grid=grid, device=device, **config.get("nef", {}))
+    _load_decoder(nef.decoder, "decoder", params)
+    return Pipeline(nef=nef, tracer=PackedSDFTracer(**config.get("tracer", {})))
+
+
+def sphere_sdf_decoder(feature_dim: int, hidden_dim: int, seed: int = 0,
+                       radius: float = 0.9) -> Dict[str, np.ndarray]:
+    """Decoder weights (one hidden layer, relu, input = features then xyz) under which a
+    NeuralSDF approximates |x| - ``radius``: hidden unit i weighs the xyz columns by the
+    i-th Fibonacci-sphere direction u_i (its feature columns are seeded N(0, 0.05), so the
+    features still move the field), and the output weights w solve, by ridge least squares
+    over 4,096 Fibonacci directions x, sum_i w_i relu(u_i·x) = 1. Since relu(u·x) scales
+    with |x|, the field is then |x| g(x/|x|) - radius with g within 0.6% of 1 at 128 hidden
+    units (the plain weights 4/hidden, from the mean |x|/4 of relu(u·x), leave 1%)."""
+    rng = np.random.default_rng(seed)
+    u = sample_fib_sphere(hidden_dim)
+    w0 = np.zeros((hidden_dim, feature_dim + 3), np.float32)
+    w0[:, :feature_dim] = rng.normal(0.0, 0.05, (hidden_dim, feature_dim))
+    w0[:, feature_dim:] = u
+    fit = np.maximum(sample_fib_sphere(4096).astype(np.float64) @ u.T.astype(np.float64), 0.0)
+    w = np.linalg.solve(fit.T @ fit + 1e-3 * np.eye(hidden_dim), fit.sum(axis=0))
+    return {"decoder.layers.0.weight": w0,
+            "decoder.layers.0.bias": np.zeros((hidden_dim,), np.float32),
+            "decoder.lout.weight": w.astype(np.float32)[None],
+            "decoder.lout.bias": np.full((1,), -radius, np.float32)}

@@ -36,7 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {"raymarch_ray": 0, "compact": 0, "scatter_back": 0,
                             "hashgrid_fwd": 0, "integrate_fwd": 0, "hashgrid_bwd": 0,
-                            "scatter_back_bwd": 0, "integrate_bwd": 0, "scatter_max": 0}
+                            "scatter_back_bwd": 0, "integrate_bwd": 0, "scatter_max": 0,
+                            "octree_query": 0, "free_space_distance": 0, "octree_interp": 0,
+                            "sdf_walk": 0, "sphere_step": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +70,16 @@ _SIGNATURES = {
     "wisp_integrate_bwd": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     # ids values K size grid stream
     "wisp_scatter_max": [_P, _P, _L, _L, _P, _P],
+    # coords N level maps(host array of pointers) with_parents out stream
+    "wisp_octree_query": [_P, _L, _I, _P, _I, _P, _P],
+    # occ level cap scratch dist stream
+    "wisp_free_space_distance": [_P, _I, _I, _P, _P, _P],
+    # coords pidx N P col0 n_lods F trinkets feats levels (host arrays) sum out stream
+    "wisp_octree_interp": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    # origins dirs t alive t_far free_dist N level num_steps stream
+    "wisp_sdf_walk": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # origins dirs t alive hit t_far d free_dist N level step_size min_dis stream
+    "wisp_sphere_step": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -171,7 +183,10 @@ def launch(name: str, counter: str, *args) -> None:
     """Call C entry point ``name`` on the current stream, raise if the launch failed, and
     count it under ``counter``."""
     lib = library()
-    status = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    # the raw stream, as PyTorch's generated code reads it: torch.cuda.current_stream()
+    # costs tens of microseconds of host time, and a sphere-traced frame launches ~1,800
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    status = getattr(lib, name)(*args, stream)
     if status != 0:
         msg = lib.wisp_error_string(status).decode()
         raise RuntimeError(f"wisp_tpu_torch: kernel {name} failed to launch: {msg} "
@@ -191,10 +206,19 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None:
-        if t.ndim != len(shape) or any(s is not None and s != d
-                                       for s, d in zip(shape, t.shape)):
+        ok = t.ndim == len(shape)
+        for s, d in zip(shape, t.shape):
+            ok = ok and (s is None or s == d)
+        if not ok:
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def pointers(tensors: Sequence[torch.Tensor]) -> ctypes.Array:
+    """A host array of the tensors' device pointers, for an entry point that copies a list
+    of tensors into its kernel's parameters; pass ``ctypes.addressof`` of it, and keep it
+    alive until the call returns."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])

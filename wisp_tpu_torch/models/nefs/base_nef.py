@@ -15,6 +15,7 @@ class BaseNeuralField(nn.Module):
     def __init__(self):
         super().__init__()
         self._forward_functions: Dict[str, tuple] = {}
+        self._accepted_args: Dict[str, frozenset] = {}
         self.register_forward_functions()
         self._supported_channels: Set[str] = set()
         for _, channels in self._forward_functions.values():
@@ -33,7 +34,11 @@ class BaseNeuralField(nn.Module):
         return set(self._supported_channels)
 
     def _filter_call(self, fn, **kwargs):
-        accepted = set(inspect.signature(fn).parameters)
+        # the signature is read once a function: the tracers call the field in their loops
+        accepted = self._accepted_args.get(fn.__name__)
+        if accepted is None:
+            accepted = frozenset(inspect.signature(fn).parameters)
+            self._accepted_args[fn.__name__] = accepted
         return fn(**{k: v for k, v in kwargs.items() if k in accepted})
 
     def forward(self, channels: Optional[Union[str, List[str]]] = None, **kwargs):

@@ -9,6 +9,9 @@ like the JAX ``hashgrid_naive`` (:407) but with the coordinate transform of
 the plain version is its plain backward: the row gather's backward is a scatter-add, as
 JAX's ``_gather_rows_bwd`` (:55).
 
+``grid_interpolate`` is the JAX blend of given corner features (K14's blend); the octree
+grid's kernel (K15) folds it in on the card.
+
 The JAX package's dense-LOD MXU matmul (``_lod_features_dense_matmul``) is a TPU layout
 trick and is not ported: every LOD gathers its corner rows.
 """
@@ -207,3 +210,12 @@ def hashgrid(coords: torch.Tensor, resolutions: Sequence[int], codebook_bitwidth
     geometry = _lod_args(coords, codebook, resolutions, codebook_bitwidth, lod_idx,
                          codebook_first_idx, codebook_sizes, out_lods)
     return _HashGridFn.apply(coords, codebook, geometry)
+
+
+def grid_interpolate(coords: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    """Blend of given corner features (JAX ``grid_interpolate``, :393): ``coords`` [N, d]
+    in [0, 1]^d are the fractions inside the cell, ``feats`` [N, 2^d, F] the corner features
+    in ``corner_offsets`` order. On the card the octree grid's kernel (K15) folds it in."""
+    offsets = torch.as_tensor(corner_offsets(coords.shape[-1]), device=coords.device).bool()
+    w = torch.where(offsets[None], coords[:, None, :], 1.0 - coords[:, None, :])
+    return torch.sum(feats * torch.prod(w, dim=-1)[..., None].to(feats.dtype), dim=1)

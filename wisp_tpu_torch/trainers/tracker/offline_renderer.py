@@ -1,6 +1,9 @@
 """OfflineRenderer — headless renderer (counterpart of
-wisp_tpu/trainers/tracker/offline_renderer.py: ``render`` and ``render_lookat``; the
-shading modes are not ported yet).
+wisp_tpu/trainers/tracker/offline_renderer.py: ``render`` and ``render_lookat``). Every
+channel the tracer returns comes back: the NeRF's rgb, alpha, depth and hit, the SDF
+tracer's xyz and normal too, and scalar channels (``num_overflow``) summed over the chunks.
+The default 'rb' shading leaves rgb as the tracer wrote it; matcap and shadows are not
+ported yet.
 
 Rays go through the pipeline in chunks of ``render_batch`` (16,384 by default). The tail
 chunk is padded to the chunk size with copies of its last ray, as in JAX, so that the
