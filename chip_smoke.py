@@ -39,10 +39,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    finite, unit normals, alpha = hit, and the sphere's geometry), one chunk against the
    plain versions, then holds each SDF kernel against its plain version at that chunk's
    shapes, times it, profiles a frame on the card and one frame's host side (cProfile);
-9. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
-   forward kernels, from the training run for the training kernels and from the SDF frame
-   for the SDF kernels), the main-path, ``train_path`` and ``sdf_path`` JSON lines, the
-   nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
+9. SDF training path: builds the trainer of nglod_octree.yaml at full width on the same
+   octree (the config's seeded random init; OctreeSampledSDFDataset with 500,000 samples
+   and 32 a voxel; batch 512, Adam, AMP), sets the counts to 0, runs 200
+   ``SDFTrainer.iterate()`` steps (the 200th profiled), the trainer's ``post_epoch`` (a
+   resample), 20 more steps and ``validate()``, reads the counts (each kernel's launches
+   as predicted: a query, an interpolation and its backward a step, K16 once a resample
+   and once a validation), requires the loss to fall and the IoUs in [0, 1], and holds K15
+   backward and K16 against their plain versions (depth cut: 220 steps of a 10-epoch run
+   of ~4,400 steps an epoch, one resample);
+10. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+   forward kernels, from the training run for the training kernels, from the SDF frame
+   for the SDF kernels and from the SDF training run for its two), the main-path,
+   ``train_path``, ``sdf_path`` and ``sdf_train_path`` JSON lines, the nvidia-smi line
+   and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -138,11 +148,17 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# profiling sessions that recorded a kernel fewer times than it was called
+PROFILER_SHORTFALLS = []
+
+
 def timed(fn, iters: int = 20, warmup: int = 3):
     """(device ms, event ms) of one call of ``fn``. The device time is the kernels' own
-    device time under torch.profiler over ``iters`` calls, divided by ``iters``: the card's
-    work alone. The event time brackets back-to-back calls with CUDA events; for a short
-    kernel it measures the wrapper's host time instead."""
+    device time under torch.profiler over ``iters`` calls: for each kernel its mean time a
+    recorded launch times its launches a call (at least one), so that a session that
+    misses some launches of a kernel still gives its time a call; the card's work alone.
+    The event time brackets back-to-back calls with CUDA events; for a short kernel it
+    measures the wrapper's host time instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     event_ms = cuda_ms(fn, iters, warmup)
@@ -151,9 +167,14 @@ def timed(fn, iters: int = 20, warmup: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        busy_ms, _ = device_kernels(prof, 0)
-        if busy_ms > 0.0:
-            return busy_ms / iters, event_ms
+        _, recorded = device_kernels(prof, None)
+        if recorded:
+            short = [(k["name"], k["count"]) for k in recorded if k["count"] % iters]
+            if short:
+                PROFILER_SHORTFALLS.append({"iters": iters, "kernels": short})
+            ms = sum(k["ms"] / k["count"] * max(1, round(k["count"] / iters))
+                     for k in recorded)
+            return ms, event_ms
     raise SmokeFailure("three profiling sessions saw no device time")
 
 
@@ -342,9 +363,10 @@ def profile_frame(renderer, pipeline, top: int = 12) -> dict:
 
 
 def device_kernels(prof, top: int):
-    """(device busy ms, the ``top`` kernels by device time) of a profile: the sum of the
-    kernels' own device time (kernels on one stream do not overlap), leaving out
-    annotated ranges such as ``Optimizer.step``, whose device time is their kernels'."""
+    """(device busy ms, the ``top`` kernels by device time, all of them for None) of a
+    profile: the sum of the kernels' own device time (kernels on one stream do not
+    overlap), leaving out annotated ranges such as ``Optimizer.step``, whose device time is
+    their kernels'."""
     kernels_ = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
@@ -614,6 +636,22 @@ SDF_DEPTH_TOL = 1e-4           # depth and xyz on rays that hit in both traces
 SDF_NORMAL_TOL = 1e-4
 
 
+def sphere_octree(device):
+    """main_nglod.py:61-69: the icosphere (subdivisions 3, normalized to 'sphere'), its
+    SDF_SAMPLES surface samples quantized into a level-SDF_LEVEL octree that carries the
+    mesh as ``extent``."""
+    from wisp_tpu_torch.accelstructs.octree_as import MeshExtent, OctreeAS
+    from wisp_tpu_torch.ops.mesh.io import make_sphere_mesh
+    from wisp_tpu_torch.ops.mesh.ops import normalize, sample_surface
+    from wisp_tpu_torch.ops.spc.core import quantize_points_np
+    v, f = normalize(*make_sphere_mesh(radius=1.0, subdivisions=3), "sphere")
+    samples = sample_surface(v, f, SDF_SAMPLES)
+    blas = OctreeAS.from_quantized_points(quantize_points_np(samples, SDF_LEVEL), SDF_LEVEL,
+                                          device=device)
+    blas.extent = MeshExtent(v, f)
+    return blas
+
+
 def nglod_pipeline(device):
     """app/nglod/configs/nglod_octree.yaml at full width on main_nglod.py's procedural
     icosphere (main_nglod.py:61-66: subdivisions 3, normalized to 'sphere', 2,000,000
@@ -621,22 +659,14 @@ def nglod_pipeline(device):
     seeded); the decoder is ``interop.sphere_sdf_decoder``, under which the field is close
     to |x| - SDF_RADIUS (random decoder weights give no distance function, and a sphere
     tracer then hits almost nothing)."""
-    import numpy as np
     import torch
     from wisp_tpu_torch import interop
-    from wisp_tpu_torch.accelstructs.octree_as import OctreeAS
     from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
     from wisp_tpu_torch.models.nefs.neural_sdf import NeuralSDF
     from wisp_tpu_torch.models.pipeline import Pipeline
-    from wisp_tpu_torch.ops.mesh.io import make_sphere_mesh
-    from wisp_tpu_torch.ops.mesh.ops import normalize, sample_surface
-    from wisp_tpu_torch.ops.spc.core import make_dual, quantize_points_np
+    from wisp_tpu_torch.ops.spc.core import make_dual
     from wisp_tpu_torch.tracers.packed_sdf_tracer import PackedSDFTracer
-    v, f = make_sphere_mesh(radius=1.0, subdivisions=3)
-    v, f = normalize(v, f, "sphere")
-    samples = sample_surface(v, f, SDF_SAMPLES)
-    blas = OctreeAS.from_quantized_points(quantize_points_np(samples, SDF_LEVEL), SDF_LEVEL,
-                                          device=device)
+    blas = sphere_octree(device)
     gen = torch.Generator().manual_seed(2)
     grid = OctreeGrid(blas=blas, feature_dim=16, num_lods=SDF_NUM_LODS,
                       interpolation_type="linear",
@@ -977,6 +1007,246 @@ def sdf_phase(dev):
     return rows, info
 
 
+SDF_TRAIN_SAMPLES = 500_000       # nglod_octree.yaml dataset: num_samples
+SDF_TRAIN_PER_VOXEL = 32          # samples_per_voxel
+SDF_TRAIN_MODES = ("rand", "near", "near", "trace", "trace")
+SDF_TRAIN_BATCH = 512
+SDF_TRAIN_STEPS_BEFORE_RESAMPLE = 200   # a 10-epoch run has ~4,400 steps an epoch
+SDF_TRAIN_STEPS_AFTER_RESAMPLE = 20
+SDF_TRAIN_KERNELS = ("octree_query", "octree_interp", "octree_interp_bwd", "mesh_sdf")
+SDF_CHECK_POINTS = 65_536         # K16 against its plain version ([P, T] buffers)
+# float32 arithmetic (add, subtract, multiply, divide, min, max) of one point-triangle
+# pair in the plain version, terms of the triangle alone left out: the closest point 120
+# (three clamped edge projections 51, the plane projection and its barycentrics 37, four
+# squared distances 32), pass 1 129 with its distance and minimum, pass 2 158 with the
+# vote's barycentrics and dot product
+MESH_SDF_PAIR_OPS = 287
+
+
+def nglod_trainer(device):
+    """The trainer of app/nglod/configs/nglod_octree.yaml at full width on the same octree
+    as the SDF render phase: OctreeGrid 16 x 6 LODs, 'sum', std 0.01 and a NeuralSDF of
+    hidden 128, both from a seeded generator (the config's init, random decoder);
+    OctreeSampledSDFDataset with the config's modes, 500,000 samples and 32 a voxel;
+    SDFTrainer with batch 512, Adam lr 1e-3 eps 1e-15, grid lr weight 1.0, only the last
+    LOD, resampling, AMP on (JAX's default)."""
+    import torch
+    from wisp_tpu_torch.datasets.formats.octree_sampled_sdf import OctreeSampledSDFDataset
+    from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+    from wisp_tpu_torch.models.nefs.neural_sdf import NeuralSDF
+    from wisp_tpu_torch.models.pipeline import Pipeline
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import PackedSDFTracer
+    from wisp_tpu_torch.trainers.base_trainer import ConfigAdam
+    from wisp_tpu_torch.trainers.sdf_trainer import ConfigSDFTrainer, SDFTrainer
+    blas = sphere_octree(device)
+    gen = torch.Generator().manual_seed(3)
+    grid = OctreeGrid(blas=blas, feature_dim=16, num_lods=SDF_NUM_LODS,
+                      interpolation_type="linear", multiscale_type="sum", feature_std=0.01,
+                      generator=gen, device=device)
+    nef = NeuralSDF(grid=grid, pos_embedder="none", position_input=True,
+                    activation_type="relu", hidden_dim=128, num_layers=1, generator=gen,
+                    device=device)
+    dataset = OctreeSampledSDFDataset(sample_mode=list(SDF_TRAIN_MODES),
+                                      num_samples=SDF_TRAIN_SAMPLES,
+                                      samples_per_voxel=SDF_TRAIN_PER_VOXEL, blas=blas,
+                                      device=device)
+    cfg = ConfigSDFTrainer(optimizer=ConfigAdam(lr=1e-3, eps=1e-15), exp_name="nglod-octree",
+                           max_epochs=10, batch_size=SDF_TRAIN_BATCH, grid_lr_weight=1.0,
+                           only_last=True, resample=True)
+    pipeline = Pipeline(nef=nef, tracer=PackedSDFTracer(num_steps=32, step_size=0.8))
+    return SDFTrainer(cfg, pipeline, dataset, device=device)
+
+
+@contextmanager
+def resample_timer(times: dict):
+    """Time the parts of OctreeSampledSDFDataset.resample into ``times`` (seconds): the
+    host draws, the narrowband filter (upload and K9) and the exact distances (K16)."""
+    import torch
+    from wisp_tpu_torch.datasets.formats import octree_sampled_sdf as osd
+
+    def timing(key, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    cls = osd.OctreeSampledSDFDataset
+    with mock.patch.object(cls, "draw", timing("host_sampling_s", cls.draw)), \
+            mock.patch.object(cls, "narrowband", timing("k9_filter_s", cls.narrowband)), \
+            mock.patch.object(osd, "compute_sdf", timing("k16_s", osd.compute_sdf)):
+        yield times
+
+
+def sdf_train_kernel_phase(trainer, coords):
+    """K15 backward at the step's shapes (``coords``: a batch of the dataset, a seeded
+    cotangent) and K16 at the resample's points, each against its plain version and timed;
+    K16 is compared on SDF_CHECK_POINTS of them."""
+    import torch
+    from wisp_tpu_torch.models.grids.octree_grid import (octree_interp_bwd,
+                                                         octree_interp_bwd_plain)
+    from wisp_tpu_torch.ops.mesh.compute_sdf import mesh_sdf, mesh_sdf_plain, triangle_table
+    grid = trainer.pipeline.nef.grid
+    blas = grid.blas
+    rows = []
+    n, f_dim, lods = coords.shape[0], grid.feature_dim, grid.num_lods
+    g = torch.Generator(device=coords.device).manual_seed(8)
+    pidx = blas.query(coords, grid.active_lods[-1], with_parents=True).pidx
+    cot = torch.randn((n, f_dim), generator=g, device=coords.device)
+    sizes = [f.shape[0] for f in grid.features]
+    args = (coords, pidx, grid.base_lod, grid.trinkets, sizes, f_dim, grid.active_lods,
+            grid.multiscale_type, cot)
+    bk = octree_interp_bwd(*args)
+    bp = octree_interp_bwd_plain(*args)
+    scale = max(float(b.abs().max()) for b in bp)
+    err = max(float((a - b).abs().max()) for a, b in zip(bk, bp))
+    # the library call: one index_add_ of the precomputed w * g rows into one table
+    idx, vals, valid, trinket_rows, feature_rows = [], [], 0, 0, 0
+    offset = 0
+    for i in range(lods):
+        p = pidx[:, grid.base_lod + i]
+        keep = p >= 0
+        corner_rows = grid.trinkets[i][p[keep].long()].long()                # [M, 8]
+        res = 2 ** grid.active_lods[i]
+        c = coords[keep]
+        cell = torch.floor((c + 1.0) * (res / 2.0)).clamp(0, res - 1)
+        frac = torch.clamp((c + 1.0) * (res / 2.0) - cell, 0.0, 1.0)
+        bits = torch.tensor([[(k >> 2) & 1, (k >> 1) & 1, k & 1] for k in range(8)],
+                            device=c.device, dtype=torch.bool)
+        w = torch.where(bits[None], frac[:, None, :], 1.0 - frac[:, None, :]).prod(-1)
+        vals.append((w[..., None] * cot[keep][:, None, :]).reshape(-1, f_dim))
+        idx.append((corner_rows + offset).reshape(-1))
+        offset += sizes[i]
+        valid += int(keep.sum())
+        trinket_rows += int(torch.unique(p[keep]).numel())
+        feature_rows += int(torch.unique(corner_rows).numel())
+    idx, vals = torch.cat(idx), torch.cat(vals)
+    table = torch.zeros((offset, f_dim), dtype=torch.float32, device=coords.device)
+    t0 = time.perf_counter()
+    rows.append(kernel_row(
+        "octree_interp_bwd", "wisp_tpu_torch/csrc/octree_grid.cu",
+        "wisp_tpu/ops/grid.py:55", err, 1e-5 * scale,
+        timed(lambda: octree_interp_bwd(*args)), timed(lambda: octree_interp_bwd_plain(*args)),
+        nbytes=n * 12 + n * lods * 4 + n * f_dim * 4 + trinket_rows * 32
+        + offset * f_dim * 4,
+        ops=valid * (3 * 5 + 8 * (2 + 2 * f_dim)),
+        library_ms=timed(lambda: table.index_add_(0, idx, vals))))
+    rows[-1]["library_call"] = "index_add_ of precomputed w*g rows into one [V, F] table"
+    rows[-1]["check_s"] = time.perf_counter() - t0
+
+    # K16 at the resample's points
+    t0 = time.perf_counter()
+    extent = blas.extent
+    points = trainer.train_dataset.coordinates
+    tris = triangle_table(extent.vertices, extent.faces, points.device)
+    sub = points[torch.randperm(points.shape[0], generator=g, device=points.device)
+                 [:SDF_CHECK_POINTS]].contiguous()
+    mk, mp = mesh_sdf(sub, tris), mesh_sdf_plain(sub, tris)
+    flip = (mk < 0) != (mp < 0)
+    require(bool((mp[flip].abs() < 1e-5).all()),
+            f"mesh_sdf: {int(flip.sum())} signs differ from the plain version off the surface")
+    err = max(float((mk.abs() - mp.abs()).abs().max()),
+              float((mk - mp)[~flip].abs().max()))
+    p_all, t_all = points.shape[0], tris.shape[0]
+    rows.append(kernel_row(
+        "mesh_sdf", "wisp_tpu_torch/csrc/mesh_sdf.cu",
+        "wisp_tpu/ops/mesh/compute_sdf.py:48", err, 1e-5,
+        timed(lambda: mesh_sdf(points, tris), iters=5, warmup=1),
+        timed(lambda: mesh_sdf_plain(points, tris), iters=1, warmup=0),
+        nbytes=p_all * 12 + t_all * 15 * 4 + p_all * 4,
+        ops=p_all * t_all * MESH_SDF_PAIR_OPS))
+    rows[-1]["check_s"] = time.perf_counter() - t0
+    rows[-1]["checked_points"] = int(sub.shape[0])
+    rows[-1]["sign_flips_within_1e-5"] = int(flip.sum())
+    return rows, {"k15_bwd_points": n, "k15_bwd_valid_lod_points": valid,
+                  "k15_bwd_trinket_rows": trinket_rows, "k15_bwd_feature_rows": feature_rows,
+                  "k16_points": p_all, "k16_triangles": t_all}
+
+
+def sdf_train_phase(dev):
+    """The NGLOD training path: the trainer (its dataset's first resample timed), counts
+    from 0, 200 steps (the 200th profiled), the trainer's post_epoch (a resample), 20
+    steps, validate(), counts read after. Then K15 backward and K16 against their plain
+    versions."""
+    import math
+    import torch
+    from wisp_tpu_torch import kernels
+    first = {}
+    t0 = time.perf_counter()
+    with resample_timer(first):
+        trainer = nglod_trainer(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dataset = trainer.train_dataset
+    size_first = len(dataset)
+    steps, resample = [], {}
+    t_steps = time.perf_counter()
+    kernels.reset_launches()
+    total = SDF_TRAIN_STEPS_BEFORE_RESAMPLE + SDF_TRAIN_STEPS_AFTER_RESAMPLE
+    for i in range(total):
+        if i == SDF_TRAIN_STEPS_BEFORE_RESAMPLE:
+            t0 = time.perf_counter()
+            with resample_timer(resample):
+                trainer.post_epoch()             # the epoch's end: log, then resample
+            resample["total_s"] = time.perf_counter() - t0
+        if i == SDF_TRAIN_STEPS_BEFORE_RESAMPLE - 1:
+            profiled = profile_step(trainer)     # step 200 runs under the profiler
+            ms = profiled["profile_step_ms"]
+        else:
+            t0 = time.perf_counter()
+            trainer.iterate()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        steps.append({"step": i + 1, "ms": ms, "loss": trainer.last_loss})
+    steps_s = time.perf_counter() - t_steps
+    t0 = time.perf_counter()
+    metrics = trainer.validate()
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    size = len(dataset)
+    chunks = -(-size // 65536)
+    expected = {"octree_query": total + 1 + chunks + 2, "octree_interp": total + chunks + 1,
+                "octree_interp_bwd": total, "mesh_sdf": 2}
+    got = {k: launches[k] for k in SDF_TRAIN_KERNELS}
+    require(got == expected, f"SDF training launches {got}, expected {expected}")
+    others = {k: v for k, v in launches.items() if k not in SDF_TRAIN_KERNELS and v}
+    require(not others, f"SDF training launched other kernels: {others}")
+    losses = [st["loss"] for st in steps]
+    require(all(math.isfinite(x) for x in losses), "non-finite SDF training loss")
+    first_20 = sum(losses[:20]) / 20
+    last_20 = sum(losses[-SDF_TRAIN_STEPS_AFTER_RESAMPLE:]) / SDF_TRAIN_STEPS_AFTER_RESAMPLE
+    require(last_20 < first_20, f"the SDF loss did not fall: {first_20} -> {last_20}")
+    require(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values())
+            and set(metrics) == {"iou", "volumetric_iou"}, f"bad IoUs {metrics}")
+    batch = dataset[trainer._batch_rng.integers(0, size, size=(SDF_TRAIN_BATCH,))]
+    t0 = time.perf_counter()
+    rows, shape_info = sdf_train_kernel_phase(trainer, batch.coords.contiguous())
+    checks_s = time.perf_counter() - t0
+    for row_ in rows:
+        row_["launches"] = launches[row_["name"]]
+    steady = sorted(st["ms"] for st in steps[1:SDF_TRAIN_STEPS_BEFORE_RESAMPLE])
+    median = steady[len(steady) // 2]
+    info = {
+        "sdf_train_path": f"SDFTrainer.iterate ({SDF_TRAIN_STEPS_BEFORE_RESAMPLE} steps, "
+                          f"post_epoch resample, {SDF_TRAIN_STEPS_AFTER_RESAMPLE} steps), "
+                          f"validate(); nglod_octree.yaml width",
+        "setup_s": setup_s, "first_resample": first, "dataset_size_first": size_first,
+        "resample": resample, "dataset_size": size,
+        "step_ms_median_2_200": median, "points_per_s": SDF_TRAIN_BATCH / median * 1e3,
+        "loss_steps_1_20": first_20, "loss_steps_201_220": last_20,
+        "steps_and_resample_s": steps_s, "validate_s": validate_s,
+        "kernel_checks_s": checks_s, "metrics": metrics, "launches": got,
+        "expected_launches": expected, "steps": [st["ms"] for st in steps],
+        "kernel_phase_shapes": shape_info,
+    }
+    info.update(profiled)
+    return rows, info
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -999,10 +1269,11 @@ def run() -> dict:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in str(kernels.BUILD_INFO.get("log", "")).splitlines()
              if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
-    print(json.dumps({"build_s": build_s, "ptxas": ptxas[:40]}), flush=True)
+    print(json.dumps({"build_s": build_s, "ptxas": ptxas[:60]}), flush=True)
     kernels.library()
 
     dev = torch.device("cuda")
+    t_render = time.perf_counter()
     pipeline, occ_frac = flagship_pipeline(dev)
     renderer = OfflineRenderer(render_res=(RES, RES), device=dev)
     tracer = pipeline.tracer
@@ -1093,13 +1364,25 @@ def run() -> dict:
     }
     main.update(profile_frame(renderer, pipeline))
     del pipeline, renderer, rb
+    phase_s = {"build": build_s, "render": time.perf_counter() - t_render}
+    t0 = time.perf_counter()
     train_rows, train_info = train_phase(dev)
     torch.cuda.empty_cache()
+    phase_s["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     sdf_rows, sdf_info = sdf_phase(dev)
-    print(json.dumps({"kernels": rows + train_rows + sdf_rows}), flush=True)
+    torch.cuda.empty_cache()
+    phase_s["sdf render"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sdf_train_rows, sdf_train_info = sdf_train_phase(dev)
+    phase_s["sdf train"] = time.perf_counter() - t0
+    print(json.dumps({"kernels": rows + train_rows + sdf_rows + sdf_train_rows}), flush=True)
     print(json.dumps(main), flush=True)
     print(json.dumps(train_info), flush=True)
     print(json.dumps(sdf_info), flush=True)
+    print(json.dumps(sdf_train_info), flush=True)
+    print(json.dumps({"phase_s": phase_s, "profiler_shortfalls": PROFILER_SHORTFALLS}),
+          flush=True)
     print(smi, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}

@@ -128,6 +128,10 @@ def sdf_params_from_jax(pipe):
     blas = grid.blas
     params = {f"blas.codes.{l}": np.asarray(c).astype(np.uint64)
               for l, c in enumerate(blas.codes)}
+    extent = getattr(blas, "extent", None)
+    if extent is not None:
+        params["mesh.vertices"] = np.asarray(extent.vertices)
+        params["mesh.faces"] = np.asarray(extent.faces)
     for i, feats in enumerate(grid.features):
         params[f"grid.features.{i}"] = np.asarray(feats)
     dec = nef.decoder
@@ -150,36 +154,88 @@ def sdf_params_from_jax(pipe):
     return params, config
 
 
-def sphere_octree_points(level: int, num_samples: int = 200_000, radius: float = 1.0):
+def sphere_mesh(radius: float = 1.0, subdivisions: int = 3):
+    """The normalized icosphere of main_nglod.py:61-62 (there: subdivisions 3)."""
+    from wisp_tpu.ops.mesh import make_sphere_mesh, normalize
+    v, f = make_sphere_mesh(radius=radius, subdivisions=subdivisions)
+    return normalize(v, f, "sphere")
+
+
+def sphere_octree_points(level: int, num_samples: int = 200_000, radius: float = 1.0,
+                         subdivisions: int = 3):
     """Quantized surface samples of the normalized icosphere (main_nglod.py:61-66)."""
-    from wisp_tpu.ops.mesh import make_sphere_mesh, normalize, sample_surface
+    from wisp_tpu.ops.mesh import sample_surface
     from wisp_tpu.ops.spc.core import quantize_points
-    v, f = make_sphere_mesh(radius=radius, subdivisions=3)
-    v, f = normalize(v, f, "sphere")
+    v, f = sphere_mesh(radius, subdivisions)
     return quantize_points(sample_surface(v, f, num_samples), level)
 
 
 def jax_sdf_pipeline(level=5, num_lods=3, hidden_dim=32, feature_dim=16,
                      multiscale_type="sum", num_steps=32, decoder=None, seed=0,
-                     num_samples=50_000):
+                     num_samples=50_000, with_mesh=False, subdivisions=3):
     """A small NGLOD pipeline on the sphere octree (the nglod_octree.yaml shape at a small
-    size). ``decoder``: numpy weights to set (``interop.sphere_sdf_decoder``'s keys)."""
+    size). ``decoder``: numpy weights to set (``interop.sphere_sdf_decoder``'s keys);
+    ``with_mesh``: the octree carries the icosphere as ``blas.extent``, as main_nglod.py
+    sets it for the SDF dataset; ``subdivisions``: the icosphere's (3 in main_nglod.py)."""
     from wisp_tpu.accelstructs import OctreeAS as JAS
+    from wisp_tpu.accelstructs.octree_as import MeshExtent as JMeshExtent
     from wisp_tpu.models.grids import OctreeGrid as JOctreeGrid
     from wisp_tpu.models.nefs.neural_sdf import NeuralSDF as JNeuralSDF
     from wisp_tpu.tracers.packed_sdf_tracer import PackedSDFTracer as JSDFTracer
-    blas = JAS.from_quantized_points(sphere_octree_points(level, num_samples), level)
+    blas = JAS.from_quantized_points(
+        sphere_octree_points(level, num_samples, subdivisions=subdivisions), level)
+    if with_mesh:
+        blas.extent = JMeshExtent(*sphere_mesh(subdivisions=subdivisions))
     grid = JOctreeGrid(blas=blas, feature_dim=feature_dim, num_lods=num_lods,
                        interpolation_type="linear", multiscale_type=multiscale_type,
                        feature_std=0.01, key=jax.random.PRNGKey(seed))
     nef = JNeuralSDF(grid=grid, pos_embedder="none", position_input=True,
                      activation_type="relu", hidden_dim=hidden_dim, num_layers=1,
                      key=jax.random.PRNGKey(seed + 1))
-    if decoder is not None:
-        layers = [nef.decoder.layers[0].replace(weight=jnp.asarray(decoder["decoder.layers.0.weight"]),
-                                                bias=jnp.asarray(decoder["decoder.layers.0.bias"]))]
-        lout = nef.decoder.lout.replace(weight=jnp.asarray(decoder["decoder.lout.weight"]),
-                                        bias=jnp.asarray(decoder["decoder.lout.bias"]))
-        nef = nef.replace(decoder=nef.decoder.replace(layers=layers, lout=lout))
-    tracer = JSDFTracer(num_steps=num_steps, step_size=0.8, min_dis=3e-4)
-    return JPipeline(nef=nef, tracer=tracer)
+    pipe = JPipeline(nef=nef, tracer=JSDFTracer(num_steps=num_steps, step_size=0.8,
+                                                min_dis=3e-4))
+    return pipe if decoder is None else with_decoder(pipe, decoder)
+
+
+def with_decoder(pipe, decoder):
+    """The JAX NGLOD pipeline with its one-layer decoder's weights set from numpy
+    (``interop.sphere_sdf_decoder``'s keys)."""
+    nef = pipe.nef
+    layers = [nef.decoder.layers[0].replace(weight=jnp.asarray(decoder["decoder.layers.0.weight"]),
+                                            bias=jnp.asarray(decoder["decoder.layers.0.bias"]))]
+    lout = nef.decoder.lout.replace(weight=jnp.asarray(decoder["decoder.lout.weight"]),
+                                    bias=jnp.asarray(decoder["decoder.lout.bias"]))
+    return pipe.replace(nef=nef.replace(decoder=nef.decoder.replace(layers=layers, lout=lout)))
+
+
+AMP_LOSS_TOL = 4e-7
+AMP_GRAD_RTOL = 2.0 ** -6
+
+
+def grad_errors(trainer, jgrads):
+    """{port parameter name: (port gradient, |port - JAX| / |JAX| in the 2-norm)} of the
+    gradients a port trainer's step left on its parameters, against JAX's ``jgrads`` (by
+    pytree path)."""
+    grads = {name: p.grad for name, p in trainer.pipeline.named_parameters()}
+    assert set(grads) == set(port_name(path) for path in jgrads)
+    out = {}
+    for path, want in jgrads.items():
+        got = grads[port_name(path)]
+        assert got is not None, path
+        out[port_name(path)] = (got, np.linalg.norm(np_of(got) - want) / np.linalg.norm(want))
+    return out
+
+
+def amp_mismatches(trainer, jloss, jgrads, loss_tol=AMP_LOSS_TOL):
+    """Where a port trainer's step breaks the AMP comparison with JAX's bf16 step: the loss
+    (``loss_tol``), a decoder gradient that is not a bf16 value, or a gradient's error
+    norm (``AMP_GRAD_RTOL``)."""
+    bad = []
+    if abs(jloss - trainer.last_loss) > loss_tol:
+        bad.append("loss")
+    for name, (got, err) in grad_errors(trainer, jgrads).items():
+        if "decoder" in name and not torch.equal(got, got.to(torch.bfloat16).float()):
+            bad.append(f"{name} not bf16")
+        if err > AMP_GRAD_RTOL:
+            bad.append(f"{name} error {err:.3g}")
+    return bad

@@ -352,3 +352,121 @@ def test_octree_interp_kernel(dev, multiscale, lod_idx):
     assert bool((want == 0).all(dim=-1).any()) and bool((want != 0).any())
     with torch.no_grad():
         assert torch.equal(grid.interpolate(coords, lod_idx), got)
+
+
+@pytest.mark.parametrize("multiscale,lod_idx", [("sum", 2), ("cat", 2), ("sum", 0)])
+def test_octree_interp_bwd_kernel(dev, multiscale, lod_idx):
+    """K15 backward against autograd of the plain forward, to 1e-5 of the largest entry
+    (the atomics add in no fixed order)."""
+    from wisp_tpu_torch.models.grids.octree_grid import (OctreeGrid, octree_interp_bwd,
+                                                         octree_interp_plain)
+    blas = _sphere_octree(5, dev)
+    grid = OctreeGrid(blas=blas, feature_dim=16, num_lods=3, multiscale_type=multiscale,
+                      feature_std=0.5, generator=torch.Generator().manual_seed(18),
+                      device=dev)
+    g = torch.Generator(device="cpu").manual_seed(19)
+    coords = (torch.rand(4000, 3, generator=g) * 2.1 - 1.05).to(dev)
+    n = lod_idx + 1
+    level = grid.active_lods[lod_idx]
+    pidx = blas.query(coords, level, with_parents=True).pidx
+    width = 16 * n if multiscale == "cat" else 16
+    cot = torch.randn(4000, width, generator=g).to(dev)
+    feats = [f.detach().clone().requires_grad_(True) for f in grid.features[:n]]
+    out = octree_interp_plain(coords, pidx, grid.base_lod, grid.trinkets[:n], feats,
+                              grid.active_lods[:n], multiscale)
+    want = torch.autograd.grad(out, feats, cot)
+    before = kernels.LAUNCHES["octree_interp_bwd"]
+    got = octree_interp_bwd(coords, pidx, grid.base_lod, grid.trinkets[:n],
+                            [f.shape[0] for f in feats], 16, grid.active_lods[:n], multiscale,
+                            cot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["octree_interp_bwd"] == before + 1
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-5 * scale
+    # and through OctreeGrid.interpolate's autograd route: one forward, one backward launch
+    before = dict(kernels.LAUNCHES)
+    grid.interpolate(coords, lod_idx).backward(cot)
+    assert kernels.LAUNCHES["octree_interp"] == before["octree_interp"] + 1
+    assert kernels.LAUNCHES["octree_interp_bwd"] == before["octree_interp_bwd"] + 1
+    for f, b in zip(grid.features, want):
+        assert float((f.grad - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    with pytest.raises(NotImplementedError, match="coordinates"):
+        grid.interpolate(coords.clone().requires_grad_(True), lod_idx)
+
+
+def winding_number(v, f, pts):
+    """Generalized winding number (Van Oosterom-Strackee solid angles, float64): > 0.5
+    inside a watertight mesh."""
+    v = np.asarray(v, np.float64)
+    pts = np.asarray(pts, np.float64)
+    a = v[f[:, 0]][None] - pts[:, None]
+    b = v[f[:, 1]][None] - pts[:, None]
+    c = v[f[:, 2]][None] - pts[:, None]
+    la, lb, lc = (np.linalg.norm(x, axis=-1) for x in (a, b, c))
+    num = np.sum(a * np.cross(b, c), axis=-1)
+    den = (la * lb * lc + np.sum(a * b, -1) * lc + np.sum(a * c, -1) * lb
+           + np.sum(b * c, -1) * la)
+    return np.sum(2.0 * np.arctan2(num, den), axis=-1) / (4.0 * np.pi)
+
+
+def _l_prism():
+    outline = np.array([[0, 0], [2, 0], [2, 1], [1, 1], [1, 2], [0, 2]], np.float32)
+    n = len(outline)
+    bot = np.concatenate([outline, np.full((n, 1), -0.5, np.float32)], -1)
+    top = np.concatenate([outline, np.full((n, 1), 0.5, np.float32)], -1)
+    cap = np.array([[0, 1, 2], [0, 2, 3], [0, 3, 4], [0, 4, 5]], np.int32)
+    sides = []
+    for i in range(n):
+        j = (i + 1) % n
+        sides += [[i, j, j + n], [i, j + n, i + n]]
+    return (np.concatenate([bot, top], 0),
+            np.concatenate([cap[:, ::-1], cap + n, np.asarray(sides, np.int32)], 0))
+
+
+def _mesh_cases():
+    """(mesh, points): the icosphere of the SDF path with points near and far, and the
+    hard meshes (a cube's corners and edges, a thin slab's midplane, an L-prism's concave
+    edge) with their queries and points around them."""
+    from wisp_tpu_torch.ops.mesh.io import make_box_mesh, make_sphere_mesh
+    from wisp_tpu_torch.ops.mesh.ops import normalize
+    rng = np.random.default_rng(20)
+    v, f = normalize(*make_sphere_mesh(1.0, subdivisions=3), "sphere")
+    base = v[rng.integers(0, len(v), 3000)]
+    sphere_pts = np.concatenate([base + rng.normal(scale=0.02, size=base.shape),
+                                 rng.uniform(-1.0, 1.0, (3000, 3))])
+    cases = [("icosphere", (v, f), sphere_pts)]
+    for name, mesh, pts, lo, hi in (
+            ("cube", make_box_mesh((0.5, 0.5, 0.5)),
+             [[0.6, 0.6, 0.6], [0.55, 0.55, 0.0], [0.49, 0.49, 0.0], [0.0, 0.0, 0.0]],
+             -0.8, 0.8),
+            ("slab", make_box_mesh((1.0, 1.0, 0.02)),
+             [[0.0, 0.0, 0.0], [0.5, -0.3, 0.0], [1.001, 0.0, 0.0], [0.999, 0.999, 0.0]],
+             -1.2, 1.2),
+            ("l_prism", _l_prism(),
+             [[1.05, 1.05, 0.0], [0.95, 0.95, 0.0], [1.05, 1.05, 0.49]], -0.3, 2.3)):
+        cases.append((name, mesh, np.concatenate([pts, rng.uniform(lo, hi, (2000, 3))])))
+    return [(name, mesh, p.astype(np.float32)) for name, mesh, p in cases]
+
+
+@pytest.mark.parametrize("case", _mesh_cases(), ids=lambda c: c[0])
+def test_mesh_sdf_kernel(dev, case):
+    """K16 against its plain version: the distance to 1e-5, a sign flip only where
+    |d| < 1e-5; and the signs against the winding-number oracle where |d| >= 1e-5."""
+    from wisp_tpu_torch.ops.mesh.compute_sdf import compute_sdf, compute_sdf_plain
+    _, (v, f), pts = case
+    x = torch.from_numpy(pts).to(dev)
+    before = kernels.LAUNCHES["mesh_sdf"]
+    got = compute_sdf(v, f, x)
+    want = compute_sdf_plain(v, f, x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mesh_sdf"] == before + 1
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    flip = (got < 0) != (want < 0)
+    assert (np.abs(want[flip]) < 1e-5).all()
+    assert np.abs(np.abs(got) - np.abs(want)).max() <= 1e-5
+    assert np.abs(got[~flip] - want[~flip]).max() <= 1e-5
+    far = np.abs(got) >= 1e-5
+    inside = winding_number(v, f, pts[far]) > 0.5
+    np.testing.assert_array_equal(got[far] < 0, inside)
+    assert inside.any() and not inside.all()

@@ -92,11 +92,18 @@ def test_sdf_entry_points_need_a_card_or_the_cpu():
     from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
     if torch.cuda.is_available():
         pytest.skip("a card is present; the no-card path cannot be shown here")
+    from wisp_tpu_torch.accelstructs.octree_as import MeshExtent
+    from wisp_tpu_torch.datasets.formats.octree_sampled_sdf import OctreeSampledSDFDataset
+    from wisp_tpu_torch.ops.mesh.io import make_box_mesh
+    from wisp_tpu_torch.trainers.sdf_trainer import ConfigSDFTrainer, SDFTrainer
     q = np.asarray([[1, 2, 3]], np.int32)
     blas = OctreeAS.from_quantized_points(q, 2, device="cpu")
+    blas.extent = MeshExtent(*make_box_mesh())
     for fn in (lambda: OctreeAS.from_quantized_points(q, 2),
                lambda: OctreeGrid(blas=blas, num_lods=2),
-               lambda: interop.build_sdf_pipeline({}, {"blas_level": 2})):
+               lambda: interop.build_sdf_pipeline({}, {"blas_level": 2}),
+               lambda: OctreeSampledSDFDataset(blas=blas, num_samples=10),
+               lambda: SDFTrainer(ConfigSDFTrainer(), None, [])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
     assert blas.level_counts == (1, 1, 1)

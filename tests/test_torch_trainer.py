@@ -43,13 +43,12 @@ from wisp_tpu_torch.ops.density_grid import scatter_max
 from wisp_tpu_torch.trainers.base_trainer import ConfigAdamW
 from wisp_tpu_torch.trainers.multiview_trainer import ConfigMultiviewTrainer, MultiviewTrainer
 
-from test_torch_helpers import jax_pipeline, np_of, params_from_jax, port_name, ray_arrays
+from test_torch_helpers import (AMP_LOSS_TOL, amp_mismatches, grad_errors, jax_pipeline,
+                                np_of, params_from_jax, ray_arrays)
 
 TRAIN_KW = dict(grid_lr_weight=500.0, rgb_loss_type="huber", scheduler=True, max_epochs=4,
                 valid_every=-1)
 OPT_KW = dict(lr=1e-3, eps=1e-4, weight_decay=1e-2)
-AMP_LOSS_TOL = 4e-7
-AMP_GRAD_RTOL = 2.0 ** -6
 
 
 class _Views:
@@ -105,42 +104,16 @@ def _one_step(tmp_path, amp, port_amp=None):
     return jt, tt, float(jloss), jgrads
 
 
-def _grad_errors(tt, jgrads):
-    """{port parameter name: (port gradient, |port - JAX| / |JAX| in the 2-norm)}."""
-    grads = {name: p.grad for name, p in tt.pipeline.named_parameters()}
-    assert set(grads) == set(port_name(path) for path in jgrads)
-    out = {}
-    for path, want in jgrads.items():
-        got = grads[port_name(path)]
-        assert got is not None, path
-        out[port_name(path)] = (got, np.linalg.norm(np_of(got) - want) / np.linalg.norm(want))
-    return out
-
-
-def _amp_mismatches(tt, jloss, jgrads):
-    """Where the port's step breaks the AMP comparison with JAX's bf16 step: the loss, a
-    decoder gradient that is not a bf16 value, or a gradient's error norm."""
-    bad = []
-    if abs(jloss - tt.last_loss) > AMP_LOSS_TOL:
-        bad.append("loss")
-    for name, (got, err) in _grad_errors(tt, jgrads).items():
-        if "decoder" in name and not torch.equal(got, got.to(torch.bfloat16).float()):
-            bad.append(f"{name} not bf16")
-        if err > AMP_GRAD_RTOL:
-            bad.append(f"{name} error {err:.3g}")
-    return bad
-
-
 @pytest.mark.parametrize("amp,loss_tol,param_tol", [(False, 1e-5, 1e-5),
                                                     (True, AMP_LOSS_TOL, 2e-3)])
 def test_one_step_matches_jax(tmp_path, amp, loss_tol, param_tol):
     jt, tt, jloss, jgrads = _one_step(tmp_path, amp)
     assert abs(jloss - jt.tracker.metrics.average_metric("total_loss")) <= 1e-6
     if amp:
-        assert _amp_mismatches(tt, jloss, jgrads) == []
+        assert amp_mismatches(tt, jloss, jgrads) == []
     else:
         assert abs(jloss - tt.last_loss) <= loss_tol
-        for name, (_, err) in _grad_errors(tt, jgrads).items():
+        for name, (_, err) in grad_errors(tt, jgrads).items():
             assert err <= 1e-5, (name, err)
     new, _ = params_from_jax(jt.sync_pipeline())
     for name, got in tt.pipeline.named_parameters():
@@ -157,7 +130,7 @@ def test_amp_comparison_fails_a_float32_port(tmp_path):
     """The control: a port whose decoders stay in float32 fails the AMP comparison, on the
     loss and on every decoder gradient."""
     _, tt, jloss, jgrads = _one_step(tmp_path, amp=True, port_amp=False)
-    bad = _amp_mismatches(tt, jloss, jgrads)
+    bad = amp_mismatches(tt, jloss, jgrads)
     assert "loss" in bad
     decoders = [name for name, _ in tt.pipeline.named_parameters() if "decoder" in name]
     assert decoders and all(f"{name} not bf16" in bad for name in decoders), bad

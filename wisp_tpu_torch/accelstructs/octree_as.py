@@ -254,6 +254,8 @@ class OctreeAS:
         self.codes = codes
         self.points = points
         self.pidx_maps = pidx_maps
+        # the mesh the octree was built from, where an SDF dataset needs it
+        self.extent: Optional[MeshExtent] = None
         self.level_counts = (tuple(int(len(c)) for c in codes) if codes is not None
                              else tuple(8 ** l for l in range(self.max_level + 1)))
 

@@ -1,0 +1,161 @@
+// K16 — exact point-to-mesh signed distance.
+//
+// Replaces wisp_tpu/ops/mesh/compute_sdf.py _dist_chunk (:48) and _sign_chunk (:56), driven
+// by _compute_sdf_host (:111): the distance from each point to its closest triangle,
+// signed by the angle-weighted pseudonormal vote. Pass 1 takes the minimum d^2 over all
+// triangles; pass 2 sums alpha_t * dot(n_t, p - cp_t) over the triangles whose d^2 lies
+// within the relative band 1e-8 + 1e-4 * d2min of it, alpha_t being the interior angle
+// at a vertex, pi on an edge and 2 pi inside the face (classified by the barycentrics of
+// cp_t with a margin of 1e-4). The sign is -1 iff the sum is below 0.
+//
+// The JAX version runs both passes as [points x triangles] tiles chunked from the host,
+// because its second pass needs the global d2min of the first; here d2min is a point's
+// own, so one thread a point runs both passes in one launch and no [P, T] buffer exists.
+// Both passes compute cp and d^2 by the same function, so the triangle that set d2min is
+// always inside its band; the arithmetic is that of the plain version
+// (ops/mesh/ops.py closest_point_on_triangle) in the same float order, built without fused
+// multiply-add.
+//
+// Bound on this card: float32 operations (~290 a point-triangle pair over both passes in
+// the plain version's arithmetic, 8 of them divisions; this kernel also recomputes the
+// triangle's own terms for every pair), not bytes: a point reads 12 bytes and writes 4.
+// Design: the block's 256 threads stage the triangles through shared memory in tiles of
+// 256 x 15 floats (15 KB, under the 48 KB of static shared memory) and every thread of a
+// warp reads the same triangle at once (a broadcast, no bank conflict).
+#include "common.cuh"
+
+namespace {
+
+constexpr int kTile = 256;
+constexpr int kTriFloats = 15;  // va, vb, vc, face normal, the three vertex angles
+constexpr int kThreads = 256;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kTwoPi = 6.28318530717958647692f;
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 load3(const float* s) { return {s[0], s[1], s[2]}; }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ float d2_to(V3 p, V3 q) {
+  const V3 e = sub(p, q);
+  return dot(e, e);
+}
+
+__device__ __forceinline__ V3 edge_proj(V3 p, V3 e0, V3 e1) {
+  const V3 d = sub(e1, e0);
+  float t = dot(sub(p, e0), d) / fmaxf(dot(d, d), 1e-20f);
+  t = fminf(fmaxf(t, 0.0f), 1.0f);
+  return {e0.x + t * d.x, e0.y + t * d.y, e0.z + t * d.z};
+}
+
+// closest_point_on_triangle of ops/mesh/ops.py, operation for operation.
+__device__ __forceinline__ V3 closest_point(V3 p, V3 a, V3 b, V3 c) {
+  const V3 cand_ab = edge_proj(p, a, b);
+  const V3 cand_bc = edge_proj(p, b, c);
+  const V3 cand_ca = edge_proj(p, c, a);
+  const V3 ab = sub(b, a), ac = sub(c, a);
+  const V3 n = cross(ab, ac);
+  const float nn = fmaxf(dot(n, n), 1e-20f);
+  const float dist_plane = dot(sub(p, a), n) / nn;
+  const V3 proj = {p.x - dist_plane * n.x, p.y - dist_plane * n.y, p.z - dist_plane * n.z};
+  const V3 v2 = sub(proj, a);
+  const float d00 = dot(ab, ab), d01 = dot(ab, ac), d11 = dot(ac, ac);
+  const float d20 = dot(v2, ab), d21 = dot(v2, ac);
+  const float denom = fmaxf(d00 * d11 - d01 * d01, 1e-20f);
+  const float v = (d11 * d20 - d01 * d21) / denom;
+  const float w = (d00 * d21 - d01 * d20) / denom;
+  const bool inside = (v >= 0.0f) && (w >= 0.0f) && (v + w <= 1.0f);
+  if (inside) return proj;
+  V3 best = cand_ab;
+  if (d2_to(p, cand_bc) < d2_to(p, best)) best = cand_bc;
+  if (d2_to(p, cand_ca) < d2_to(p, best)) best = cand_ca;
+  return best;
+}
+
+// The vote of one triangle whose d^2 lies in the band (compute_sdf.py:56-93).
+__device__ __forceinline__ float vote(V3 p, V3 cp, const float* tri) {
+  const V3 va = load3(tri), vb = load3(tri + 3), vc = load3(tri + 6);
+  const V3 nrm = load3(tri + 9);
+  const V3 v0 = sub(vb, va), v1 = sub(vc, va), v2 = sub(cp, va);
+  const float d00 = dot(v0, v0), d01 = dot(v0, v1), d11 = dot(v1, v1);
+  const float d20 = dot(v2, v0), d21 = dot(v2, v1);
+  const float denom = fmaxf(d00 * d11 - d01 * d01, 1e-20f);
+  const float bv = (d11 * d20 - d01 * d21) / denom;
+  const float bw = (d00 * d21 - d01 * d20) / denom;
+  const float bu = 1.0f - bv - bw;
+  const float eb = 1e-4f;
+  const bool at_a = (bv < eb) && (bw < eb);
+  const bool at_b = (bu < eb) && (bw < eb);
+  const bool at_c = (bu < eb) && (bv < eb);
+  const bool on_vertex = at_a || at_b || at_c;
+  const bool on_edge = !on_vertex && ((bu < eb) || (bv < eb) || (bw < eb));
+  const float vertex_angle = at_a ? tri[12] : (at_b ? tri[13] : tri[14]);
+  const float alpha = on_vertex ? vertex_angle : (on_edge ? kPi : kTwoPi);
+  return alpha * dot(sub(p, cp), nrm);
+}
+
+__device__ __forceinline__ void stage(float* tile, const float* __restrict__ tris, int t0,
+                                      int nt) {
+  __syncthreads();
+  for (int k = threadIdx.x; k < nt * kTriFloats; k += blockDim.x)
+    tile[k] = __ldg(tris + (long long)t0 * kTriFloats + k);
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+    mesh_sdf_kernel(const float* __restrict__ points, long long P,
+                    const float* __restrict__ tris, int T, float* __restrict__ out) {
+  __shared__ float tile[kTile * kTriFloats];
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < P;
+  const V3 p = active ? V3{points[3 * i], points[3 * i + 1], points[3 * i + 2]}
+                      : V3{0.0f, 0.0f, 0.0f};
+  // pass 1: the minimum squared distance
+  float d2min = INFINITY;
+  for (int t0 = 0; t0 < T; t0 += kTile) {
+    const int nt = min(kTile, T - t0);
+    stage(tile, tris, t0, nt);
+    if (active) {
+      for (int t = 0; t < nt; ++t) {
+        const float* tri = tile + t * kTriFloats;
+        const V3 cp = closest_point(p, load3(tri), load3(tri + 3), load3(tri + 6));
+        d2min = fminf(d2min, d2_to(p, cp));
+      }
+    }
+  }
+  // pass 2: the pseudonormal vote of the triangles in the band
+  const float limit = d2min + (1e-8f + 1e-4f * d2min);
+  float s = 0.0f;
+  for (int t0 = 0; t0 < T; t0 += kTile) {
+    const int nt = min(kTile, T - t0);
+    stage(tile, tris, t0, nt);
+    if (active) {
+      for (int t = 0; t < nt; ++t) {
+        const float* tri = tile + t * kTriFloats;
+        const V3 cp = closest_point(p, load3(tri), load3(tri + 3), load3(tri + 6));
+        if (d2_to(p, cp) <= limit) s += vote(p, cp, tri);
+      }
+    }
+  }
+  if (active) out[i] = s < 0.0f ? -sqrtf(d2min) : sqrtf(d2min);
+}
+
+}  // namespace
+
+// points [P, 3]; tris [T, 15] (va, vb, vc, unit face normal, interior angles at a, b, c);
+// out [P].
+WISP_EXPORT int wisp_mesh_sdf(const float* points, long long P, const float* tris, int T,
+                              float* out, void* stream) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  if (P > 0) {
+    mesh_sdf_kernel<<<wisp::ceil_div(P, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+        points, P, tris, T, out);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,5 +1,5 @@
-"""Dataset base classes (counterpart of wisp_tpu/datasets/base_datasets.py, the multiview
-part)."""
+"""Dataset base classes (counterpart of wisp_tpu/datasets/base_datasets.py: the multiview
+and SDF bases)."""
 
 from __future__ import annotations
 
@@ -37,4 +37,15 @@ class MultiviewDataset(WispDataset):
 
     @property
     def cameras(self):
+        raise NotImplementedError
+
+
+class SDFDataset(WispDataset):
+    """Base of coordinate / signed-distance sample datasets."""
+
+    def resample(self) -> None:
+        """Draw the samples anew (SDFTrainer calls it between epochs when asked to)."""
+
+    @property
+    def coordinates(self):
         raise NotImplementedError

@@ -22,3 +22,7 @@ class MultiviewBatch(Batch):
 
     def ray_values(self):
         return {k: v for k, v in self.items() if k != "rays"}
+
+
+class SDFBatch(Batch):
+    """SDF training batch: coords [B, 3] and their signed distances sdf [B, 1]."""

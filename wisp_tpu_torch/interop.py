@@ -30,7 +30,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from wisp_tpu_torch.accelstructs.octree_as import OctreeAS
+from wisp_tpu_torch.accelstructs.octree_as import MeshExtent, OctreeAS
 from wisp_tpu_torch.device import DeviceLike, resolve_device
 from wisp_tpu_torch.models.grids.hash_grid import HashGrid
 from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
@@ -95,7 +95,9 @@ def build_sdf_pipeline(params: Mapping[str, np.ndarray], config: Dict[str, Any],
 
     * ``blas.codes.<l>`` — the sorted morton codes of level l, for l = 0..blas_level;
     * ``grid.features.<i>`` [V_i, F] — the dual-vertex features of active LOD i;
-    * ``decoder.layers.<i>.weight`` [out, in] / ``.bias``, ``decoder.lout.*``.
+    * ``decoder.layers.<i>.weight`` [out, in] / ``.bias``, ``decoder.lout.*``;
+    * optional: ``mesh.vertices`` [V, 3] and ``mesh.faces`` [T, 3], the mesh the octree was
+      built from, kept as ``blas.extent`` (an SDF dataset samples it).
 
     ``config`` holds ``blas_level`` and the keyword arguments of ``grid`` (OctreeGrid),
     ``nef`` (NeuralSDF) and ``tracer`` (PackedSDFTracer)."""
@@ -103,6 +105,9 @@ def build_sdf_pipeline(params: Mapping[str, np.ndarray], config: Dict[str, Any],
     level = int(config["blas_level"])
     blas = OctreeAS.from_codes([np.asarray(params[f"blas.codes.{l}"])
                                 for l in range(level + 1)], device=device)
+    if "mesh.vertices" in params:
+        blas.extent = MeshExtent(np.asarray(params["mesh.vertices"], np.float32),
+                                 np.asarray(params["mesh.faces"], np.int32))
     grid = OctreeGrid(blas=blas, device=device, **config.get("grid", {}))
     for i, feats in enumerate(grid.features):
         _load(feats, params[f"grid.features.{i}"], f"grid.features.{i}")

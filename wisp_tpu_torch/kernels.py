@@ -38,7 +38,8 @@ LAUNCHES: Dict[str, int] = {"raymarch_ray": 0, "compact": 0, "scatter_back": 0,
                             "hashgrid_fwd": 0, "integrate_fwd": 0, "hashgrid_bwd": 0,
                             "scatter_back_bwd": 0, "integrate_bwd": 0, "scatter_max": 0,
                             "octree_query": 0, "free_space_distance": 0, "octree_interp": 0,
-                            "sdf_walk": 0, "sphere_step": 0}
+                            "sdf_walk": 0, "sphere_step": 0, "octree_interp_bwd": 0,
+                            "mesh_sdf": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,6 +77,10 @@ _SIGNATURES = {
     "wisp_free_space_distance": [_P, _I, _I, _P, _P, _P],
     # coords pidx N P col0 n_lods F trinkets feats levels (host arrays) sum out stream
     "wisp_octree_interp": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    # coords pidx N P col0 n_lods F trinkets grads levels (host arrays) sum grad_out stream
+    "wisp_octree_interp_bwd": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    # points P tris T out stream
+    "wisp_mesh_sdf": [_P, _L, _P, _I, _P, _P],
     # origins dirs t alive t_far free_dist N level num_steps stream
     "wisp_sdf_walk": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     # origins dirs t alive hit t_far d free_dist N level step_size min_dis stream

@@ -8,15 +8,17 @@ every LOD in one ancestor-chain query (K9), then blends each LOD's 8 corner feat
 trilinearly and sums or concatenates the LODs; a point in an empty cell gets zeros.
 
 ``octree_interp`` is kernel K15 (``csrc/octree_grid.cu``): on a CUDA tensor it launches the
-kernel, on a CPU tensor it runs ``octree_interp_plain``. The kernel has no backward yet (the
-SDF training slice adds it): on the card, a call that would need the features' gradient
-raises.
+kernel, on a CPU tensor it runs ``octree_interp_plain``. On the card, a call that needs the
+features' gradient goes through an ``autograd.Function`` whose backward launches K15's
+backward kernel (``octree_interp_bwd``); the gradient with respect to the coordinates is not
+ported, and asking for it on the card raises. On the CPU the plain version keeps its own
+autograd.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,28 +56,11 @@ def _combine_lods(outs: Sequence[torch.Tensor], multiscale_type: str) -> torch.T
     return torch.cat(outs, dim=-1)
 
 
-def octree_interp(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
-                  trinkets: Sequence[torch.Tensor], features: Sequence[torch.Tensor],
-                  levels: Sequence[int], multiscale_type: str = "sum") -> torch.Tensor:
-    """Multi-LOD trilinear interpolation of dual-vertex features (K15).
-
-    ``coords`` [N, 3] float32; ``pidx`` [N, P] int32 cell indices, LOD i reading column
-    ``col0 + i`` (-1 = empty cell: zero features); per LOD ``trinkets[i]`` [N_i, 8] int32,
-    ``features[i]`` [V_i, F] float32 and its octree level. Corner c of a cell sits at offset
-    (c>>2, (c>>1)&1, c&1), z fastest; the fraction inside the cell is
-    clip((c+1)*(res/2) - cell, 0, 1). Returns [N, F] ('sum', LODs added in order) or
-    [N, F * LODs] ('cat')."""
-    if not coords.is_cuda:
-        return octree_interp_plain(coords, pidx, col0, trinkets, features, levels,
-                                   multiscale_type)
+def _check_geometry(coords, pidx, col0, trinkets, levels, multiscale_type):
     n_lods = len(levels)
     if multiscale_type not in ("sum", "cat") or not 1 <= n_lods <= MAX_LODS:
         raise ValueError(f"octree_interp: {multiscale_type!r} over {n_lods} LODs")
-    if torch.is_grad_enabled() and any(f.requires_grad for f in features):
-        raise NotImplementedError("octree_interp: the feature gradient (K15 backward) is "
-                                  "not ported yet; call under torch.no_grad()")
     n = coords.shape[0]
-    f_dim = features[0].shape[1]
     kernels.check(coords, "coords", torch.float32, (n, 3))
     kernels.check(pidx, "pidx", torch.int32, (n, None))
     if not 0 <= col0 <= pidx.shape[1] - n_lods:
@@ -83,6 +68,14 @@ def octree_interp(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
                          f"[{n}, {pidx.shape[1]}]")
     for i in range(n_lods):
         kernels.check(trinkets[i], f"trinkets[{i}]", torch.int32, (None, 8))
+    return n, n_lods
+
+
+def _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type):
+    """Launch K15's forward kernel."""
+    f_dim = features[0].shape[1]
+    n, n_lods = _check_geometry(coords, pidx, col0, trinkets, levels, multiscale_type)
+    for i in range(n_lods):
         kernels.check(features[i], f"features[{i}]", torch.float32, (None, f_dim))
     out = torch.empty((n, f_dim if multiscale_type == "sum" else f_dim * n_lods),
                       dtype=torch.float32, device=coords.device)
@@ -94,6 +87,92 @@ def octree_interp(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
                        ctypes.addressof(trk), ctypes.addressof(fts), lvl.ctypes.data,
                        int(multiscale_type == "sum"), out.data_ptr())
     return out
+
+
+def octree_interp_bwd_plain(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
+                            trinkets: Sequence[torch.Tensor], rows: Sequence[int], f_dim: int,
+                            levels: Sequence[int], multiscale_type: str,
+                            grad_out: torch.Tensor) -> List[torch.Tensor]:
+    """Plain PyTorch version of ``octree_interp_bwd``: autograd of ``octree_interp_plain``
+    (the blend is linear in the features, so zero tables give the same gradient)."""
+    feats = [torch.zeros((v, f_dim), dtype=torch.float32, device=coords.device,
+                         requires_grad=True) for v in rows]
+    with torch.enable_grad():
+        out = octree_interp_plain(coords, pidx, col0, trinkets, feats, levels,
+                                  multiscale_type)
+        return list(torch.autograd.grad(out, feats, grad_out))
+
+
+def octree_interp_bwd(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
+                      trinkets: Sequence[torch.Tensor], rows: Sequence[int], f_dim: int,
+                      levels: Sequence[int], multiscale_type: str,
+                      grad_out: torch.Tensor) -> List[torch.Tensor]:
+    """The feature gradient of ``octree_interp`` (K15 backward): for the cotangent
+    ``grad_out`` ([N, F] for 'sum', [N, F * LODs] for 'cat'), one [rows[i], F] float32 table a
+    LOD holding the sum over points and corners of w_c * g. Points in empty cells add
+    nothing."""
+    if not coords.is_cuda:
+        return octree_interp_bwd_plain(coords, pidx, col0, trinkets, rows, f_dim, levels,
+                                       multiscale_type, grad_out)
+    n, n_lods = _check_geometry(coords, pidx, col0, trinkets, levels, multiscale_type)
+    width = f_dim if multiscale_type == "sum" else f_dim * n_lods
+    kernels.check(grad_out, "grad_out", torch.float32, (n, width))
+    grads = [torch.zeros((v, f_dim), dtype=torch.float32, device=coords.device)
+             for v in rows]
+    if n:
+        trk, gps = kernels.pointers(trinkets), kernels.pointers(grads)
+        lvl = np.asarray(levels, dtype=np.int32)
+        kernels.launch("wisp_octree_interp_bwd", "octree_interp_bwd", coords.data_ptr(),
+                       pidx.data_ptr(), n, pidx.shape[1], int(col0), n_lods, f_dim,
+                       ctypes.addressof(trk), ctypes.addressof(gps), lvl.ctypes.data,
+                       int(multiscale_type == "sum"), grad_out.data_ptr())
+    return grads
+
+
+class _OctreeInterpFn(torch.autograd.Function):
+    """K15 on the card with its backward kernel. Saves coords and pidx; the weights are
+    recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, coords, pidx, col0, trinkets, levels, multiscale_type, *features):
+        ctx.save_for_backward(coords, pidx)
+        ctx.geometry = (col0, trinkets, levels, multiscale_type,
+                        [f.shape[0] for f in features], features[0].shape[1])
+        return _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        coords, pidx = ctx.saved_tensors
+        col0, trinkets, levels, multiscale_type, rows, f_dim = ctx.geometry
+        grads = octree_interp_bwd(coords, pidx, col0, trinkets, rows, f_dim, levels,
+                                  multiscale_type, grad_out.float().contiguous())
+        return (None,) * 6 + tuple(g if need else None
+                                   for g, need in zip(grads, ctx.needs_input_grad[6:]))
+
+
+def octree_interp(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
+                  trinkets: Sequence[torch.Tensor], features: Sequence[torch.Tensor],
+                  levels: Sequence[int], multiscale_type: str = "sum") -> torch.Tensor:
+    """Multi-LOD trilinear interpolation of dual-vertex features (K15).
+
+    ``coords`` [N, 3] float32; ``pidx`` [N, P] int32 cell indices, LOD i reading column
+    ``col0 + i`` (-1 = empty cell: zero features); per LOD ``trinkets[i]`` [N_i, 8] int32,
+    ``features[i]`` [V_i, F] float32 and its octree level. Corner c of a cell sits at offset
+    (c>>2, (c>>1)&1, c&1), z fastest; the fraction inside the cell is
+    clip((c+1)*(res/2) - cell, 0, 1). Returns [N, F] ('sum', LODs added in order) or
+    [N, F * LODs] ('cat'), differentiable in the features."""
+    if not coords.is_cuda:
+        return octree_interp_plain(coords, pidx, col0, trinkets, features, levels,
+                                   multiscale_type)
+    if not torch.is_grad_enabled():
+        return _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type)
+    if coords.requires_grad:
+        raise NotImplementedError("octree_interp: the gradient with respect to the "
+                                  "coordinates is not ported; detach them")
+    if any(f.requires_grad for f in features):
+        return _OctreeInterpFn.apply(coords, pidx, col0, list(trinkets), list(levels),
+                                     multiscale_type, *features)
+    return _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type)
 
 
 class OctreeGrid(BLASGrid):

@@ -1,5 +1,5 @@
-"""Procedural test meshes (counterpart of wisp_tpu/ops/mesh/io.py ``make_sphere_mesh``).
-OBJ loading is not ported yet."""
+"""Procedural test meshes (counterpart of wisp_tpu/ops/mesh/io.py ``make_sphere_mesh`` and
+``make_box_mesh``). OBJ loading is not ported yet."""
 
 from __future__ import annotations
 
@@ -45,3 +45,18 @@ def make_sphere_mesh(radius: float = 0.7, subdivisions: int = 3
         verts = np.asarray(verts_list)
         faces = np.asarray(new_faces, dtype=np.int64)
     return (verts * radius).astype(np.float32), faces.astype(np.int32)
+
+
+def make_box_mesh(half_extents=(0.5, 0.5, 0.5)) -> Tuple[np.ndarray, np.ndarray]:
+    """Axis-aligned box centred at the origin, 12 outward-facing triangles."""
+    hx, hy, hz = half_extents
+    v = np.asarray([
+        [-hx, -hy, -hz], [hx, -hy, -hz], [hx, hy, -hz], [-hx, hy, -hz],
+        [-hx, -hy, hz], [hx, -hy, hz], [hx, hy, hz], [-hx, hy, hz],
+    ], dtype=np.float32)
+    f = np.asarray([
+        [0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7],
+        [0, 1, 5], [0, 5, 4], [2, 3, 7], [2, 7, 6],
+        [1, 2, 6], [1, 6, 5], [3, 0, 4], [3, 4, 7],
+    ], dtype=np.int32)
+    return v, f

@@ -7,6 +7,9 @@ end_epoch (validate on its cadence)]* -> post_training, driven one step at a tim
 runs them eagerly: autograd gives the gradients (the kernels' backward launches included)
 and ``torch.optim.AdamW`` applies them.
 
+* The optimizer is JAX's default, ``ConfigAdam`` (Adam, no weight decay), or ``ConfigAdamW``.
+  Both build ``torch.optim.AdamW``: with a weight decay of 0 its update is Adam's, and with
+  a weight decay above 0 JAX's Adam preset is AdamW too.
 * Parameter groups by name, as JAX's pytree paths: 'decoder' (weight decay as configured),
   'grid' (lr x ``grid_lr_weight``, no weight decay) and 'rest' (no weight decay).
 * The schedule is JAX's piecewise constant one: after ``int(max_steps*m)`` updates for each
@@ -20,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 from abc import ABC, abstractmethod
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -29,6 +32,14 @@ from wisp_tpu_torch.models.decoders.basic_decoders import BasicDecoder
 from wisp_tpu_torch.trainers.tracker.tracker import Tracker
 
 log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class ConfigAdam:
+    lr: float = 1e-3
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
 
 
 @dataclasses.dataclass
@@ -41,7 +52,7 @@ class ConfigAdamW:
 
 @dataclasses.dataclass
 class ConfigBaseTrainer:
-    optimizer: ConfigAdamW = dataclasses.field(default_factory=ConfigAdamW)
+    optimizer: Union[ConfigAdam, ConfigAdamW] = dataclasses.field(default_factory=ConfigAdam)
     exp_name: str = "wisp_experiment"
     max_epochs: int = 250
     valid_every: int = -1
@@ -153,8 +164,11 @@ class BaseTrainer(ABC):
     def post_step(self):
         pass
 
-    def begin_epoch(self):
+    def reset_data_iterator(self):
         self._data_iter = iter(range(len(self.train_dataset)))
+
+    def begin_epoch(self):
+        self.reset_data_iterator()
         self.pre_epoch()
 
     def end_epoch(self):

@@ -1,0 +1,138 @@
+"""SDFTrainer — a neural SDF fitted to sampled signed distances (counterpart of
+wisp_tpu/trainers/sdf_trainer.py).
+
+* ``next_batch`` draws ``batch_size`` sample indices from ``np.random.default_rng(
+  random_seed)``, as JAX does, and indexes the dataset's tensors on the device with them;
+  an epoch is ``max(len(dataset) // batch_size, 1)`` steps, fixed at construction.
+* ``step``: per loss LOD (the last only with ``only_last``) the sum of squared errors of
+  the field's sdf, divided by the batch size -> backward -> the optimizer. AMP is the base
+  trainer's bf16 decoder policy. The step's stats are read at once (JAX defers the fetch
+  by a step to hide a device round trip).
+* ``post_epoch`` resamples the dataset when ``resample`` is set.
+* ``validate``: the IoU of the inside sets over the training samples (chunks of 65,536),
+  and the volumetric IoU over 50,000 uniform points of ``default_rng(7)`` inside occupied
+  cells against the mesh's exact signed distance (K16). The dataset is an
+  OctreeSampledSDFDataset, whose octree carries the mesh (the mesh-sampled dataset is not
+  ported yet).
+
+Not ported yet: the texture loss (a batch with 'rgb' raises) and the SDF slice snapshots.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from wisp_tpu_torch.ops.mesh.compute_sdf import compute_sdf
+from wisp_tpu_torch.ops.mesh.ops import sample_uniform
+from wisp_tpu_torch.ops.sdf.metrics import compute_sdf_iou
+from wisp_tpu_torch.trainers.base_trainer import BaseTrainer, ConfigBaseTrainer
+
+log = logging.getLogger(__name__)
+
+VALID_CHUNK = 65536
+VALID_UNIFORM_POINTS = 50000
+VALID_SEED = 7
+
+
+@dataclasses.dataclass
+class ConfigSDFTrainer(ConfigBaseTrainer):
+    only_last: bool = True
+    resample: bool = False
+    batch_size: int = 4096
+
+
+class SDFTrainer(BaseTrainer):
+    def __init__(self, cfg: ConfigSDFTrainer, pipeline, train_dataset, tracker=None,
+                 device=None):
+        super().__init__(cfg=cfg, pipeline=pipeline, train_dataset=train_dataset,
+                         tracker=tracker, device=device)
+        self._batch_rng = np.random.default_rng(cfg.random_seed)
+        self.iterations_per_epoch = max(len(train_dataset) // cfg.batch_size, 1)
+        self.loss_lods = self._loss_lods()
+
+    def _loss_lods(self):
+        lods = list(range(self.pipeline.nef.grid.num_lods))
+        return lods[-1:] if self.cfg.only_last else lods
+
+    def pre_training(self):
+        super().pre_training()
+        self.tracker.metrics.define_metric("l2_loss", aggregation_type=float)
+        self.tracker.metrics.define_metric("rgb_loss", aggregation_type=float)
+
+    def pre_epoch(self):
+        super().pre_epoch()
+        self.loss_lods = self._loss_lods()
+
+    def post_epoch(self):
+        super().post_epoch()
+        if self.cfg.resample:
+            self.train_dataset.resample()
+
+    def reset_data_iterator(self):
+        self._data_iter = iter(range(self.iterations_per_epoch))
+
+    def next_batch(self):
+        next(self._data_iter)  # StopIteration at the end of the epoch
+        idx = self._batch_rng.integers(0, len(self.train_dataset), size=(self.cfg.batch_size,))
+        return self.train_dataset[idx]
+
+    def compute_loss(self, coords: torch.Tensor, gts: torch.Tensor):
+        """(loss, aux): the summed squared sdf error over the loss LODs, over the batch."""
+        l2_loss = 0.0
+        for lod_idx in self.loss_lods:
+            pred = self.pipeline.nef(channels="sdf", coords=coords, lod_idx=lod_idx)
+            l2_loss = l2_loss + ((pred - gts) ** 2).sum()
+        loss = l2_loss / coords.shape[0]
+        return loss, {"l2_loss": loss}
+
+    def step(self, data):
+        if data.get("rgb") is not None:
+            raise NotImplementedError("the texture (rgb) loss of NeuralSDFTex is not ported "
+                                      "yet")
+        coords = data["coords"].contiguous()
+        gts = data["sdf"].reshape(coords.shape[0], -1)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, aux = self.compute_loss(coords, gts)
+        loss.backward()
+        self.optimizer_step()
+        self.last_loss = float(loss.detach())
+        self.tracker.metrics.total_loss += self.last_loss
+        self.tracker.metrics.l2_loss += float(aux["l2_loss"].detach())
+        self.tracker.metrics.rgb_loss += 0.0
+
+    def log_console(self):
+        l2_loss = self.tracker.metrics.average_metric("l2_loss")
+        log.info("EPOCH %d/%d | total loss: %.3E | l2 loss: %.3E", self.epoch, self.max_epochs,
+                 self.tracker.metrics.average_metric("total_loss"), l2_loss)
+        self.return_dict["l2_loss"] = l2_loss
+        self.return_dict["rgb_loss"] = self.tracker.metrics.average_metric("rgb_loss")
+
+    def render_snapshot(self):
+        raise NotImplementedError("SDF slice snapshots (sdf_slice) are not ported yet")
+
+    @torch.no_grad()
+    def validate(self) -> Dict[str, Any]:
+        nef = self.pipeline.nef
+        coords = self.train_dataset.coordinates
+        preds = [nef(channels="sdf", coords=coords[i:i + VALID_CHUNK].contiguous())
+                 for i in range(0, coords.shape[0], VALID_CHUNK)]
+        metrics = {"iou": compute_sdf_iou(torch.cat(preds), self.train_dataset.sdf_data)}
+        # the volumetric IoU inside occupied cells, where a narrowband field is defined
+        blas = self.train_dataset.blas
+        pts = torch.from_numpy(sample_uniform(VALID_UNIFORM_POINTS,
+                                              rng=np.random.default_rng(VALID_SEED)))
+        pts = pts.to(coords.device)
+        pts = pts[blas.query(pts).pidx > -1].contiguous()
+        gt = compute_sdf(blas.extent.vertices, blas.extent.faces, pts)
+        metrics["volumetric_iou"] = compute_sdf_iou(nef(channels="sdf", coords=pts), gt)
+        for k, v in metrics.items():
+            self.tracker.log_metric(f"validation/{k}", v, self.epoch)
+        log.info("EPOCH %d/%d | %s", self.epoch, self.max_epochs,
+                 " | ".join(f"validation {k}: {v:.4f}" for k, v in metrics.items()))
+        self.return_dict.update(metrics)
+        return metrics
