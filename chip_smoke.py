@@ -47,12 +47,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    as predicted: a query, an interpolation and its backward a step, K16 once a resample
    and once a validation), requires the loss to fall and the IoUs in [0, 1], and holds K15
    backward and K16 against their plain versions (depth cut: 220 steps of a 10-epoch run
-   of ~4,400 steps an epoch, one resample);
-10. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+   of ~4,400 steps an epoch, one resample); K16's plain version is timed by CUDA events
+   alone (under torch.profiler its host cost is ~30 s);
+10. octree NeRF path: parses app/nerf/configs/nerf_octree_lego_proxy.yaml through the
+   port's own front end (``main_nerf.parse_args``: 4 views, checkpoints, snapshots and the
+   epoch validation off) and builds it with ``main_nerf.build()`` at full width (the level-7
+   octree of the scene's point cloud, OctreeGrid 4 LODs x 5, the 'voxel' march of 16
+   samples in 29 voxels, RMSprop, AMP); prints the octree's sizes; sets the counts to 0,
+   runs 25 ``MultiviewTrainer.iterate()`` steps (the 20th profiled) and reads the counts
+   (exactly as predicted, and no other kernel); requires the loss to fall and no ray to
+   overflow; runs ``validate()`` on 2 views of 256x256; renders a warm-up frame, sets the
+   counts to 0, renders one 512x512 voxel frame and reads the counts (the field's two
+   kernels once a chunk that keeps a sample); checks the frame and one chunk against the
+   plain versions; holds K7 against its plain version at the step's and a render chunk's
+   shapes, with a density field and early_stop 0.01 and at an overflowing budget, and K15
+   and its backward at F = 5; times K7 and profiles the frame;
+11. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
-   for the SDF kernels and from the SDF training run for its two), the main-path,
-   ``train_path``, ``sdf_path`` and ``sdf_train_path`` JSON lines, the nvidia-smi line
-   and, last, ``{"ok": true, "device": {...}}``.
+   for the SDF kernels, from the SDF training run for its two and from the octree NeRF's
+   25 steps for K7), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path`` and
+   ``octree_nerf_path`` JSON lines, the nvidia-smi line and, last,
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -178,6 +193,13 @@ def timed(fn, iters: int = 20, warmup: int = 3):
     raise SmokeFailure("three profiling sessions saw no device time")
 
 
+def events_only(fn, iters: int = 20, warmup: int = 3):
+    """``timed``'s pair for a slow plain version, from CUDA events alone: (event ms, event
+    ms)."""
+    ms = cuda_ms(fn, iters, warmup)
+    return ms, ms
+
+
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -199,11 +221,16 @@ def kernel_row(name, source, replaces, err, tol, ms, plain_ms, nbytes, ops, libr
 
 @contextmanager
 def plain_versions():
-    """Route the tracer's kernel calls to the plain PyTorch versions (on the card)."""
+    """Route the NeRF tracer's kernel calls (both marches, both grids) to the plain PyTorch
+    versions (on the card)."""
     from wisp_tpu_torch.accelstructs import octree_as
     from wisp_tpu_torch.ops import compaction, grid, integration
     from wisp_tpu_torch.tracers import packed_rf_tracer
+    from wisp_tpu_torch.models.grids import octree_grid
     with mock.patch.object(octree_as, "raymarch_ray", octree_as.raymarch_ray_plain), \
+            mock.patch.object(octree_as, "raymarch_voxel", octree_as.raymarch_voxel_plain), \
+            mock.patch.object(octree_as, "octree_query", octree_as.octree_query_plain), \
+            mock.patch.object(octree_grid, "octree_interp", octree_grid.octree_interp_plain), \
             mock.patch.object(grid, "hashgrid", grid.hashgrid_plain), \
             mock.patch.object(packed_rf_tracer, "compact", compaction.compact_plain), \
             mock.patch.object(packed_rf_tracer, "scatter_back",
@@ -1155,10 +1182,11 @@ def sdf_train_kernel_phase(trainer, coords):
         "mesh_sdf", "wisp_tpu_torch/csrc/mesh_sdf.cu",
         "wisp_tpu/ops/mesh/compute_sdf.py:48", err, 1e-5,
         timed(lambda: mesh_sdf(points, tris), iters=5, warmup=1),
-        timed(lambda: mesh_sdf_plain(points, tris), iters=1, warmup=0),
+        events_only(lambda: mesh_sdf_plain(points, tris), iters=1, warmup=0),
         nbytes=p_all * 12 + t_all * 15 * 4 + p_all * 4,
         ops=p_all * t_all * MESH_SDF_PAIR_OPS))
     rows[-1]["check_s"] = time.perf_counter() - t0
+    rows[-1]["plain_timed_by"] = "CUDA events only (torch.profiler's host cost is ~30 s)"
     rows[-1]["checked_points"] = int(sub.shape[0])
     rows[-1]["sign_flips_within_1e-5"] = int(flip.sum())
     return rows, {"k15_bwd_points": n, "k15_bwd_valid_lod_points": valid,
@@ -1244,6 +1272,333 @@ def sdf_train_phase(dev):
         "kernel_phase_shapes": shape_info,
     }
     info.update(profiled)
+    return rows, info
+
+
+OCTREE_CONFIG = "app/nerf/configs/nerf_octree_lego_proxy.yaml"
+# the depth cut: 4 views (the config has 100), 25 steps of a 100-epoch run; checkpoints and
+# snapshots are not ported, validation runs once below on a small split
+OCTREE_OVERRIDES = ("--dataset.num-views", "4", "--trainer.save-every", "-1",
+                    "--trainer.render-every", "-1", "--trainer.valid-every", "-1")
+OCTREE_STEPS = 25
+OCTREE_PROFILED_STEP = 20
+OCTREE_VALID_VIEWS, OCTREE_VALID_RES = 2, 256
+OCTREE_STEP_KERNELS = {"raymarch_voxel": 1, "compact": 1, "octree_query": 1,
+                       "octree_interp": 1, "octree_interp_bwd": 1, "scatter_back": 2,
+                       "scatter_back_bwd": 2, "integrate_fwd": 1, "integrate_bwd": 1}
+OCTREE_FRAME_KERNELS = {"raymarch_voxel": 1, "compact": 1, "octree_query": 1,
+                        "octree_interp": 1, "scatter_back": 2, "integrate_fwd": 1}
+
+
+def octree_app(dev):
+    """nerf_octree_lego_proxy.yaml through the port's own front end: ``parse_args`` (the
+    app's ``parse_config`` and its refusals) and ``main_nerf.build()``."""
+    from wisp_tpu_torch.app.nerf import main_nerf
+    cfg = main_nerf.parse_args(["--config", OCTREE_CONFIG, *OCTREE_OVERRIDES,
+                                "--device", str(dev)])
+    return cfg, main_nerf.build(cfg)
+
+
+def octree_stats(trainer) -> dict:
+    grid = trainer.pipeline.nef.grid
+    blas = grid.blas
+    return {"pointcloud_points": int(trainer.train_dataset.scene_pointcloud().shape[0]),
+            "level_counts": list(blas.level_counts),
+            "leaves": int(blas.level_counts[-1]),
+            "active_lods": list(grid.active_lods),
+            "dual_vertex_rows": [int(f.shape[0]) for f in grid.features],
+            "feature_mb": sum(f.numel() * 4 for f in grid.features) / 1e6,
+            "occupied_fraction": blas.level_counts[-1] / 8 ** blas.max_level}
+
+
+def voxel_cells_read(rays, blas, level: int) -> int:
+    """Distinct cells of the density field that the coarse segments inside the box read."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import aabb_intersect, num_coarse_segments
+    from wisp_tpu_torch.ops.spc.core import quantize_points
+    o, d = rays.origins, rays.dirs
+    voxel = 2.0 / 2 ** level
+    t_near, _ = aabb_intersect(o, d, rays.dist_min, rays.dist_max)
+    tc = t_near.clamp(min=0.0)[:, None] + (torch.arange(num_coarse_segments(level),
+                                                        device=o.device) + 0.5) * voxel
+    c = (o[:, None, :] + d[:, None, :] * tc[..., None]).reshape(-1, 3)
+    c = c[((c >= -1.0) & (c < 1.0)).all(-1)]
+    q = quantize_points(c, blas.max_level)
+    res = 2 ** blas.max_level
+    return int(torch.unique((q[:, 0] * res + q[:, 1]) * res + q[:, 2]).numel())
+
+
+def voxel_check(rays, level, s, budget, occ, field, max_level, jitter=None, early_stop=0.0):
+    """K7 against its plain version on the card, in the branch that ``occ`` and ``field``
+    select (a density field; the bool occupancy alone; neither, a dense octree): mask,
+    depths, samples, density and the overflow count equal. Returns (the kernel's result,
+    max abs error)."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import raymarch_voxel, raymarch_voxel_plain
+    args = (rays.origins, rays.dirs, rays.dist_min, rays.dist_max, s, level, budget,
+            occ, field, max_level, jitter, early_stop)
+    got, want = raymarch_voxel(*args), raymarch_voxel_plain(*args)
+    require(torch.equal(got.mask, want.mask), "raymarch_voxel: mask differs")
+    require(float(got.num_overflow) == float(want.num_overflow),
+            "raymarch_voxel: num_overflow differs")
+    require((got.cell_density is None) == (want.cell_density is None) == (field is None),
+            "raymarch_voxel: density returned in the wrong branch")
+    pairs = [(got.depth_samples, want.depth_samples), (got.samples, want.samples),
+             (got.deltas, want.deltas)]
+    if field is not None:
+        pairs.append((got.cell_density, want.cell_density))
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    require(err <= 1e-6, f"raymarch_voxel: error {err} above 1e-6")
+    return got, err
+
+
+def octree_kernel_phase(trainer, chunk):
+    """K7 against its plain version and timed at a step's shapes (the last step's rays, a
+    jitter) and a render chunk's, in all its branches; K15 forward and backward at F = 5 on
+    the step's kept samples."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import (raymarch_voxel, raymarch_voxel_plain,
+                                                       voxel_slots)
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.models.grids.octree_grid import (octree_interp, octree_interp_bwd,
+                                                         octree_interp_bwd_plain,
+                                                         octree_interp_plain)
+    from wisp_tpu_torch.ops.compaction import compact, compaction_budget
+    pipeline = trainer.pipeline
+    nef, tracer = pipeline.nef, pipeline.tracer
+    grid, blas = nef.grid, nef.grid.blas
+    level, s, budget = grid.base_lod, tracer.num_steps, tracer.march_budget
+    k = voxel_slots(s, budget, level)
+    view = trainer.train_dataset.data["rays"][0]
+    g = torch.Generator(device=view.origins.device).manual_seed(9)
+    n = trainer.train_dataset.transform.num_samples
+    pick = torch.randint(0, view.origins.shape[0], (n,), generator=g, device=view.origins.device)
+    o, d = view.origins[pick].contiguous(), view.dirs[pick].contiguous()
+    step_rays = Rays(o, d, view.dist_min, view.dist_max)
+    jitter = torch.rand((n, k, s), generator=g, device=o.device)
+    rng_field = torch.where(blas.occ_grid, torch.rand(blas.occ_grid.shape, generator=g,
+                                                      device=o.device) * 20.0,
+                            torch.full_like(blas.cell_density, -1.0))
+    occ, dens, top = blas.occ_grid, blas.cell_density, blas.max_level
+    checks = {}
+    mr, err_step = voxel_check(step_rays, level, s, budget, occ, dens, top, jitter)
+    checks["step"] = {"rays": n, "err": err_step, "overflow": float(mr.num_overflow)}
+    mc, err_chunk = voxel_check(chunk, level, s, budget, occ, dens, top)
+    checks["render_chunk"] = {"rays": chunk.origins.shape[0], "err": err_chunk,
+                              "overflow": float(mc.num_overflow)}
+    culled, err = voxel_check(step_rays, level, s, budget, occ, rng_field, top, jitter,
+                              early_stop=0.01)
+    checks["density_early_stop_0.01"] = {"err": err, "overflow": float(culled.num_overflow),
+                                         "valid": int(culled.mask.sum())}
+    small, err = voxel_check(step_rays, level, s, 64, occ, dens, top)
+    require(float(small.num_overflow) > 0, "a budget of 64 should overflow")
+    checks["budget_64"] = {"err": err, "overflow": float(small.num_overflow)}
+    # the two branches the path does not take: the bool occupancy alone, and a dense octree
+    occ_only, err = voxel_check(step_rays, level, s, budget, occ, None, top, jitter)
+    checks["occ_grid_only"] = {"err": err, "overflow": float(occ_only.num_overflow),
+                               "valid": int(occ_only.mask.sum())}
+    occ_small, err = voxel_check(step_rays, level, s, 64, occ, None, top)
+    require(float(occ_small.num_overflow) > 0, "a budget of 64 should overflow")
+    checks["occ_grid_only_budget_64"] = {"err": err, "overflow": float(occ_small.num_overflow)}
+    dense, err = voxel_check(step_rays, level, s, budget, None, None, top, jitter)
+    checks["dense"] = {"err": err, "overflow": float(dense.num_overflow),
+                       "valid": int(dense.mask.sum())}
+    rows = []
+    for name, rays, u in (("step", step_rays, jitter), ("render_chunk", chunk, None)):
+        r = rays.origins.shape[0]
+        args = (rays.origins, rays.dirs, rays.dist_min, rays.dist_max, s, level, budget,
+                blas.occ_grid, blas.cell_density, blas.max_level, u, 0.0)
+        nbytes = (r * 24 + (r * k * s * 4 if u is not None else 0)
+                  + voxel_cells_read(rays, blas, level) * 4
+                  + r * k * s * (12 + 4 + 1 + 4) + r * 4 + 4)
+        row = kernel_row("raymarch_voxel", "wisp_tpu_torch/csrc/raymarch.cu",
+                         "wisp_tpu/accelstructs/octree_as.py:512", max(err_step, err_chunk),
+                         1e-6, timed(lambda: raymarch_voxel(*args)),
+                         timed(lambda: raymarch_voxel_plain(*args), iters=5),
+                         nbytes=nbytes, ops=r * k * s * 10 + r * 29 * 30)
+        row["shape"] = f"{name}: {r} rays x {k * s} slots"
+        rows.append(row)
+    # K15 at F = 5, 4 LODs, on the step's kept samples
+    cbudget = compaction_budget(n, k * s, tracer.compaction)
+    _, cflat, _, count = compact(mr.mask, mr.samples, d, cbudget)
+    kept = min(int(count), cbudget)
+    coords = cflat[:kept]
+    pidx = blas.query(coords, grid.active_lods[-1], with_parents=True).pidx
+    feats = [f.detach() for f in grid.features]
+    iargs = (coords, pidx, grid.base_lod, grid.trinkets, feats, grid.active_lods, "sum")
+    fwd_err = float((octree_interp(*iargs) - octree_interp_plain(*iargs)).abs().max())
+    cot = torch.randn((kept, grid.feature_dim), generator=g, device=o.device)
+    bargs = (coords, pidx, grid.base_lod, grid.trinkets, [f.shape[0] for f in feats],
+             grid.feature_dim, grid.active_lods, "sum", cot)
+    bk, bp = octree_interp_bwd(*bargs), octree_interp_bwd_plain(*bargs)
+    scale = max(float(b.abs().max()) for b in bp)
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(bk, bp))
+    require(fwd_err <= 1e-6, f"octree_interp at F = 5: error {fwd_err}")
+    require(bwd_err <= 1e-5 * scale, f"octree_interp_bwd at F = 5: error {bwd_err}")
+    k15 = {"points": kept, "fwd_err": fwd_err, "fwd_tol": 1e-6, "bwd_err": bwd_err,
+           "bwd_tol": 1e-5 * scale,
+           "fwd_ms": timed(lambda: octree_interp(*iargs)),
+           "bwd_ms": timed(lambda: octree_interp_bwd(*bargs))}
+    return rows, {"k7_checks": checks, "k15_f5": k15}
+
+
+def octree_phase(dev):
+    """The octree-grid NeRF from its yaml: parse and build through the app, the octree's
+    sizes, counts from 0, 25 ``iterate()`` steps (one profiled), counts read; validate()
+    on a small split; a warm-up frame, counts from 0, one 512x512 voxel frame, counts read;
+    the frame's checks and one chunk against the plain versions; K7 and K15 at F = 5."""
+    import math
+    import numpy as np
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.accelstructs.octree_as import voxel_slots
+    from wisp_tpu_torch.core.camera import Camera
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.datasets.random_view_dataset import RandomViewDataset
+    from wisp_tpu_torch.ops.raygen.raygen import generate_pinhole_rays
+    t0 = time.perf_counter()
+    cfg, (pipeline, trainer, renderer) = octree_app(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    stats = octree_stats(trainer)
+    print(json.dumps({"octree_nerf": stats, "setup_s": setup_s}), flush=True)
+    tracer = pipeline.tracer
+    # the march's slots a ray, K x num_steps (464 at this config); the trainer's adaptive
+    # rays and compaction count num_steps, as JAX does
+    slots = voxel_slots(tracer.num_steps, tracer.march_budget,
+                        pipeline.nef.grid.base_lod) * tracer.num_steps
+
+    # -- training: counts from 0, 25 steps, counts read right after ------------------------
+    steps = []
+    kernels.reset_launches()
+    for i in range(OCTREE_STEPS):
+        rays = trainer.train_dataset.transform.num_samples
+        budget = tracer.compaction
+        if i == OCTREE_PROFILED_STEP - 1:
+            profiled = profile_step(trainer)
+            ms = profiled["profile_step_ms"]
+        else:
+            t1 = time.perf_counter()
+            trainer.iterate()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        steps.append({"step": i + 1, "ms": ms, "rays": rays, "budget": budget,
+                      "slots_per_ray": slots,
+                      "valid_share": trainer._prev_num_samples / (rays * slots),
+                      "num_overflow": trainer.last_num_overflow, "loss": trainer.last_loss})
+    train_launches = dict(kernels.LAUNCHES)
+    want = {k: v * OCTREE_STEPS for k, v in OCTREE_STEP_KERNELS.items()}
+    got = {k: train_launches[k] for k in want}
+    require(got == want, f"octree training launches {got}, expected {want}")
+    others = {k: v for k, v in train_launches.items() if k not in want and v}
+    require(not others, f"octree training launched other kernels: {others}")
+    losses = [st["loss"] for st in steps]
+    require(all(math.isfinite(x) for x in losses), f"non-finite octree loss: {losses}")
+    first, late = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    require(late < first, f"the octree loss did not fall: {first} -> {late}")
+    require(all(st["num_overflow"] == 0.0 for st in steps), "a training ray overflowed")
+
+    # -- validate() on a small split --------------------------------------------------------
+    t1 = time.perf_counter()
+    trainer.validation_dataset = RandomViewDataset(
+        num_views=OCTREE_VALID_VIEWS, height=OCTREE_VALID_RES, width=OCTREE_VALID_RES,
+        split="test", scene="lego_proxy", device=dev)
+    metrics = trainer.validate()
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t1
+    require(math.isfinite(metrics["psnr"]), f"bad validation PSNR {metrics}")
+
+    # -- the frame: counts from 0, one 512x512 voxel frame, counts read right after --------
+    renderer.render_lookat(pipeline, f=EYE)          # warm-up
+    torch.cuda.synchronize()
+    chunk_valid = []
+    trace = tracer.trace
+
+    @functools.wraps(trace)
+    def recording_trace(*args, **kwargs):
+        rb_ = trace(*args, **kwargs)
+        chunk_valid.append(tracer.prev_num_samples)
+        return rb_
+
+    tracer.trace = recording_trace
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    rb = renderer.render_lookat(pipeline, f=EYE)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t1) * 1e3
+    frame_launches = dict(kernels.LAUNCHES)
+    del tracer.trace
+    chunks = len(chunk_valid)
+    # a chunk whose rays keep no sample asks the field for nothing: no query, no blend
+    field_chunks = sum(1 for v in chunk_valid if v > 0)
+    want = {k: v * (field_chunks if k in ("octree_query", "octree_interp") else chunks)
+            for k, v in OCTREE_FRAME_KERNELS.items()}
+    got = {k: frame_launches[k] for k in want}
+    require(got == want, f"octree frame launches {got}, expected {want}")
+    others = {k: v for k, v in frame_launches.items() if k not in want and v}
+    require(not others, f"the octree frame launched other kernels: {others}")
+    rgb, alpha = rb.rgb, rb.alpha
+    require(tuple(rgb.shape) == (RES, RES, 3) and tuple(alpha.shape) == (RES, RES, 1),
+            f"bad octree frame shapes {rb}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (rgb, alpha, rb.depth))
+    require(finite, "non-finite octree frame")
+    require(float(alpha.min()) >= 0.0 and float(alpha.max()) <= 1.0 + 1e-5,
+            "octree alpha outside [0, 1]")
+    hit_frac = float(rb.hit.float().mean())
+    require(0.0 < hit_frac < 1.0, f"octree hit fraction {hit_frac}")
+    require(float(rb.num_overflow) == 0.0, "a frame ray overflowed")
+
+    # -- one chunk against the plain versions -----------------------------------------------
+    cam = Camera.from_args(eye=EYE, at=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0), width=RES,
+                           height=RES, fov=np.radians(30.0), near=0.0, far=10.0)
+    all_rays = generate_pinhole_rays(cam, device=dev)
+    n_chunk = renderer.render_batch
+    sl = slice(CHUNK_INDEX * n_chunk, (CHUNK_INDEX + 1) * n_chunk)
+    chunk = Rays(all_rays.origins[sl].contiguous(), all_rays.dirs[sl].contiguous(),
+                 all_rays.dist_min, all_rays.dist_max)
+    with torch.no_grad():
+        a = pipeline(rays=chunk)
+        before = dict(kernels.LAUNCHES)
+        with plain_versions():
+            b = pipeline(rays=chunk)
+        require(dict(kernels.LAUNCHES) == before, "a plain-version trace launched a kernel")
+    chunk_err = {k: float((a.channels[k] - b.channels[k]).abs().max())
+                 for k in ("rgb", "alpha", "depth")}
+    require(all(e <= 1e-3 for e in chunk_err.values()),
+            f"octree chunk differs from the plain versions: {chunk_err}")
+    require(float(a.num_valid_samples) == float(b.num_valid_samples),
+            "octree chunk valid-sample counts differ")
+    require(float((rgb.reshape(-1, 3)[sl] - a.rgb).abs().max()) <= 1e-6,
+            "octree chunk re-trace differs from the frame")
+
+    with torch.no_grad():
+        rows, shape_info = octree_kernel_phase(trainer, chunk)
+    for row_ in rows:
+        row_["launches"] = train_launches["raymarch_voxel"] if row_["shape"].startswith(
+            "step") else frame_launches["raymarch_voxel"]
+    # steps 2-24 without the profiled one
+    steady = sorted(st["ms"] for st in steps[1:OCTREE_STEPS - 1]
+                    if st["step"] != OCTREE_PROFILED_STEP)
+    info = {
+        "octree_path": "main_nerf.parse_args + build (nerf_octree_lego_proxy.yaml, 4 views), "
+                       f"MultiviewTrainer.iterate x {OCTREE_STEPS}, validate(), "
+                       f"render_lookat {RES}x{RES} voxel",
+        "setup_s": setup_s, "octree": stats, "step_ms_median": steady[len(steady) // 2],
+        "loss_steps_1_5": first, "loss_steps_21_25": late,
+        "rays_per_step": [st["rays"] for st in steps],
+        "budget_per_step": [st["budget"] for st in steps],
+        "valid_share_per_step": [st["valid_share"] for st in steps],
+        "num_overflow_max": max(st["num_overflow"] for st in steps),
+        "steps_ms": [st["ms"] for st in steps], "train_launches": train_launches,
+        "validate": {"views": OCTREE_VALID_VIEWS, "res": OCTREE_VALID_RES,
+                     "psnr": metrics["psnr"], "s": validate_s},
+        "frame_ms": frame_ms, "frame_launches": frame_launches, "hit_fraction": hit_frac,
+        "frame_chunk_valid": chunk_valid,
+        "chunk_max_abs_err_vs_plain": chunk_err, "chunk_tol": 1e-3,
+    }
+    info.update(profiled)
+    info.update(shape_info)
+    info.update({f"frame_{k}": v for k, v in profile_frame(renderer, pipeline).items()})
     return rows, info
 
 
@@ -1375,12 +1730,19 @@ def run() -> dict:
     phase_s["sdf render"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     sdf_train_rows, sdf_train_info = sdf_train_phase(dev)
+    torch.cuda.empty_cache()
     phase_s["sdf train"] = time.perf_counter() - t0
-    print(json.dumps({"kernels": rows + train_rows + sdf_rows + sdf_train_rows}), flush=True)
+    t0 = time.perf_counter()
+    octree_rows, octree_info = octree_phase(dev)
+    phase_s["octree nerf"] = time.perf_counter() - t0
+    print(json.dumps({"kernels": rows + train_rows + sdf_rows + sdf_train_rows
+                      + octree_rows[:1]}), flush=True)
     print(json.dumps(main), flush=True)
     print(json.dumps(train_info), flush=True)
     print(json.dumps(sdf_info), flush=True)
     print(json.dumps(sdf_train_info), flush=True)
+    print(json.dumps({"octree_nerf_path": octree_info, "raymarch_voxel_rows": octree_rows}),
+          flush=True)
     print(json.dumps({"phase_s": phase_s, "profiler_shortfalls": PROFILER_SHORTFALLS}),
           flush=True)
     print(smi, flush=True)

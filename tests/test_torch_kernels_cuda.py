@@ -470,3 +470,82 @@ def test_mesh_sdf_kernel(dev, case):
     inside = winding_number(v, f, pts[far]) > 0.5
     np.testing.assert_array_equal(got[far] < 0, inside)
     assert inside.any() and not inside.all()
+
+
+@pytest.mark.parametrize("rays", [300, 5000])
+@pytest.mark.parametrize("branch,budget,early_stop", [
+    ("density", 1024, 0.0), ("density", 48, 0.0), ("occ", 1024, 0.0), ("occ", 48, 0.0),
+    ("dense", 1024, 0.0), ("dense", 48, 0.0), ("cull", 1024, 0.01), ("cull", 48, 0.01)])
+def test_raymarch_voxel_kernel(dev, rays, branch, budget, early_stop):
+    """K7 against its plain version, exactly, with and without a budget that overflows,
+    at level 4 segments on a level-6 octree (29 coarse segments, 16 samples a voxel)."""
+    from wisp_tpu_torch.accelstructs.octree_as import (raymarch_voxel, raymarch_voxel_plain,
+                                                       voxel_slots)
+    o, d = (torch.from_numpy(a).to(dev) for a in ray_arrays(rays, seed=21))
+    blas = _sphere_octree(6, dev)
+    occ = field = None
+    if branch == "occ":
+        occ = blas.occ_grid
+    elif branch == "density":
+        field = blas.cell_density
+    elif branch == "cull":
+        rng = np.random.default_rng(22)
+        dens = np.where(blas.occ_grid.cpu().numpy(), rng.random(8 ** 6) * 20.0, -1.0)
+        field = torch.from_numpy(dens.astype(np.float32)).to(dev)
+    s, level = 16, 4
+    k = voxel_slots(s, budget, level)
+    jitter = torch.rand((rays, k, s), generator=torch.Generator().manual_seed(23)).to(dev)
+    for u in (None, jitter):
+        before = kernels.LAUNCHES["raymarch_voxel"]
+        got = raymarch_voxel(o, d, 0.0, 8.0, s, level, budget, occ, field, 6, u, early_stop)
+        want = raymarch_voxel_plain(o, d, 0.0, 8.0, s, level, budget, occ, field, 6, u,
+                                    early_stop)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["raymarch_voxel"] == before + 1
+        assert torch.equal(got.mask, want.mask)
+        assert torch.equal(got.depth_samples, want.depth_samples)
+        assert torch.equal(got.samples, want.samples)
+        assert torch.equal(got.deltas, want.deltas)
+        assert float(got.num_overflow) == float(want.num_overflow)
+        assert (float(want.num_overflow) > 0) == (budget < 1024)
+        if field is None:
+            assert got.cell_density is None
+        else:
+            assert torch.equal(got.cell_density, want.cell_density)
+        assert bool(want.mask.any()) and not bool(want.mask.all())
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_octree_interp_kernel_f5(dev, backward):
+    """K15 forward and backward at the octree NeRF's width: F = 5, four LODs, 'sum'."""
+    from wisp_tpu_torch.models.grids.octree_grid import (OctreeGrid, octree_interp,
+                                                         octree_interp_bwd,
+                                                         octree_interp_plain)
+    blas = _sphere_octree(6, dev)
+    grid = OctreeGrid(blas=blas, feature_dim=5, num_lods=4, multiscale_type="sum",
+                      feature_std=0.5, generator=torch.Generator().manual_seed(24),
+                      device=dev)
+    g = torch.Generator(device="cpu").manual_seed(25)
+    coords = (torch.rand(6000, 3, generator=g) * 2.1 - 1.05).to(dev)
+    pidx = blas.query(coords, grid.active_lods[-1], with_parents=True).pidx
+    feats = [f.detach() for f in grid.features]
+    if not backward:
+        got = octree_interp(coords, pidx, grid.base_lod, grid.trinkets, feats,
+                            grid.active_lods, "sum")
+        want = octree_interp_plain(coords, pidx, grid.base_lod, grid.trinkets, feats,
+                                   grid.active_lods, "sum")
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-6
+        assert bool((want != 0).any())
+        return
+    cot = torch.randn(6000, 5, generator=g).to(dev)
+    leaves = [f.clone().requires_grad_(True) for f in feats]
+    out = octree_interp_plain(coords, pidx, grid.base_lod, grid.trinkets, leaves,
+                              grid.active_lods, "sum")
+    want = torch.autograd.grad(out, leaves, cot)
+    got = octree_interp_bwd(coords, pidx, grid.base_lod, grid.trinkets,
+                            [f.shape[0] for f in feats], 5, grid.active_lods, "sum", cot)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-5 * scale

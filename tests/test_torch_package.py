@@ -125,3 +125,29 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("module", ["wisp_tpu_torch.config",
+                                    "wisp_tpu_torch.app.nerf.main_nerf"])
+def test_front_end_imports_no_jax(module):
+    """The config front end and the NeRF app read the yaml files with the port's own reader
+    and import nothing of JAX, optax, PyYAML or the JAX package."""
+    code = (f"import sys, importlib; importlib.import_module({module!r}); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'wisp_tpu', 'yaml', 'optax')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_app_needs_a_card_or_the_cpu():
+    from wisp_tpu_torch.app.nerf import main_nerf
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the no-card path cannot be shown here")
+    cfg = main_nerf.parse_args(["--config", str(ROOT / "app/nerf/configs/"
+                                                "nerf_octree_lego_proxy.yaml"),
+                                "--trainer.save-every", "-1", "--trainer.render-every", "-1"])
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_nerf.build(cfg)

@@ -12,12 +12,13 @@ Two kinds of octree, as in JAX:
   per-level cell-index maps ``pidx_maps`` through level ``PIDX_MAP_MAX_LEVEL`` (int32, -1 =
   not occupied, on the device) and the max-level ``occ_grid`` and ``cell_density``.
 
-Kernels: ``raymarch_ray`` is K2 (``csrc/raymarch.cu``), ``octree_query`` K9 and
-``free_space_distance`` K11 (``csrc/octree.cu``). On a CUDA tensor each launches its kernel,
-on a CPU tensor it runs its plain version. Rendering marches at midpoints; training passes
-a ``key``: a ``torch.Generator`` from which the march draws a uniform jitter [R, S] on the
-rays' device, or that jitter itself as a float32 tensor (what JAX's key would draw; the
-parity tests pass JAX's).
+Kernels: ``raymarch_ray`` is K2 and ``raymarch_voxel`` K7 (``csrc/raymarch.cu``),
+``octree_query`` K9 and ``free_space_distance`` K11 (``csrc/octree.cu``). On a CUDA tensor
+each launches its kernel, on a CPU tensor it runs its plain version. Rendering marches at
+midpoints; training passes a ``key``: a ``torch.Generator`` from which the march draws a
+uniform jitter ([R, S] for 'ray', [R, K, S] for 'voxel') on the rays' device, or that
+jitter itself as a float32 tensor (what JAX's key would draw; the parity tests pass
+JAX's).
 """
 
 from __future__ import annotations
@@ -129,6 +130,132 @@ def raymarch_ray(origins: torch.Tensor, dirs: torch.Tensor, dist_min: float, dis
                    depths.data_ptr(), mask.data_ptr(), kernels.ptr(dens), deltas.data_ptr())
     return ASRaymarchResults(samples=samples, depth_samples=depths, deltas=deltas,
                              mask=mask, cell_density=dens)
+
+
+def num_coarse_segments(level: int) -> int:
+    """Coarse segments of the 'voxel' march at ``level``: one voxel each over the box's
+    diagonal, plus one."""
+    return int(np.ceil(2 * np.sqrt(3) / (2.0 / 2 ** level))) + 1
+
+
+def voxel_slots(num_samples: int, budget: int, level: int) -> int:
+    """K, the segments a ray keeps in the 'voxel' march: budget // num_samples, at least 1,
+    at most every coarse segment."""
+    return max(1, min(budget // max(num_samples, 1), num_coarse_segments(level)))
+
+
+def raymarch_voxel_plain(origins, dirs, dist_min, dist_max, num_samples: int, level: int,
+                         budget: int, occ_grid: Optional[torch.Tensor],
+                         cell_density: Optional[torch.Tensor], max_level: int,
+                         jitter: Optional[torch.Tensor] = None,
+                         early_stop: float = 0.0) -> ASRaymarchResults:
+    """Plain PyTorch version of ``raymarch_voxel`` (octree_as.py:512-610, line by line)."""
+    res = 2 ** level
+    voxel = 2.0 / res
+    t_near, t_far = aabb_intersect(origins, dirs, dist_min, dist_max)
+    t_near = t_near.clamp(min=0.0)
+    n, dev = origins.shape[0], origins.device
+    num_coarse = num_coarse_segments(level)
+    tc = t_near[:, None] + (torch.arange(num_coarse, dtype=torch.float32, device=dev)[None, :]
+                            + 0.5) * voxel
+    coarse = origins[:, None, :] + dirs[:, None, :] * tc[..., None]
+    inside = _inside(coarse)
+    span_valid = (tc - 0.5 * voxel) < t_far[:, None]
+    cdens = None
+    if occ_grid is None and cell_density is None:
+        cmask = inside & span_valid
+    else:
+        q = quantize_points(coarse, max_level)
+        rmax = 2 ** max_level
+        flat = (q[..., 0] * rmax + q[..., 1]) * rmax + q[..., 2]
+        if cell_density is not None:
+            vals = torch.where(inside, cell_density[flat], torch.full_like(tc, -1.0))
+            cmask = (vals >= 0.0) & span_valid
+            cdens = vals.clamp(min=0.0)
+        else:
+            cmask = inside & occ_grid[flat] & span_valid
+    cmask_sel = cmask
+    if cdens is not None and early_stop and early_stop > 0.0:
+        tau_seg = cdens * voxel * cmask.to(torch.float32)
+        t_seg = torch.exp(-(torch.cumsum(tau_seg, dim=1) - tau_seg))
+        cmask_sel = cmask & (t_seg > early_stop)
+    k = voxel_slots(num_samples, budget, level)
+    num_overflow = (cmask_sel.sum(dim=1) > k).sum().to(torch.float32)
+    order = torch.argsort((~cmask_sel).to(torch.uint8), dim=1, stable=True)[:, :k]
+    sel_valid = torch.gather(cmask_sel, 1, order)
+    u = torch.arange(num_samples, dtype=torch.float32, device=dev)[None, None, :]
+    u = u + (0.5 if jitter is None else jitter.reshape(n, k, num_samples))
+    step = torch.tensor(np.float32(voxel / num_samples), device=dev)
+    seg_t0 = t_near[:, None] + order.to(torch.float32) * voxel
+    depths = (seg_t0[..., None] + u * step).reshape(n, k * num_samples)
+    samples = origins[:, None, :] + dirs[:, None, :] * depths[..., None]
+    mask = sel_valid[..., None].expand(n, k, num_samples).reshape(n, k * num_samples)
+    mask = mask & (depths < t_far[:, None])
+    dens = None
+    if cdens is not None:
+        dens = torch.gather(cdens, 1, order)[..., None].expand(n, k, num_samples) \
+            .reshape(n, k * num_samples)
+    return ASRaymarchResults(samples=samples, depth_samples=depths,
+                             deltas=step.expand(n, 1).contiguous(), mask=mask,
+                             cell_density=dens, num_overflow=num_overflow)
+
+
+def raymarch_voxel(origins: torch.Tensor, dirs: torch.Tensor, dist_min: float,
+                   dist_max: float, num_samples: int, level: int, budget: int,
+                   occ_grid: Optional[torch.Tensor], cell_density: Optional[torch.Tensor],
+                   max_level: int, jitter: Optional[torch.Tensor] = None,
+                   early_stop: float = 0.0) -> ASRaymarchResults:
+    """``num_samples`` samples in each of the first K occupied voxels of a ray (K7).
+
+    The ray's box span is cut into ``num_coarse_segments(level)`` segments of one voxel at
+    ``level``; a segment is occupied when its midpoint is in the box, its start before the
+    ray's exit, and the octree's occupancy at ``max_level`` holds there: ``cell_density``
+    (the fused field, -1 = empty; it also gives each segment a density estimate),
+    ``occ_grid`` (bool), or neither (a dense octree: the box alone). With a density field
+    and ``early_stop`` > 0 the segments whose transmittance estimate has fallen to
+    ``early_stop`` are dropped first. The first K = ``voxel_slots(num_samples, budget,
+    level)`` occupied segments in ray order fill the slots, then the others in index order;
+    slot k's depths are t_near + order_k * voxel + (j + u_j) * voxel / num_samples, u = 0.5
+    or ``jitter`` [R, K, S]. ``num_overflow`` counts the rays with more than K occupied
+    segments (a float32 scalar)."""
+    if not origins.is_cuda:
+        return raymarch_voxel_plain(origins, dirs, dist_min, dist_max, num_samples, level,
+                                    budget, occ_grid, cell_density, max_level, jitter,
+                                    early_stop)
+    n = origins.shape[0]
+    s = int(num_samples)
+    if s < 1 or budget < 1 or not 0 <= level <= 10 or not 0 <= max_level <= 10:
+        raise ValueError(f"raymarch_voxel: bad num_samples {s}, budget {budget}, level "
+                         f"{level} or max_level {max_level}")
+    nc = num_coarse_segments(level)
+    k = voxel_slots(s, budget, level)
+    kernels.check(origins, "origins", torch.float32, (n, 3))
+    kernels.check(dirs, "dirs", torch.float32, (n, 3))
+    if cell_density is not None:
+        kernels.check(cell_density, "cell_density", torch.float32, (8 ** max_level,))
+        occ_grid = None  # the field carries the occupancy
+    elif occ_grid is not None:
+        kernels.check(occ_grid, "occ_grid", torch.bool, (8 ** max_level,))
+    if jitter is not None:
+        kernels.check(jitter, "jitter", torch.float32, (n, k, s))
+    dev = origins.device
+    samples = torch.empty((n, k * s, 3), dtype=torch.float32, device=dev)
+    depths = torch.empty((n, k * s), dtype=torch.float32, device=dev)
+    mask = torch.empty((n, k * s), dtype=torch.bool, device=dev)
+    dens = (torch.empty((n, k * s), dtype=torch.float32, device=dev)
+            if cell_density is not None else None)
+    num_overflow = torch.zeros((), dtype=torch.float32, device=dev)
+    voxel = 2.0 / 2 ** level
+    step = float(np.float32(voxel / s))
+    kernels.launch("wisp_raymarch_voxel", "raymarch_voxel", origins.data_ptr(),
+                   dirs.data_ptr(), kernels.ptr(jitter), n, s, k, nc, voxel, step,
+                   float(dist_min), float(dist_max), kernels.ptr(occ_grid),
+                   kernels.ptr(cell_density), int(max_level), float(early_stop or 0.0),
+                   samples.data_ptr(), depths.data_ptr(), mask.data_ptr(), kernels.ptr(dens),
+                   num_overflow.data_ptr())
+    return ASRaymarchResults(samples=samples, depth_samples=depths,
+                             deltas=torch.full((n, 1), step, dtype=torch.float32, device=dev),
+                             mask=mask, cell_density=dens, num_overflow=num_overflow)
 
 
 def octree_query_plain(coords: torch.Tensor, pidx_maps: Sequence[torch.Tensor], level: int,
@@ -362,13 +489,20 @@ class OctreeAS:
     def aabb_intersect(rays: Rays) -> Tuple[torch.Tensor, torch.Tensor]:
         return aabb_intersect(rays.origins, rays.dirs, rays.dist_min, rays.dist_max)
 
-    def raymarch(self, rays: Rays, raymarch_type: str = "ray", num_samples: int = 64,
-                 level: Optional[int] = None, key=None, stride: int = 1
-                 ) -> ASRaymarchResults:
+    def raymarch(self, rays: Rays, raymarch_type: str = "voxel", num_samples: int = 64,
+                 level: Optional[int] = None, key=None, budget: Optional[int] = None,
+                 stride: int = 1, early_stop: float = 0.0) -> ASRaymarchResults:
+        """``budget`` ('voxel' only): the fine samples a ray keeps, ``budget //
+        num_samples`` voxels (default 1024). ``stride`` ('ray' only): see ``raymarch_ray``.
+        ``early_stop`` ('voxel' only): the coarse transmittance cull of ``raymarch_voxel``;
+        0 = off."""
+        if level is None:
+            level = self.max_level
         if raymarch_type == "ray":
             return self._raymarch_ray(rays, num_samples, key, stride=stride)
         if raymarch_type == "voxel":
-            raise NotImplementedError("'voxel' march is not ported yet (ROADMAP Queue 2, K7)")
+            return self._raymarch_voxel(rays, num_samples, level, key, budget=budget or 1024,
+                                        early_stop=early_stop)
         if raymarch_type == "uniform":
             raise NotImplementedError("'uniform' march is not ported yet "
                                       "(ROADMAP Queue 2, K8)")
@@ -385,3 +519,22 @@ class OctreeAS:
         field = None if self.dense else self.cell_density
         return raymarch_ray(rays.origins, rays.dirs, rays.dist_min, rays.dist_max,
                             num_samples, stride, field, self.max_level, jitter)
+
+    def _raymarch_voxel(self, rays: Rays, num_samples: int, level: int, key=None,
+                        budget: int = 1024, early_stop: float = 0.0) -> ASRaymarchResults:
+        """K7 over segments at ``level`` against the occupancy at ``max_level``: the fused
+        density field of a sparse or carved octree, the box alone for a dense one."""
+        n = rays.origins.shape[0]
+        jitter = None
+        if isinstance(key, torch.Generator):
+            k = voxel_slots(num_samples, budget, level)
+            jitter = torch.rand((n, k, num_samples), generator=key, dtype=torch.float32,
+                                device=rays.origins.device)
+        elif key is not None:
+            jitter = key.to(torch.float32).contiguous()
+        occ = field = None
+        if not (self.dense or self.occ_grid is None):
+            occ, field = self.occ_grid, self.cell_density
+        return raymarch_voxel(rays.origins, rays.dirs, rays.dist_min, rays.dist_max,
+                              num_samples, level, budget, occ, field, self.max_level, jitter,
+                              early_stop)

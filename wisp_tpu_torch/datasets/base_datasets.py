@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
+
 
 class WispDataset:
     def __init__(self, dataset_path: Optional[str] = None,
@@ -38,6 +40,11 @@ class MultiviewDataset(WispDataset):
     @property
     def cameras(self):
         raise NotImplementedError
+
+    def as_pointcloud(self) -> Optional[np.ndarray]:
+        """A depth-derived point cloud for the octree, where the dataset has depth (none
+        here yet)."""
+        return None
 
 
 class SDFDataset(WispDataset):

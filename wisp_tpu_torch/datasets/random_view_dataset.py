@@ -256,3 +256,16 @@ class RandomViewDataset(MultiviewDataset):
     @property
     def cameras(self):
         return self._cameras
+
+    @torch.no_grad()
+    def scene_pointcloud(self, num_points: int = 200000, threshold: float = 1.0
+                         ) -> np.ndarray:
+        """Points of the analytic scene's occupied region, for a sparse octree: 4x
+        ``num_points`` uniform draws in the box from ``default_rng(3)`` (JAX's draws), those
+        whose scene density exceeds ``threshold`` (evaluated on the dataset's device), the
+        first ``num_points`` of them."""
+        rng = np.random.default_rng(3)
+        pts = rng.uniform(-1.0, 1.0, (num_points * 4, 3)).astype(np.float32)
+        density, _ = SCENES[self.scene](torch.from_numpy(pts).to(self.device))
+        keep = (density[:, 0] > threshold).cpu().numpy()
+        return pts[keep][:num_points]

@@ -1,14 +1,18 @@
 """Weights carried across: build the port's pipeline from the JAX pipeline's parameters,
 given as numpy arrays, so that both packages compute the same function.
 
-``build_pipeline`` builds the hash-grid NeRF and ``build_sdf_pipeline`` the NGLOD SDF
-(see each). ``sphere_sdf_decoder`` makes the deterministic decoder weights under which a
+``build_pipeline`` builds a NeRF (on a hash grid or an octree grid) and
+``build_sdf_pipeline`` the NGLOD SDF (see each). ``sphere_sdf_decoder`` makes the deterministic decoder weights under which a
 NeuralSDF approximates the sphere |x| - 0.9 (the checks of a render need a field that
 converges; random weights do not).
 
 ``build_pipeline``'s ``params`` keys (the JAX module paths):
 
-* ``grid.codebook.feats`` [total, F] — the flat hash table;
+* ``grid.codebook.feats`` [total, F] — the flat hash table of a hash grid, or
+  ``grid.features.<i>`` [V_i, F] — the dual-vertex features of an OctreeGrid's active LOD i
+  (``config["grid"]["constructor"] == "OctreeGrid"``);
+* ``blas.codes.<l>`` — the sorted morton codes of level l = 0..blas_level of a sparse octree
+  (an OctreeGrid needs one); without them the octree is ``make_dense``;
 * ``decoder_density.layers.<i>.weight`` [out, in] / ``.bias`` [out], ``decoder_density.lout.*``,
   and the same under ``decoder_color``;
 * ``blas.occ_grid`` [8^level] bool and ``blas.cell_density`` [8^level] float32;
@@ -17,7 +21,8 @@ converges; random weights do not).
 
 ``config`` holds the static settings: ``blas_level``, ``blas_dense`` (a ``make_dense`` octree
 never carved), ``grid`` (``resolutions``, ``feature_dim``, ``codebook_bitwidth``,
-``multiscale_type``), ``nef`` (NeuralRadianceField keyword arguments, the prune settings
+``multiscale_type`` of a HashGrid; or ``constructor: "OctreeGrid"`` and the OctreeGrid's
+keyword arguments), ``nef`` (NeuralRadianceField keyword arguments, the prune settings
 ``prune_density_decay``, ``prune_min_density`` and ``prune_grace`` among them) and ``tracer``
 (PackedRFTracer keyword arguments). This module reads numpy only; reading a JAX pipeline
 into such a dict is the caller's business (the parity tests do it).
@@ -65,18 +70,27 @@ def build_pipeline(params: Mapping[str, np.ndarray], config: Dict[str, Any],
     """The port's pipeline holding ``params``."""
     device = resolve_device(device)
     level = int(config["blas_level"])
-    blas = OctreeAS.make_dense(level, device=device)
-    if not config.get("blas_dense", False):
+    if "blas.codes.0" in params:
+        blas = OctreeAS.from_codes([np.asarray(params[f"blas.codes.{l}"])
+                                    for l in range(level + 1)], device=device)
+    else:
+        blas = OctreeAS.make_dense(level, device=device)
+    if not config.get("blas_dense", False) and "blas.occ_grid" in params:
         occ = torch.from_numpy(np.array(params["blas.occ_grid"], dtype=bool)).to(device)
         dens = torch.from_numpy(np.array(params["blas.cell_density"], np.float32))
         blas = blas.update_occupancy(occ, dens.to(device))
-    g = config["grid"]
-    grid = HashGrid(blas=blas, feature_dim=int(g["feature_dim"]),
-                    resolutions=[int(r) for r in g["resolutions"]],
-                    multiscale_type=g.get("multiscale_type", "cat"),
-                    codebook_bitwidth=int(g["codebook_bitwidth"]),
-                    coord_dim=int(g.get("coord_dim", 3)), device=device)
-    _load(grid.codebook.feats, params["grid.codebook.feats"], "grid.codebook.feats")
+    g = dict(config["grid"])
+    if g.pop("constructor", "HashGrid") == "OctreeGrid":
+        grid = OctreeGrid(blas=blas, device=device, **g)
+        for i, feats in enumerate(grid.features):
+            _load(feats, params[f"grid.features.{i}"], f"grid.features.{i}")
+    else:
+        grid = HashGrid(blas=blas, feature_dim=int(g["feature_dim"]),
+                        resolutions=[int(r) for r in g["resolutions"]],
+                        multiscale_type=g.get("multiscale_type", "cat"),
+                        codebook_bitwidth=int(g["codebook_bitwidth"]),
+                        coord_dim=int(g.get("coord_dim", 3)), device=device)
+        _load(grid.codebook.feats, params["grid.codebook.feats"], "grid.codebook.feats")
     nef = NeuralRadianceField(grid=grid, device=device, **config.get("nef", {}))
     _load_decoder(nef.decoder_density, "decoder_density", params)
     _load_decoder(nef.decoder_color, "decoder_color", params)

@@ -39,7 +39,7 @@ LAUNCHES: Dict[str, int] = {"raymarch_ray": 0, "compact": 0, "scatter_back": 0,
                             "scatter_back_bwd": 0, "integrate_bwd": 0, "scatter_max": 0,
                             "octree_query": 0, "free_space_distance": 0, "octree_interp": 0,
                             "sdf_walk": 0, "sphere_step": 0, "octree_interp_bwd": 0,
-                            "mesh_sdf": 0}
+                            "mesh_sdf": 0, "raymarch_voxel": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +49,10 @@ _SIGNATURES = {
     # origins dirs jitter R S stride dist_min dist_max cell_density level
     # samples depths mask dens deltas stream
     "wisp_raymarch_ray": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _I, _P, _P, _P, _P, _P, _P],
+    # origins dirs jitter R S K nc voxel step dist_min dist_max occ cell_density max_level
+    # early_stop samples depths mask dens num_overflow stream
+    "wisp_raymarch_voxel": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _I, _F, _P,
+                            _P, _P, _P, _P, _P],
     # mask samples dirs R S budget block_counts block_offsets count idx cflat cray_d stream
     "wisp_compact": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P],
     # v idx K C P out stream

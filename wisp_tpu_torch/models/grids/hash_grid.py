@@ -21,6 +21,9 @@ from wisp_tpu_torch.ops import grid as grid_ops
 
 
 class HashGrid(BLASGrid):
+    # interpolate takes max_compute_lod (the tracer's spacing-based LOD cap)
+    SUPPORTS_COMPUTE_CAP = True
+
     def __init__(self, blas=None, feature_dim: int = 2,
                  resolutions: Sequence[int] = (16, 32, 64, 128), multiscale_type: str = "sum",
                  feature_std: float = 0.0, feature_bias: float = 0.0,

@@ -93,7 +93,11 @@ class NeuralRadianceField(BaseNeuralField):
         if lod_idx is None:
             lod_idx = len(self.grid.active_lods) - 1
         batch = coords.shape[0]
-        feats = self.grid.interpolate(coords, lod_idx, max_compute_lod=max_compute_lod)
+        # only grids that can cap their computed LODs take the cap (nerf.py:135-140)
+        if max_compute_lod is not None and getattr(self.grid, "SUPPORTS_COMPUTE_CAP", False):
+            feats = self.grid.interpolate(coords, lod_idx, max_compute_lod=max_compute_lod)
+        else:
+            feats = self.grid.interpolate(coords, lod_idx)
         feats = feats.reshape(batch, self.effective_feature_dim())
         if self.pos_embedder is not None:
             pos = self.pos_embedder(coords).reshape(batch, self.pos_embed_dim)

@@ -1,11 +1,13 @@
 """PackedRFTracer — differentiable volumetric radiance-field renderer (counterpart of
 wisp_tpu/tracers/packed_rf_tracer.py, the unsegmented ``trace``).
 
-march (K2) -> step-major compaction into the budget (K3) -> one field call on the kept
-samples (grid: K1) -> scatter-back (K3) -> integration (K4). The JAX tracer evaluates the
-field on all B budget slots; the port evaluates only the min(valid, B) filled ones, which
-leaves every output and gradient unchanged (empty slots are dropped by the scatter-back) at
-the cost of one read of the valid count per trace.
+march (K2 'ray', K7 'voxel') -> step-major compaction into the budget (K3) -> one field call
+on the kept samples (grid: K1 or K15) -> scatter-back (K3) -> integration (K4). The voxel
+march keeps ``march_budget // num_steps`` voxels a ray and counts the rays with more in the
+buffer's ``num_overflow``. The JAX tracer evaluates the field on all B budget slots; the
+port evaluates only the min(valid, B) filled ones, which leaves every output and gradient
+unchanged (empty slots are dropped by the scatter-back) at the cost of one read of the
+valid count per trace.
 
 ``trace`` builds an autograd graph when gradients are enabled: the backward runs K4
 backward, the scatter-back's gather and K1 backward. Rendering wraps its calls in
@@ -33,8 +35,8 @@ class PackedRFTracer(BaseTracer):
                  step_size: float = 1.0,
                  bg_color: Tuple[float, float, float] = (1.0, 1.0, 1.0),
                  compaction: float = 0.0, early_stop: float = 0.0,
-                 lod_spacing_scale: float = 0.0, march_stride: int = 1,
-                 seg_early_stop: float = 0.0, seg_count: int = 4):
+                 lod_spacing_scale: float = 0.0, march_budget: int = 1024,
+                 march_stride: int = 1, seg_early_stop: float = 0.0, seg_count: int = 4):
         super().__init__(bg_color=bg_color)
         self.raymarch_type = raymarch_type
         self.num_steps = num_steps
@@ -42,6 +44,8 @@ class PackedRFTracer(BaseTracer):
         self.compaction = compaction
         self.early_stop = early_stop
         self.lod_spacing_scale = lod_spacing_scale
+        # 'voxel' march: the fine samples a ray keeps, march_budget // num_steps voxels
+        self.march_budget = march_budget
         self.march_stride = march_stride
         self.seg_early_stop = seg_early_stop
         self.seg_count = seg_count
@@ -75,7 +79,7 @@ class PackedRFTracer(BaseTracer):
     def trace(self, nef, rays, channels, extra_channels, lod_idx=None,
               raymarch_type="ray", num_steps=64, step_size=1.0, bg_color=(1.0, 1.0, 1.0),
               key=None, compaction=None, early_stop=None, lod_spacing_scale=None,
-              march_stride=None, seg_early_stop=None, seg_count=None,
+              march_budget=None, march_stride=None, seg_early_stop=None, seg_count=None,
               density_feedback=False):
         if nef.grid is None:
             raise ValueError("PackedRFTracer requires a grid")
@@ -91,6 +95,8 @@ class PackedRFTracer(BaseTracer):
         max_compute_lod = self.max_compute_lod(nef.grid, raymarch_type, num_steps,
                                                lod_spacing_scale)
         march_kw = {}
+        if march_budget and raymarch_type == "voxel":
+            march_kw["budget"] = int(march_budget)
         if march_stride and march_stride > 1 and raymarch_type in ("ray", "uniform"):
             march_kw["stride"] = int(march_stride)
         with torch.no_grad():

@@ -5,17 +5,20 @@ The lifecycle is JAX's: pre_training -> [begin_epoch -> [pre_step -> step -> pos
 end_epoch (validate on its cadence)]* -> post_training, driven one step at a time by
 ``iterate()``. Where JAX jits one function for forward, loss, backward and update, the port
 runs them eagerly: autograd gives the gradients (the kernels' backward launches included)
-and ``torch.optim.AdamW`` applies them.
+and the optimizer of the config's preset applies them.
 
-* The optimizer is JAX's default, ``ConfigAdam`` (Adam, no weight decay), or ``ConfigAdamW``.
-  Both build ``torch.optim.AdamW``: with a weight decay of 0 its update is Adam's, and with
-  a weight decay above 0 JAX's Adam preset is AdamW too.
+* The optimizer is built from any preset of ``wisp_tpu_torch.config.presets`` (``ConfigAdam``,
+  JAX's default; ``ConfigAdamW``, ``ConfigRMSprop``, ``ConfigSGD``), each with the update of
+  the optax optimizer JAX builds from it.
 * Parameter groups by name, as JAX's pytree paths: 'decoder' (weight decay as configured),
   'grid' (lr x ``grid_lr_weight``, no weight decay) and 'rest' (no weight decay).
 * The schedule is JAX's piecewise constant one: after ``int(max_steps*m)`` updates for each
   milestone m, the rate is multiplied by ``scheduler_gamma``.
 * AMP is JAX's bf16 policy (``compute_dtype`` on every BasicDecoder), not
   ``torch.autocast``: parameters and gradients stay float32; bf16 needs no loss scaling.
+* Checkpoints (``save_every``) and render snapshots (``render_every``) are not ported yet
+  (ROADMAP Queue 1, item 1): the trainer refuses a config whose cadence would fire within
+  ``max_epochs``, and any setting of ``config.utils.NOT_PORTED``, by ``check_ported``.
 """
 
 from __future__ import annotations
@@ -27,35 +30,30 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from wisp_tpu_torch.config.presets import ConfigAdam, ConfigAdamW, ConfigRMSprop, ConfigSGD
+from wisp_tpu_torch.config.utils import check_ported, instantiate
 from wisp_tpu_torch.device import DeviceLike, resolve_device
 from wisp_tpu_torch.models.decoders.basic_decoders import BasicDecoder
 from wisp_tpu_torch.trainers.tracker.tracker import Tracker
 
 log = logging.getLogger(__name__)
 
-
-@dataclasses.dataclass
-class ConfigAdam:
-    lr: float = 1e-3
-    betas: Tuple[float, float] = (0.9, 0.999)
-    eps: float = 1e-8
-    weight_decay: float = 0.0
-
-
-@dataclasses.dataclass
-class ConfigAdamW:
-    lr: float = 1e-3
-    betas: Tuple[float, float] = (0.9, 0.999)
-    eps: float = 1e-8
-    weight_decay: float = 1e-2
+__all__ = ["BaseTrainer", "ConfigAdam", "ConfigAdamW", "ConfigBaseTrainer", "ConfigRMSprop",
+           "ConfigSGD", "apply_amp_policy"]
 
 
 @dataclasses.dataclass
 class ConfigBaseTrainer:
-    optimizer: Union[ConfigAdam, ConfigAdamW] = dataclasses.field(default_factory=ConfigAdam)
+    optimizer: Union[ConfigAdam, ConfigAdamW, ConfigRMSprop, ConfigSGD] = \
+        dataclasses.field(default_factory=ConfigAdam)
     exp_name: str = "wisp_experiment"
     max_epochs: int = 250
+    # checkpoints and render snapshots are not ported: a cadence that would fire within
+    # max_epochs is refused (render_every is 100 in JAX; off here, which is what the port does)
+    save_every: int = -1
+    render_every: int = -1
     valid_every: int = -1
+    valid_split: str = "test"
     enable_amp: bool = True
     grid_lr_weight: float = 1.0
     scheduler: bool = False
@@ -74,6 +72,7 @@ def apply_amp_policy(pipeline) -> None:
 class BaseTrainer(ABC):
     def __init__(self, cfg: ConfigBaseTrainer, pipeline, train_dataset,
                  tracker: Optional[Tracker] = None, device: DeviceLike = None):
+        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.pipeline = pipeline
@@ -111,11 +110,10 @@ class BaseTrainer(ABC):
         for name, p in self.pipeline.named_parameters():
             if p.requires_grad:
                 groups[self._param_group(name)].append(p)
-        self.optimizer = torch.optim.AdamW(
-            [{"params": ps, "lr": settings[k][0], "base_lr": settings[k][0],
-              "weight_decay": settings[k][1], "name": k}
-             for k, ps in groups.items() if ps],
-            lr=opt.lr, betas=tuple(opt.betas), eps=opt.eps)
+        self.optimizer = instantiate(opt, params=[
+            {"params": ps, "lr": settings[k][0], "base_lr": settings[k][0],
+             "weight_decay": settings[k][1], "name": k}
+            for k, ps in groups.items() if ps])
         self.num_updates = 0
 
     def lr_scale(self, count: int) -> float:

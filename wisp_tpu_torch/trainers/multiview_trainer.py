@@ -3,11 +3,16 @@ wisp_tpu/trainers/multiview_trainer.py).
 
 * step: trace with gradients (the march jittered from the trainer's generator) -> loss (l2,
   l1 or huber over rays or samples, optional opacity loss for the first 1,000 iterations)
-  -> backward -> AdamW. The step's stats are read at once (JAX defers the fetch by one
-  step to hide a device round trip).
+  -> backward -> the optimizer of the config's preset. The step's stats (loss, valid
+  samples, the voxel march's ``num_overflow``) are read at once, in one device read (JAX
+  defers the fetch by one step to hide a device round trip).
 * adaptive ray batching holds the valid samples per step near ``target_sample_size``, in
   power-of-two batches capped by ``max_compacted_samples``; adaptive compaction grows the
   tracer's budget at once and shrinks it on a window of steps, in half-octave buckets.
+  Both count ``num_steps`` slots a ray, as JAX does, also on a 'voxel' march, whose rays
+  have K x num_steps slots (464 at the octree config): there the valid fraction reads
+  up to K times too high and the budget goes to 1.0. The port keeps the reference's
+  rule (ROADMAP Queue 3).
 * pruning on its cadence (``pre_step``), fed with the running per-cell max of the training
   samples' densities (K5), which each prune consumes and resets.
 * validation renders whole views in chunks without autograd and reports PSNR.
@@ -177,8 +182,10 @@ class MultiviewTrainer(BaseTrainer):
         loss = self.cfg.rgb_lambda * rgb_loss
         if self.cfg.opacity_loss > 0.0 and self.total_iterations < 1000:
             loss = loss + self.cfg.opacity_loss * torch.mean((1.0 - rb.alpha) ** 2)
+        # num_overflow ('voxel' march): the rays whose occupied voxels exceeded the budget
         return loss, {"rgb_loss": rgb_loss, "num_valid_samples": num_valid_samples,
-                      "density_grid_update": rb.density_max_grid}
+                      "num_overflow": rb.channels.get("num_overflow"),
+                      "density_grid_update": rb.channels.get("density_max_grid")}
 
     def step(self, data, key=None):
         """One optimizer step on a batch. ``key`` overrides the trainer's generator: a
@@ -195,9 +202,14 @@ class MultiviewTrainer(BaseTrainer):
         if self._density_feedback:
             torch.maximum(self._density_max_grid, aux["density_grid_update"],
                           out=self._density_max_grid)
-        self.last_loss = float(loss.detach())
-        self._apply_stats(self.last_loss, float(aux["rgb_loss"].detach()),
-                          float(aux["num_valid_samples"]), num_rays)
+        # one device read for the step's stats
+        stats = [loss.detach(), aux["rgb_loss"].detach(), aux["num_valid_samples"]]
+        if aux["num_overflow"] is not None:
+            stats.append(aux["num_overflow"])
+        values = torch.stack([v.float().reshape(()) for v in stats]).tolist()
+        self.last_loss = values[0]
+        self.last_num_overflow = values[3] if len(values) > 3 else None
+        self._apply_stats(values[0], values[1], values[2], num_rays)
 
     def _apply_stats(self, loss: float, rgb_loss: float, num_valid: float, num_rays: int):
         self.tracker.metrics.total_loss += loss
