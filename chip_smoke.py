@@ -62,11 +62,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    plain versions; holds K7 against its plain version at the step's and a render chunk's
    shapes, with a density field and early_stop 0.01 and at an overflowing budget, and K15
    and its backward at F = 5; times K7 and profiles the frame;
-11. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+11. stochastic-backward path: parses app/nerf/configs/nerf_hash_lego_proxy_stoch.yaml
+   through ``main_nerf.parse_args`` as shipped but for 4 views and a temporary log dir,
+   builds it, sets the counts to 0, runs 20 ``iterate()`` steps, the trainer's prune and 5
+   more, reads the counts (K1's stochastic backward once a step that keeps a sample, the
+   exact one never) and holds each step's LOD mask to ``stoch_lods`` at the step's budget
+   rows; holds the kernel against its plain version on the last step's own coordinates
+   and cotangents with injected uniforms (flips allowed only at ties within 4 ulps, and
+   under 1e-4 of the draws), its own sin hash to uniformity (mean, Kolmogorov-Smirnov) and
+   the mean of 256 draws to the exact backward (in units of the Monte-Carlo error); times
+   it beside the exact backward and the plain version; saves the pipeline ('full') and
+   reloads it (one chunk rendered equal), saves the train state, resumes a second trainer
+   from it and runs 5 steps of each (the losses within 1e-4 relative, the codebook within
+   1e-5 of its largest entry), and renders one snapshot through the tracker's visualizer;
+12. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
-   for the SDF kernels, from the SDF training run for its two and from the octree NeRF's
-   25 steps for K7), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path`` and
-   ``octree_nerf_path`` JSON lines, the nvidia-smi line and, last,
+   for the SDF kernels, from the SDF training run for its two, from the octree NeRF's 25
+   steps for K7 and from the stoch path's 25 steps for K1's stochastic backward), the
+   main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``, ``octree_nerf_path`` and
+   ``stoch_path`` JSON lines, the nvidia-smi line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -227,11 +241,15 @@ def plain_versions():
     from wisp_tpu_torch.ops import compaction, grid, integration
     from wisp_tpu_torch.tracers import packed_rf_tracer
     from wisp_tpu_torch.models.grids import octree_grid
+
+    def hashgrid_plain(*args, stoch_grad=False, dense_lod_matmul=None, stoch_rows=None, **kw):
+        return grid.hashgrid_plain(*args, **kw)      # the backward's options: no gradient here
+
     with mock.patch.object(octree_as, "raymarch_ray", octree_as.raymarch_ray_plain), \
             mock.patch.object(octree_as, "raymarch_voxel", octree_as.raymarch_voxel_plain), \
             mock.patch.object(octree_as, "octree_query", octree_as.octree_query_plain), \
             mock.patch.object(octree_grid, "octree_interp", octree_grid.octree_interp_plain), \
-            mock.patch.object(grid, "hashgrid", grid.hashgrid_plain), \
+            mock.patch.object(grid, "hashgrid", hashgrid_plain), \
             mock.patch.object(packed_rf_tracer, "compact", compaction.compact_plain), \
             mock.patch.object(packed_rf_tracer, "scatter_back",
                               compaction.scatter_back_plain), \
@@ -1602,6 +1620,382 @@ def octree_phase(dev):
     return rows, info
 
 
+STOCH_CONFIG = "app/nerf/configs/nerf_hash_lego_proxy_stoch.yaml"
+# the depth cut: 4 views (the config has 100), 25 steps of a 50-epoch run (20, the trainer's
+# prune, 5), then 5 steps of the original and of a trainer resumed from its train state
+STOCH_VIEWS = 4
+STOCH_STEPS_BEFORE_PRUNE = 20
+STOCH_STEPS_AFTER_PRUNE = 5
+STOCH_RESUME_STEPS = 5
+STOCH_DRAWS = 256              # injected-uniform draws of the unbiasedness check
+STOCH_FLIP_SHARE_MAX = 1e-4
+# the resumed codebook may part from the original's in at most this many times the entries
+# in which two resumed trainers part, plus this share of its entries (on the H100, by
+# chip_resume_drift.py: a sound resume parts in 0-21 of the 10,435,874 entries over 8 runs,
+# one that loses the random stream or the optimizer's state in 2.8 or 6.7 million)
+STOCH_DRIFT_RATIO = 4
+STOCH_DRIFT_SHARE = 1e-4
+
+
+def stoch_app(dev, log_dir: str, *extra):
+    """nerf_hash_lego_proxy_stoch.yaml through the port's front end as shipped, but for the
+    number of views and a temporary log dir (the app runs on the card by default)."""
+    from wisp_tpu_torch.app.nerf import main_nerf
+    cfg = main_nerf.parse_args(["--config", STOCH_CONFIG, "--dataset.num-views",
+                                str(STOCH_VIEWS), "--tracker.log-dir", log_dir, *extra])
+    require(cfg.device == "cuda" and cfg.grid.stoch_grad and cfg.trainer.save_every == 50,
+            f"the stoch yaml did not parse as shipped: {cfg.device}, {cfg.grid}")
+    return cfg, main_nerf.build(cfg)
+
+
+@contextmanager
+def recording_stoch_bwd(masks: list, last: dict):
+    """Keep the LOD flags of each launch of the stochastic backward on the training path,
+    and the inputs of the last launch that had samples."""
+    from wisp_tpu_torch.ops import grid as grid_ops
+    real = grid_ops._hashgrid_bwd
+
+    def recording(coords, grad_out, geometry, grad, stoch_mask=None, u0=None, u0_out=None):
+        if stoch_mask is not None:
+            masks.append((tuple(bool(m) for m in stoch_mask), geometry[2], coords.shape[0]))
+            if coords.shape[0] > 0:
+                last.update(coords=coords.detach().clone(), grad_out=grad_out.clone(),
+                            mask=masks[-1][0], n_lods=geometry[2], out_lods=geometry[3],
+                            launch=len(masks))
+        return real(coords, grad_out, geometry, grad, stoch_mask, u0, u0_out)
+
+    with mock.patch.object(grid_ops, "_hashgrid_bwd", recording):
+        yield
+
+
+def state_differences(a, b, key: str = "") -> list:
+    """The keys at which two trainer states (``BaseTrainer.state_dict()``) differ, bit for
+    bit: tensors by dtype, shape and value, containers key by key, the rest by ``==``."""
+    import numpy as np
+    import torch
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [f"{key} (keys {sorted(map(str, a.keys() ^ b.keys()))})"]
+        return [d for k in a for d in state_differences(a[k], b[k], f"{key}.{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [key]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in state_differences(x, y, f"{key}[{i}]")]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.detach().cpu(), b.detach().cpu()))
+        return [] if same else [key]
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return [] if np.array_equal(a, b) else [key]
+    return [] if type(a) is type(b) and a == b else [key]
+
+
+def drift_entries(a, b, tol: float) -> int:
+    """The number of entries in which two tensors differ by more than ``tol``."""
+    return int(((a - b).detach().abs() > tol).sum())
+
+
+def ks_distance(u) -> float:
+    """Kolmogorov-Smirnov distance of the samples ``u`` to U(0, 1)."""
+    import torch
+    s = torch.sort(u.double()).values
+    n = s.numel()
+    i = torch.arange(n, device=s.device, dtype=torch.float64)
+    return max(float(((i + 1) / n - s).max()), float((s - i / n).max()))
+
+
+def stoch_parity(coords, g, args, mask, u0, out_lods) -> dict:
+    """K1's stochastic backward against its plain version with the injected uniforms ``u0``.
+    The flips are counted exactly: with a unit cotangent on the stochastic LODs each table
+    row holds the number of draws that chose it (an integer, exact in float32 in any order
+    of the atomics), so the two differ by one in each of two rows for every draw that fell
+    the other way. A flip is allowed only on the rows of a draw within 4 ulps of a running
+    weight sum. On the step's own cotangent ``g``, every other row agrees to 1e-5 of the
+    largest entry of the table gradient (the atomics' order)."""
+    import torch
+    from wisp_tpu_torch.ops import grid as grid_ops
+    n, n_lods = coords.shape[0], args[2] + 1
+    f_dim = g.shape[1] // out_lods
+    tie_rows, ties = grid_ops.stoch_tie_rows(coords, args[0], args[1], n_lods - 1, args[4],
+                                             mask, u0)
+    ones = torch.zeros_like(g)
+    for i in range(n_lods):
+        if mask[i]:
+            ones[:, i * f_dim:(i + 1) * f_dim] = 1.0
+    counts_k = grid_ops.hashgrid_bwd(coords, ones, *args, out_lods=out_lods, stoch_mask=mask,
+                                     u0=u0)
+    counts_p = grid_ops.hashgrid_bwd_plain(coords, ones, *args, out_lods=out_lods,
+                                           stoch_mask=mask, u0=u0)
+    moved = (counts_k - counts_p)[:, 0]
+    off = moved != 0
+    off[tie_rows] = False
+    got = grid_ops.hashgrid_bwd(coords, g, *args, out_lods=out_lods, stoch_mask=mask, u0=u0)
+    want = grid_ops.hashgrid_bwd_plain(coords, g, *args, out_lods=out_lods, stoch_mask=mask,
+                                       u0=u0)
+    scale = float(want.abs().max())
+    elsewhere = (got - want).abs().max(dim=1).values
+    elsewhere[tie_rows] = 0.0
+    out = {"flips": float(moved.abs().sum()) / 2, "flips_outside_ties": int(off.sum()),
+           "tie_draws": ties, "draws": n * sum(mask[:n_lods]), "err": float(elsewhere.max()),
+           "tol": 1e-5 * scale, "scale": scale}
+    out["held"] = (out["flips_outside_ties"] == 0 and out["flips"] <= ties
+                   and out["flips"] / max(out["draws"], 1) < STOCH_FLIP_SHARE_MAX
+                   and out["err"] <= out["tol"])
+    return out
+
+
+def stoch_kernel_phase(trainer, rec):
+    """K1's stochastic backward on a training step's own coordinates and cotangents:
+    against its plain version with injected uniforms (flips counted where a draw sits within
+    4 ulps of a cumulative boundary), the kernel's sin hash (uniform), the mean of
+    STOCH_DRAWS draws against the exact backward (unbiased), and the times."""
+    import torch
+    from wisp_tpu_torch.ops import grid as grid_ops
+    grid = trainer.pipeline.nef.grid
+    coords, g, mask = rec["coords"], rec["grad_out"], rec["mask"]
+    n, n_lods, out_lods = coords.shape[0], rec["n_lods"], rec["out_lods"]
+    f_dim = grid.feature_dim
+    args = (grid.codebook.resolutions, grid.codebook_bitwidth, n_lods - 1,
+            grid.codebook.total_feats, grid.codebook.begin_idxes, grid.codebook.num_feats)
+    gen = torch.Generator(device=coords.device).manual_seed(11)
+    u0 = torch.rand((n,), generator=gen, device=coords.device)
+    parity = stoch_parity(coords, g, args, mask, u0, out_lods)
+    err, tol, ties, draws = parity["err"], parity["tol"], parity["tie_draws"], parity["draws"]
+    flip_share = parity["flips"] / max(draws, 1)
+    require(parity["held"], f"hashgrid_bwd_stoch against its plain version: {parity}")
+
+    # the kernel's own hash over the step's samples
+    u0_kernel = torch.empty((n,), device=coords.device)
+    hashed = grid_ops.hashgrid_bwd(coords, g, *args, out_lods=out_lods, stoch_mask=mask,
+                                   u0_out=u0_kernel)
+    u0_mean, u0_ks = float(u0_kernel.mean()), ks_distance(u0_kernel)
+    require(abs(u0_mean - 0.5) < 0.01 and u0_ks < 0.01,
+            f"the kernel's sin hash is not uniform: mean {u0_mean}, KS {u0_ks}")
+    # unbiased: the mean of STOCH_DRAWS draws against the exact backward, entry by entry in
+    # units of its Monte-Carlo error (a draw's sd is at most sqrt(sum w g^2))
+    exact = grid_ops.hashgrid_bwd(coords, g, *args, out_lods=out_lods)
+    spread = grid_ops.hashgrid_bwd(coords, g * g, *args, out_lods=out_lods).sqrt()
+    mean = torch.zeros_like(exact)
+    for _ in range(STOCH_DRAWS):
+        u = torch.rand((n,), generator=gen, device=coords.device)
+        mean += grid_ops.hashgrid_bwd(coords, g, *args, out_lods=out_lods, stoch_mask=mask,
+                                      u0=u)
+    mean /= STOCH_DRAWS
+    touched = spread > 0
+    z = (mean - exact)[touched] / (spread[touched] / STOCH_DRAWS ** 0.5)
+    z_rms, z_over = float((z ** 2).mean().sqrt()), float((z.abs() > 4.0).float().mean())
+    require(z_rms <= 1.0 and z_over < 1e-3,
+            f"the stochastic backward looks biased: rms z {z_rms}, share over 4 sd {z_over}")
+
+    rows_written = int((hashed != 0).any(dim=1).sum())
+    nbytes = n * 12 + n * n_lods * f_dim * 4 + rows_written * f_dim * 4
+    # a (sample, LOD): the cell (9), 8 corner weights (16), their running sum and the draw
+    # (16), the hash and its fold (~8)
+    ops = n * n_lods * 49
+    row = kernel_row(
+        "hashgrid_bwd_stoch", "wisp_tpu_torch/csrc/hashgrid.cu", "wisp_tpu/ops/grid.py:66",
+        err, tol,
+        timed(lambda: grid_ops.hashgrid_bwd(coords, g, *args, out_lods=out_lods,
+                                            stoch_mask=mask)),
+        timed(lambda: grid_ops.hashgrid_bwd_plain(coords, g, *args, out_lods=out_lods,
+                                                  stoch_mask=mask), iters=3),
+        nbytes, ops)
+    exact_ms = timed(lambda: grid_ops.hashgrid_bwd(coords, g, *args, out_lods=out_lods))
+    row.update({"exact_bwd_ms": exact_ms[0], "exact_bwd_event_ms": exact_ms[1],
+                "flip_share": flip_share, "flips": parity["flips"], "tie_draws": ties,
+                "draws": draws, "err_scale": parity["scale"],
+                "u0_mean": u0_mean, "u0_ks": u0_ks, "unbiased_z_rms": z_rms,
+                "unbiased_z_over_4_share": z_over, "rows_written": rows_written})
+    return row, {"samples": n, "trained_lods": n_lods, "stoch_mask": list(mask)}
+
+
+def stoch_phase(dev):
+    """The stochastic-backward hash NeRF from its yaml: parse and build as shipped (4
+    views), counts from 0, 20 steps, the trainer's prune, 5 steps, counts read; K1's
+    stochastic backward on step 25's inputs; the pipeline saved ('full') and reloaded, the
+    train state saved and resumed twice (the state restored bit for bit, 5 steps of each
+    and of the original); one render snapshot."""
+    import math
+    import shutil
+    import tempfile
+    import warnings
+    import numpy as np
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.core.camera import Camera
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.ops import grid as grid_ops
+    from wisp_tpu_torch.ops.compaction import compaction_budget
+    from wisp_tpu_torch.ops.raygen.raygen import generate_pinhole_rays
+    from wisp_tpu_torch.trainers.base_trainer import load_pipeline
+    log_dir = tempfile.mkdtemp(prefix="wisp_stoch_")
+    try:
+        t0 = time.perf_counter()
+        try:
+            import torch.utils.tensorboard  # noqa: F401
+            has_tensorboard = True
+        except ImportError:
+            has_tensorboard = False
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("default")
+            cfg, (pipeline, trainer, renderer) = stoch_app(dev, log_dir)
+        tb_warnings = [str(w.message) for w in caught if "tensorboard" in str(w.message)]
+        require(len(tb_warnings) == (0 if has_tensorboard else 1),
+                f"TensorBoard warnings {tb_warnings} (installed: {has_tensorboard})")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        grid, tracer = pipeline.nef.grid, pipeline.tracer
+
+        # -- training: counts from 0, 20 steps, prune, 5 steps, counts read right after --
+        steps, masks, last = [], [], {}
+        kernels.reset_launches()
+        with recording_stoch_bwd(masks, last):
+            for i in range(STOCH_STEPS_BEFORE_PRUNE + STOCH_STEPS_AFTER_PRUNE):
+                if i == STOCH_STEPS_BEFORE_PRUNE:
+                    t1 = time.perf_counter()
+                    trainer.prune()
+                    torch.cuda.synchronize()
+                    prune_ms = (time.perf_counter() - t1) * 1e3
+                rays = trainer.train_dataset.transform.num_samples
+                budget = tracer.compaction
+                t1 = time.perf_counter()
+                trainer.iterate()
+                torch.cuda.synchronize()
+                steps.append({"step": i + 1, "ms": (time.perf_counter() - t1) * 1e3,
+                              "rays": rays, "budget": budget,
+                              "rule_rows": compaction_budget(rays, tracer.num_steps, budget),
+                              "loss": trainer.last_loss})
+        launches = dict(kernels.LAUNCHES)
+        n_steps = len(steps)
+        # once a step; a step whose rays keep no sample has no backward to run
+        with_samples = sum(1 for _, _, n in masks if n > 0)
+        require(len(masks) == n_steps and launches["hashgrid_bwd_stoch"] == with_samples
+                and with_samples >= STOCH_STEPS_BEFORE_PRUNE,
+                f"hashgrid_bwd_stoch launched {launches['hashgrid_bwd_stoch']} times in "
+                f"{n_steps} steps ({with_samples} with samples)")
+        require(launches["hashgrid_bwd"] == 0,
+                "the exact K1 backward ran: one launch covers the mixed LOD set")
+        missing = [k for k in TRAIN_KERNELS if k != "hashgrid_bwd" and launches[k] <= 0]
+        require(not missing, f"kernels not launched on the stoch training path: {missing}")
+        for st, (mask, n_lods, samples) in zip(steps, masks):
+            st["samples"] = samples
+            want = grid_ops.stoch_lods(grid.resolutions[:n_lods], grid.codebook_bitwidth, 3,
+                                       st["rule_rows"], grid.dense_lod_matmul)
+            require(mask == want, f"step {st['step']}: LOD mask {mask}, the rule at "
+                                  f"{st['rule_rows']} rows gives {want}")
+            st["stoch_mask"] = "".join("s" if m else "e" for m in mask)
+        print(json.dumps({"stoch_rule": [(st["step"], st["rule_rows"], st["stoch_mask"])
+                                         for st in steps]}), flush=True)
+        losses = [st["loss"] for st in steps]
+        require(all(math.isfinite(x) for x in losses), f"non-finite stoch loss: {losses}")
+        first, late = sum(losses[:5]) / 5, sum(losses[15:20]) / 5
+        require(late < first, f"the stoch loss did not fall: {first} -> {late}")
+
+        # -- the kernel on the last step's own inputs (the last that kept a sample) ---------
+        require(bool(last), "no training step kept a sample")
+        row, shape_info = stoch_kernel_phase(trainer, last)
+        shape_info["step"] = last.pop("launch")
+        row["launches"] = launches["hashgrid_bwd_stoch"]
+        last.clear()
+
+        # -- the pipeline checkpoint ('full', the yaml's format) and its reload -------------
+        cam = Camera.from_args(eye=EYE, at=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0), width=RES,
+                               height=RES, fov=np.radians(30.0), near=0.0, far=10.0)
+        all_rays = generate_pinhole_rays(cam, device=dev)
+        n_chunk = renderer.render_batch
+        sl = slice(CHUNK_INDEX * n_chunk, (CHUNK_INDEX + 1) * n_chunk)
+        chunk = Rays(all_rays.origins[sl].contiguous(), all_rays.dirs[sl].contiguous(),
+                     all_rays.dist_min, all_rays.dist_max)
+        model_path = trainer.save_model()
+        loaded = load_pipeline(model_path, device=dev)
+        with torch.no_grad():
+            a, b = pipeline(rays=chunk), loaded(rays=chunk)
+        reload_err = max(float((a.channels[k] - b.channels[k]).abs().max())
+                         for k in ("rgb", "alpha", "depth"))
+        require(reload_err <= 1e-6, f"the reloaded pipeline renders otherwise: {reload_err}")
+        require(not loaded.nef.grid.blas.dense, "the reloaded pipeline lost the prune")
+        del loaded
+
+        # -- the train state; two trainers resumed from it, restored bit for bit; 5 steps of
+        # each and of the original. The card's atomics add in no fixed order, and Adam (eps
+        # 1e-16, the grid's lr 0.5) turns a gradient entry that sums to about 0 into a step
+        # of either sign, so the codebooks of any two runs from one state part in a few
+        # entries: the second resumed trainer measures that in this run, and the original
+        # must stay as close to the first as the two resumed ones stay to each other.
+        state_path = trainer.save_training_state()
+        saved = trainer.state_dict()
+        resumed = [stoch_app(dev, log_dir, "--trainer.resume", state_path)[1][1]
+                   for _ in range(2)]
+        for r in resumed:
+            r.begin_training()
+            diffs = state_differences(saved, r.state_dict())
+            require(not diffs, f"the resumed trainer's state differs at {diffs[:8]}")
+        del saved
+        pairs = []
+        for _ in range(STOCH_RESUME_STEPS):
+            trainer.iterate()
+            for r in resumed:
+                r.iterate()
+            pairs.append((trainer.last_loss, resumed[0].last_loss, resumed[1].last_loss))
+        loss_rel = max(abs(x - y) / max(abs(x), 1e-30) for x, y, _ in pairs)
+        require(loss_rel <= 1e-4, f"the resumed run's losses drift: {pairs}")
+        cb = grid.codebook.feats
+        cb_a, cb_b = (r.pipeline.nef.grid.codebook.feats for r in resumed)
+        cb_tol = 1e-5 * float(cb.detach().abs().max())
+        cb_err = float((cb - cb_a).detach().abs().max())
+        control_err = float((cb_a - cb_b).detach().abs().max())
+        drifted, control = drift_entries(cb, cb_a, cb_tol), drift_entries(cb_a, cb_b, cb_tol)
+        require(drifted <= STOCH_DRIFT_RATIO * control + STOCH_DRIFT_SHARE * cb.numel(),
+                f"the resumed codebook drifts: {drifted} entries beyond {cb_tol} (largest "
+                f"{cb_err}), against {control} (largest {control_err}) between the two "
+                f"resumed trainers")
+        for r in resumed:
+            require(r.epoch == trainer.epoch and r.iteration == trainer.iteration
+                    and r.pipeline.tracer.compaction == tracer.compaction,
+                    "the resumed trainer's counters or budget differ")
+        del resumed, cb_a, cb_b
+
+        # -- one render snapshot through the tracker's visualizer ---------------------------
+        images = []
+        log_image = trainer.tracker.log_image
+        trainer.tracker.log_image = lambda name, image, step: (
+            images.append((name, tuple(image.shape))), log_image(name, image, step))
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        trainer.render_snapshot()
+        torch.cuda.synchronize()
+        snapshot_ms = (time.perf_counter() - t1) * 1e3
+        snap_launches = dict(kernels.LAUNCHES)
+        require(all(snap_launches[k] > 0 for k in RENDER_KERNELS)
+                and snap_launches["hashgrid_bwd_stoch"] == 0,
+                f"render snapshot launches {snap_launches}")
+        require(("rgb", (renderer.height, renderer.width, 3)) in images,
+                f"snapshot images {images}")
+        steady = sorted(st["ms"] for st in steps[1:STOCH_STEPS_BEFORE_PRUNE])
+        info = {
+            "stoch_path": "main_nerf.parse_args + build (nerf_hash_lego_proxy_stoch.yaml as "
+                          f"shipped, {STOCH_VIEWS} views), MultiviewTrainer.iterate x "
+                          f"{n_steps} (a prune after {STOCH_STEPS_BEFORE_PRUNE}), "
+                          "save_model + load_pipeline, save_training_state + resume, "
+                          "render_snapshot",
+            "setup_s": setup_s, "step_ms_median": steady[len(steady) // 2],
+            "prune_ms": prune_ms, "loss_steps_1_5": first, "loss_steps_16_20": late,
+            "steps": steps, "launches": launches, "tensorboard_installed": has_tensorboard,
+            "tensorboard_warnings": tb_warnings, "reload_max_abs_err": reload_err,
+            "resume_losses": pairs, "resume_loss_max_rel": loss_rel,
+            "resume_codebook_max_abs_err": cb_err, "resume_codebook_tol": cb_tol,
+            "resume_codebook_drift_entries": drifted, "resume_codebook_entries": cb.numel(),
+            "resume_control_max_abs_err": control_err,
+            "resume_control_drift_entries": control,
+            "snapshot_ms": snapshot_ms, "snapshot_launches": snap_launches,
+            "snapshot_images": images, "kernel_phase_shapes": shape_info,
+        }
+        return [row], info
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -1734,15 +2128,20 @@ def run() -> dict:
     phase_s["sdf train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     octree_rows, octree_info = octree_phase(dev)
+    torch.cuda.empty_cache()
     phase_s["octree nerf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stoch_rows, stoch_info = stoch_phase(dev)
+    phase_s["stoch"] = time.perf_counter() - t0
     print(json.dumps({"kernels": rows + train_rows + sdf_rows + sdf_train_rows
-                      + octree_rows[:1]}), flush=True)
+                      + octree_rows[:1] + stoch_rows}), flush=True)
     print(json.dumps(main), flush=True)
     print(json.dumps(train_info), flush=True)
     print(json.dumps(sdf_info), flush=True)
     print(json.dumps(sdf_train_info), flush=True)
     print(json.dumps({"octree_nerf_path": octree_info, "raymarch_voxel_rows": octree_rows}),
           flush=True)
+    print(json.dumps(stoch_info), flush=True)
     print(json.dumps({"phase_s": phase_s, "profiler_shortfalls": PROFILER_SHORTFALLS}),
           flush=True)
     print(smi, flush=True)

@@ -177,6 +177,87 @@ def test_hashgrid_bwd_kernel(dev, n, dim, lod_idx):
     assert (table.grad - want).abs().max().item() <= 1e-5 * scale
 
 
+def _stoch_inputs(dev, n, dim, seed):
+    resolutions = [4, 8, 16, 32, 64]
+    sizes, first, g = _table(dim, resolutions, 10, seed)
+    coords = (torch.rand(n, dim, generator=g) * 2.1 - 1.05).to(dev)
+    grad_out = torch.randn(n, 5 * 2, generator=g).to(dev)
+    u0 = torch.rand(n, generator=g).to(dev)
+    return resolutions, sizes, first, coords, grad_out, u0
+
+
+@pytest.mark.parametrize("n,dim,mask", [
+    (4000, 3, (True,) * 5), (3000, 2, (True,) * 5),
+    (4000, 3, (False, True, False, True, True)), (0, 3, (True,) * 5)])
+def test_hashgrid_bwd_stoch_kernel(dev, n, dim, mask):
+    """With injected uniforms the kernel draws the plain version's corners: equal to 1e-5 of
+    the largest entry (atomics) outside the rows of draws that sit within 4 ulps of a
+    cumulative boundary, where a flip is allowed and counted exactly (a unit cotangent makes
+    each row the count of its draws); a mixed LOD set (exact and stochastic) in one launch."""
+    resolutions, sizes, first, coords, grad_out, u0 = _stoch_inputs(dev, n, dim, 7)
+    args = (resolutions, 10, 4, first[-1], first, sizes)
+    before = dict(kernels.LAUNCHES)
+    got = grid_ops.hashgrid_bwd(coords, grad_out, *args, out_lods=5, stoch_mask=mask, u0=u0)
+    want = grid_ops.hashgrid_bwd_plain(coords, grad_out, *args, out_lods=5, stoch_mask=mask,
+                                       u0=u0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hashgrid_bwd_stoch"] == before["hashgrid_bwd_stoch"] + (n > 0)
+    assert kernels.LAUNCHES["hashgrid_bwd"] == before["hashgrid_bwd"]
+    tie_rows, ties = grid_ops.stoch_tie_rows(coords, resolutions, 10, 4, first, mask, u0)
+    scale = max(1.0, want.abs().max().item())
+    bad = ((got - want).abs() > 1e-5 * scale).any(dim=1)
+    outside = bad.clone()
+    outside[tie_rows.to(dev)] = False
+    assert not outside.any()
+    assert int(bad.sum()) <= 2 * ties
+    ones = torch.cat([torch.full((n, 2), float(m), device=dev) for m in mask], dim=1)
+    moved = (grid_ops.hashgrid_bwd(coords, ones, *args, out_lods=5, stoch_mask=mask, u0=u0)
+             - grid_ops.hashgrid_bwd_plain(coords, ones, *args, out_lods=5, stoch_mask=mask,
+                                           u0=u0))[:, 0]
+    moved[tie_rows.to(dev)] = 0.0
+    assert not moved.any()
+
+
+def test_hashgrid_stoch_autograd_and_hash(dev):
+    """Autograd through ``hashgrid(stoch_grad=True)`` launches the stochastic backward once
+    (the exact one where the rule keeps every LOD exact); the kernel's own sin hash
+    (``u0_out``) is uniform; the mean of 256 draws approaches the exact gradient."""
+    resolutions, sizes, first, coords, grad_out, _ = _stoch_inputs(dev, 20000, 3, 8)
+    table = torch.zeros(first[-1], 2, device=dev, requires_grad=True)
+    before = dict(kernels.LAUNCHES)
+    out = grid_ops.hashgrid(coords, resolutions, 10, 4, table, first, sizes, out_lods=5,
+                            stoch_grad=True, dense_lod_matmul="bf16")
+    (out * grad_out).sum().backward()
+    assert kernels.LAUNCHES["hashgrid_bwd_stoch"] == before["hashgrid_bwd_stoch"] + 1
+    out = grid_ops.hashgrid(coords, resolutions[:2], 10, 1, table, first, sizes[:2],
+                            stoch_grad=True, dense_lod_matmul="bf16")
+    out.sum().backward()   # res 4 and 8 are dense at bitwidth 10: the exact backward
+    assert kernels.LAUNCHES["hashgrid_bwd"] == before["hashgrid_bwd"] + 1
+    mask = (True,) * 5
+    u0 = torch.empty(coords.shape[0], device=dev)
+    grid_ops.hashgrid_bwd(coords, grad_out, resolutions, 10, 4, first[-1], first, sizes,
+                          out_lods=5, stoch_mask=mask, u0_out=u0)
+    s = torch.sort(u0.double()).values
+    n = s.numel()
+    ks = max((torch.arange(1, n + 1, device=dev) / n - s).max().item(),
+             (s - torch.arange(n, device=dev) / n).max().item())
+    assert abs(s.mean().item() - 0.5) < 0.01 and ks < 0.02
+    exact = grid_ops.hashgrid_bwd(coords, grad_out, resolutions, 10, 4, first[-1], first,
+                                  sizes, out_lods=5)
+    spread = grid_ops.hashgrid_bwd(coords, grad_out ** 2, resolutions, 10, 4, first[-1], first,
+                                   sizes, out_lods=5).sqrt()
+    g = torch.Generator(device=dev).manual_seed(0)
+    mean = torch.zeros_like(exact)
+    for _ in range(256):
+        u = torch.rand(coords.shape[0], generator=g, device=dev)
+        mean += grid_ops.hashgrid_bwd(coords, grad_out, resolutions, 10, 4, first[-1], first,
+                                      sizes, out_lods=5, stoch_mask=mask, u0=u)
+    mean /= 256
+    touched = spread > 0
+    z = (mean - exact)[touched] / (spread[touched] / 16.0)
+    assert (z ** 2).mean().item() <= 1.0 and (z.abs() > 4.0).float().mean().item() < 1e-3
+
+
 @pytest.mark.parametrize("frac,budget", [(0.05, 128 * 40), (0.5, 128 * 40), (0.5, 128)])
 def test_scatter_back_bwd_kernel(dev, frac, budget):
     g = torch.Generator(device="cpu").manual_seed(7)

@@ -31,7 +31,8 @@ TINY = ["--trainer.save-every", "-1", "--trainer.render-every", "-1", "--device"
 
 
 def _args(tmp_path, *extra):
-    return ["--config", CONFIG, *TINY, "--dataset.dataset-path", str(tmp_path), *extra]
+    return ["--config", CONFIG, *TINY, "--dataset.dataset-path", str(tmp_path),
+            "--tracker.log-dir", str(tmp_path), *extra]
 
 
 def test_build_and_two_steps(tmp_path):

@@ -8,14 +8,19 @@ item). The octree is built from the dataset's point cloud with ``--sparse-blas``
 procedural scene's ``scene_pointcloud``, dilated twice), else it is ``make_dense``. The yaml
 files are read as data, with the port's own reader (``wisp_tpu_torch.config``).
 
-Checkpoints (``save_every``) and the ``render_every`` snapshots are not ported yet; a config
-whose cadence would fire within ``max_epochs`` is refused by ``parse_args``, before anything
-is built (``config.utils.check_ported``).
+The tracker gets the app's config (written to ``config.yaml`` in the run's log dir) and a
+512x512 ``OfflineRenderer`` for the ``render_every`` snapshots; ``save_every`` saves the
+pipeline there in the trainer's ``model_format``. ``--pretrained <file>`` starts from a saved
+pipeline when ``model_format`` is 'full', as JAX's app does; with 'state_dict' it is ignored
+there too, and the pipeline of the config is built anew. A setting
+the port has not ported is refused by ``parse_args``, before anything is built
+(``config.utils.check_ported``).
 """
 
 import dataclasses
 import logging
 import sys
+from typing import Optional
 
 import torch
 
@@ -30,6 +35,7 @@ from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
 from wisp_tpu_torch.models.nefs.nerf import NeuralRadianceField
 from wisp_tpu_torch.models.pipeline import Pipeline
 from wisp_tpu_torch.tracers.packed_rf_tracer import PackedRFTracer
+from wisp_tpu_torch.trainers.base_trainer import load_pipeline
 from wisp_tpu_torch.trainers.multiview_trainer import ConfigMultiviewTrainer, MultiviewTrainer
 from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
 from wisp_tpu_torch.trainers.tracker.tracker import ConfigTracker, Tracker
@@ -42,13 +48,14 @@ class NeRFAppConfig:
     blas_level: int = 7
     sparse_blas: bool = False
     nef: autoconfig(NeuralRadianceField) = None
-    grid: autoconfig(HashGrid.from_geometric, OctreeGrid, exclude=("dense_lod_matmul",)) = None
+    grid: autoconfig(HashGrid.from_geometric, OctreeGrid) = None
     tracer: autoconfig(PackedRFTracer) = None
     dataset: autoconfig(RandomViewDataset) = None
     dataset_transform: autoconfig(SampleRays) = None
     trainer: ConfigMultiviewTrainer = None
     tracker: ConfigTracker = None
     log_level: int = logging.INFO
+    pretrained: Optional[str] = None
     device: str = "cuda"
     valid_only: bool = False
 
@@ -77,14 +84,20 @@ def build(cfg: NeRFAppConfig):
         blas = OctreeAS.from_pointcloud(pc, cfg.blas_level, dilate=2, device=device)
     else:
         blas = OctreeAS.make_dense(cfg.blas_level, device=device)
-    grid = instantiate(cfg.grid, blas=blas, generator=gen, device=device)
-    nef = instantiate(cfg.nef, grid=grid, generator=gen, device=device)
-    pipeline = Pipeline(nef=nef, tracer=instantiate(cfg.tracer))
+    if cfg.pretrained and cfg.trainer.model_format == "full":
+        pipeline = load_pipeline(cfg.pretrained, device=device)
+    else:
+        grid = instantiate(cfg.grid, blas=blas, generator=gen, device=device)
+        nef = instantiate(cfg.nef, grid=grid, generator=gen, device=device)
+        pipeline = Pipeline(nef=nef, tracer=instantiate(cfg.tracer))
+    tracker = Tracker(exp_name=cfg.trainer.exp_name, cfg=cfg.tracker)
+    tracker.save_app_config(cfg)
+    renderer = OfflineRenderer(render_res=RENDER_RES, device=device)
+    tracker.set_visualizer(renderer)
     trainer = MultiviewTrainer(cfg=cfg.trainer, pipeline=pipeline, train_dataset=train_dataset,
-                               validation_dataset=validation_dataset,
-                               tracker=Tracker(exp_name=cfg.trainer.exp_name, cfg=cfg.tracker),
+                               validation_dataset=validation_dataset, tracker=tracker,
                                device=device)
-    return pipeline, trainer, OfflineRenderer(render_res=RENDER_RES, device=device)
+    return pipeline, trainer, renderer
 
 
 def main(argv=None):

@@ -15,15 +15,14 @@ The same front end as the JAX package, kept here so that the port imports nothin
 Where JAX tolerates any key it does not know, the port is strict, so that no setting is
 lost on the way: a key of the yaml or the command line is a field of the config, a key the
 port drops on purpose (``DROPPED_KEYS``, each with its reason), or an error. A key or a
-constructor that selects what the port has not ported yet (``NOT_PORTED``, the cadences of
-``CADENCES``, ``NOT_PORTED_CONSTRUCTORS``) raises ``NotImplementedError`` naming its ROADMAP
-item; it is never dropped. A key of ``NOT_PORTED`` that the port's config lacks is dropped
-only where its value is what the port does (``stoch_grad: false``, ``wandb: false``).
+constructor that selects what the port has not ported yet (``NOT_PORTED``,
+``NOT_PORTED_CONSTRUCTORS``) raises ``NotImplementedError`` naming its ROADMAP item; it is
+never dropped. A key of ``NOT_PORTED`` that the port's config lacks is dropped only where
+its value is what the port does (``wandb: false``).
 
 ``parse_config`` refuses each ``NOT_PORTED`` value as it reads it. ``check_ported`` holds a
-whole config tree to the same rules and to ``CADENCES``, which weigh two settings (a
-cadence against ``max_epochs``); ``BaseTrainer`` runs it on its own config, and an app runs
-it on its parsed config to refuse before it builds anything.
+whole config tree to the same rules; ``BaseTrainer`` runs it on its own config, and an app
+runs it on its parsed config to refuse before it builds anything.
 """
 
 from __future__ import annotations
@@ -45,21 +44,25 @@ _PRIMITIVES = (int, float, bool, str)
 
 # keys that the JAX package reads and the port drops on purpose, with the reason
 DROPPED_KEYS: Dict[str, str] = {
-    "dense_lod_matmul": "a TPU matrix-unit layout of the hash grid; the port always gathers",
+    "dense_lod_matmul": "a hash-grid setting (the TPU matrix-unit layout of its dense LODs; "
+                        "the port's hash grid reads it for the stochastic backward's rule "
+                        "and always gathers): a grid without it, the octree grid, drops it "
+                        "as JAX does",
     "gt_device": "where JAX integrates the ground truth (TPU or host); the port integrates "
                  "it on the dataset's device",
     "dataset_num_workers": "JAX's host loader processes; the port's datasets live on the "
                            "device",
     "mode": "a trainer setting that nothing in the JAX package reads either",
-    "model_format": "the format of checkpoints and of --pretrained, neither of which is "
-                    "ported (save_every and pretrained are refused)",
-    "log_dir": "where JAX's TensorBoard writes; the port's tracker writes no files",
+    "viz360_num_angles": "the tracker's 360° orbit (JAX tracker.py:195 log_360_orbit), which "
+                         "nothing in the JAX package calls; the orbit is not ported",
+    "viz360_radius": "the tracker's 360° orbit (JAX tracker.py:195 log_360_orbit), which "
+                     "nothing in the JAX package calls; the orbit is not ported",
+    "viz360_render_all_lods": "the tracker's 360° orbit, which JAX's ConfigVisCameras "
+                              "carries and nothing reads; the orbit is not ported",
 }
 
 # keys whose value selects what is not ported yet: (the test on the value, what and where)
 NOT_PORTED: Dict[str, Tuple[Callable[[Any], bool], str]] = {
-    "stoch_grad": (bool, "the stochastic hash-grid backward (ROADMAP Queue 2, K1 stoch "
-                         "bwd; nerf_hash_lego_proxy_stoch.yaml)"),
     "early_stop": (lambda v: v is not None and float(v) > 0.0,
                    "early_stop > 0, the transmittance cull (ROADMAP Queue 1, item 5)"),
     "seg_early_stop": (lambda v: v is not None and float(v) > 0.0,
@@ -70,20 +73,9 @@ NOT_PORTED: Dict[str, Tuple[Callable[[Any], bool], str]] = {
     "render_segments": (lambda v: v is not None and int(v) > 1,
                         "render_segments > 1, the segmented render (ROADMAP Queue 1, "
                         "item 5)"),
-    "checkpoint_every": (lambda v: v is not None and int(v) > 0,
-                         "checkpoints (ROADMAP Queue 1, item 1)"),
-    "resume": (lambda v: v is not None, "resuming from a checkpoint (ROADMAP Queue 1, item 1)"),
-    "pretrained": (lambda v: v is not None, "loading a pretrained pipeline (ROADMAP Queue 1, "
-                                            "item 1)"),
     "profile": (bool, "the trainer's profiler trace (ROADMAP Queue 1, item 4)"),
-    "wandb": (bool, "wandb (ROADMAP Queue 1, item 1)"),
-}
-
-# cadences (in epochs) of what is not ported yet: refused where they would fire within
-# max_epochs; -1 turns each off
-CADENCES: Dict[str, str] = {
-    "save_every": "checkpoints (ROADMAP Queue 1, item 1)",
-    "render_every": "render snapshots (ROADMAP Queue 1, item 1)",
+    "wandb": (bool, "wandb, which publishes to an external service (ROADMAP Queue 1, "
+                    "item 1)"),
 }
 
 # constructor names of the JAX package's unions that the port has not ported yet
@@ -403,24 +395,13 @@ def _tree(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 def check_ported(cfg, path: str = "") -> None:
     """Raise ``NotImplementedError`` if any value of the config tree selects what is not
-    ported yet: a ``NOT_PORTED`` value, or a ``CADENCES`` cadence that would fire within
-    the same node's ``max_epochs`` (all such cadences in one message, with their flags)."""
+    ported yet (a ``NOT_PORTED`` value)."""
     for f in dataclasses.fields(cfg):
         v = getattr(cfg, f.name)
         if dataclasses.is_dataclass(v):
             check_ported(v, f"{path}{f.name}.")
         else:
             refuse_unported(f.name, v, path)
-    max_epochs = getattr(cfg, "max_epochs", None)
-    if max_epochs is None:
-        return
-    cadences = [(name, getattr(cfg, name, -1)) for name in CADENCES]
-    firing = [(name, every) for name, every in cadences if 0 <= every <= max_epochs]
-    if firing:
-        raise NotImplementedError(
-            "; ".join(f"{path}{name} {every} selects {CADENCES[name]}" for name, every in firing)
-            + f": not ported yet, and within max_epochs {max_epochs} it would fire (off with "
-            + " and ".join(f"--{path}{name} -1".replace("_", "-") for name, _ in firing) + ")")
 
 
 def parse_config(config_class, args: Optional[List[str]] = None, yaml_arg: str = "--config"):

@@ -27,6 +27,23 @@
 // aggregation or shared-memory accumulation of those LODs is later work. The summation
 // order changes from run to run, so the result matches the plain version to float32
 // rounding, not bit for bit.
+//
+// K1 (stochastic backward) — replaces wisp_tpu/ops/grid.py interp_rows_stoch (:66) with
+// its backward _irs_bwd (:94), the corner draw of _lod_features (:182-191), the per-sample
+// uniforms of _hashgrid_impl (:309-317) and _fold_u (:295). On a LOD flagged stochastic the
+// whole cotangent row g of a (sample, LOD) goes to ONE corner, drawn with probability equal
+// to its trilinear weight: u0 = frac(|sin(12.9898x + 78.233y + 37.719z)| * 43758.5453) (or
+// the caller's u0), u = frac(u0 + 0.61803398875 (l+1)), the weights' running sum wcum in
+// corner order, chosen = #{c : wcum[c] < u * wcum[last]}, clamped. That is F atomics a
+// (sample, LOD) against the exact backward's 2^d * F. LODs not flagged take the exact
+// branch above, so one launch covers the mixed LOD set of JAX's dense_lod_matmul rule. The
+// entry point is the exact backward's: a null flag array selects the template instantiation
+// without the draw, which keeps the exact kernel's code. Bound on this card: the cotangent
+// read (N * L * F floats) and the scattered row updates; the hash LODs' rows are spread over
+// 42 MB, so the atomics land in L2 almost without contention. CUDA's sinf is not XLA's or
+// torch's sin on the CPU, and the hash multiplies the phase's last bits by 4e4, so the drawn
+// corners agree across implementations only through an injected u0; the in-kernel hash is
+// held statistically (uniform, unbiased).
 #include "common.cuh"
 
 namespace {
@@ -116,14 +133,59 @@ __global__ void hashgrid_fwd_kernel(const float* __restrict__ coords,
   for (int f = 0; f < F; ++f) o[f] = acc[f];
 }
 
-template <int D, int F>
+// per-LOD flags of the stochastic backward: stoch[l] != 0 draws one corner, ushift[l] is
+// float32(0.61803398875 * (l + 1)), the golden-ratio shift of _fold_u as JAX rounds it
+struct StochTable {
+  int stoch[kMaxLods];
+  float ushift[kMaxLods];
+};
+
+// the per-sample uniform of _hashgrid_impl: phase summed left to right, no fused multiply-add
+template <int D>
+__device__ __forceinline__ float sin_hash_u0(const float* __restrict__ c) {
+  float phase = c[0] * 12.9898f + c[1] * 78.233f;
+  if (D == 3) phase = phase + c[2] * 37.719f;
+  const float u = fabsf(sinf(phase)) * 43758.5453f;
+  return u - floorf(u);
+}
+
+// corner c's table row (within its LOD) and trilinear weight, in the forward's float order
+template <int D>
+__device__ __forceinline__ void corner_row(int c, const unsigned* c0, const float* frac,
+                                           int res, bool dense, unsigned codebook_size,
+                                           unsigned& idx, float& w) {
+  const unsigned primes[3] = {1u, 2654435761u, 805459861u};
+  unsigned stride = 1u;
+  idx = 0u;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const unsigned bit = (c >> (D - 1 - d)) & 1u;
+    const unsigned cc = c0[d] + bit;
+    const float wd = bit ? frac[d] : 1.0f - frac[d];
+    w = d == 0 ? wd : w * wd;
+    if (dense) {
+      idx += cc * stride;
+      stride *= (unsigned)res;
+    } else {
+      idx = d == 0 ? cc * primes[0] : idx ^ (cc * primes[d]);
+    }
+  }
+  if (!dense) idx %= codebook_size;
+}
+
+// STOCH false: the exact backward. STOCH true: LODs flagged in ``s`` draw one corner from
+// u0_in (or the sin hash when it is null); u0_out, when given, receives each sample's u0.
+template <int D, int F, bool STOCH>
 __global__ void hashgrid_bwd_kernel(const float* __restrict__ coords,
-                                    const float* __restrict__ grad_out, long long N,
-                                    LodTable t, float* __restrict__ grad_table) {
+                                    const float* __restrict__ grad_out,
+                                    const float* __restrict__ u0_in,
+                                    float* __restrict__ u0_out, long long N, LodTable t,
+                                    StochTable s, float* __restrict__ grad_table) {
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (tid >= N * t.n_lods) return;
   const long long n = tid / t.n_lods;
   const int l = (int)(tid % t.n_lods);
+  if (STOCH && u0_out != nullptr && l == 0) u0_out[n] = sin_hash_u0<D>(coords + n * D);
   const float* g = grad_out + (n * t.out_lods + l) * F;
   float gv[F];
   bool any = false;
@@ -134,6 +196,7 @@ __global__ void hashgrid_bwd_kernel(const float* __restrict__ coords,
   }
   if (!any) return;  // a zero cotangent adds nothing
   const int res = t.res[l];
+  const bool dense = t.dense[l] != 0;
   unsigned c0[D];
   float frac[D];
 #pragma unroll
@@ -144,25 +207,36 @@ __global__ void hashgrid_bwd_kernel(const float* __restrict__ coords,
     c0[d] = (unsigned)(int)fl;
     frac[d] = x - fl;
   }
-  const unsigned primes[3] = {1u, 2654435761u, 805459861u};
+  if (STOCH && s.stoch[l]) {
+    float wcum[1 << D];
+#pragma unroll
+    for (int c = 0; c < (1 << D); ++c) {
+      unsigned idx;
+      float w;
+      corner_row<D>(c, c0, frac, res, dense, t.codebook_size, idx, w);
+      wcum[c] = c == 0 ? w : wcum[c - 1] + w;
+    }
+    const float u0 = u0_in != nullptr ? u0_in[n] : sin_hash_u0<D>(coords + n * D);
+    float u = u0 + s.ushift[l];
+    u = u - floorf(u);
+    const float target = u * wcum[(1 << D) - 1];
+    int chosen = 0;
+#pragma unroll
+    for (int c = 0; c < (1 << D); ++c) chosen += wcum[c] < target ? 1 : 0;
+    chosen = min(chosen, (1 << D) - 1);
+    unsigned idx;
+    float w;
+    corner_row<D>(chosen, c0, frac, res, dense, t.codebook_size, idx, w);
+    float* row = grad_table + (t.begin[l] + (long long)idx) * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) atomicAdd(row + f, gv[f]);
+    return;
+  }
 #pragma unroll
   for (int c = 0; c < (1 << D); ++c) {
-    float w = 1.0f;
-    unsigned idx = 0u, stride = 1u;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const unsigned bit = (c >> (D - 1 - d)) & 1u;
-      const unsigned cc = c0[d] + bit;
-      const float wd = bit ? frac[d] : 1.0f - frac[d];
-      w = d == 0 ? wd : w * wd;
-      if (t.dense[l]) {
-        idx += cc * stride;
-        stride *= (unsigned)res;
-      } else {
-        idx = d == 0 ? cc * primes[0] : idx ^ (cc * primes[d]);
-      }
-    }
-    if (!t.dense[l]) idx %= t.codebook_size;
+    unsigned idx;
+    float w;
+    corner_row<D>(c, c0, frac, res, dense, t.codebook_size, idx, w);
     float* row = grad_table + (t.begin[l] + (long long)idx) * F;
 #pragma unroll
     for (int f = 0; f < F; ++f) atomicAdd(row + f, gv[f] * w);
@@ -171,12 +245,18 @@ __global__ void hashgrid_bwd_kernel(const float* __restrict__ coords,
 
 template <int D, int F>
 cudaError_t launch_bwd(const float* coords, const float* grad_out, long long N,
-                       const LodTable& t, float* grad_table, cudaStream_t st) {
+                       const LodTable& t, const StochTable* s, const float* u0_in,
+                       float* u0_out, float* grad_table, cudaStream_t st) {
   const long long n = N * t.n_lods;
   if (n > 0) {
     const int threads = 256;
-    hashgrid_bwd_kernel<D, F><<<wisp::ceil_div(n, threads), threads, 0, st>>>(
-        coords, grad_out, N, t, grad_table);
+    if (s == nullptr) {
+      hashgrid_bwd_kernel<D, F, false><<<wisp::ceil_div(n, threads), threads, 0, st>>>(
+          coords, grad_out, nullptr, nullptr, N, t, StochTable{}, grad_table);
+    } else {
+      hashgrid_bwd_kernel<D, F, true><<<wisp::ceil_div(n, threads), threads, 0, st>>>(
+          coords, grad_out, u0_in, u0_out, N, t, *s, grad_table);
+    }
   }
   return cudaGetLastError();
 }
@@ -193,18 +273,30 @@ cudaError_t launch(const float* coords, const float* table, long long N, const L
   return cudaGetLastError();
 }
 
+// the backward's stochastic part: the per-LOD flags and the caller's uniforms
+struct StochArgs {
+  const StochTable* table;  // null: the exact backward
+  const float* u0_in;
+  float* u0_out;
+};
+
 // backward: `table` is the cotangent [N, out_lods*F] and `out` the table gradient
 template <int D>
 cudaError_t dispatch_f(int F, bool backward, const float* coords, const float* table,
-                       long long N, const LodTable& t, float* out, cudaStream_t st) {
+                       long long N, const LodTable& t, const StochArgs& sa, float* out,
+                       cudaStream_t st) {
   switch (F) {
-    case 1: return backward ? launch_bwd<D, 1>(coords, table, N, t, out, st)
+    case 1: return backward ? launch_bwd<D, 1>(coords, table, N, t, sa.table, sa.u0_in,
+                                               sa.u0_out, out, st)
                             : launch<D, 1>(coords, table, N, t, out, st);
-    case 2: return backward ? launch_bwd<D, 2>(coords, table, N, t, out, st)
+    case 2: return backward ? launch_bwd<D, 2>(coords, table, N, t, sa.table, sa.u0_in,
+                                               sa.u0_out, out, st)
                             : launch<D, 2>(coords, table, N, t, out, st);
-    case 4: return backward ? launch_bwd<D, 4>(coords, table, N, t, out, st)
+    case 4: return backward ? launch_bwd<D, 4>(coords, table, N, t, sa.table, sa.u0_in,
+                                               sa.u0_out, out, st)
                             : launch<D, 4>(coords, table, N, t, out, st);
-    case 8: return backward ? launch_bwd<D, 8>(coords, table, N, t, out, st)
+    case 8: return backward ? launch_bwd<D, 8>(coords, table, N, t, sa.table, sa.u0_in,
+                                               sa.u0_out, out, st)
                             : launch<D, 8>(coords, table, N, t, out, st);
     default: return cudaErrorInvalidValue;
   }
@@ -213,7 +305,7 @@ cudaError_t dispatch_f(int F, bool backward, const float* coords, const float* t
 int run(bool backward, const float* coords, const float* table, long long N, int dim,
         int F, int n_lods, int out_lods, const int* res, const float* scale, const float* hi,
         const long long* begin, const int* dense, unsigned codebook_size, float* out,
-        void* stream) {
+        void* stream, const StochArgs& sa = StochArgs{nullptr, nullptr, nullptr}) {
   if (n_lods > kMaxLods || out_lods > kMaxLods || n_lods > out_lods)
     return (int)cudaErrorInvalidValue;
   LodTable t;
@@ -229,8 +321,8 @@ int run(bool backward, const float* coords, const float* table, long long N, int
   }
   cudaStream_t st = (cudaStream_t)stream;
   switch (dim) {
-    case 2: return (int)dispatch_f<2>(F, backward, coords, table, N, t, out, st);
-    case 3: return (int)dispatch_f<3>(F, backward, coords, table, N, t, out, st);
+    case 2: return (int)dispatch_f<2>(F, backward, coords, table, N, t, sa, out, st);
+    case 3: return (int)dispatch_f<3>(F, backward, coords, table, N, t, sa, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -248,12 +340,28 @@ WISP_EXPORT int wisp_hashgrid_fwd(const float* coords, const float* table, long 
 }
 
 // grad_out: [N, out_lods*F] cotangent of the forward's output; grad_table: the [T, F]
-// table gradient, zeroed by the caller, into which LODs 0..n_lods-1 accumulate.
-WISP_EXPORT int wisp_hashgrid_bwd(const float* coords, const float* grad_out, long long N,
-                                  int dim, int F, int n_lods, int out_lods, const int* res,
+// table gradient, zeroed by the caller, into which LODs 0..n_lods-1 accumulate. stoch: null
+// for the exact backward, else a host array of n_lods flags, stoch[l] != 0 sending the whole
+// cotangent row of LOD l to one drawn corner. u0_in: [N] uniforms, or null for the in-kernel
+// sin hash; u0_out: null, or [N] to receive the hash's uniforms (u0_in must then be null);
+// both are null in the exact backward.
+WISP_EXPORT int wisp_hashgrid_bwd(const float* coords, const float* grad_out,
+                                  const float* u0_in, float* u0_out, long long N, int dim,
+                                  int F, int n_lods, int out_lods, const int* res,
                                   const float* scale, const float* hi,
-                                  const long long* begin, const int* dense,
+                                  const long long* begin, const int* dense, const int* stoch,
                                   unsigned codebook_size, float* grad_table, void* stream) {
+  if (n_lods > kMaxLods || (u0_in != nullptr && u0_out != nullptr) ||
+      (stoch == nullptr && (u0_in != nullptr || u0_out != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  StochTable s{};
+  if (stoch != nullptr) {
+    for (int l = 0; l < n_lods; ++l) {
+      s.stoch[l] = stoch[l];
+      s.ushift[l] = (float)(0.61803398875 * (double)(l + 1));
+    }
+  }
   return run(true, coords, grad_out, N, dim, F, n_lods, out_lods, res, scale, hi, begin,
-             dense, codebook_size, grad_table, stream);
+             dense, codebook_size, grad_table, stream,
+             StochArgs{stoch != nullptr ? &s : nullptr, u0_in, u0_out});
 }

@@ -39,7 +39,7 @@ LAUNCHES: Dict[str, int] = {"raymarch_ray": 0, "compact": 0, "scatter_back": 0,
                             "scatter_back_bwd": 0, "integrate_bwd": 0, "scatter_max": 0,
                             "octree_query": 0, "free_space_distance": 0, "octree_interp": 0,
                             "sdf_walk": 0, "sphere_step": 0, "octree_interp_bwd": 0,
-                            "mesh_sdf": 0, "raymarch_voxel": 0}
+                            "mesh_sdf": 0, "raymarch_voxel": 0, "hashgrid_bwd_stoch": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,10 +62,10 @@ _SIGNATURES = {
     # coords table N dim F n_lods out_lods res scale hi begin dense codebook_size out stream
     "wisp_hashgrid_fwd": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_uint32,
                           _P, _P],
-    # coords grad_out N dim F n_lods out_lods res scale hi begin dense codebook_size
-    # grad_table stream
-    "wisp_hashgrid_bwd": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_uint32,
-                          _P, _P],
+    # coords grad_out u0_in u0_out N dim F n_lods out_lods res scale hi begin dense stoch
+    # codebook_size grad_table stream
+    "wisp_hashgrid_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                          ctypes.c_uint32, _P, _P],
     # density deltas depths mask color extra R S Ce bg0 bg1 bg2 rgb alpha depth hit
     # extra_out stream
     "wisp_integrate_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P,

@@ -5,6 +5,11 @@ backward on the card. ``occupancy`` [8^level] is the prune keep-score of the bla
 
 The reference quirks stay: under 'cat' the columns from ``lod_idx*feature_dim`` on are
 zeroed, so those LODs are never computed; 'sum' adds all LODs.
+
+``stoch_grad`` selects JAX's stochastic single-corner backward (``ops.grid.stoch_lods``
+names the LODs it reaches). ``dense_lod_matmul`` is JAX's TPU matrix-product layout of the
+dense LODs; the port always gathers in float32, and the option acts only through JAX's
+rule that keeps the exact gradient on dense LODs where it is set.
 """
 
 from __future__ import annotations
@@ -28,13 +33,16 @@ class HashGrid(BLASGrid):
                  resolutions: Sequence[int] = (16, 32, 64, 128), multiscale_type: str = "sum",
                  feature_std: float = 0.0, feature_bias: float = 0.0,
                  codebook_bitwidth: int = 8, coord_dim: int = 3,
-                 dense_lod_matmul: Optional[str] = None,
+                 dense_lod_matmul: Optional[str] = None, stoch_grad: bool = False,
                  generator: Optional[torch.Generator] = None, device: DeviceLike = None):
         super().__init__()
         if coord_dim not in (2, 3):
             raise ValueError(f"coord_dim must be 2 or 3, got {coord_dim}")
         if multiscale_type not in ("cat", "sum"):
             raise NotImplementedError(multiscale_type)
+        if dense_lod_matmul not in (None, "bf16", "f32", "f32_highest"):
+            raise ValueError(f"dense_lod_matmul must be None, 'bf16', 'f32' or "
+                             f"'f32_highest', got {dense_lod_matmul!r}")
         device = resolve_device(device)
         self.blas = blas
         self.feature_dim = feature_dim
@@ -43,9 +51,10 @@ class HashGrid(BLASGrid):
         self.codebook_size = 2 ** codebook_bitwidth
         self.coord_dim = coord_dim
         # The JAX package interpolates dense LODs with one TPU matrix product when this is
-        # set ('bf16' is ~2e-2 off). That is a TPU layout trick: the port always gathers,
-        # and accepts the option only so that configs load unchanged.
+        # set ('bf16' is ~2e-2 off). That is a TPU layout trick: the port always gathers. It
+        # still decides which LODs take the stochastic backward (ops.grid.stoch_lods).
         self.dense_lod_matmul = dense_lod_matmul
+        self.stoch_grad = bool(stoch_grad)
         self.resolutions = tuple(int(r) for r in resolutions)
         self.num_lods = len(self.resolutions)
         self.active_lods = tuple(range(self.num_lods))
@@ -63,7 +72,7 @@ class HashGrid(BLASGrid):
                        multiscale_type: str = "sum", feature_std: float = 0.0,
                        feature_bias: float = 0.0, codebook_bitwidth: int = 8,
                        min_grid_res: int = 16, max_grid_res: int = 2048, coord_dim: int = 3,
-                       dense_lod_matmul: Optional[str] = None,
+                       dense_lod_matmul: Optional[str] = None, stoch_grad: bool = False,
                        generator: Optional[torch.Generator] = None,
                        device: DeviceLike = None) -> "HashGrid":
         """Geometric growth of the resolutions (instant-ngp eq. 2-3)."""
@@ -73,11 +82,12 @@ class HashGrid(BLASGrid):
                    multiscale_type=multiscale_type, feature_std=feature_std,
                    feature_bias=feature_bias, codebook_bitwidth=codebook_bitwidth,
                    coord_dim=coord_dim, dense_lod_matmul=dense_lod_matmul,
-                   generator=generator, device=device)
+                   stoch_grad=stoch_grad, generator=generator, device=device)
 
-    def interpolate(self, coords: torch.Tensor, lod_idx,
-                    max_compute_lod: Optional[int] = None) -> torch.Tensor:
-        """[..., d] -> features; LODs above ``max_compute_lod`` give zeros."""
+    def interpolate(self, coords: torch.Tensor, lod_idx, max_compute_lod: Optional[int] = None,
+                    stoch_rows: Optional[int] = None) -> torch.Tensor:
+        """[..., d] -> features; LODs above ``max_compute_lod`` give zeros. ``stoch_rows``:
+        the row count of the JAX call (the tracer's budget), for ``stoch_lods``."""
         output_shape = coords.shape[:-1]
         flat = coords.reshape(-1, coords.shape[-1])
         num_compute = self.num_lods
@@ -94,7 +104,10 @@ class HashGrid(BLASGrid):
         else:
             feats = grid_ops.hashgrid(flat, self.codebook.resolutions, self.codebook_bitwidth,
                                       num_compute - 1, table, self.codebook.begin_idxes,
-                                      self.codebook.num_feats, out_lods=self.num_lods)
+                                      self.codebook.num_feats, out_lods=self.num_lods,
+                                      stoch_grad=self.stoch_grad,
+                                      dense_lod_matmul=self.dense_lod_matmul,
+                                      stoch_rows=stoch_rows)
         if self.multiscale_type == "cat":
             return feats.reshape(*output_shape, width)
         return feats.reshape(*output_shape, self.num_lods, self.feature_dim).sum(-2)

@@ -88,16 +88,20 @@ class NeuralRadianceField(BaseNeuralField):
     def register_forward_functions(self):
         self._register_forward_function(self.rgba, ["density", "rgb"])
 
-    def rgba(self, coords, ray_d, lod_idx=None, max_compute_lod=None):
-        """[N,3] coords + [N,3] view dirs -> {'rgb': [N,3], 'density': [N,1]}."""
+    def rgba(self, coords, ray_d, lod_idx=None, max_compute_lod=None, stoch_rows=None):
+        """[N,3] coords + [N,3] view dirs -> {'rgb': [N,3], 'density': [N,1]}.
+        ``stoch_rows``: the rows of the JAX call (the tracer's budget), which a hash grid's
+        stochastic backward rule reads."""
         if lod_idx is None:
             lod_idx = len(self.grid.active_lods) - 1
         batch = coords.shape[0]
+        kwargs = {}
         # only grids that can cap their computed LODs take the cap (nerf.py:135-140)
         if max_compute_lod is not None and getattr(self.grid, "SUPPORTS_COMPUTE_CAP", False):
-            feats = self.grid.interpolate(coords, lod_idx, max_compute_lod=max_compute_lod)
-        else:
-            feats = self.grid.interpolate(coords, lod_idx)
+            kwargs["max_compute_lod"] = max_compute_lod
+        if stoch_rows is not None and getattr(self.grid, "stoch_grad", False):
+            kwargs["stoch_rows"] = stoch_rows
+        feats = self.grid.interpolate(coords, lod_idx, **kwargs)
         feats = feats.reshape(batch, self.effective_feature_dim())
         if self.pos_embedder is not None:
             pos = self.pos_embedder(coords).reshape(batch, self.pos_embed_dim)

@@ -9,16 +9,25 @@ like the JAX ``hashgrid_naive`` (:407) but with the coordinate transform of
 the plain version is its plain backward: the row gather's backward is a scatter-add, as
 JAX's ``_gather_rows_bwd`` (:55).
 
+With ``stoch_grad`` the backward is JAX's stochastic one (``interp_rows_stoch``, :66): on
+the LODs that ``stoch_lods`` names, the whole cotangent of a (sample, LOD) goes to one
+corner, drawn with probability equal to its weight from the per-sample uniform
+``stoch_u0`` shifted by ``fold_u``. The forward is unchanged. ``hashgrid_bwd`` and its
+plain version take the LOD flags (``stoch_mask``): on the card one launch covers the mixed
+set of stochastic and exact LODs, counted as ``hashgrid_bwd_stoch``; on the CPU an autograd
+Function runs ``hashgrid_plain`` forward and ``hashgrid_bwd_plain`` backward.
+
 ``grid_interpolate`` is the JAX blend of given corner features (K14's blend); the octree
 grid's kernel (K15) folds it in on the card.
 
 The JAX package's dense-LOD MXU matmul (``_lod_features_dense_matmul``) is a TPU layout
-trick and is not ported: every LOD gathers its corner rows.
+trick and is not ported: every LOD gathers its corner rows in float32. Its branch rule
+survives in ``stoch_lods``, since it decides which LODs take the exact gradient.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +37,52 @@ from wisp_tpu_torch import kernels
 # uint32 primes of the instant-ngp spatial hash (reference ops/grid.py:14)
 PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
+# JAX's cap on rows * res^2 of its dense-LOD matrix product (ops/grid.py:202); above it a
+# dense LOD gathers, and takes the stochastic backward again
+DENSE_MM_MAX_ELEMS = 2 ** 30
+# the golden-ratio shift that decorrelates the draws of the LODs (_fold_u, ops/grid.py:295)
+GOLDEN_SHIFT = 0.61803398875
+
+
+def stoch_lods(resolutions: Sequence[int], codebook_bitwidth: int, dim: int, rows: int,
+               dense_lod_matmul: Optional[str]) -> Tuple[bool, ...]:
+    """Which LODs take the stochastic backward under ``stoch_grad``: JAX's branch condition
+    (``_hashgrid_impl`` :322-331, ``_lod_features_dense_matmul`` :235). A hash LOD
+    (res^dim above the table) always does. A dense LOD takes JAX's matrix product, with the
+    exact gradient, when ``dense_lod_matmul`` is set and ``rows * res^2`` is at most
+    ``DENSE_MM_MAX_ELEMS``; otherwise it gathers, and draws. ``rows`` is the row count of
+    JAX's call (on a compacted trace, the budget)."""
+    codebook_size = 2 ** int(codebook_bitwidth)
+    out = []
+    for r in resolutions:
+        r = int(r)
+        dense = r ** dim <= codebook_size
+        out.append(not (dense_lod_matmul is not None and dense
+                        and int(rows) * r * r <= DENSE_MM_MAX_ELEMS))
+    return tuple(out)
+
+
+def stoch_u0(coords: torch.Tensor) -> torch.Tensor:
+    """[N] per-sample uniforms of the stochastic backward, the sin hash of
+    ``_hashgrid_impl`` (:313-317): frac(|sin(12.9898x + 78.233y [+ 37.719z])| * 43758.5453).
+    It amplifies the phase's last bits ~4e4-fold, so it agrees with XLA's and CUDA's only
+    statistically."""
+    phase = coords[:, 0] * 12.9898 + coords[:, 1] * 78.233
+    if coords.shape[1] == 3:
+        phase = phase + coords[:, 2] * 37.719
+    u0 = torch.abs(torch.sin(phase)) * 43758.5453
+    return u0 - torch.floor(u0)
+
+
+def ushift(lod: int) -> float:
+    """float32 of LOD ``lod``'s golden-ratio shift, as the JAX sum rounds it."""
+    return float(np.float32(GOLDEN_SHIFT * (lod + 1)))
+
+
+def fold_u(u0: torch.Tensor, lod: int) -> torch.Tensor:
+    """LOD ``lod``'s uniforms: frac(u0 + 0.61803398875 (lod+1)) (``_fold_u``)."""
+    u = u0 + torch.tensor(ushift(lod), dtype=u0.dtype, device=u0.device)
+    return u - torch.floor(u)
 
 
 def corner_offsets(dim: int) -> np.ndarray:
@@ -59,6 +114,23 @@ def hash_index(corner_coords: torch.Tensor, res: int, codebook_size: int) -> tor
     return idx % codebook_size
 
 
+def _corners(coords: torch.Tensor, res: int, codebook_size: int):
+    """One LOD's corner rows [N, C] (within the LOD's table) and trilinear weights [N, C], in
+    ``corner_offsets`` order and the kernels' float order."""
+    dim = coords.shape[1]
+    offsets = torch.as_tensor(corner_offsets(dim), device=coords.device)      # [C, d]
+    x = torch.clamp((coords + 1.0) * (res / 2.0), 0.0, res - 1 - 1e-5)
+    c0 = torch.floor(x)
+    frac = x - c0
+    corners = c0.to(torch.int64)[:, None, :] + offsets[None]                  # [N, C, d]
+    idx = hash_index(corners, res, codebook_size)                             # [N, C]
+    w = None
+    for d in range(dim):
+        wd = torch.where(offsets[None, :, d].bool(), frac[:, None, d], 1.0 - frac[:, None, d])
+        w = wd if w is None else w * wd                                       # [N, C]
+    return idx, w
+
+
 def hashgrid_plain(coords: torch.Tensor, resolutions: Sequence[int], codebook_bitwidth: int,
                    lod_idx: int, codebook: torch.Tensor, codebook_first_idx: Sequence[int],
                    codebook_sizes: Sequence[int], out_lods: Optional[int] = None
@@ -66,24 +138,12 @@ def hashgrid_plain(coords: torch.Tensor, resolutions: Sequence[int], codebook_bi
     """Plain PyTorch version of K1 forward: [N, d] coords in [-1, 1] -> [N, out_lods*F],
     LODs 0..lod_idx computed, the remaining columns zero."""
     codebook_size = 2 ** codebook_bitwidth
-    n, dim = coords.shape
     f_dim = codebook.shape[-1]
-    offsets = torch.as_tensor(corner_offsets(dim), device=coords.device)      # [C, d]
     feats = []
     for i in range(lod_idx + 1):
-        res = int(resolutions[i])
-        x = torch.clamp((coords + 1.0) * (res / 2.0), 0.0, res - 1 - 1e-5)
-        c0 = torch.floor(x)
-        frac = x - c0
-        corners = c0.to(torch.int64)[:, None, :] + offsets[None]              # [N, C, d]
-        idx = hash_index(corners, res, codebook_size)                         # [N, C]
+        idx, w = _corners(coords, int(resolutions[i]), codebook_size)
         level = codebook[codebook_first_idx[i]:codebook_first_idx[i] + codebook_sizes[i]]
         rows = level[idx]                                                     # [N, C, F]
-        w = None
-        for d in range(dim):
-            wd = torch.where(offsets[None, :, d].bool(), frac[:, None, d],
-                             1.0 - frac[:, None, d])
-            w = wd if w is None else w * wd                                   # [N, C]
         feats.append(torch.sum(rows * w[..., None], dim=1))
     out = torch.cat(feats, dim=-1)
     if out_lods is not None and out_lods > lod_idx + 1:
@@ -137,53 +197,137 @@ def _hashgrid_fwd(coords, codebook, geometry) -> torch.Tensor:
     return out
 
 
+def lod_stoch_bwd_plain(coords: torch.Tensor, grad: torch.Tensor, res: int,
+                        codebook_size: int, table_rows: int, u: torch.Tensor) -> torch.Tensor:
+    """One LOD's stochastic table gradient [table_rows, F] (JAX ``_lod_features`` with
+    ``stoch_u``, :182-191, and ``_irs_bwd``): the cotangent ``grad`` [N, F] of each sample
+    goes whole to the corner drawn by ``u`` [N]: the first whose running weight sum exceeds
+    u * (sum of the weights). The sum runs corner by corner, in the kernel's order."""
+    idx, w = _corners(coords, res, codebook_size)
+    wcum = [w[:, 0]]
+    for c in range(1, w.shape[1]):
+        wcum.append(wcum[-1] + w[:, c])
+    wcum = torch.stack(wcum, dim=1)
+    chosen = (wcum < (u * wcum[:, -1])[:, None]).sum(dim=1).clamp(max=w.shape[1] - 1)
+    out = torch.zeros((table_rows, grad.shape[1]), dtype=torch.float32, device=coords.device)
+    return out.index_add_(0, idx.gather(1, chosen[:, None])[:, 0], grad)
+
+
+def stoch_tie_rows(coords: torch.Tensor, resolutions, codebook_bitwidth: int, lod_idx: int,
+                   codebook_first_idx, stoch_mask: Sequence[bool], u0: torch.Tensor,
+                   ulps: float = 4.0) -> Tuple[torch.Tensor, int]:
+    """(table rows, count) of the draws that may fall either way: the (sample, stochastic
+    LOD) pairs whose target u * wcum[last] lies within ``ulps`` float32 ulps of a running
+    weight sum, and the 2^d corner rows of each. Two implementations that round one
+    operation differently may pick different corners there, and only there."""
+    codebook_size = 2 ** int(codebook_bitwidth)
+    rows, count = [], 0
+    for i in range(int(lod_idx) + 1):
+        if not stoch_mask[i]:
+            continue
+        idx, w = _corners(coords, int(resolutions[i]), codebook_size)
+        wcum = torch.cumsum(w, dim=1)
+        target = fold_u(u0, i) * wcum[:, -1]
+        eps = ulps * torch.finfo(torch.float32).eps * wcum[:, -1:].abs()
+        tie = ((wcum - target[:, None]).abs() <= eps).any(dim=1)
+        count += int(tie.sum())
+        rows.append((idx[tie] + int(codebook_first_idx[i])).reshape(-1))
+    rows = torch.unique(torch.cat(rows)) if rows else \
+        torch.zeros(0, dtype=torch.int64, device=coords.device)
+    return rows, count
+
+
 def hashgrid_bwd_plain(coords: torch.Tensor, grad_out: torch.Tensor, resolutions,
                        codebook_bitwidth: int, lod_idx: int, table_rows: int,
-                       codebook_first_idx, codebook_sizes, out_lods: Optional[int] = None
-                       ) -> torch.Tensor:
-    """Plain PyTorch version of ``hashgrid_bwd``: autograd through ``hashgrid_plain``."""
-    f_dim = grad_out.shape[1] // (out_lods if out_lods is not None else int(lod_idx) + 1)
-    table = torch.zeros((table_rows, f_dim), dtype=torch.float32, device=coords.device,
-                        requires_grad=True)
-    with torch.enable_grad():
-        out = hashgrid_plain(coords, resolutions, codebook_bitwidth, lod_idx, table,
-                             codebook_first_idx, codebook_sizes, out_lods)
-        (grad,) = torch.autograd.grad(out, table, grad_out)
+                       codebook_first_idx, codebook_sizes, out_lods: Optional[int] = None,
+                       stoch_mask: Optional[Sequence[bool]] = None,
+                       u0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of ``hashgrid_bwd``: per LOD the scatter-add of w*g into the
+    2^d corner rows (JAX ``_gather_rows_bwd``), or, on a LOD that ``stoch_mask`` flags,
+    ``lod_stoch_bwd_plain`` with the uniforms ``fold_u(u0, lod)``; ``u0`` [N] defaults to
+    ``stoch_u0``."""
+    n_lods = int(lod_idx) + 1
+    f_dim = grad_out.shape[1] // (out_lods if out_lods is not None else n_lods)
+    codebook_size = 2 ** int(codebook_bitwidth)
+    if stoch_mask is not None and u0 is None:
+        u0 = stoch_u0(coords)
+    grad = torch.zeros((table_rows, f_dim), dtype=torch.float32, device=coords.device)
+    for i in range(n_lods):
+        res = int(resolutions[i])
+        first, size = int(codebook_first_idx[i]), int(codebook_sizes[i])
+        g = grad_out[:, i * f_dim:(i + 1) * f_dim].float()
+        if stoch_mask is not None and stoch_mask[i]:
+            grad[first:first + size] += lod_stoch_bwd_plain(coords, g, res, codebook_size,
+                                                            size, fold_u(u0, i))
+        else:
+            idx, w = _corners(coords, res, codebook_size)
+            grad.index_add_(0, (idx + first).reshape(-1),
+                            (w[..., None] * g[:, None, :]).reshape(-1, f_dim))
     return grad
 
 
 def hashgrid_bwd(coords: torch.Tensor, grad_out: torch.Tensor, resolutions,
                  codebook_bitwidth: int, lod_idx: int, table_rows: int, codebook_first_idx,
-                 codebook_sizes, out_lods: Optional[int] = None) -> torch.Tensor:
+                 codebook_sizes, out_lods: Optional[int] = None,
+                 stoch_mask: Optional[Sequence[bool]] = None, u0: Optional[torch.Tensor] = None,
+                 u0_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1 backward: the [table_rows, F] table gradient of ``hashgrid`` for the cotangent
-    ``grad_out`` [N, out_lods*F] (LODs above ``lod_idx`` take none). The kernel on the
-    card, the plain version on the CPU."""
+    ``grad_out`` [N, out_lods*F] (LODs above ``lod_idx`` take none). With ``stoch_mask`` the
+    LODs it flags take the stochastic backward (one drawn corner a sample); ``u0`` [N]
+    injects the uniforms (None: the sin hash), and ``u0_out`` [N], given without ``u0``,
+    receives the hash's. The kernel on the card, the plain version on the CPU."""
     if not coords.is_cuda:
+        if u0_out is not None:
+            u0_out.copy_(stoch_u0(coords))
         return hashgrid_bwd_plain(coords, grad_out, resolutions, codebook_bitwidth, lod_idx,
-                                  table_rows, codebook_first_idx, codebook_sizes, out_lods)
+                                  table_rows, codebook_first_idx, codebook_sizes, out_lods,
+                                  stoch_mask, u0)
     f_dim = grad_out.shape[1] // (out_lods if out_lods is not None else int(lod_idx) + 1)
     grad = torch.zeros((table_rows, f_dim), dtype=torch.float32, device=coords.device)
     geometry = _lod_args(coords, grad, resolutions, codebook_bitwidth, lod_idx,
                          codebook_first_idx, codebook_sizes, out_lods)
-    return _hashgrid_bwd(coords, grad_out, geometry, grad)
+    return _hashgrid_bwd(coords, grad_out, geometry, grad, stoch_mask, u0, u0_out)
 
 
-def _hashgrid_bwd(coords, grad_out, geometry, grad) -> torch.Tensor:
-    """K1 backward into the zeroed table gradient ``grad``."""
+def _hashgrid_bwd(coords, grad_out, geometry, grad, stoch_mask=None, u0=None,
+                  u0_out=None) -> torch.Tensor:
+    """K1 backward into the zeroed table gradient ``grad``: the stochastic instantiation,
+    counted as ``hashgrid_bwd_stoch``, when ``stoch_mask`` is given, else the exact one."""
+    dim, f_dim, n_lods, out_lods, codebook_size, arrays = geometry
     n = coords.shape[0]
-    kernels.check(grad_out, "grad_out", torch.float32, (n, geometry[3] * geometry[1]))
+    kernels.check(grad_out, "grad_out", torch.float32, (n, out_lods * f_dim))
+    flags = None
+    if stoch_mask is not None:
+        if len(stoch_mask) < n_lods:
+            raise ValueError(f"hashgrid_bwd: {len(stoch_mask)} LOD flags for {n_lods} LODs")
+        flags = np.asarray([int(bool(stoch_mask[i])) for i in range(n_lods)], np.int32)
+    elif u0 is not None or u0_out is not None:
+        raise ValueError("hashgrid_bwd: u0 and u0_out need stoch_mask")
+    if u0 is not None and u0_out is not None:
+        raise ValueError("hashgrid_bwd: give u0 or u0_out, not both")
+    for t, name in ((u0, "u0"), (u0_out, "u0_out")):
+        if t is not None:
+            kernels.check(t, name, torch.float32, (n,))
     if n > 0:
-        _launch("wisp_hashgrid_bwd", "hashgrid_bwd", coords, grad_out, n, geometry, grad)
+        kernels.launch("wisp_hashgrid_bwd",
+                       "hashgrid_bwd" if flags is None else "hashgrid_bwd_stoch",
+                       coords.data_ptr(), grad_out.data_ptr(), kernels.ptr(u0),
+                       kernels.ptr(u0_out), n, dim, f_dim, n_lods, out_lods,
+                       *(a.ctypes.data for a in arrays),
+                       None if flags is None else flags.ctypes.data, codebook_size,
+                       grad.data_ptr())
     return grad
 
 
 class _HashGridFn(torch.autograd.Function):
-    """K1 forward with K1 backward as its gradient (the table's; coords get none)."""
+    """K1 forward with K1 backward as its gradient (the table's; coords get none): the
+    stochastic backward when ``stoch_mask`` is given (it flags a LOD), else the exact one."""
 
     @staticmethod
-    def forward(ctx, coords, codebook, geometry):
+    def forward(ctx, coords, codebook, geometry, stoch_mask):
         ctx.save_for_backward(coords)
         ctx.geometry = geometry
+        ctx.stoch_mask = stoch_mask
         ctx.table_shape = codebook.shape
         return _hashgrid_fwd(coords, codebook, geometry)
 
@@ -193,23 +337,66 @@ class _HashGridFn(torch.autograd.Function):
         grad = None
         if ctx.needs_input_grad[1]:
             grad = torch.zeros(ctx.table_shape, dtype=torch.float32, device=coords.device)
-            _hashgrid_bwd(coords, grad_out.contiguous(), ctx.geometry, grad)
-        return None, grad, None
+            _hashgrid_bwd(coords, grad_out.contiguous(), ctx.geometry, grad, ctx.stoch_mask)
+        return None, grad, None, None
+
+
+class _HashGridStochPlainFn(torch.autograd.Function):
+    """The CPU route of ``hashgrid`` under ``stoch_grad``: ``hashgrid_plain`` forward and
+    ``hashgrid_bwd_plain`` backward with the LOD flags (autograd through the plain forward
+    would give the exact gradient)."""
+
+    @staticmethod
+    def forward(ctx, coords, codebook, args, stoch_mask):
+        ctx.save_for_backward(coords)
+        ctx.args = args
+        ctx.stoch_mask = stoch_mask
+        ctx.table_rows = codebook.shape[0]
+        resolutions, bitwidth, lod_idx, first, sizes, out_lods = args
+        return hashgrid_plain(coords, resolutions, bitwidth, lod_idx, codebook, first, sizes,
+                              out_lods)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (coords,) = ctx.saved_tensors
+        grad = None
+        if ctx.needs_input_grad[1]:
+            resolutions, bitwidth, lod_idx, first, sizes, out_lods = ctx.args
+            grad = hashgrid_bwd_plain(coords, grad_out, resolutions, bitwidth, lod_idx,
+                                      ctx.table_rows, first, sizes, out_lods, ctx.stoch_mask)
+        return None, grad, None, None
 
 
 def hashgrid(coords: torch.Tensor, resolutions: Sequence[int], codebook_bitwidth: int,
              lod_idx: int, codebook: torch.Tensor, codebook_first_idx: Sequence[int],
-             codebook_sizes: Sequence[int], out_lods: Optional[int] = None) -> torch.Tensor:
+             codebook_sizes: Sequence[int], out_lods: Optional[int] = None,
+             stoch_grad: bool = False, dense_lod_matmul: Optional[str] = None,
+             stoch_rows: Optional[int] = None) -> torch.Tensor:
     """Multi-LOD hash interpolation: [N, d] -> [N, out_lods*F] with LODs 0..lod_idx
     computed and the columns of later LODs zero (``out_lods`` defaults to lod_idx+1, the
     JAX ``hashgrid`` output). Differentiable in ``codebook``. K1 on the card, the plain
-    version on the CPU."""
+    version on the CPU.
+
+    ``stoch_grad`` selects the stochastic backward on the LODs of ``stoch_lods(...,
+    stoch_rows, dense_lod_matmul)``; ``stoch_rows`` is the row count of the JAX call this
+    one stands for (default: this call's rows). ``dense_lod_matmul`` acts only there."""
+    stoch_mask = None
+    if stoch_grad:
+        rows = coords.shape[0] if stoch_rows is None else int(stoch_rows)
+        stoch_mask = stoch_lods([resolutions[i] for i in range(int(lod_idx) + 1)],
+                                codebook_bitwidth, coords.shape[1], rows, dense_lod_matmul)
+        if not any(stoch_mask):
+            stoch_mask = None
     if not coords.is_cuda:
-        return hashgrid_plain(coords, resolutions, codebook_bitwidth, lod_idx, codebook,
-                              codebook_first_idx, codebook_sizes, out_lods)
+        if stoch_mask is None:
+            return hashgrid_plain(coords, resolutions, codebook_bitwidth, lod_idx, codebook,
+                                  codebook_first_idx, codebook_sizes, out_lods)
+        args = (tuple(resolutions), codebook_bitwidth, int(lod_idx), tuple(codebook_first_idx),
+                tuple(codebook_sizes), out_lods)
+        return _HashGridStochPlainFn.apply(coords, codebook, args, stoch_mask)
     geometry = _lod_args(coords, codebook, resolutions, codebook_bitwidth, lod_idx,
                          codebook_first_idx, codebook_sizes, out_lods)
-    return _HashGridFn.apply(coords, codebook, geometry)
+    return _HashGridFn.apply(coords, codebook, geometry, stoch_mask)
 
 
 def grid_interpolate(coords: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:

@@ -114,8 +114,10 @@ class PackedRFTracer(BaseTracer):
             num_valid = int(count)
             kept = min(num_valid, budget)
             coords = cflat[:kept]
+            # JAX evaluates the field on all budget slots: the stochastic backward's rule
+            # reads that row count
             out = nef(channels=req_channels, coords=coords, ray_d=cray_d[:kept],
-                      lod_idx=lod_idx, max_compute_lod=max_compute_lod)
+                      lod_idx=lod_idx, max_compute_lod=max_compute_lod, stoch_rows=budget)
             fb_points, fb_keep = coords, None
 
             def back(v):
@@ -125,7 +127,7 @@ class PackedRFTracer(BaseTracer):
             flat = samples.reshape(rs, 3)
             ray_d = rays.dirs[:, None, :].expand(n, s, 3).reshape(rs, 3)
             out = nef(channels=req_channels, coords=flat, ray_d=ray_d, lod_idx=lod_idx,
-                      max_compute_lod=max_compute_lod)
+                      max_compute_lod=max_compute_lod, stoch_rows=rs)
             num_valid = int(mask.sum())
             fb_points, fb_keep = flat, mask.reshape(-1)
 

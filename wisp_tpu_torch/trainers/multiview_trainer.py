@@ -16,6 +16,9 @@ wisp_tpu/trainers/multiview_trainer.py).
 * pruning on its cadence (``pre_step``), fed with the running per-cell max of the training
   samples' densities (K5), which each prune consumes and resets.
 * validation renders whole views in chunks without autograd and reports PSNR.
+* ``extra_state`` carries, beside JAX's tuner fields (less its retuner's, ROADMAP "Not to
+  port"), the ray sampler's random stream and batch size, the tracer's budget and the
+  carried density maxima, so that a resumed run draws and decides as the original would.
 """
 
 from __future__ import annotations
@@ -84,6 +87,36 @@ class MultiviewTrainer(BaseTrainer):
     def pre_training(self):
         super().pre_training()
         self.tracker.metrics.define_metric("rgb_loss", aggregation_type=float)
+
+    # -- checkpoint extras (see BaseTrainer.extra_state) ---------------------------------------
+    def extra_state(self) -> Dict[str, Any]:
+        extra = super().extra_state()
+        extra.update({"prev_num_samples": self._prev_num_samples,
+                      "frac_window": list(self._frac_window),
+                      "steps_since_retune": self._steps_since_retune,
+                      "tracer_compaction": getattr(self.pipeline.tracer, "compaction", None)})
+        transform = self.train_dataset.transform
+        if isinstance(transform, SampleRays):
+            extra["transform_num_samples"] = transform.num_samples
+            extra["transform_rng"] = transform._rng.bit_generator.state
+        if self._density_max_grid is not None:
+            extra["density_max_grid"] = self._density_max_grid
+        return extra
+
+    def load_extra_state(self, extra: Dict[str, Any]) -> None:
+        super().load_extra_state(extra)
+        self._prev_num_samples = extra.get("prev_num_samples")
+        self._frac_window = list(extra.get("frac_window", []))
+        self._steps_since_retune = extra.get("steps_since_retune", 0)
+        budget = extra.get("tracer_compaction")
+        if budget is not None and hasattr(self.pipeline.tracer, "compaction"):
+            self.pipeline.tracer.compaction = budget
+        transform = self.train_dataset.transform
+        if isinstance(transform, SampleRays) and "transform_num_samples" in extra:
+            transform.set_num_samples(int(extra["transform_num_samples"]))
+            transform._rng.bit_generator.state = extra["transform_rng"]
+        if self._density_max_grid is not None and extra.get("density_max_grid") is not None:
+            self._density_max_grid.copy_(extra["density_max_grid"])
 
     # -- pruning ------------------------------------------------------------------------------
     def pre_step(self):

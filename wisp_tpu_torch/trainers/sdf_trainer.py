@@ -15,7 +15,10 @@ wisp_tpu/trainers/sdf_trainer.py).
   OctreeSampledSDFDataset, whose octree carries the mesh (the mesh-sampled dataset is not
   ported yet).
 
-Not ported yet: the texture loss (a batch with 'rgb' raises) and the SDF slice snapshots.
+Not ported yet: the texture loss (a batch with 'rgb' raises) and the SDF slice snapshots:
+a ``render_every`` that would fire within ``max_epochs`` (JAX's default is 100) is refused
+when the trainer is made, and so are ``checkpoint_every`` and ``resume``: the training state
+does not carry the dataset's resampled points yet. ``save_every`` (the pipeline) works.
 """
 
 from __future__ import annotations
@@ -51,6 +54,15 @@ class SDFTrainer(BaseTrainer):
                  device=None):
         super().__init__(cfg=cfg, pipeline=pipeline, train_dataset=train_dataset,
                          tracker=tracker, device=device)
+        if 0 <= cfg.render_every <= cfg.max_epochs:
+            raise NotImplementedError(
+                f"render_every {cfg.render_every} selects SDF slice snapshots (ROADMAP Queue 1, "
+                f"item 7): not ported yet, and within max_epochs {cfg.max_epochs} it would "
+                f"fire (off with --trainer.render-every -1)")
+        if cfg.resume or cfg.checkpoint_every > -1:
+            raise NotImplementedError(
+                "the SDF trainer's training state (its dataset's resampled points and batch "
+                "stream) is not carried by checkpoints yet (ROADMAP Queue 1, item 7)")
         self._batch_rng = np.random.default_rng(cfg.random_seed)
         self.iterations_per_epoch = max(len(train_dataset) // cfg.batch_size, 1)
         self.loss_lods = self._loss_lods()
@@ -113,7 +125,8 @@ class SDFTrainer(BaseTrainer):
         self.return_dict["rgb_loss"] = self.tracker.metrics.average_metric("rgb_loss")
 
     def render_snapshot(self):
-        raise NotImplementedError("SDF slice snapshots (sdf_slice) are not ported yet")
+        raise NotImplementedError("SDF slice snapshots (sdf_slice) are not ported yet "
+                                  "(ROADMAP Queue 1, item 7)")
 
     @torch.no_grad()
     def validate(self) -> Dict[str, Any]:

@@ -34,6 +34,13 @@ class MetricsBoard:
         self.clear()
         return averages
 
+    def state_dict(self) -> Dict[str, Any]:
+        return {"metrics": dict(self._metrics), "counts": dict(self._counts)}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self._metrics.update(state["metrics"])
+        self._counts.update(state["counts"])
+
     def __getattr__(self, name: str):
         metrics = object.__getattribute__(self, "_metrics")
         if name in metrics:

@@ -2,8 +2,8 @@
 wisp_tpu/trainers/tracker/offline_renderer.py: ``render`` and ``render_lookat``). Every
 channel the tracer returns comes back: the NeRF's rgb, alpha, depth and hit, the SDF
 tracer's xyz and normal too, and scalar channels (``num_overflow``) summed over the chunks.
-The default 'rb' shading leaves rgb as the tracer wrote it; matcap and shadows are not
-ported yet.
+``render_snapshot`` is the frame of the trainer's ``render_every`` snapshots. The default
+'rb' shading leaves rgb as the tracer wrote it; matcap and shadows are not ported yet.
 
 Rays go through the pipeline in chunks of ``render_batch`` (16,384 by default). The tail
 chunk is padded to the chunk size with copies of its last ray, as in JAX, so that the
@@ -65,3 +65,9 @@ class OfflineRenderer:
         rays = generate_pinhole_rays(camera, device=self.device)
         rb = self.render(pipeline, rays, lod_idx)
         return rb.reshape(self.height, self.width, -1)
+
+    def render_snapshot(self, pipeline, f=(0.0, 0.0, -3.0), t=(0.0, 0.0, 0.0), fov: float = 30.0,
+                        lod_idx=None, camera_clamp=(0.0, 10.0)) -> RenderBuffer:
+        """The trainer's render snapshot: one ``render_lookat`` frame."""
+        return self.render_lookat(pipeline, f=f, t=t, fov=fov, lod_idx=lod_idx,
+                                  camera_clamp=camera_clamp)
