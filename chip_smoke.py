@@ -75,12 +75,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    reloads it (one chunk rendered equal), saves the train state, resumes a second trainer
    from it and runs 5 steps of each (the losses within 1e-4 relative, the codebook within
    1e-5 of its largest entry), and renders one snapshot through the tracker's visualizer;
-12. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+12. segmented-cull path: builds the flagship trainer of item 6 with ``seg_early_stop``
+   1e-3 and ``seg_count`` 4 (the segmented true-transmittance cull, K6), sets the counts to
+   0, runs 20 ``iterate()`` steps, the trainer's prune and 5 more (the last one's segment
+   inputs recorded), reads the counts (the live compaction, the segment composite and its
+   backward, the accumulated scatter-max and the shared kernels must all have run; the
+   unsegmented compaction and composite never); holds K6a and K5 accumulated against their
+   plain versions exactly on every segment of step 25, K6b within 1e-4 (acc_tau out 1e-5
+   relative) and K6c within 1e-5 of each gradient's largest entry on its second segment,
+   and times them; then, on one 16,384-ray chunk of the render path's carved field at
+   compaction 1.0, holds the segmented trace at eps 1e-20 to the unsegmented one (1e-3,
+   the same valid count) and at eps 1e-3 within eps + 1e-4 in rgb, and times one 512x512
+   frame with the cull and one without;
+13. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels, from the SDF training run for its two, from the octree NeRF's 25
-   steps for K7 and from the stoch path's 25 steps for K1's stochastic backward), the
-   main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``, ``octree_nerf_path`` and
-   ``stoch_path`` JSON lines, the nvidia-smi line and, last,
+   steps for K7, from the stoch path's 25 steps for K1's stochastic backward and from the
+   segmented path's 25 steps for K6a, K6b, K6c and K5 accumulated), the main-path,
+   ``train_path``, ``sdf_path``, ``sdf_train_path``, ``octree_nerf_path``, ``stoch_path``
+   and ``seg_path`` JSON lines, the nvidia-smi line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -1996,6 +2009,268 @@ def stoch_phase(dev):
         shutil.rmtree(log_dir, ignore_errors=True)
 
 
+SEG_EPS = 1e-3
+SEG_COUNT = 4
+SEG_STEPS_BEFORE_PRUNE = 20
+SEG_STEPS_AFTER_PRUNE = 5
+SEG_KERNELS = ("raymarch_ray", "compact_live", "scatter_back", "hashgrid_fwd",
+               "integrate_seg_fwd", "hashgrid_bwd", "scatter_back_bwd", "integrate_seg_bwd",
+               "scatter_max_acc")
+SEG_CHECK_SEGMENT = 1          # the kernels are held and timed on this segment's inputs
+SEG_DENSITY_BIAS = 30.0        # added to the render field's density for the chunk check
+
+
+@contextmanager
+def recording_segments(calls: list):
+    """Record the inputs of the segmented trace's compaction, composite and accumulated
+    scatter-max calls (the calls themselves go on unchanged, and count their launches)."""
+    from wisp_tpu_torch.tracers import packed_rf_tracer as tr
+    compact, integrate_segment, scatter_max = tr.compact, tr.integrate_segment, tr.scatter_max
+
+    def rec_compact(mask, samples, dirs, budget, acc_tau=None, tau_cap=None):
+        calls.append({"compact": (mask, samples, dirs, budget, acc_tau.clone(), tau_cap)})
+        return compact(mask, samples, dirs, budget, acc_tau, tau_cap)
+
+    def rec_integrate(density, deltas, depths, mask, color, acc_tau, **kw):
+        calls[-1]["integrate"] = tuple(t.detach() for t in (density, deltas.reshape(-1),
+                                                            depths, mask, color, acc_tau))
+        return integrate_segment(density, deltas, depths, mask, color, acc_tau, **kw)
+
+    def rec_scatter_max(ids, values, size, out=None):
+        calls[-1]["scatter_max"] = (ids, values, size, out.clone())
+        return scatter_max(ids, values, size, out=out)
+
+    with mock.patch.object(tr, "compact", rec_compact), \
+            mock.patch.object(tr, "integrate_segment", rec_integrate), \
+            mock.patch.object(tr, "scatter_max", rec_scatter_max):
+        yield
+
+
+def seg_kernel_phase(calls):
+    """K6a, K6b, K6c and K5 accumulated against their plain versions and timed, on one
+    segment's inputs of the last step: K6a exactly on every segment (kept slots and count),
+    K6b within K4's 1e-4 (acc_tau out 1e-5 relative), K6c within 1e-5 of the largest entry
+    of each gradient (dL/dA too), K5 accumulated exactly on every segment."""
+    import torch
+    from wisp_tpu_torch.ops.compaction import compact, compact_plain
+    from wisp_tpu_torch.ops.density_grid import scatter_max, scatter_max_plain
+    from wisp_tpu_torch.ops.integration import (integrate_segment, integrate_segment_bwd,
+                                                integrate_segment_bwd_plain,
+                                                integrate_segment_plain)
+    for i, c in enumerate(calls):
+        mask, samples, dirs, budget, acc, cap = c["compact"]
+        got = compact(mask, samples, dirs, budget, acc, cap)
+        want = compact_plain(mask, samples, dirs, budget, acc, cap)
+        kept = min(int(want[3]), budget)
+        require(torch.equal(got[3], want[3]) and torch.equal(got[0][:kept], want[0][:kept])
+                and torch.equal(got[1][:kept], want[1][:kept])
+                and torch.equal(got[2][:kept], want[2][:kept]),
+                f"compact_live differs from its plain version on segment {i}")
+        ids, vals, size, start = c["scatter_max"]
+        mk = scatter_max(ids, vals, size, out=start.clone())
+        mp = scatter_max_plain(ids, vals, size, out=start.clone())
+        require(torch.equal(mk, mp), f"scatter_max_acc differs on segment {i}")
+    c = calls[SEG_CHECK_SEGMENT]
+    mask, samples, dirs, budget, acc, cap = c["compact"]
+    r, s = mask.shape
+    # the step's carry culls no ray while the field is still transparent: hold the kernel
+    # once more with a seeded carry that culls about half of the rays
+    g = torch.Generator(device=mask.device).manual_seed(17)
+    acc_cull = acc + torch.rand((r,), generator=g, device=mask.device) * (2.0 * cap)
+    got = compact(mask, samples, dirs, budget, acc_cull, cap)
+    want = compact_plain(mask, samples, dirs, budget, acc_cull, cap)
+    kept_cull = min(int(want[3]), budget)
+    require(torch.equal(got[3], want[3])
+            and all(torch.equal(a[:kept_cull], b[:kept_cull])
+                    for a, b in zip(got[:3], want[:3])),
+            "compact_live differs from its plain version with a culling carry")
+    culled_rays = float((acc_cull >= cap).float().mean())
+    live = mask & (acc < cap)[:, None]
+    valid = int(live.sum())
+    kept = min(valid, budget)
+    rows = [kernel_row(
+        "compact_live", "wisp_tpu_torch/csrc/compaction.cu",
+        "wisp_tpu/tracers/packed_rf_tracer.py:340", 0.0, 0.0,
+        timed(lambda: compact(mask, samples, dirs, budget, acc, cap)),
+        timed(lambda: compact_plain(mask, samples, dirs, budget, acc, cap), iters=5),
+        nbytes=r * s + r * 4 + kept * (12 + 8 + 24) + 8, ops=0.0,
+        library_ms=timed(lambda: torch.nonzero((mask & (acc < cap)[:, None]).T)))]
+    rows[-1].update(culling_carry_rays_culled=culled_rays, culling_carry_valid=int(want[3]))
+
+    density, deltas, depths, smask, color, acc_in = c["integrate"]
+    fk = integrate_segment(density, deltas, depths, smask, color, acc_in)
+    fp = integrate_segment_plain(density, deltas, depths, smask, color, acc_in)
+    err = max(float((fk[k] - fp[k]).abs().max()) for k in ("rgb", "alpha", "depth"))
+    acc_rel = float(((fk["acc_tau"] - fp["acc_tau"]).abs()
+                     / fp["acc_tau"].abs().clamp(min=1e-30)).max())
+    require(acc_rel <= 1e-5, f"integrate_seg_fwd: acc_tau out {acc_rel} relative > 1e-5")
+    rows.append(kernel_row(
+        "integrate_seg_fwd", "wisp_tpu_torch/csrc/integrate.cu",
+        "wisp_tpu/tracers/packed_rf_tracer.py:362", err, 1e-4,
+        timed(lambda: integrate_segment(density, deltas, depths, smask, color, acc_in)),
+        timed(lambda: integrate_segment_plain(density, deltas, depths, smask, color,
+                                              acc_in)),
+        nbytes=r * s * (4 + 4 + 1 + 12) + r * 4 + r * (12 + 4 + 4) + r * 8, ops=r * s * 16))
+    rows[-1]["acc_tau_rel_err"] = acc_rel
+
+    g_rgb = torch.randn((r, 3), generator=g, device=density.device) / r
+    g_alpha = torch.randn((r, 1), generator=g, device=density.device) / r
+    g_acc = torch.randn((r,), generator=g, device=density.device) / r
+    bk = integrate_segment_bwd(density, deltas, depths, smask, color, acc_in, g_rgb, g_alpha,
+                               None, g_acc)
+    bp = integrate_segment_bwd_plain(density, deltas, depths, smask, color, acc_in, g_rgb,
+                                     g_alpha, None, g_acc)
+    errs = [float((a - b).abs().max()) for a, b in zip(bk, bp)]
+    scales = [max(float(b.abs().max()), 1e-30) for b in bp]
+    for name, e, sc in zip(("density", "color", "acc_tau"), errs, scales):
+        require(e <= 1e-5 * sc, f"integrate_seg_bwd: d{name} error {e} > 1e-5 x {sc}")
+    rows.append(kernel_row(
+        "integrate_seg_bwd", "wisp_tpu_torch/csrc/integrate.cu",
+        "wisp_tpu/tracers/packed_rf_tracer.py:362", max(errs), 1e-5 * max(scales),
+        timed(lambda: integrate_segment_bwd(density, deltas, depths, smask, color, acc_in,
+                                            g_rgb, g_alpha, None, g_acc)),
+        timed(lambda: integrate_segment_bwd_plain(density, deltas, depths, smask, color,
+                                                  acc_in, g_rgb, g_alpha, None, g_acc)),
+        nbytes=r * s * (4 + 1 + 12) + r * (4 + 12) + r * s * (4 + 12) + r * 12,
+        ops=r * s * 40))
+    rows[-1]["errs_density_color_acc"] = errs
+    rows[-1]["scales_density_color_acc"] = scales
+
+    ids, vals, size, start = c["scatter_max"]
+    buf = start.clone()
+    lib = start.clone()
+    touched = int(torch.unique(ids).numel())
+    rows.append(kernel_row(
+        "scatter_max_acc", "wisp_tpu_torch/csrc/scatter_max.cu",
+        "wisp_tpu/tracers/packed_rf_tracer.py:383", 0.0, 0.0,
+        timed(lambda: scatter_max(ids, vals, size, out=buf)),
+        timed(lambda: scatter_max_plain(ids, vals, size, out=buf)),
+        nbytes=ids.numel() * (8 + 4) + touched * 8, ops=0.0,
+        library_ms=timed(lambda: lib.scatter_reduce_(0, ids, vals, "amax",
+                                                     include_self=True))))
+    return rows, {"segment": SEG_CHECK_SEGMENT, "rays": r, "steps": s, "budget": budget,
+                  "valid": valid, "marched": int(mask.sum()), "kept": kept,
+                  "cells_touched": touched}
+
+
+def seg_chunk_check(dev):
+    """The segmented trace against the unsegmented one on one 16,384-ray chunk of the
+    render phase's carved field (its density raised by SEG_DENSITY_BIAS), both at
+    compaction 1.0 (no segment's budget overflows where
+    the whole ray's would not): eps 1e-20 within 1e-3 with the same valid count; eps
+    SEG_EPS within SEG_EPS + 1e-4 in rgb (a culled ray's remaining weight is at most eps);
+    then one 512x512 frame with the cull and one without, at the config's compaction."""
+    import numpy as np
+    import torch
+    from wisp_tpu_torch.core.camera import Camera
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.ops.raygen.raygen import generate_pinhole_rays
+    from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
+    pipeline, _ = flagship_pipeline(dev)
+    # the random field is nearly transparent: raise its density so that rays saturate
+    # inside the carved balls and the cull has samples to drop
+    with torch.no_grad():
+        pipeline.nef.decoder_density.lout.bias[0] += SEG_DENSITY_BIAS
+    tracer = pipeline.tracer
+    renderer = OfflineRenderer(render_res=(RES, RES), device=dev)
+    cam = Camera.from_args(eye=EYE, at=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0), width=RES,
+                           height=RES, fov=np.radians(30.0), near=0.0, far=10.0)
+    all_rays = generate_pinhole_rays(cam, device=dev)
+    n_chunk = renderer.render_batch
+    sl = slice(CHUNK_INDEX * n_chunk, (CHUNK_INDEX + 1) * n_chunk)
+    chunk = Rays(all_rays.origins[sl].contiguous(), all_rays.dirs[sl].contiguous(),
+                 all_rays.dist_min, all_rays.dist_max)
+    compaction = tracer.compaction
+
+    def trace(eps, comp):
+        tracer.seg_early_stop, tracer.seg_count, tracer.compaction = eps, SEG_COUNT, comp
+        with torch.no_grad():
+            return pipeline(rays=chunk)
+
+    ref = trace(0.0, 1.0)
+    tiny = trace(1e-20, 1.0)
+    real = trace(SEG_EPS, 1.0)
+    err = {k: float((tiny.channels[k] - ref.channels[k]).abs().max())
+           for k in ("rgb", "alpha", "depth")}
+    require(all(e <= 1e-3 for e in err.values()),
+            f"segmented trace at eps 1e-20 differs from the unsegmented one: {err}")
+    require(float(tiny.num_valid_samples) == float(ref.num_valid_samples),
+            "segmented trace at eps 1e-20: valid count differs")
+    real_err = float((real.rgb - ref.rgb).abs().max())
+    require(real_err <= SEG_EPS + 1e-4, f"segmented trace at eps {SEG_EPS}: rgb {real_err}")
+    marched = float(ref.num_valid_samples)
+    share = 1.0 - float(real.num_valid_samples) / marched if marched else 0.0
+    frames = {}
+    for name, eps in (("cull", SEG_EPS), ("no_cull", 0.0)):
+        tracer.seg_early_stop, tracer.compaction = eps, compaction
+        renderer.render_lookat(pipeline, f=EYE)         # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.render_lookat(pipeline, f=EYE)
+        torch.cuda.synchronize()
+        frames[name] = (time.perf_counter() - t0) * 1e3
+    return {"chunk_err_eps_1e-20": err, "chunk_rgb_err_eps": real_err,
+            "chunk_valid_marched": marched, "chunk_valid_culled": float(real.num_valid_samples),
+            "chunk_cull_share": share, "chunk_seg_frac_max": float(real.seg_frac_max),
+            "frame_ms_cull": frames["cull"], "frame_ms_no_cull": frames["no_cull"]}
+
+
+def seg_phase(dev):
+    """The flagship trainer with the segmented cull (seg_early_stop SEG_EPS, SEG_COUNT
+    segments) at full width: counts from 0, 20 steps (the 20th profiled), the trainer's
+    prune, 5 steps (the last one's segment inputs recorded), counts read; the new kernels against their plain versions
+    on step 25's inputs; the segmented trace against the unsegmented one on a render chunk."""
+    import math
+    import torch
+    from wisp_tpu_torch import kernels
+    t0 = time.perf_counter()
+    trainer = flagship_trainer(dev)
+    tracer = trainer.pipeline.tracer
+    tracer.seg_early_stop, tracer.seg_count = SEG_EPS, SEG_COUNT
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps, calls = [], []
+    kernels.reset_launches()
+    for i in range(SEG_STEPS_BEFORE_PRUNE + SEG_STEPS_AFTER_PRUNE):
+        if i == SEG_STEPS_BEFORE_PRUNE:
+            trainer.prune()
+        rays, budget = trainer.train_dataset.transform.num_samples, tracer.compaction
+        last = i == SEG_STEPS_BEFORE_PRUNE + SEG_STEPS_AFTER_PRUNE - 1
+        t0 = time.perf_counter()
+        if i == SEG_STEPS_BEFORE_PRUNE - 1:
+            profiled = profile_step(trainer)     # step 20 runs under the profiler
+        elif last:
+            with recording_segments(calls):
+                trainer.iterate()
+        else:
+            trainer.iterate()
+        torch.cuda.synchronize()
+        steps.append({"step": i + 1, "ms": (time.perf_counter() - t0) * 1e3, "rays": rays,
+                      "budget": budget, "valid": trainer._prev_num_samples,
+                      "seg_frac_max": trainer._prev_seg_frac_max,
+                      "overflow": trainer.last_num_overflow, "loss": trainer.last_loss})
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in SEG_KERNELS if launches[k] <= 0]
+    require(not missing, f"kernels not launched on the segmented training path: {missing}")
+    require(launches["integrate_fwd"] == 0 and launches["compact"] == 0,
+            "the segmented path launched the unsegmented compaction or composite")
+    require(len(calls) == SEG_COUNT, f"step 25 traced {len(calls)} segments")
+    losses = [st["loss"] for st in steps]
+    require(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
+    rows, shape_info = seg_kernel_phase(calls)
+    for row_ in rows:
+        row_["launches"] = launches[row_["name"]]
+    chunk = seg_chunk_check(dev)
+    steady = sorted(st["ms"] for st in steps[1:SEG_STEPS_BEFORE_PRUNE - 1])
+    info = {"seg_path": f"MultiviewTrainer.iterate with seg_early_stop {SEG_EPS}, "
+                        f"seg_count {SEG_COUNT} (20 steps, prune, 5 steps), flagship width",
+            "setup_s": setup_s, "step_ms_median_2_19": steady[len(steady) // 2],
+            "steps": steps, "launches": launches, "kernel_phase_shapes": shape_info}
+    info.update(profiled)
+    info.update(chunk)
+    return rows, info
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -2132,9 +2407,13 @@ def run() -> dict:
     phase_s["octree nerf"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     stoch_rows, stoch_info = stoch_phase(dev)
+    torch.cuda.empty_cache()
     phase_s["stoch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg_rows, seg_info = seg_phase(dev)
+    phase_s["seg"] = time.perf_counter() - t0
     print(json.dumps({"kernels": rows + train_rows + sdf_rows + sdf_train_rows
-                      + octree_rows[:1] + stoch_rows}), flush=True)
+                      + octree_rows[:1] + stoch_rows + seg_rows}), flush=True)
     print(json.dumps(main), flush=True)
     print(json.dumps(train_info), flush=True)
     print(json.dumps(sdf_info), flush=True)
@@ -2142,6 +2421,7 @@ def run() -> dict:
     print(json.dumps({"octree_nerf_path": octree_info, "raymarch_voxel_rows": octree_rows}),
           flush=True)
     print(json.dumps(stoch_info), flush=True)
+    print(json.dumps(seg_info), flush=True)
     print(json.dumps({"phase_s": phase_s, "profiler_shortfalls": PROFILER_SHORTFALLS}),
           flush=True)
     print(smi, flush=True)

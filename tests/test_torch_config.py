@@ -103,7 +103,7 @@ def test_print_config_reads_back(tmp_path, capsys):
 @pytest.mark.parametrize("args,match", [
     (["--config", OCTREE, "--tracer.raymarch-type", "uniform"], "K8"),
     (["--config", OCTREE, "--tracer.early-stop", "0.01"], "early_stop"),
-    (["--config", HASH, "--tracer.seg-early-stop", "0.01"], "K6"),
+    (["--config", HASH, "--trainer.render-segments", "4"], "render_segments"),
     (["--config", str(ROOT / "app/nerf/configs/nerf_triplanar_lego_proxy.yaml")],
      "TriplanarGrid.*item 8"),
     (["--config", OCTREE, "--dataset.constructor", "RTMVDataset"], "RTMVDataset"),
@@ -138,7 +138,9 @@ def _built(tmp_path, monkeypatch, *args, tensorboard=False):
     (["--config", OCTREE, "--trainer.checkpoint-every", "5"],
      lambda p, t: t.cfg.checkpoint_every == 5),
     (["--config", OCTREE, "--trainer.resume", "auto"], lambda p, t: t.cfg.resume == "auto"),
-], ids=["stoch-yaml", "stoch-flag", "checkpoint-every", "resume"])
+    (["--config", HASH, "--tracer.seg-early-stop", "1e-3", "--tracer.seg-count", "4"],
+     lambda p, t: (p.tracer.seg_early_stop, p.tracer.seg_count) == (1e-3, 4)),
+], ids=["stoch-yaml", "stoch-flag", "checkpoint-every", "resume", "seg-cull"])
 def test_ported_settings_reach_their_objects(tmp_path, monkeypatch, args, reaches):
     """Settings the port refused until it ported them: each is read and reaches the grid
     or the trainer that acts on it."""

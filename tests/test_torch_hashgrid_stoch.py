@@ -38,8 +38,9 @@ def test_forward_matches_jax_stoch():
     resolutions = [4, 8, 16, 37]
     table, first, sizes = _table(3, 9, resolutions)
     coords = _coords(300, 3, 1)
-    want = np.asarray(jgrid.hashgrid(jnp.asarray(coords), resolutions, 9, 3,
-                                     jnp.asarray(table), first, sizes, stoch_grad=True))
+    want = np.asarray(jax.jit(lambda c, t: jgrid.hashgrid(
+        c, resolutions, 9, 3, t, first, sizes, stoch_grad=True))(jnp.asarray(coords),
+                                                                 jnp.asarray(table)))
     got = tgrid.hashgrid(torch.from_numpy(coords), resolutions, 9, 3,
                          torch.from_numpy(table).requires_grad_(), first, sizes,
                          stoch_grad=True)
@@ -57,10 +58,14 @@ def test_lod_stoch_bwd_matches_jax(dim, res):
     coords = _coords(400, dim, res)
     u = rng.random(400).astype(np.float32)
     g = rng.normal(size=(400, 2)).astype(np.float32)
-    axes = [jnp.asarray(coords[:, d]) for d in range(dim)]
-    _, vjp = jax.vjp(lambda t: jgrid._lod_features(axes, res, cs, t, stoch_u=jnp.asarray(u)),
-                     jnp.asarray(table))
-    (want,) = vjp([jnp.asarray(g[:, 0]), jnp.asarray(g[:, 1])])
+
+    def table_grad(c, t, uu, gg):
+        axes = [c[:, d] for d in range(dim)]
+        _, vjp = jax.vjp(lambda tt: jgrid._lod_features(axes, res, cs, tt, stoch_u=uu), t)
+        return vjp([gg[:, 0], gg[:, 1]])[0]
+
+    want = jax.jit(table_grad)(jnp.asarray(coords), jnp.asarray(table), jnp.asarray(u),
+                               jnp.asarray(g))
     got = tgrid.lod_stoch_bwd_plain(torch.from_numpy(coords), torch.from_numpy(g), res, cs,
                                     size, torch.from_numpy(u))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
@@ -95,10 +100,14 @@ def test_whole_grid_gradient_matches_jax(monkeypatch, dense_matmul):
     rng = np.random.default_rng(5)
     u0 = rng.random(500).astype(np.float32)
     g = rng.normal(size=(500, 8)).astype(np.float32)
-    _, vjp = jax.vjp(lambda t: _jax_composed(jnp.asarray(coords), resolutions, bw, t, first,
-                                             sizes, jnp.asarray(u0), dense_matmul),
-                     jnp.asarray(table))
-    (want,) = vjp(jnp.asarray(g))
+
+    def table_grad(c, t, uu, gg):
+        _, vjp = jax.vjp(lambda tt: _jax_composed(c, resolutions, bw, tt, first, sizes, uu,
+                                                  dense_matmul), t)
+        return vjp(gg)[0]
+
+    want = jax.jit(table_grad)(jnp.asarray(coords), jnp.asarray(table), jnp.asarray(u0),
+                               jnp.asarray(g))
     monkeypatch.setattr(tgrid, "stoch_u0", lambda c: torch.from_numpy(u0))
     t = torch.from_numpy(table).requires_grad_()
     out = tgrid.hashgrid(torch.from_numpy(coords), resolutions, bw, 3, t, first, sizes,
@@ -128,9 +137,10 @@ def test_stoch_lods_matches_jax_branches(monkeypatch, rows, cap_over, dense_matm
         monkeypatch.setattr(tgrid, "DENSE_MM_MAX_ELEMS", cap)
         monkeypatch.setattr(jgrid, "_lod_features_dense_matmul_ckpt",
                             jgrid._lod_features_dense_matmul)
-        want = np.asarray(jax.grad(lambda t: jnp.sum(jgrid._hashgrid_impl(
+        # a new function each time: jit traces it anew, under this cap
+        want = np.asarray(jax.jit(jax.grad(lambda t: jnp.sum(jgrid._hashgrid_impl(
             jnp.asarray(coords), tuple(resolutions), bw, 3, t, tuple(first), tuple(sizes),
-            dense_matmul, True)))(jnp.asarray(table)))
+            dense_matmul, True))))(jnp.asarray(table)))
         touched = _touched_rows(want, first, sizes)
         jax_stoch = tuple(t == 1 for t in touched)
         assert all(t in (1, 8) for t in touched), touched

@@ -19,7 +19,10 @@ from wisp_tpu_torch.ops.compaction import (compact, compact_plain, scatter_back,
                                            scatter_back_plain)
 from wisp_tpu_torch.ops.density_grid import scatter_max, scatter_max_plain
 from wisp_tpu_torch.ops.integration import (integrate, integrate_bwd, integrate_bwd_plain,
-                                            integrate_plain)
+                                            integrate_plain, integrate_segment,
+                                            integrate_segment_bwd,
+                                            integrate_segment_bwd_plain,
+                                            integrate_segment_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -630,3 +633,104 @@ def test_octree_interp_kernel_f5(dev, backward):
     for a, b in zip(got, want):
         scale = float(b.abs().max())
         assert scale > 0 and float((a - b).abs().max()) <= 1e-5 * scale
+
+
+# -- the segmented cull (K6a, K6b, K6c) and K5 accumulated ------------------------------------
+
+@pytest.mark.parametrize("frac,budget", [(0.5, 128 * 40), (0.5, 128), (0.05, 128 * 40)])
+def test_compact_live_kernel(dev, frac, budget):
+    g = torch.Generator(device="cpu").manual_seed(12)
+    r, s = 300, 130
+    mask = (torch.rand(r, s, generator=g) < frac).to(dev)
+    samples = torch.randn(r, s, 3, generator=g).to(dev)
+    dirs = torch.randn(r, 3, generator=g).to(dev)
+    acc_tau = (torch.rand(r, generator=g) * 12.0).to(dev)
+    tau_cap = float(np.float32(-np.log(1e-3)))
+    acc_tau[:5] = tau_cap                   # at the cap: culled (T = eps is not live)
+    before = kernels.LAUNCHES["compact_live"]
+    got = compact(mask, samples, dirs, budget, acc_tau, tau_cap)
+    want = compact_plain(mask, samples, dirs, budget, acc_tau, tau_cap)
+    assert kernels.LAUNCHES["compact_live"] == before + 1
+    assert torch.equal(got[3], want[3])
+    live = int((mask & (acc_tau < tau_cap)[:, None]).sum())
+    assert int(got[3]) == live < int(mask.sum())
+    kept = min(live, budget)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a[:kept], b[:kept])
+
+
+def _segment_inputs(dev, r, s, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    density = (torch.rand(r, s, generator=g) * 20).to(dev)
+    deltas = (torch.rand(r, 1, generator=g) * 0.02).to(dev)
+    depths = torch.rand(r, s, generator=g).cumsum(-1).to(dev)
+    mask = (torch.rand(r, s, generator=g) < 0.5).to(dev)
+    color = torch.rand(r, s, 3, generator=g).to(dev)
+    acc_tau = (torch.rand(r, generator=g) * 3.0).to(dev)
+    return g, density, deltas, depths, mask, color, acc_tau
+
+
+@pytest.mark.parametrize("r,s,with_extra", [(200, 77, False), (64, 128, True), (0, 40, False)])
+def test_integrate_segment_kernel(dev, r, s, with_extra):
+    g, density, deltas, depths, mask, color, acc_tau = _segment_inputs(dev, r, s, 13)
+    extra = torch.rand(r, s, 5, generator=g).to(dev) if with_extra else None
+    before = kernels.LAUNCHES["integrate_seg_fwd"]
+    got = integrate_segment(density, deltas, depths, mask, color, acc_tau, extra=extra)
+    want = integrate_segment_plain(density, deltas, depths, mask, color, acc_tau,
+                                   extra=extra)
+    assert kernels.LAUNCHES["integrate_seg_fwd"] == before + 1
+    assert set(got) == set(want)
+    for k in got:
+        if r:
+            tol = 1e-5 * max(1.0, want[k].abs().max().item()) if k == "acc_tau" else 1e-4
+            assert (got[k] - want[k]).abs().max().item() <= tol, k
+
+
+@pytest.mark.parametrize("r,s,with_depth,with_acc", [(200, 77, False, True),
+                                                     (64, 128, True, False),
+                                                     (0, 40, False, True)])
+def test_integrate_segment_bwd_kernel(dev, r, s, with_depth, with_acc):
+    g, density, deltas, depths, mask, color, acc_tau = _segment_inputs(dev, r, s, 14)
+    g_rgb = torch.randn(r, 3, generator=g).to(dev)
+    g_alpha = torch.randn(r, 1, generator=g).to(dev)
+    g_depth = torch.randn(r, 1, generator=g).to(dev) if with_depth else None
+    g_acc = torch.randn(r, generator=g).to(dev) if with_acc else None
+    got = integrate_segment_bwd(density, deltas, depths, mask, color, acc_tau, g_rgb,
+                                g_alpha, g_depth, g_acc)
+    want = integrate_segment_bwd_plain(density, deltas, depths, mask, color, acc_tau, g_rgb,
+                                       g_alpha, g_depth, g_acc)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        if r:
+            assert (a - b).abs().max().item() <= 1e-5 * max(1e-30, b.abs().max().item())
+    # autograd through the forward launches the backward kernel, the carry's gradient too
+    d = density.clone().requires_grad_(True)
+    c = color.clone().requires_grad_(True)
+    a = acc_tau.clone().requires_grad_(True)
+    before = kernels.LAUNCHES["integrate_seg_bwd"]
+    out = integrate_segment(d, deltas, depths, mask, c, a, with_depth=with_depth)
+    loss = (out["rgb"] * g_rgb).sum() + (out["alpha"] * g_alpha).sum()
+    if with_depth:
+        loss = loss + (out["depth"] * g_depth).sum()
+    if with_acc:
+        loss = loss + (out["acc_tau"] * g_acc).sum()
+    loss.backward()
+    assert kernels.LAUNCHES["integrate_seg_bwd"] == before + 1
+    if r:
+        for got_, want_ in ((d.grad, want[0]), (a.grad, want[2])):
+            assert (got_ - want_).abs().max().item() <= \
+                1e-5 * max(1e-30, want_.abs().max().item())
+
+
+@pytest.mark.parametrize("k", [0, 50, 200000])
+def test_scatter_max_accumulated_kernel(dev, k):
+    g = torch.Generator(device="cpu").manual_seed(15)
+    start = torch.relu(torch.randn(4096, generator=g)).to(dev)
+    ids = torch.randint(-3, 4096 + 3, (k,), generator=g).to(dev)
+    vals = torch.relu(torch.randn(k, generator=g)).to(dev)
+    got, want = start.clone(), start.clone()
+    before = kernels.LAUNCHES["scatter_max_acc"]
+    out = scatter_max(ids, vals, 4096, out=got)
+    scatter_max_plain(ids, vals, 4096, out=want)
+    assert out is got and torch.equal(got, want)
+    assert kernels.LAUNCHES["scatter_max_acc"] == before + (1 if k else 0)

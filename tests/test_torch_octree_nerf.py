@@ -159,27 +159,30 @@ class _Views:
 AMP_LOSS_TOL_OCTREE = 2e-6
 
 
-def _trainers(tmp_path, amp=False, port_amp=None, opt_kw=OPT_KW, transforms=(None, None),
-              **kw):
+def _trainers(tmp_path, transforms=(None, None), **kw):
     jpipe, tpipe = _pair(feature_std=0.1, shared=False)
     cfg = dict(TRAIN_KW, **kw)
     jtracker = JTracker(ConfigTracker(log_dir=str(tmp_path), tensorboard=False), "parity")
-    jt = JTrainer(JConfig(optimizer=JConfigRMSprop(**opt_kw), enable_amp=amp, **cfg),
-                  jpipe, _Views(transform=transforms[0]), tracker=jtracker)
-    port_amp = amp if port_amp is None else port_amp
-    tt = MultiviewTrainer(ConfigMultiviewTrainer(optimizer=ConfigRMSprop(**opt_kw),
-                                                 enable_amp=port_amp, **cfg),
+    jt = JTrainer(JConfig(optimizer=JConfigRMSprop(**OPT_KW), **cfg), jpipe,
+                  _Views(transform=transforms[0]), tracker=jtracker)
+    tt = MultiviewTrainer(ConfigMultiviewTrainer(optimizer=ConfigRMSprop(**OPT_KW), **cfg),
                           tpipe, _Views(transform=transforms[1]), device="cpu")
     return jt, tt
 
 
-def _one_step(tmp_path, amp, port_amp=None, opt_kw=OPT_KW):
-    jt, tt = _trainers(tmp_path, amp, port_amp, opt_kw)
+def _jax_one_step(tmp_path, amp, eps):
+    """JAX's trainer takes one RMSprop step on a seeded batch. Returns the starting weights
+    (for the port), the step's jitter, loss and gradients (taken before its update) and its
+    updated weights."""
+    jpipe = jax_octree_pipeline(0.1)
+    params, config = octree_params_from_jax(jpipe)
+    jtracker = JTracker(ConfigTracker(log_dir=str(tmp_path), tensorboard=False), "parity")
+    jt = JTrainer(JConfig(optimizer=JConfigRMSprop(**dict(OPT_KW, eps=eps)), enable_amp=amp,
+                          **TRAIN_KW), jpipe, _Views(), tracker=jtracker)
     n = 96
     origins, dirs = ray_arrays(n, seed=21)
     rgb = np.random.default_rng(21).uniform(size=(n, 3)).astype(np.float32)
     jt.pre_training()
-    tt.pre_training()
     key = jax.random.fold_in(jt._step_base_key, np.uint32(jt.total_iterations))
     k_vox = 15  # every coarse segment at level 3 (budget 1024 // 16 = 64 > 15)
     u = np.array(jax.random.uniform(key, (n, k_vox, STEPS)))
@@ -193,14 +196,42 @@ def _one_step(tmp_path, amp, port_amp=None, opt_kw=OPT_KW):
     jgrads = {path: np.asarray(g) for path, g in jgrads.items()}
     jt.step({"rays": jrays, "rgb": rgb})
     jt._flush_stats()
-    tt.step({"rays": Rays(torch.from_numpy(origins), torch.from_numpy(dirs), 0.0, 8.0),
-             "rgb": torch.from_numpy(rgb)}, key=torch.from_numpy(u))
-    return jt, tt, float(jloss), jgrads
+    new, _ = octree_params_from_jax(jt.sync_pipeline())
+    return {"params": params, "config": config, "origins": origins, "dirs": dirs,
+            "rgb": rgb, "u": u, "loss": float(jloss), "grads": jgrads, "new": new}
+
+
+@pytest.fixture(scope="module")
+def jax_step(tmp_path_factory):
+    """JAX's one step by (AMP, eps), taken once for the tests that compare with it."""
+    done = {}
+
+    def get(amp, eps):
+        if (amp, eps) not in done:
+            done[amp, eps] = _jax_one_step(tmp_path_factory.mktemp("jax"), amp, eps)
+        return done[amp, eps]
+    return get
+
+
+def _one_step(jax_step, amp, port_amp=None, eps=OPT_KW["eps"]):
+    """The port's trainer takes JAX's step on the same weights, batch and jitter."""
+    j = jax_step(amp, eps)
+    tpipe = build_pipeline(j["params"], j["config"], device="cpu")
+    port_amp = amp if port_amp is None else port_amp
+    tt = MultiviewTrainer(ConfigMultiviewTrainer(optimizer=ConfigRMSprop(
+        **dict(OPT_KW, eps=eps)), enable_amp=port_amp, **TRAIN_KW), tpipe, _Views(),
+        device="cpu")
+    tt.pre_training()
+    tt.step({"rays": Rays(torch.from_numpy(j["origins"]), torch.from_numpy(j["dirs"]), 0.0,
+                          8.0), "rgb": torch.from_numpy(j["rgb"])},
+            key=torch.from_numpy(j["u"]))
+    return tt, j
 
 
 @pytest.mark.parametrize("amp,eps", [(False, 1e-8), (True, 1e-4)])
-def test_rmsprop_step_matches_jax(tmp_path, amp, eps):
-    jt, tt, jloss, jgrads = _one_step(tmp_path, amp, opt_kw=dict(OPT_KW, eps=eps))
+def test_rmsprop_step_matches_jax(jax_step, amp, eps):
+    tt, j = _one_step(jax_step, amp, eps=eps)
+    jloss, jgrads = j["loss"], j["grads"]
     if amp:
         assert amp_mismatches(tt, jloss, jgrads, loss_tol=AMP_LOSS_TOL_OCTREE) == []
     else:
@@ -208,14 +239,13 @@ def test_rmsprop_step_matches_jax(tmp_path, amp, eps):
         for name, (_, err) in grad_errors(tt, jgrads).items():
             assert err <= 1e-5, (name, err)
     assert tt.last_num_overflow == 0.0
-    new, _ = octree_params_from_jax(jt.sync_pipeline())
     group_of = {id(p): g for g in tt.optimizer.param_groups for p in g["params"]}
     for name, got in tt.pipeline.named_parameters():
         group = group_of[id(got)]
         assert group["eps"] == eps
         # the first step moves a parameter by up to lr / sqrt(1 - alpha)
         step = group["lr"] / math.sqrt(1.0 - group["alpha"])
-        np.testing.assert_allclose(np_of(got), new[name[len("nef."):]],
+        np.testing.assert_allclose(np_of(got), j["new"][name[len("nef."):]],
                                    atol=2e-3 if amp else 1e-5 * step, rtol=0, err_msg=name)
     assert set(group_of[id(p)]["name"] for p in tt.pipeline.parameters()) == {"decoder", "grid"}
 
@@ -251,9 +281,9 @@ def test_adaptive_decisions_match_jax_on_a_voxel_march(tmp_path):
     assert max(d[1] for d in decisions) == 1.0
 
 
-def test_amp_comparison_fails_a_float32_port(tmp_path):
-    _, tt, jloss, jgrads = _one_step(tmp_path, amp=True, port_amp=False)
-    bad = amp_mismatches(tt, jloss, jgrads, loss_tol=AMP_LOSS_TOL_OCTREE)
+def test_amp_comparison_fails_a_float32_port(jax_step):
+    tt, j = _one_step(jax_step, amp=True, port_amp=False)
+    bad = amp_mismatches(tt, j["loss"], j["grads"], loss_tol=AMP_LOSS_TOL_OCTREE)
     assert "loss" in bad
     decoders = [name for name, _ in tt.pipeline.named_parameters() if "decoder" in name]
     assert decoders and all(f"{name} not bf16" in bad for name in decoders), bad

@@ -8,6 +8,8 @@ order * voxel). The jittered cases hand JAX's own draw (``jax.random.uniform`` o
 march's key and shape) to the port.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,7 @@ def _densities(level: int, occ: np.ndarray, seed: int) -> np.ndarray:
                     -1.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
 def _blases(branch: str):
     """(JAX octree, port octree) of one march branch: 'density' (the fused field of a
     sparse octree), 'density_random' (that field with seeded densities), 'occ' (the
@@ -93,13 +96,13 @@ def test_raymarch_voxel_matches_jax(branch, level, num_samples, budget, early_st
     jr, tr = both_rays(origins, dirs, 0.0, 8.0)
     jb, tb = _blases(branch)
     key = jax.random.PRNGKey(11) if jittered else None
-    want = jb._raymarch_voxel(jr, num_samples, level, key, budget=budget,
-                              early_stop=early_stop)
+    want = jax.jit(lambda b, r: b._raymarch_voxel(r, num_samples, level, key, budget=budget,
+                                                  early_stop=early_stop))(jb, jr)
     k = voxel_slots(num_samples, budget, level)
     jitter = None
     if jittered:
-        jitter = torch.from_numpy(np.array(
-            jax.random.uniform(key, (origins.shape[0], k, num_samples))))
+        jitter = torch.from_numpy(np.array(jax.jit(
+            lambda kk: jax.random.uniform(kk, (origins.shape[0], k, num_samples)))(key)))
     got = tb.raymarch(tr, raymarch_type="voxel", num_samples=num_samples, level=level,
                       key=jitter, budget=budget, early_stop=early_stop)
     assert got.samples.shape == (origins.shape[0], k * num_samples, 3)

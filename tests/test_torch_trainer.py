@@ -63,30 +63,33 @@ class _Views:
         return self.n
 
 
-def _trainers(tmp_path, amp=False, transforms=(None, None), port_amp=None, **kw):
+def _trainers(tmp_path, amp=False, transforms=(None, None), with_port=True, **kw):
+    """(JAX trainer, port trainer) on the same weights; without the port's, (JAX trainer,
+    (params, config)) of the weights it started from."""
     jpipe = jax_pipeline(carve_seed=7, compaction=0.25, feature_std=0.1)
     params, config = params_from_jax(jpipe)
-    tpipe = build_pipeline(params, config, device="cpu")
     cfg = dict(TRAIN_KW, **kw)
     jtracker = JTracker(ConfigTracker(log_dir=str(tmp_path), tensorboard=False), "parity")
     jt = JTrainer(JConfig(optimizer=JConfigAdamW(**OPT_KW), enable_amp=amp, **cfg), jpipe,
                   _Views(transforms[0]), tracker=jtracker)
-    port_amp = amp if port_amp is None else port_amp
+    if not with_port:
+        return jt, (params, config)
+    tpipe = build_pipeline(params, config, device="cpu")
     tt = MultiviewTrainer(ConfigMultiviewTrainer(optimizer=ConfigAdamW(**OPT_KW),
-                                                 enable_amp=port_amp, **cfg),
+                                                 enable_amp=amp, **cfg),
                           tpipe, _Views(transforms[1]), device="cpu")
     return jt, tt
 
 
-def _one_step(tmp_path, amp, port_amp=None):
-    """Both trainers take one step on the same batch and jitter. Returns them with JAX's
-    loss and gradients of that step, taken before its update."""
-    jt, tt = _trainers(tmp_path, amp=amp, port_amp=port_amp)
+def _jax_one_step(tmp_path, amp):
+    """JAX's trainer takes one step on a seeded batch. Returns the starting weights (for
+    the port), the step's jitter, loss and gradients (taken before its update), and what
+    the step left: its logged loss, its updated weights and its density-feedback grid."""
+    jt, (params, config) = _trainers(tmp_path, amp=amp, with_port=False)
     n = 128
     origins, dirs = ray_arrays(n, seed=21)
     rgb = np.random.default_rng(21).uniform(size=(n, 3)).astype(np.float32)
     jt.pre_training()  # builds the step function and its base key
-    tt.pre_training()
     key = jax.random.fold_in(jt._step_base_key, np.uint32(jt.total_iterations))
     u = np.array(jax.random.uniform(key, (n, jt.pipeline.tracer.num_steps)))
     jrays = JRays(origins, dirs, 0.0, 8.0)
@@ -99,38 +102,68 @@ def _one_step(tmp_path, amp, port_amp=None):
     jgrads = {path: np.asarray(g) for path, g in jgrads.items()}
     jt.step({"rays": jrays, "rgb": rgb})
     jt._flush_stats()
-    tt.step({"rays": Rays(torch.from_numpy(origins), torch.from_numpy(dirs), 0.0, 8.0),
-             "rgb": torch.from_numpy(rgb)}, key=torch.from_numpy(u))
-    return jt, tt, float(jloss), jgrads
+    new, _ = params_from_jax(jt.sync_pipeline())
+    return {"params": params, "config": config, "origins": origins, "dirs": dirs,
+            "rgb": rgb, "u": u, "loss": float(jloss), "grads": jgrads,
+            "logged_loss": jt.tracker.metrics.average_metric("total_loss"), "new": new,
+            "density_max_grid": np.asarray(jt._density_max_grid)}
+
+
+@pytest.fixture(scope="module")
+def jax_step(tmp_path_factory):
+    """JAX's one step by AMP setting, taken once for the tests that compare with it."""
+    done = {}
+
+    def get(amp):
+        if amp not in done:
+            done[amp] = _jax_one_step(tmp_path_factory.mktemp("jax"), amp)
+        return done[amp]
+    return get
+
+
+def _one_step(jax_step, amp, port_amp=None):
+    """The port's trainer takes JAX's step (``jax_step(amp)``) on the same weights, batch
+    and jitter. Returns it with JAX's step."""
+    j = jax_step(amp)
+    tpipe = build_pipeline(j["params"], j["config"], device="cpu")
+    port_amp = amp if port_amp is None else port_amp
+    tt = MultiviewTrainer(ConfigMultiviewTrainer(optimizer=ConfigAdamW(**OPT_KW),
+                                                 enable_amp=port_amp, **TRAIN_KW),
+                          tpipe, _Views(), device="cpu")
+    tt.pre_training()
+    tt.step({"rays": Rays(torch.from_numpy(j["origins"]), torch.from_numpy(j["dirs"]), 0.0,
+                          8.0), "rgb": torch.from_numpy(j["rgb"])},
+            key=torch.from_numpy(j["u"]))
+    return tt, j
 
 
 @pytest.mark.parametrize("amp,loss_tol,param_tol", [(False, 1e-5, 1e-5),
                                                     (True, AMP_LOSS_TOL, 2e-3)])
-def test_one_step_matches_jax(tmp_path, amp, loss_tol, param_tol):
-    jt, tt, jloss, jgrads = _one_step(tmp_path, amp)
-    assert abs(jloss - jt.tracker.metrics.average_metric("total_loss")) <= 1e-6
+def test_one_step_matches_jax(jax_step, amp, loss_tol, param_tol):
+    tt, j = _one_step(jax_step, amp)
+    jloss, jgrads = j["loss"], j["grads"]
+    assert abs(jloss - j["logged_loss"]) <= 1e-6
     if amp:
         assert amp_mismatches(tt, jloss, jgrads) == []
     else:
         assert abs(jloss - tt.last_loss) <= loss_tol
         for name, (_, err) in grad_errors(tt, jgrads).items():
             assert err <= 1e-5, (name, err)
-    new, _ = params_from_jax(jt.sync_pipeline())
     for name, got in tt.pipeline.named_parameters():
-        np.testing.assert_allclose(np_of(got), new[name[len("nef."):]], atol=param_tol,
+        np.testing.assert_allclose(np_of(got), j["new"][name[len("nef."):]], atol=param_tol,
                                    rtol=0, err_msg=name)
     if not amp:
         # the density feedback the step carried for the next prune
-        np.testing.assert_allclose(np_of(tt._density_max_grid),
-                                   np.asarray(jt._density_max_grid), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(np_of(tt._density_max_grid), j["density_max_grid"],
+                                   atol=1e-5, rtol=0)
         assert float(tt._density_max_grid.max()) > 0.0
 
 
-def test_amp_comparison_fails_a_float32_port(tmp_path):
+def test_amp_comparison_fails_a_float32_port(jax_step):
     """The control: a port whose decoders stay in float32 fails the AMP comparison, on the
     loss and on every decoder gradient."""
-    _, tt, jloss, jgrads = _one_step(tmp_path, amp=True, port_amp=False)
-    bad = amp_mismatches(tt, jloss, jgrads)
+    tt, j = _one_step(jax_step, amp=True, port_amp=False)
+    bad = amp_mismatches(tt, j["loss"], j["grads"])
     assert "loss" in bad
     decoders = [name for name, _ in tt.pipeline.named_parameters() if "decoder" in name]
     assert decoders and all(f"{name} not bf16" in bad for name in decoders), bad
@@ -174,7 +207,8 @@ def test_prune_matches_jax(grace):
     views = jax.random.normal(k2, (cells, 3))
     views = np.array(views / jnp.linalg.norm(views, axis=-1, keepdims=True))
 
-    jnew = nef.prune(key=key, sample_max=jnp.asarray(sample_max))
+    jnew = jax.jit(lambda m, k, sm: m.prune(key=k, sample_max=sm))(
+        nef, key, jnp.asarray(sample_max))
     tnef = tpipe.nef
     tnef.prune(sample_max=torch.from_numpy(sample_max), jitter=torch.from_numpy(jitter),
                views=torch.from_numpy(views))

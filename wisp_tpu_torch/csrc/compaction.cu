@@ -21,6 +21,14 @@
 // consecutive rays of one step, so mask reads are strided by S bytes; the 8 MB mask of a
 // 16,384 x 512 chunk stays in L2. A decoupled look-back scan would fuse the passes.
 //
+// K6a — the live cull of the segmented trace (wisp_tpu/tracers/packed_rf_tracer.py
+// _trace_segmented :338-343): with a per-ray carried optical depth acc_tau [R] and a cap
+// tau_cap = -log(eps), position p is valid iff mask[r*S+s] && acc_tau[r] < tau_cap, so the
+// samples of rays whose transmittance fell to eps or below are neither counted nor kept.
+// The order, the kept-slot contract and the returned count are those of K3. Bound: bytes,
+// K3's plus 4 bytes a ray of acc_tau; the cull is one more load (L1-resident: a block's
+// 4,096 positions span at most 4,096 / R + 1 steps of consecutive rays) and a compare.
+//
 // scatter_back backward (the autodiff of packed_rf_tracer.py:214, the `.at[idx].set`
 // scatter): a gather of the cotangent rows at the slots' sample indices,
 // grad_v[k, c] = grad_out[idx[k], c] (0 for an empty slot). Bound on this card: bytes, one
@@ -35,21 +43,25 @@ constexpr int kThreads = 256;
 constexpr int kItems = 16;
 constexpr int kTile = kThreads * kItems;
 
-__device__ __forceinline__ int mask_at(const uint8_t* __restrict__ mask, long long p, int R,
-                                       int S, long long P) {
+// acc_tau null: no cull (K3); else the sample's ray must have acc_tau < tau_cap (K6a)
+__device__ __forceinline__ int mask_at(const uint8_t* __restrict__ mask,
+                                       const float* __restrict__ acc_tau, float tau_cap,
+                                       long long p, int R, int S, long long P) {
   if (p >= P) return 0;
   const long long r = p % R;
   const long long s = p / R;
-  return mask[r * S + s] != 0;
+  return mask[r * S + s] != 0 && (acc_tau == nullptr || acc_tau[r] < tau_cap);
 }
 
-__global__ void count_kernel(const uint8_t* __restrict__ mask, int R, int S,
+__global__ void count_kernel(const uint8_t* __restrict__ mask,
+                             const float* __restrict__ acc_tau, float tau_cap, int R, int S,
                              int* __restrict__ block_counts) {
   const long long P = (long long)R * S;
   const long long base = (long long)blockIdx.x * kTile;
   int c = 0;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) c += mask_at(mask, base + k * kThreads + threadIdx.x, R, S, P);
+  for (int k = 0; k < kItems; ++k)
+    c += mask_at(mask, acc_tau, tau_cap, base + k * kThreads + threadIdx.x, R, S, P);
   int total;
   wisp::block_exclusive_scan(c, total);
   if (threadIdx.x == 0) block_counts[blockIdx.x] = total;
@@ -70,6 +82,7 @@ __global__ void scan_kernel(const int* __restrict__ block_counts, int nb,
 }
 
 __global__ void write_kernel(const uint8_t* __restrict__ mask,
+                             const float* __restrict__ acc_tau, float tau_cap,
                              const float* __restrict__ samples,
                              const float* __restrict__ dirs, int R, int S, long long budget,
                              const int* __restrict__ block_offsets,
@@ -80,7 +93,7 @@ __global__ void write_kernel(const uint8_t* __restrict__ mask,
   long long slot0 = block_offsets[blockIdx.x];
   for (int k = 0; k < kItems; ++k) {
     const long long p = base + k * kThreads + threadIdx.x;
-    const int m = mask_at(mask, p, R, S, P);
+    const int m = mask_at(mask, acc_tau, tau_cap, p, R, S, P);
     int total;
     const int excl = wisp::block_exclusive_scan(m, total);
     const long long slot = slot0 + excl;
@@ -128,22 +141,24 @@ __global__ void gather_kernel(const float* __restrict__ grad_out,
 }  // namespace
 
 // block_counts / block_offsets: int32 scratch of ceil(R*S / 4096) entries; count: one
-// int64, the number of valid samples (not capped by the budget).
-WISP_EXPORT int wisp_compact(const uint8_t* mask, const float* samples, const float* dirs,
+// int64, the number of valid samples (not capped by the budget). acc_tau [R] may be null
+// (K3); else only the samples of rays with acc_tau < tau_cap are valid (K6a).
+WISP_EXPORT int wisp_compact(const uint8_t* mask, const float* acc_tau, float tau_cap,
+                             const float* samples, const float* dirs,
                              int R, int S, long long budget, int* block_counts,
                              int* block_offsets, long long* count, long long* idx,
                              float* cflat, float* cray_d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nb = wisp::ceil_div((long long)R * S, kTile);
   if (nb == 0) return (int)cudaErrorInvalidValue;
-  count_kernel<<<nb, kThreads, 0, st>>>(mask, R, S, block_counts);
+  count_kernel<<<nb, kThreads, 0, st>>>(mask, acc_tau, tau_cap, R, S, block_counts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   scan_kernel<<<1, 1024, 0, st>>>(block_counts, nb, block_offsets, count);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  write_kernel<<<nb, kThreads, 0, st>>>(mask, samples, dirs, R, S, budget, block_offsets,
-                                        idx, cflat, cray_d);
+  write_kernel<<<nb, kThreads, 0, st>>>(mask, acc_tau, tau_cap, samples, dirs, R, S,
+                                        budget, block_offsets, idx, cflat, cray_d);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,11 @@
 // (or -0.0) loses to the zero the cell starts from, as it does in the plain version. A NaN
 // is written as the largest positive NaN pattern, so any NaN turns its cell into NaN, as a
 // max that propagates NaN does.
+//
+// Accumulated (the segmented trace's carried grid, wisp_tpu/tracers/packed_rf_tracer.py
+// _trace_segmented :376-384): the same kernel maxes into a grid that earlier calls filled,
+// one call a segment, so the segments of a trace share one grid as JAX's carried `fb` does.
+// Its cells hold values >= 0 (or the NaN pattern), so the int order still holds.
 #include "common.cuh"
 
 namespace {
@@ -30,7 +35,8 @@ __global__ void scatter_max_kernel(const long long* __restrict__ ids,
 
 }  // namespace
 
-// grid: `size` floats, zeroed by the caller, updated in place.
+// grid: `size` floats, zeroed by the caller or carried from earlier calls, updated in
+// place.
 WISP_EXPORT int wisp_scatter_max(const long long* ids, const float* values, long long K,
                                  long long size, float* grid, void* stream) {
   if (K > 0) {

@@ -39,7 +39,9 @@ LAUNCHES: Dict[str, int] = {"raymarch_ray": 0, "compact": 0, "scatter_back": 0,
                             "scatter_back_bwd": 0, "integrate_bwd": 0, "scatter_max": 0,
                             "octree_query": 0, "free_space_distance": 0, "octree_interp": 0,
                             "sdf_walk": 0, "sphere_step": 0, "octree_interp_bwd": 0,
-                            "mesh_sdf": 0, "raymarch_voxel": 0, "hashgrid_bwd_stoch": 0}
+                            "mesh_sdf": 0, "raymarch_voxel": 0, "hashgrid_bwd_stoch": 0,
+                            "compact_live": 0, "integrate_seg_fwd": 0, "integrate_seg_bwd": 0,
+                            "scatter_max_acc": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,8 +55,9 @@ _SIGNATURES = {
     # early_stop samples depths mask dens num_overflow stream
     "wisp_raymarch_voxel": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _I, _F, _P,
                             _P, _P, _P, _P, _P],
-    # mask samples dirs R S budget block_counts block_offsets count idx cflat cray_d stream
-    "wisp_compact": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P],
+    # mask acc_tau tau_cap samples dirs R S budget block_counts block_offsets count idx cflat
+    # cray_d stream
+    "wisp_compact": [_P, _P, _F, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P],
     # v idx K C P out stream
     "wisp_scatter_back": [_P, _P, _L, _I, _L, _P, _P],
     # grad_out idx K C P grad_v stream
@@ -73,6 +76,14 @@ _SIGNATURES = {
     # density deltas depths mask color R S bg0 bg1 bg2 g_rgb g_alpha g_depth grad_density
     # grad_color stream
     "wisp_integrate_bwd": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
+    # density deltas depths mask color extra acc_tau R S Ce rgb alpha depth extra_out acc_out
+    # stream
+    "wisp_integrate_seg_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                               _P],
+    # density deltas depths mask color acc_tau R S g_rgb g_alpha g_depth g_acc grad_density
+    # grad_color grad_acc stream
+    "wisp_integrate_seg_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _P],
     # ids values K size grid stream
     "wisp_scatter_max": [_P, _P, _L, _L, _P, _P],
     # coords N level maps(host array of pointers) with_parents out stream

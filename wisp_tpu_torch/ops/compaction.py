@@ -9,12 +9,16 @@ tensor they run their plain versions. Indices are integers and the scatter and g
 floats unchanged, so the two agree exactly. ``scatter_back`` is differentiable: its backward
 is ``scatter_back_bwd``, the gather of the cotangent at the slots' indices (the autodiff of
 the JAX scatter). ``compact`` needs no gradient: sample points are not parameters.
+
+Given a per-ray carried optical depth ``acc_tau`` and ``tau_cap``, ``compact`` also culls
+(K6a, the segmented trace's live test, packed_rf_tracer.py:338-343): a sample is valid only
+where its ray's ``acc_tau < tau_cap``, compared in float32 as JAX compares it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,9 +34,17 @@ def compaction_budget(num_rays: int, num_steps: int, compaction: float) -> int:
     return min(budget, num_rays * num_steps)
 
 
+def live_mask(mask: torch.Tensor, acc_tau: torch.Tensor, tau_cap: float) -> torch.Tensor:
+    """``mask`` [R, S] where the ray's carried optical depth is below ``tau_cap``."""
+    return mask & (acc_tau < float(tau_cap))[:, None]
+
+
 def compact_plain(mask: torch.Tensor, samples: torch.Tensor, dirs: torch.Tensor,
-                  budget: int) -> Tuple[torch.Tensor, ...]:
+                  budget: int, acc_tau: Optional[torch.Tensor] = None,
+                  tau_cap: Optional[float] = None) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of ``compact``."""
+    if acc_tau is not None:
+        mask = live_mask(mask, acc_tau, tau_cap)
     r, s = mask.shape
     rs = r * s
     mt = mask.T.reshape(-1)                                   # step-major: p = s*R + r
@@ -48,8 +60,11 @@ def compact_plain(mask: torch.Tensor, samples: torch.Tensor, dirs: torch.Tensor,
 
 
 def compact(mask: torch.Tensor, samples: torch.Tensor, dirs: torch.Tensor,
-            budget: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pack the valid samples of ``mask`` [R, S] into ``budget`` slots, step-major.
+            budget: int, acc_tau: Optional[torch.Tensor] = None,
+            tau_cap: Optional[float] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pack the valid samples of ``mask`` [R, S] into ``budget`` slots, step-major; with
+    ``acc_tau`` [R] float32, only those of rays with ``acc_tau < tau_cap`` are valid.
 
     Returns ``idx`` [B] int64 (flat row-major sample index r*S+s per slot), the slots'
     points ``cflat`` [B, 3] and ray directions ``cray_d`` [B, 3], and ``count``, a 0-d int64
@@ -57,9 +72,11 @@ def compact(mask: torch.Tensor, samples: torch.Tensor, dirs: torch.Tensor,
     first min(count, B) slots are defined: the kernel leaves the others unwritten, while
     the plain version fills them as JAX does (index R*S, the last sample)."""
     if not mask.is_cuda:
-        return compact_plain(mask, samples, dirs, budget)
+        return compact_plain(mask, samples, dirs, budget, acc_tau, tau_cap)
     r, s = mask.shape
     kernels.check(mask, "mask", torch.bool, (r, s))
+    if acc_tau is not None:
+        kernels.check(acc_tau, "acc_tau", torch.float32, (r,))
     kernels.check(samples, "samples", torch.float32, (r, s, 3))
     kernels.check(dirs, "dirs", torch.float32, (r, 3))
     if r * s == 0 or budget < 0 or budget > r * s or r * s >= 2 ** 31:
@@ -72,7 +89,9 @@ def compact(mask: torch.Tensor, samples: torch.Tensor, dirs: torch.Tensor,
     idx = torch.empty((budget,), dtype=torch.int64, device=dev)
     cflat = torch.empty((budget, 3), dtype=torch.float32, device=dev)
     cray_d = torch.empty((budget, 3), dtype=torch.float32, device=dev)
-    kernels.launch("wisp_compact", "compact", mask.data_ptr(), samples.data_ptr(),
+    kernels.launch("wisp_compact", "compact" if acc_tau is None else "compact_live",
+                   mask.data_ptr(), kernels.ptr(acc_tau),
+                   0.0 if tau_cap is None else float(tau_cap), samples.data_ptr(),
                    dirs.data_ptr(), r, s, budget, scratch.data_ptr(),
                    scratch[nb:].data_ptr(), count.data_ptr(), idx.data_ptr(),
                    cflat.data_ptr(), cray_d.data_ptr())

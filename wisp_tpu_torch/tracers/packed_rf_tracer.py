@@ -14,6 +14,11 @@ backward, the scatter-back's gather and K1 backward. Rendering wraps its calls i
 ``torch.no_grad``. ``key`` (a ``torch.Generator``, or the jitter [R, S] itself) jitters the
 march depths; ``density_feedback`` adds ``density_max_grid``, the per-cell max of the kept
 samples' densities (K5).
+
+``seg_early_stop > 0`` runs ``_trace_segmented`` (K6, JAX's ``_trace_segmented``): the march's
+samples in ``seg_count`` depth segments, each culled where the ray's carried optical depth
+has reached -log(seg_early_stop) (K6a), compacted into a per-segment budget, decoded once
+and composited with that optical depth carried into the exponent (K6b, K6c).
 """
 
 from __future__ import annotations
@@ -26,8 +31,14 @@ import torch
 from wisp_tpu_torch.core.render_buffer import RenderBuffer
 from wisp_tpu_torch.ops.compaction import compact, compaction_budget, scatter_back
 from wisp_tpu_torch.ops.density_grid import cell_ids, scatter_max
-from wisp_tpu_torch.ops.integration import integrate
+from wisp_tpu_torch.ops.integration import integrate, integrate_segment
 from wisp_tpu_torch.tracers.base_tracer import BaseTracer
+
+
+def _back(v: torch.Tensor, idx: torch.Tensor, n: int, s: int) -> torch.Tensor:
+    """The kept slots' rows ``v`` [K, ...] scattered back to [n, s, C] (K3)."""
+    v2 = v.reshape(v.shape[0], int(np.prod(v.shape[1:]))).contiguous()
+    return scatter_back(v2, idx, n * s).reshape(n, s, v2.shape[-1])
 
 
 class PackedRFTracer(BaseTracer):
@@ -83,9 +94,19 @@ class PackedRFTracer(BaseTracer):
               density_feedback=False):
         if nef.grid is None:
             raise ValueError("PackedRFTracer requires a grid")
-        if seg_early_stop and seg_early_stop > 0.0:
-            raise NotImplementedError("the segmented cull (seg_early_stop > 0) is not "
-                                      "ported yet (ROADMAP Queue 2, K6)")
+        seg_on = bool(seg_early_stop and seg_early_stop > 0.0)
+        if seg_on:
+            # JAX's dispatch (packed_rf_tracer.py:169-184), which also runs unsegmented,
+            # without the cull, when seg_count <= 1: the port refuses that instead
+            if early_stop and early_stop > 0.0:
+                raise ValueError("seg_early_stop (the segmented cull) and early_stop (the "
+                                 "cell-peak transmittance estimate) are mutually exclusive")
+            if not (compaction and compaction > 0.0):
+                raise ValueError("seg_early_stop requires compaction > 0 (the cull saves "
+                                 "work through the compaction budget)")
+            if not (seg_count and int(seg_count) > 1):
+                raise ValueError(f"seg_early_stop requires seg_count > 1, got {seg_count} "
+                                 f"(one segment would not cull)")
         if early_stop and early_stop > 0.0:
             raise NotImplementedError("early_stop > 0 is not ported yet (ROADMAP Queue 1, "
                                       "item 9)")
@@ -102,10 +123,15 @@ class PackedRFTracer(BaseTracer):
         with torch.no_grad():
             mr = nef.grid.raymarch(rays, raymarch_type=raymarch_type, num_samples=num_steps,
                                    key=key, **march_kw)
+        req_channels = ["rgb", "density", *sorted(extra_channels)]
+        if seg_on:
+            return self._trace_segmented(nef, rays, channels, extra_channels, req_channels,
+                                         lod_idx, max_compute_lod, mr, float(compaction),
+                                         float(seg_early_stop), int(seg_count), bg_color,
+                                         density_feedback)
         samples, depths, mask = mr.samples, mr.depth_samples, mr.mask
         s = samples.shape[1]
         rs = n * s
-        req_channels = ["rgb", "density", *sorted(extra_channels)]
 
         if compaction and compaction > 0.0:
             budget = compaction_budget(n, s, compaction)
@@ -121,8 +147,7 @@ class PackedRFTracer(BaseTracer):
             fb_points, fb_keep = coords, None
 
             def back(v):
-                v2 = v.reshape(v.shape[0], int(np.prod(v.shape[1:]))).contiguous()
-                return scatter_back(v2, idx, rs).reshape(n, s, v2.shape[-1])
+                return _back(v, idx, n, s)
         else:
             flat = samples.reshape(rs, 3)
             ray_d = rays.dirs[:, None, :].expand(n, s, 3).reshape(rs, 3)
@@ -167,6 +192,96 @@ class PackedRFTracer(BaseTracer):
                                                            device=density.device),
                             num_overflow=mr.num_overflow,
                             density_max_grid=density_max_grid, **extra_outputs)
+
+    def _trace_segmented(self, nef, rays, channels, extra_channels, req_channels, lod_idx,
+                         max_compute_lod, mr, compaction: float, eps: float, g_cnt: int,
+                         bg_color, density_feedback):
+        """The march's S samples in G = ``g_cnt`` segments of ceil(S/G) steps (the last one
+        padded with masked-off steps), in order: cull the rays whose carried optical depth
+        reached tau_cap = -log(eps), i.e. whose transmittance is at most eps (K6a); compact
+        the survivors step-major into the per-segment budget; one field call on the kept
+        slots; scatter back; composite with the carried optical depth (K6b; K6c is its
+        backward, so gradients flow through the carry); max the kept densities into one
+        grid (K5 accumulated). Each segment reads its valid count once (JAX evaluates all
+        budget slots instead); the overflow and the peak per-segment valid fraction
+        ``seg_frac_max``, which the trainer's adaptive budget keys on, follow from those
+        counts on the host."""
+        n = rays.origins.shape[0]
+        samples, depths, mask = mr.samples, mr.depth_samples, mr.mask
+        s_total = samples.shape[1]
+        s_g = -(-s_total // g_cnt)
+        pad = g_cnt * s_g - s_total
+        if pad:
+            samples = torch.nn.functional.pad(samples, (0, 0, 0, pad))
+            depths = torch.nn.functional.pad(depths, (0, pad))
+            mask = torch.nn.functional.pad(mask, (0, pad))
+        budget = compaction_budget(n, s_g, compaction)
+        # JAX compares the float32 optical depth with the weak-typed -log(eps): in float32
+        tau_cap = float(np.float32(-np.log(eps)))
+        dev = samples.device
+        level = self._fb_level(nef) if density_feedback else None
+        fb_grid = torch.zeros((8 ** level,), dtype=torch.float32, device=dev) \
+            if density_feedback else None
+        acc_tau = torch.zeros((n,), dtype=torch.float32, device=dev)
+        extra_names = sorted(extra_channels)
+        sums = {}
+        valids = []
+        for g in range(g_cnt):
+            cols = slice(g * s_g, (g + 1) * s_g)
+            seg_mask = mask[:, cols].contiguous()
+            seg_depths = depths[:, cols].contiguous()
+            with torch.no_grad():
+                idx, cflat, cray_d, count = compact(seg_mask, samples[:, cols].contiguous(),
+                                                    rays.dirs, budget, acc_tau.detach(),
+                                                    tau_cap)
+            valid = int(count)
+            valids.append(valid)
+            kept = min(valid, budget)
+            coords = cflat[:kept]
+            out = nef(channels=req_channels, coords=coords, ray_d=cray_d[:kept],
+                      lod_idx=lod_idx, max_compute_lod=max_compute_lod, stoch_rows=budget)
+            if fb_grid is not None:
+                scatter_max(cell_ids(coords, level),
+                            out["density"][:, 0].detach().float().contiguous(), 8 ** level,
+                            out=fb_grid)
+
+            def back(v):
+                return _back(v, idx, n, s_g)
+
+            extra = None
+            if extra_names:
+                extra = torch.cat([back(out[ch].detach()) for ch in extra_names],
+                                  dim=-1).contiguous()
+            # culled samples have no slot: their density is 0 after the scatter-back, so
+            # the march's mask composites as JAX's mask & live does
+            res = integrate_segment(back(out["density"])[..., 0].contiguous(), mr.deltas,
+                                    seg_depths, seg_mask, back(out["rgb"]).contiguous(),
+                                    acc_tau, extra=extra, with_depth="depth" in channels)
+            acc_tau = res["acc_tau"]
+            for k in ("rgb", "alpha", "depth", "extra"):
+                if k in res:
+                    sums[k] = res[k] if k not in sums else sums[k] + res[k]
+        alpha = sums["alpha"]
+        bg = torch.as_tensor(bg_color, dtype=sums["rgb"].dtype, device=dev)
+        rgb = bg[None, :] * (1.0 - alpha) + sums["rgb"]
+        extra_outputs = {}
+        col = 0
+        for ch in extra_names:
+            width = int(np.prod(out[ch].shape[1:]))
+            extra_outputs[ch] = alpha * sums["extra"][:, col:col + width]
+            col += width
+        num_valid = sum(valids)
+        overflow = float(sum(max(v - budget, 0) for v in valids))
+        num_overflow = torch.tensor(overflow, device=dev)
+        if mr.num_overflow is not None:
+            num_overflow = num_overflow + mr.num_overflow
+        self.prev_num_samples = num_valid
+        return RenderBuffer(depth=sums.get("depth"), hit=alpha > 0.0, rgb=rgb, alpha=alpha,
+                            num_valid_samples=torch.tensor(float(num_valid), device=dev),
+                            num_overflow=num_overflow,
+                            seg_frac_max=torch.tensor(max(valids) / float(n * s_g),
+                                                      device=dev),
+                            density_max_grid=fb_grid, **extra_outputs)
 
     @staticmethod
     def _fb_level(nef) -> int:

@@ -4,8 +4,9 @@ wisp_tpu/trainers/multiview_trainer.py).
 * step: trace with gradients (the march jittered from the trainer's generator) -> loss (l2,
   l1 or huber over rays or samples, optional opacity loss for the first 1,000 iterations)
   -> backward -> the optimizer of the config's preset. The step's stats (loss, valid
-  samples, the voxel march's ``num_overflow``) are read at once, in one device read (JAX
-  defers the fetch by one step to hide a device round trip).
+  samples, ``num_overflow`` of the voxel march or the segmented cull, and the segmented
+  cull's ``seg_frac_max``) are read at once, in one device read (JAX defers the fetch by one
+  step to hide a device round trip).
 * adaptive ray batching holds the valid samples per step near ``target_sample_size``, in
   power-of-two batches capped by ``max_compacted_samples``; adaptive compaction grows the
   tracer's budget at once and shrinks it on a window of steps, in half-octave buckets.
@@ -71,6 +72,7 @@ class MultiviewTrainer(BaseTrainer):
                          tracker=tracker, device=device)
         self.validation_dataset = validation_dataset
         self._prev_num_samples = None
+        self._prev_seg_frac_max = None
         self._frac_window = []
         self._steps_since_retune = 0
         nef = pipeline.nef
@@ -92,6 +94,7 @@ class MultiviewTrainer(BaseTrainer):
     def extra_state(self) -> Dict[str, Any]:
         extra = super().extra_state()
         extra.update({"prev_num_samples": self._prev_num_samples,
+                      "prev_seg_frac_max": self._prev_seg_frac_max,
                       "frac_window": list(self._frac_window),
                       "steps_since_retune": self._steps_since_retune,
                       "tracer_compaction": getattr(self.pipeline.tracer, "compaction", None)})
@@ -106,6 +109,7 @@ class MultiviewTrainer(BaseTrainer):
     def load_extra_state(self, extra: Dict[str, Any]) -> None:
         super().load_extra_state(extra)
         self._prev_num_samples = extra.get("prev_num_samples")
+        self._prev_seg_frac_max = extra.get("prev_seg_frac_max")
         self._frac_window = list(extra.get("frac_window", []))
         self._steps_since_retune = extra.get("steps_since_retune", 0)
         budget = extra.get("tracer_compaction")
@@ -164,6 +168,9 @@ class MultiviewTrainer(BaseTrainer):
         current = tracer.compaction or 0.0
         total = max(num_rays_in_batch, 1) * tracer.num_steps
         frac = self._prev_num_samples / total
+        if self._prev_seg_frac_max is not None:
+            # the segmented cull's budgets are per segment: they must hold the peak segment
+            frac = self._prev_seg_frac_max
         self._frac_window.append(frac)
         if len(self._frac_window) > self.FRAC_WINDOW_STEPS:
             self._frac_window.pop(0)
@@ -215,9 +222,11 @@ class MultiviewTrainer(BaseTrainer):
         loss = self.cfg.rgb_lambda * rgb_loss
         if self.cfg.opacity_loss > 0.0 and self.total_iterations < 1000:
             loss = loss + self.cfg.opacity_loss * torch.mean((1.0 - rb.alpha) ** 2)
-        # num_overflow ('voxel' march): the rays whose occupied voxels exceeded the budget
+        # num_overflow: the rays whose occupied voxels exceeded the 'voxel' march's budget,
+        # and the samples that the segmented cull's budgets dropped
         return loss, {"rgb_loss": rgb_loss, "num_valid_samples": num_valid_samples,
                       "num_overflow": rb.channels.get("num_overflow"),
+                      "seg_frac_max": rb.channels.get("seg_frac_max"),
                       "density_grid_update": rb.channels.get("density_max_grid")}
 
     def step(self, data, key=None):
@@ -236,18 +245,22 @@ class MultiviewTrainer(BaseTrainer):
             torch.maximum(self._density_max_grid, aux["density_grid_update"],
                           out=self._density_max_grid)
         # one device read for the step's stats
-        stats = [loss.detach(), aux["rgb_loss"].detach(), aux["num_valid_samples"]]
-        if aux["num_overflow"] is not None:
-            stats.append(aux["num_overflow"])
-        values = torch.stack([v.float().reshape(()) for v in stats]).tolist()
-        self.last_loss = values[0]
-        self.last_num_overflow = values[3] if len(values) > 3 else None
-        self._apply_stats(values[0], values[1], values[2], num_rays)
+        stats = {"loss": loss.detach(), "rgb_loss": aux["rgb_loss"].detach(),
+                 "num_valid_samples": aux["num_valid_samples"],
+                 "num_overflow": aux["num_overflow"], "seg_frac_max": aux["seg_frac_max"]}
+        stats = {k: v.float().reshape(()) for k, v in stats.items() if v is not None}
+        values = dict(zip(stats, torch.stack(list(stats.values())).tolist()))
+        self.last_loss = values["loss"]
+        self.last_num_overflow = values.get("num_overflow")
+        self._apply_stats(values["loss"], values["rgb_loss"], values["num_valid_samples"],
+                          num_rays, values.get("seg_frac_max"))
 
-    def _apply_stats(self, loss: float, rgb_loss: float, num_valid: float, num_rays: int):
+    def _apply_stats(self, loss: float, rgb_loss: float, num_valid: float, num_rays: int,
+                     seg_frac_max=None):
         self.tracker.metrics.total_loss += loss
         self.tracker.metrics.rgb_loss += rgb_loss
         self._prev_num_samples = num_valid or None
+        self._prev_seg_frac_max = seg_frac_max
         self.calc_adaptive_rays(num_rays)
 
     def log_console(self):
@@ -262,13 +275,8 @@ class MultiviewTrainer(BaseTrainer):
         to a multiple of the chunk (origin 0, direction (1, 1, 1)), so every chunk has the
         same compaction budget; the chunk is capped by ``max_compacted_samples``."""
         n = rays.origins.shape[0]
-        chunk = min(chunk, max(1024, int(2 ** np.ceil(np.log2(max(n, 1))))))
-        tracer = self.pipeline.tracer
-        budget = getattr(tracer, "compaction", None) or 0.0
-        if budget > 0.0:
-            cap = int(self.cfg.max_compacted_samples / (tracer.num_steps * budget))
-            while chunk > 1024 and chunk > cap:
-                chunk //= 2
+        chunk = self.clamp_render_chunk(
+            min(chunk, max(1024, int(2 ** np.ceil(np.log2(max(n, 1)))))))
         pad = (-n) % chunk
         dev = rays.origins.device
         origins = torch.cat([rays.origins, torch.zeros((pad, 3), device=dev)])
@@ -279,6 +287,20 @@ class MultiviewTrainer(BaseTrainer):
                      rays.dist_min, rays.dist_max)
             outs.append(self.pipeline(rays=r, channels=["rgb", "alpha", "depth"]).rgb)
         return torch.cat(outs)[:n]
+
+    def clamp_render_chunk(self, chunk: int) -> int:
+        """Halve the render chunk (not below 1,024) until chunk * num_steps * budget fits
+        ``max_compacted_samples`` (JAX's ``_clamp_render_chunk``). Under the segmented cull a
+        segment's budget covers ceil(num_steps / seg_count) steps, so the rule bounds a
+        segment's slots with room to spare, as in JAX."""
+        tracer = self.pipeline.tracer
+        budget = getattr(tracer, "compaction", None) or 0.0
+        if budget <= 0.0:
+            return chunk
+        cap = int(self.cfg.max_compacted_samples / ((tracer.num_steps or 1) * budget))
+        while chunk > 1024 and chunk > cap:
+            chunk //= 2
+        return chunk
 
     def evaluate_metrics(self, dataset) -> Dict[str, float]:
         """The mean PSNR of the dataset's views (SSIM and LPIPS are not ported yet)."""
