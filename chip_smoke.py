@@ -87,13 +87,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    compaction 1.0, holds the segmented trace at eps 1e-20 to the unsegmented one (1e-3,
    the same valid count) and at eps 1e-3 within eps + 1e-4 in rgb, and times one 512x512
    frame with the cull and one without;
-13. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+13. NGLOD app path ("nglod app"): parses app/nglod/configs/nglod_octree.yaml through the
+   port's ``main_nglod.parse_args`` as shipped but for one epoch of its 10, a save at its
+   end ('full') and a temporary log dir, and builds it with ``main_nglod.build()`` (the
+   icosphere's level-7 octree, OctreeGrid 16 x 6 LODs, hidden 128, 500,000 samples and 32
+   a voxel, batch 512); sets the counts to 0, trains the epoch (~4,400 steps, a resample)
+   and validates, reads the counts; reloads the saved model with ``--pretrained
+   --valid-only`` (the same IoUs on the same samples); renders the trained field's 512x512
+   frame (the tracker's snapshot camera, rays shuffled by ``default_rng(0)``, chunks of
+   65,536) uncompacted, at compaction 0.55 and with mid-loop compaction 0.3 at mid_at 0.5
+   (counts from 0 before the three timed frames), holds the compacted traces to the
+   uncompacted one with float32 decoders (the same hits except within SDF_HIT_MARGIN of
+   min_dis, depth and normals within their tolerances; no invented hit where a chunk drops
+   rays), and profiles a compacted chunk; builds ``--blas-level 8`` and runs 50 steps (the
+   last profiled) and one render chunk (counts from 0: K9's search launched); builds the
+   texture flags on the yaml, resamples and runs 50 steps (counts from 0: K17 launched);
+   holds K12's compaction (both passes), its scatter-back, K9's search (with and without
+   the ancestor chain) and K17 against their plain versions and times them;
+14. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels, from the SDF training run for its two, from the octree NeRF's 25
-   steps for K7, from the stoch path's 25 steps for K1's stochastic backward and from the
-   segmented path's 25 steps for K6a, K6b, K6c and K5 accumulated), the main-path,
-   ``train_path``, ``sdf_path``, ``sdf_train_path``, ``octree_nerf_path``, ``stoch_path``
-   and ``seg_path`` JSON lines, the nvidia-smi line and, last,
+   steps for K7, from the stoch path's 25 steps for K1's stochastic backward, from the
+   segmented path's 25 steps for K6a, K6b, K6c and K5 accumulated, and from the nglod app
+   path's frames for K12's compaction, its level-8 steps and chunk for K9's search and its
+   texture resample and steps for K17), the main-path, ``train_path``, ``sdf_path``,
+   ``sdf_train_path``, ``octree_nerf_path``, ``stoch_path``, ``seg_path`` and
+   ``nglod_path`` JSON lines, the nvidia-smi line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -217,7 +236,8 @@ def timed(fn, iters: int = 20, warmup: int = 3):
             ms = sum(k["ms"] / k["count"] * max(1, round(k["count"] / iters))
                      for k in recorded)
             return ms, event_ms
-    raise SmokeFailure("three profiling sessions saw no device time")
+    raise SmokeFailure(f"three profiling sessions saw no device time (timing the function "
+                       f"of chip_smoke.py line {fn.__code__.co_firstlineno})")
 
 
 def events_only(fn, iters: int = 20, warmup: int = 3):
@@ -869,9 +889,9 @@ def sdf_kernel_phase(pipeline, rays):
         ops=live * 60))
 
     # K9 with parents, as OctreeGrid.interpolate asks, at the last LOD
-    maps = blas.pidx_maps
-    qk = octree_query(coords, maps, level, True)
-    qp = octree_query_plain(coords, maps, level, True)
+    routes = blas.query_routes
+    qk = octree_query(coords, routes, level, True)
+    qp = octree_query_plain(coords, routes, level, True)
     require(torch.equal(qk, qp), "octree_query differs from the plain version")
     q = quantize_points(coords, level)
     inside = ((coords >= -1.0) & (coords <= 1.0)).all(-1)
@@ -883,8 +903,8 @@ def sdf_kernel_phase(pipeline, rays):
     rows.append(kernel_row(
         "octree_query", "wisp_tpu_torch/csrc/octree.cu",
         "wisp_tpu/accelstructs/octree_as.py:199", 0.0, 0.0,
-        timed(lambda: octree_query(coords, maps, level, True)),
-        timed(lambda: octree_query_plain(coords, maps, level, True)),
+        timed(lambda: octree_query(coords, routes, level, True)),
+        timed(lambda: octree_query_plain(coords, routes, level, True)),
         nbytes=n * 12 + n * (level + 1) * 4 + map_entries * 4,
         ops=n * (3 * 4 + (level + 1) * 6)))
 
@@ -2271,6 +2291,517 @@ def seg_phase(dev):
     return rows, info
 
 
+NGLOD_CONFIG = "app/nglod/configs/nglod_octree.yaml"
+# the depth cut: one epoch of the yaml's 10 (~4,400 steps of batch 512); the model saved
+# ('full') at its end; no TensorBoard (the card's machine has none)
+NGLOD_ARGS = ("--trainer.max-epochs", "1", "--trainer.save-every", "1",
+              "--trainer.model-format", "full", "--tracker.tensorboard", "false")
+NGLOD_EXTRA = ()               # appended to every parse (a CPU rehearsal shrinks here)
+NGLOD_TEX = ("--dataset.constructor", "MeshSampledSDFDataset", "--dataset.sample-tex",
+             "true", "--nef.constructor", "NeuralSDFTex")
+NGLOD_FRAME_RES = 512          # the app's renderer: OfflineRenderer(render_res=(512, 512))
+NGLOD_CHUNK = 65536            # tools/sdf_render_bench.py --chunk
+NGLOD_COMPACTION = 0.55        # ... --compaction 0.55 --mid-compaction 0.3 --shuffle
+NGLOD_MID_COMPACTION = 0.3
+NGLOD_MID_AT = 0.5
+NGLOD_L8_LEVEL = 8             # above the pidx maps (PIDX_MAP_MAX_LEVEL 7): the search
+NGLOD_L8_STEPS = 50
+NGLOD_TEX_STEPS = 50
+NGLOD_K17_POINTS = 65_536
+NGLOD_TRAIN_KERNELS = ("octree_query", "octree_interp", "octree_interp_bwd", "mesh_sdf")
+NGLOD_FRAME_KERNELS = ("octree_query", "octree_interp", "sdf_walk", "sphere_step",
+                       "compact_rays", "compact_rays_mid", "scatter_rays", "scatter_rays_mid")
+NGLOD_L8_KERNELS = ("octree_query_search", "octree_interp", "octree_interp_bwd",
+                    "free_space_distance", "sdf_walk", "sphere_step")
+NGLOD_TEX_KERNELS = ("mesh_sdf", "closest_point", "octree_query", "octree_interp",
+                     "octree_interp_bwd")
+# float32 operations of one point-triangle pair in K17 (the plain version's arithmetic):
+# the closest point 120, its squared distance 8 and the compare 1 (MESH_SDF_PAIR_OPS's pass
+# 1, terms of the triangle alone left out)
+CLOSEST_PAIR_OPS = 129
+
+
+def nglod_app(*extra):
+    """(cfg, pipeline, trainer) of nglod_octree.yaml through the port's main_nglod front
+    end (parse_args, build), with the depth cut and ``extra`` flags."""
+    from wisp_tpu_torch.app.nglod import main_nglod
+    cfg = main_nglod.parse_args(["--config", NGLOD_CONFIG, *NGLOD_ARGS, *NGLOD_EXTRA,
+                                 *extra])
+    return (cfg,) + main_nglod.build(cfg)
+
+
+@contextmanager
+def recording_ray_compaction(calls: list):
+    """Record the arguments and results of the SDF tracer's ray compactions."""
+    from wisp_tpu_torch.tracers import packed_sdf_tracer
+    original = packed_sdf_tracer.compact_rays
+
+    def recording(mask, budget, o, d, t, tf, mid=False):
+        out = original(mask, budget, o, d, t, tf, mid=mid)
+        calls.append({"mid": mid, "args": (mask.clone(), budget, o.clone(), d.clone(),
+                                           t.clone(), tf.clone()), "count": out[5]})
+        return out
+
+    with mock.patch.object(packed_sdf_tracer, "compact_rays", recording):
+        yield calls
+
+
+def trace_chunks(nef, tracer, rays, chunk: int):
+    """The tracer's RenderBuffer of each ``chunk`` rays of ``rays`` (no gradient)."""
+    import torch
+    from wisp_tpu_torch.core.rays import Rays
+    n = rays.origins.shape[0]
+    with torch.no_grad():
+        return [tracer(nef, Rays(rays.origins[i:i + chunk], rays.dirs[i:i + chunk],
+                                 rays.dist_min, rays.dist_max)) for i in range(0, n, chunk)]
+
+
+def compare_traces(nef, base, other, min_dis, strict: bool) -> dict:
+    """A compacted trace against the uncompacted one, chunk by chunk: where the chunk
+    dropped no ray, the same hits, and depth and normal on the common hits; where it
+    dropped rays, no hit that the uncompacted trace lacks. A hit may differ only where the
+    field at either trace's final point lies within SDF_HIT_MARGIN of min_dis. ``strict``
+    requires that and the depth and normal tolerances (SDF_DEPTH_TOL, SDF_NORMAL_TOL);
+    otherwise the counts are only reported."""
+    import torch
+    out = {"differ": 0, "invented": 0, "beyond_margin": 0, "depth_err": 0.0,
+           "normal_err": 0.0, "overflow_chunks": 0}
+    for a, b in zip(base, other):
+        ha, hb = a.hit[:, 0], b.hit[:, 0]
+        with torch.no_grad():
+            margin = torch.minimum(
+                (nef(channels="sdf", coords=a.xyz)[:, 0].float().abs() - min_dis).abs(),
+                (nef(channels="sdf", coords=b.xyz)[:, 0].float().abs() - min_dis).abs())
+        if float(b.num_overflow) > 0:
+            out["overflow_chunks"] += 1
+            bad = hb & ~ha
+            out["invented"] += int(bad.sum())
+        else:
+            bad = ha != hb
+            out["differ"] += int(bad.sum())
+            both = ha & hb
+            if bool(both.any()):
+                out["depth_err"] = max(out["depth_err"],
+                                       float((a.depth - b.depth)[both].abs().max()))
+                out["normal_err"] = max(out["normal_err"],
+                                        float((a.normal - b.normal)[both].abs().max()))
+        out["beyond_margin"] += int((bad & (margin > SDF_HIT_MARGIN)).sum())
+    if strict:
+        require(out["beyond_margin"] == 0 and out["depth_err"] <= SDF_DEPTH_TOL
+                and out["normal_err"] <= SDF_NORMAL_TOL,
+                f"a compacted trace differs from the uncompacted one: {out}")
+    return out
+
+
+@contextmanager
+def float32_decoders(pipeline):
+    """The pipeline's decoders in float32 (a trained pipeline carries the bf16 compute type
+    of AMP training, whose GEMM results round differently with the batch's rows)."""
+    from wisp_tpu_torch.models.decoders.basic_decoders import BasicDecoder
+    decoders = [m for m in pipeline.modules() if isinstance(m, BasicDecoder)]
+    saved = [d.compute_dtype for d in decoders]
+    for d in decoders:
+        d.compute_dtype = None
+    try:
+        yield
+    finally:
+        for d, dtype in zip(decoders, saved):
+            d.compute_dtype = dtype
+
+
+def nglod_frame(dev, pipeline, tracker):
+    """The trained field's frame as tools/sdf_render_bench.py --compaction 0.55
+    --mid-compaction 0.3 --shuffle takes it: the app renderer's 512x512 rays (the
+    tracker's snapshot camera), permuted by default_rng(0), traced in chunks of 65,536 by
+    the yaml's PackedSDFTracer (its free-space field held) uncompacted, compacted and with
+    the mid-loop pass; counts from 0 before the three timed frames, read after."""
+    import copy
+    import numpy as np
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.core.camera import Camera
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.ops.raygen.raygen import generate_pinhole_rays
+    nef = pipeline.nef
+    vis = tracker.cfg.vis_camera
+    cam = Camera.from_args(eye=tuple(vis.camera_origin), at=tuple(vis.camera_lookat),
+                           up=(0.0, 1.0, 0.0), width=NGLOD_FRAME_RES,
+                           height=NGLOD_FRAME_RES, fov=np.radians(vis.camera_fov),
+                           near=vis.camera_clamp[0], far=vis.camera_clamp[1])
+    rays = generate_pinhole_rays(cam, device=dev)
+    n = rays.origins.shape[0]
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(n)).to(dev)
+    rays = Rays(rays.origins.reshape(-1, 3)[perm].contiguous(),
+                rays.dirs.reshape(-1, 3)[perm].contiguous(), rays.dist_min, rays.dist_max)
+    base = pipeline.tracer.with_free_dist(nef.grid.blas)
+    variants = {"uncompacted": {}, "compacted": {"compaction": NGLOD_COMPACTION},
+                "mid": {"compaction": NGLOD_COMPACTION,
+                        "mid_compaction": NGLOD_MID_COMPACTION, "mid_at": NGLOD_MID_AT}}
+    tracers = {}
+    for name, kw in variants.items():
+        tracers[name] = copy.copy(base)
+        for k, v in kw.items():
+            setattr(tracers[name], k, v)
+        trace_chunks(nef, tracers[name], rays, NGLOD_CHUNK)        # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    frames = {}
+    for name, tracer in tracers.items():
+        t0 = time.perf_counter()
+        outs = trace_chunks(nef, tracer, rays, NGLOD_CHUNK)
+        torch.cuda.synchronize()
+        frames[name] = {"ms": (time.perf_counter() - t0) * 1e3, "outs": outs}
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in NGLOD_FRAME_KERNELS if launches[k] <= 0]
+    require(not missing, f"kernels not launched on the trained-field frame: {missing}")
+    calls = []
+    with recording_ray_compaction(calls):
+        trace_chunks(nef, tracers["mid"], rays, NGLOD_CHUNK)
+    first = [c for c in calls if not c["mid"]]
+    mids = [c for c in calls if c["mid"]]
+    info = {"frame_rays": n, "chunk": NGLOD_CHUNK,
+            "live_share_after_walk": sum(int(c["count"]) for c in first) / n,
+            "alive_share_at_mid_at": sum(int(c["count"]) for c in mids) / n,
+            "budget": first[0]["args"][1], "mid_budget": mids[0]["args"][1]}
+    # the checks: the frames as rendered (the decoders' AMP compute type), counted, and
+    # the same traces with float32 decoders, held to the rules of compare_traces
+    with float32_decoders(pipeline):
+        f32 = {name: trace_chunks(nef, tracer, rays, NGLOD_CHUNK)
+               for name, tracer in tracers.items()}
+    base_outs = frames["uncompacted"]["outs"]
+    for name, fr in frames.items():
+        outs = fr["outs"]
+        hits = sum(int(o.hit.sum()) for o in outs)
+        info[name] = {"frame_ms": fr["ms"], "rays_per_s": n / (fr["ms"] / 1e3),
+                      "hit_share": hits / n,
+                      "overflow": sum(float(o.num_overflow) for o in outs)}
+        finite = all(bool(torch.isfinite(o.depth).all() and torch.isfinite(o.normal).all())
+                     for o in outs)
+        require(finite, f"non-finite channels in the {name} frame")
+        if name != "uncompacted":
+            info[name]["vs_uncompacted_as_rendered"] = compare_traces(
+                nef, base_outs, outs, base.min_dis, strict=False)
+            with float32_decoders(pipeline):
+                info[name]["vs_uncompacted_float32"] = compare_traces(
+                    nef, f32["uncompacted"], f32[name], base.min_dis, strict=True)
+    require(info["uncompacted"]["hit_share"] > 0.2,
+            f"the trained field's frame hits {info['uncompacted']['hit_share']} of its rays")
+    info["launches"] = {k: launches[k] for k in NGLOD_FRAME_KERNELS}
+    # one compacted chunk under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    chunk = Rays(rays.origins[:NGLOD_CHUNK], rays.dirs[:NGLOD_CHUNK], rays.dist_min,
+                 rays.dist_max)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            tracers["mid"](nef, chunk)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top_kernels = device_kernels(prof, 12)
+    info["profile_chunk"] = {"ms": wall_ms, "device_busy_ms": busy_ms,
+                             "device_idle_share": 1.0 - busy_ms / wall_ms,
+                             "top_device_kernels": top_kernels}
+    return info, launches, calls
+
+
+def ray_compaction_rows(calls, launches):
+    """K12's compaction (first and mid-loop pass) and its scatter-back against their plain
+    versions on the recorded last chunk's inputs, exactly, and timed."""
+    import torch
+    from wisp_tpu_torch.ops.compaction import (compact_rays, compact_rays_plain, scatter_rows,
+                                               scatter_rows_plain)
+    rows, shapes = [], {}
+    for name, call in (("compact_rays", [c for c in calls if not c["mid"]][-1]),
+                       ("compact_rays_mid", [c for c in calls if c["mid"]][-1])):
+        mask, budget, o, d, t, tf = call["args"]
+        mid = name.endswith("mid")
+        got = compact_rays(mask, budget, o, d, t, tf, mid=mid)
+        want = compact_rays_plain(mask, budget, o, d, t, tf)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"{name} differs from the plain version")
+        r, kept = mask.shape[0], min(int(want[5]), budget)
+        rows.append(kernel_row(
+            name, "wisp_tpu_torch/csrc/compaction.cu",
+            "wisp_tpu/tracers/packed_sdf_tracer.py:182" if not mid
+            else "wisp_tpu/tracers/packed_sdf_tracer.py:196", 0.0, 0.0,
+            timed(lambda: compact_rays(mask, budget, o, d, t, tf, mid=mid)),
+            timed(lambda: compact_rays_plain(mask, budget, o, d, t, tf)),
+            nbytes=r + 8 + kept * (32 + 8 + 32) + (budget - kept) * (8 + 32) + 32,
+            ops=r * 2, library_ms=timed(lambda: torch.nonzero(mask))))
+        rows[-1]["library_call"] = "torch.nonzero(mask)"
+        shapes[name] = {"rays": r, "budget": budget, "count": int(want[5])}
+        if not mid:
+            r0, idx, o_c = r, want[0], want[1]
+    # the scatter-back of the first pass's slots' points onto the walk's (xyz, [B, 3])
+    r = r0
+    xyz_c = (o_c + 0.5).contiguous()
+    base = torch.zeros((r, 3), dtype=torch.float32, device=idx.device)
+    got = scatter_rows(xyz_c, idx, base.clone())
+    want = scatter_rows_plain(xyz_c, idx, base.clone())
+    require(torch.equal(got, want), "scatter_rows differs from the plain version")
+    kept = int((idx < r).sum())
+    padded = torch.zeros((r + 1, 3), dtype=torch.float32, device=idx.device)
+    for name, mid in (("scatter_rays", False), ("scatter_rays_mid", True)):
+        rows.append(kernel_row(
+            name, "wisp_tpu_torch/csrc/compaction.cu",
+            "wisp_tpu/tracers/packed_sdf_tracer.py:207" if not mid
+            else "wisp_tpu/tracers/packed_sdf_tracer.py:200", 0.0, 0.0,
+            timed(lambda: scatter_rows(xyz_c, idx, base, mid=mid)),
+            timed(lambda: scatter_rows_plain(xyz_c, idx, base)),
+            nbytes=idx.shape[0] * 8 + kept * 12 * 2, ops=0,
+            library_ms=timed(lambda: padded.index_copy_(0, idx, xyz_c))))
+        rows[-1]["library_call"] = "index_copy_ into R+1 rows (the empty slots' row R)"
+        rows[-1]["checked_on"] = "the xyz scatter of the first pass (the mid pass's has t)"
+    shapes["scatter_rows"] = {"slots": idx.shape[0], "kept": kept}
+    for row_ in rows:
+        row_["launches"] = launches[row_["name"]]
+    return rows, shapes
+
+
+def search_row(coords, blas, launches):
+    """K9's binary search at level 8 against its plain version on a training batch's
+    points, with and without the ancestor chain (exactly), timed with the chain (as
+    OctreeGrid.interpolate asks)."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import octree_query, octree_query_plain
+    from wisp_tpu_torch.ops.spc.core import morton3d, quantize_points
+    level, routes = blas.max_level, blas.query_routes
+    for wp in (False, True):
+        got = octree_query(coords, routes, level, wp)
+        want = octree_query_plain(coords, routes, level, wp)
+        require(torch.equal(got, want), f"octree_query (search, with_parents={wp}) differs "
+                                        f"from the plain version")
+    n = coords.shape[0]
+    q = quantize_points(coords, level)
+    entries = 0
+    for l in range(level + 1):
+        ql = q >> (level - l)
+        if routes[l].kind == "map":
+            entries += int(torch.unique((ql[:, 0] * 2 ** l + ql[:, 1]) * 2 ** l
+                                        + ql[:, 2]).numel())
+        else:      # the table entries the searches end on
+            i = torch.searchsorted(routes[l].table, morton3d(ql).to(torch.int32))
+            entries += int(torch.unique(i).numel())
+    table = routes[level].table
+    row = kernel_row(
+        "octree_query_search", "wisp_tpu_torch/csrc/octree.cu",
+        "wisp_tpu/accelstructs/octree_as.py:228", 0.0, 0.0,
+        timed(lambda: octree_query(coords, routes, level, True)),
+        timed(lambda: octree_query_plain(coords, routes, level, True)),
+        nbytes=n * 12 + n * (level + 1) * 4 + entries * 4,
+        ops=n * (3 * 4 + (level + 1) * 6 + 5 * int(table.shape[0]).bit_length()))
+    row["launches"] = launches["octree_query_search"]
+    return row, {"points": n, "level": level, "table_rows": int(table.shape[0]),
+                 "entries_read": entries}
+
+
+def closest_point_row(points, vertices, faces, launches):
+    """K17 against its plain version on NGLOD_K17_POINTS of the texture dataset's points:
+    the triangle equal except where two triangles lie within 2 ulp of the least squared
+    distance, distance and point within 1e-6; timed on all the dataset's points."""
+    import torch
+    from wisp_tpu_torch.ops.mesh.compute_sdf import (closest_point, closest_point_plain,
+                                                     triangle_table)
+    from wisp_tpu_torch.ops.mesh.ops import closest_point_on_triangle, dot3
+    tris = triangle_table(vertices, faces, points.device)
+    sub = points[:NGLOD_K17_POINTS].contiguous()
+    dk, nk, tk = closest_point(sub, tris)
+    dp, np_, tp = closest_point_plain(sub, tris)
+    err = max(float((dk - dp).abs().max()), float((nk - np_).abs().max()))
+    differ = tk != tp
+    ties = int(differ.sum())
+    if ties:
+        p = sub[differ]
+
+        def d2_to(t):
+            cp = closest_point_on_triangle(p, tris[t, 0:3], tris[t, 3:6], tris[t, 6:9])
+            return dot3(p - cp, p - cp)
+
+        a, b = d2_to(tk[differ]), d2_to(tp[differ])
+        require(bool(((a - b).abs() <= 2 * torch.finfo(torch.float32).eps * b).all()),
+                "closest_point: a triangle differs from the plain version's off a tie")
+    p_all, t_all = points.shape[0], tris.shape[0]
+    row = kernel_row(
+        "closest_point", "wisp_tpu_torch/csrc/mesh_sdf.cu",
+        "wisp_tpu/ops/mesh/compute_sdf.py:144", err, 1e-6,
+        timed(lambda: closest_point(points, tris), iters=5, warmup=1),
+        events_only(lambda: closest_point_plain(points, tris), iters=1, warmup=1),
+        nbytes=p_all * 12 + t_all * 9 * 4 + p_all * (4 + 12 + 8),
+        ops=p_all * t_all * CLOSEST_PAIR_OPS)
+    row["launches"] = launches["closest_point"]
+    row["plain_timed_by"] = "CUDA events only"
+    row["checked_points"] = int(sub.shape[0])
+    row["ties"] = ties
+    return row, {"k17_points": p_all, "k17_triangles": t_all}
+
+
+def nglod_phase(dev):
+    """The NGLOD app from its yaml: train one epoch (counts from 0, read after) and save,
+    reload with --pretrained --valid-only, render the trained field three ways, a level-8
+    octree (50 steps and a render chunk), the texture SDF (a resample and 50 steps), then
+    the new kernels against their plain versions."""
+    import math
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.ops.mesh.compute_sdf import mesh_sdf, triangle_table
+    log_dir = tempfile.mkdtemp(prefix="wisp_nglod_")
+    info, rows = {}, []
+    try:
+        # -- 1. train one epoch, validate, save ---------------------------------------------
+        t0 = time.perf_counter()
+        cfg, pipeline, trainer = nglod_app("--tracker.log-dir", log_dir,
+                                           "--tracker.run-name", "train")
+        torch.cuda.synchronize()
+        info["setup_s"] = time.perf_counter() - t0
+        require(cfg.device == "cuda" and cfg.blas_level == 7 and cfg.grid.num_lods == 6
+                and cfg.trainer.batch_size == 512, f"the yaml did not parse as shipped: {cfg}")
+        steps, resample = [], {}
+        kernels.reset_launches()
+        t_train = time.perf_counter()
+        with resample_timer(resample):
+            while trainer.is_optimization_running:
+                t0 = time.perf_counter()
+                trainer.iterate()
+                steps.append((time.perf_counter() - t0) * 1e3)
+            metrics = trainer.validate()
+        torch.cuda.synchronize()
+        info["train_s"] = time.perf_counter() - t_train
+        launches = dict(kernels.LAUNCHES)
+        missing = [k for k in NGLOD_TRAIN_KERNELS if launches[k] <= 0]
+        require(not missing, f"kernels not launched training the NGLOD app: {missing}")
+        require(launches["octree_query_search"] == 0, "a level-7 octree took the search")
+        require(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()),
+                f"bad IoUs {metrics}")
+        steady = sorted(steps[1:-2])
+        info.update(steps=len(steps), step_ms_median=steady[len(steady) // 2],
+                    step_ms_mean=sum(steady) / len(steady), epoch_step_ms=steps[-1],
+                    resample_s=resample, metrics=metrics,
+                    l2_loss=trainer.return_dict.get("l2_loss"),
+                    train_launches={k: launches[k] for k in NGLOD_TRAIN_KERNELS},
+                    dataset_size=len(trainer.train_dataset))
+        print(json.dumps({"nglod_train": {k: info[k] for k in (
+            "setup_s", "train_s", "steps", "step_ms_median", "resample_s", "metrics")}}),
+              flush=True)
+
+        # -- 2. reload with --pretrained --valid-only --------------------------------------
+        model = os.path.join(trainer.tracker.log_dir, "model.ckpt")
+        require(os.path.exists(model), f"no model saved at {model}")
+        _, reloaded, again = nglod_app("--tracker.log-dir", log_dir, "--tracker.run-name",
+                                       "reload", "--pretrained", model, "--valid-only",
+                                       "true")
+        m2 = again.validate()
+        require(m2["volumetric_iou"] == metrics["volumetric_iou"],
+                f"the reloaded model's volumetric IoU {m2} differs from {metrics}")
+        trainer.train_dataset = again.train_dataset      # the same weights on the same data
+        m1 = trainer.validate()
+        require(m1 == m2, f"the reloaded model's IoUs {m2} differ from the trained {m1}")
+        info["reload_metrics"] = m2
+
+        # -- 3. the trained field, three ways --------------------------------------------
+        frame, frame_launches, calls = nglod_frame(dev, reloaded, again.tracker)
+        info["frame"] = frame
+        print(json.dumps({"nglod_frame": {k: v for k, v in frame.items()
+                                          if k != "profile_chunk"}}), flush=True)
+        compaction_rows, shapes = ray_compaction_rows(calls, frame_launches)
+        rows += compaction_rows
+        info["kernel_phase_shapes"] = shapes
+        del pipeline, trainer, reloaded, again, calls
+        torch.cuda.empty_cache()
+
+        # -- 4. a level-8 octree -----------------------------------------------------------
+        t0 = time.perf_counter()
+        _, pipe8, tr8 = nglod_app("--tracker.log-dir", log_dir, "--tracker.run-name", "l8",
+                                  "--blas-level", str(NGLOD_L8_LEVEL))
+        torch.cuda.synchronize()
+        l8 = {"setup_s": time.perf_counter() - t0,
+              "level_counts": list(pipe8.nef.grid.blas.level_counts),
+              "dataset_size": len(tr8.train_dataset)}
+        kernels.reset_launches()
+        ms = []
+        for i in range(NGLOD_L8_STEPS):
+            if i == NGLOD_L8_STEPS - 1:
+                l8.update(profile_step(tr8))
+                continue
+            t0 = time.perf_counter()
+            tr8.iterate()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        tracer8 = pipe8.tracer
+        from wisp_tpu_torch.core.rays import Rays
+        g = torch.Generator(device="cpu").manual_seed(31)
+        o = torch.tensor([[0.0, 0.6, -3.0]]).expand(NGLOD_CHUNK, 3)
+        target = (torch.rand(NGLOD_CHUNK, 3, generator=g) * 1.6 - 0.8)
+        d = torch.nn.functional.normalize(target - o, dim=-1)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            rb8 = tracer8(pipe8.nef, Rays(o.contiguous().to(dev), d.to(dev), 0.0, 10.0))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        missing = [k for k in NGLOD_L8_KERNELS if launches[k] <= 0]
+        require(not missing, f"kernels not launched at level 8: {missing}")
+        require(bool(torch.isfinite(rb8.depth).all()), "non-finite level-8 chunk")
+        l8.update(step_ms_median=sorted(ms[1:])[len(ms) // 2], chunk_ms=(time.perf_counter()
+                  - t0) * 1e3, chunk_hit_share=float(rb8.hit.float().mean()),
+                  loss=tr8.last_loss, launches={k: launches[k] for k in NGLOD_L8_KERNELS})
+        require(math.isfinite(tr8.last_loss), "non-finite level-8 loss")
+        data8 = tr8.train_dataset
+        idx = torch.from_numpy(tr8._batch_rng.integers(0, len(data8), size=(512,)))
+        batch = data8[idx.to(dev)].coords.contiguous()
+        row, l8["search_shapes"] = search_row(batch, pipe8.nef.grid.blas, launches)
+        rows.append(row)
+        info["level8"] = l8
+        print(json.dumps({"nglod_level8": {k: v for k, v in l8.items()
+                                           if not k.startswith("step_top")}}), flush=True)
+        del pipe8, tr8, data8, rb8
+        torch.cuda.empty_cache()
+
+        # -- 5. the texture SDF --------------------------------------------------------------
+        t0 = time.perf_counter()
+        _, pipet, trt = nglod_app("--tracker.log-dir", log_dir, "--tracker.run-name", "tex",
+                                  *NGLOD_TEX)
+        torch.cuda.synchronize()
+        tex = {"setup_s": time.perf_counter() - t0, "nef": type(pipet.nef).__name__,
+               "dataset": type(trt.train_dataset).__name__}
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trt.train_dataset.resample()
+        torch.cuda.synchronize()
+        tex["resample_s"] = time.perf_counter() - t0
+        losses = []
+        for _ in range(NGLOD_TEX_STEPS):
+            trt.iterate()
+            losses.append(trt.last_loss)
+        launches = dict(kernels.LAUNCHES)
+        missing = [k for k in NGLOD_TEX_KERNELS if launches[k] <= 0]
+        require(not missing, f"kernels not launched on the texture path: {missing}")
+        require(all(math.isfinite(x) for x in losses), "non-finite texture loss")
+        data = trt.train_dataset
+        require(data.rgb_data is not None and tuple(data.rgb_data.shape) == (len(data), 3),
+                "the texture dataset carries no colours")
+        tex.update(loss_first=losses[0], loss_last=losses[-1],
+                   rgb_mean=data.rgb_data.mean(0).tolist(), dataset_size=len(data),
+                   launches={k: launches[k] for k in NGLOD_TEX_KERNELS})
+        row, tex["k17_shapes"] = closest_point_row(data.coordinates, data.vertices,
+                                                   data.faces, launches)
+        rows.append(row)
+        tris = triangle_table(data.vertices, data.faces, dev)
+        tex["k16_ms"] = timed(lambda: mesh_sdf(data.coordinates, tris), iters=5, warmup=1)
+        tex["k16_bound_ms"] = bound(len(data) * 16 + tris.shape[0] * 60,
+                                    len(data) * tris.shape[0] * MESH_SDF_PAIR_OPS)
+        tex["k17_ms"], tex["k17_bound_ms"] = (row["ms"], row["event_ms"]), (row["bound_ms"],
+                                                                            row["bound_by"])
+        info["texture"] = tex
+        print(json.dumps({"nglod_texture": tex}), flush=True)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    info["nglod_path"] = (f"main_nglod parse_args/build of {NGLOD_CONFIG}: one epoch, a save "
+                          f"and a --pretrained --valid-only reload, the trained field at "
+                          f"{NGLOD_FRAME_RES}x{NGLOD_FRAME_RES} three ways, level 8, texture")
+    return rows, info
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -2411,9 +2942,13 @@ def run() -> dict:
     phase_s["stoch"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     seg_rows, seg_info = seg_phase(dev)
+    torch.cuda.empty_cache()
     phase_s["seg"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nglod_rows, nglod_info = nglod_phase(dev)
+    phase_s["nglod app"] = time.perf_counter() - t0
     print(json.dumps({"kernels": rows + train_rows + sdf_rows + sdf_train_rows
-                      + octree_rows[:1] + stoch_rows + seg_rows}), flush=True)
+                      + octree_rows[:1] + stoch_rows + seg_rows + nglod_rows}), flush=True)
     print(json.dumps(main), flush=True)
     print(json.dumps(train_info), flush=True)
     print(json.dumps(sdf_info), flush=True)
@@ -2422,6 +2957,7 @@ def run() -> dict:
           flush=True)
     print(json.dumps(stoch_info), flush=True)
     print(json.dumps(seg_info), flush=True)
+    print(json.dumps(nglod_info), flush=True)
     print(json.dumps({"phase_s": phase_s, "profiler_shortfalls": PROFILER_SHORTFALLS}),
           flush=True)
     print(smi, flush=True)

@@ -6,6 +6,7 @@ settings ported since (the stochastic backward, checkpoints, resume, --pretraine
 snapshot and checkpoint cadences) read into the objects they configure."""
 
 import pathlib
+import types
 
 import pytest
 import torch
@@ -227,24 +228,28 @@ def test_main_refuses_checkpoint_and_snapshot_cadences():
 
 def test_trainer_refuses_unported_cadences():
     """The default snapshot cadence is JAX's 100. A NeRF trainer renders on it (through the
-    tracker's visualizer); the SDF trainer's snapshot (an sdf slice) is not ported, so it
-    refuses a cadence that would fire within max_epochs, naming ROADMAP Queue 1 item 7."""
+    tracker's visualizer), and so does the SDF trainer (its sdf slices,
+    tests/test_torch_nglod_app.py); the SDF trainer's training state is not ported, so it
+    refuses a checkpoint cadence or a resume, naming ROADMAP Queue 1 item 7."""
     from wisp_tpu_torch.trainers.multiview_trainer import ConfigMultiviewTrainer
     from wisp_tpu_torch.trainers.sdf_trainer import ConfigSDFTrainer, SDFTrainer
     assert ConfigMultiviewTrainer().render_every == 100
     assert ConfigSDFTrainer().render_every == 100
-    with pytest.raises(NotImplementedError, match="render_every 100 selects SDF slice "
-                                                  "snapshots.*item 7.*render-every -1"):
-        SDFTrainer(ConfigSDFTrainer(render_every=100, max_epochs=100), _StubPipeline(), [],
-                   device="cpu")
+    trainer = SDFTrainer(ConfigSDFTrainer(render_every=100, max_epochs=100), _StubPipeline(),
+                         [], device="cpu")
+    assert trainer.is_time_to_render() is False and trainer.cfg.render_every == 100
+    with pytest.raises(NotImplementedError, match="SDF trainer's training state.*item 7"):
+        SDFTrainer(ConfigSDFTrainer(render_every=-1, checkpoint_every=1), _StubPipeline(),
+                   [], device="cpu")
     with pytest.raises(NotImplementedError, match="SDF trainer's training state.*item 7"):
         SDFTrainer(ConfigSDFTrainer(render_every=-1, resume="auto"), _StubPipeline(), [],
                    device="cpu")
 
 
 class _StubPipeline(torch.nn.Module):
-    """The least an SDF trainer needs before it checks its cadences: a parameter."""
+    """The least an SDF trainer needs: a parameter, and a field whose grid has LODs."""
 
     def __init__(self):
         super().__init__()
         self.w = torch.nn.Parameter(torch.zeros(1))
+        self.nef = types.SimpleNamespace(grid=types.SimpleNamespace(num_lods=1))

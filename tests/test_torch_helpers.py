@@ -122,8 +122,9 @@ def port_name(path: str) -> str:
 
 
 def sdf_params_from_jax(pipe):
-    """(params, config) of a JAX NGLOD pipeline (sparse OctreeAS, OctreeGrid, NeuralSDF,
-    PackedSDFTracer) for wisp_tpu_torch.interop.build_sdf_pipeline."""
+    """(params, config) of a JAX NGLOD pipeline (sparse OctreeAS, OctreeGrid or HashGrid,
+    NeuralSDF or NeuralSDFTex, PackedSDFTracer) for
+    wisp_tpu_torch.interop.build_sdf_pipeline."""
     nef, grid = pipe.nef, pipe.nef.grid
     blas = grid.blas
     params = {f"blas.codes.{l}": np.asarray(c).astype(np.uint64)
@@ -132,8 +133,18 @@ def sdf_params_from_jax(pipe):
     if extent is not None:
         params["mesh.vertices"] = np.asarray(extent.vertices)
         params["mesh.faces"] = np.asarray(extent.faces)
-    for i, feats in enumerate(grid.features):
-        params[f"grid.features.{i}"] = np.asarray(feats)
+    if type(grid).__name__ == "HashGrid":
+        params["grid.codebook.feats"] = np.asarray(grid.codebook.feats)
+        grid_config = {"constructor": "HashGrid", "feature_dim": grid.feature_dim,
+                       "resolutions": list(grid.resolutions),
+                       "multiscale_type": grid.multiscale_type,
+                       "codebook_bitwidth": grid.codebook_bitwidth}
+    else:
+        for i, feats in enumerate(grid.features):
+            params[f"grid.features.{i}"] = np.asarray(feats)
+        grid_config = {"feature_dim": grid.feature_dim, "num_lods": grid.num_lods,
+                       "interpolation_type": grid.interpolation_type,
+                       "multiscale_type": grid.multiscale_type}
     dec = nef.decoder
     for name, layer in [(f"layers.{i}", l) for i, l in enumerate(dec.layers)] \
             + [("lout", dec.lout)]:
@@ -142,9 +153,8 @@ def sdf_params_from_jax(pipe):
     t = pipe.tracer
     config = {
         "blas_level": blas.max_level,
-        "grid": {"feature_dim": grid.feature_dim, "num_lods": grid.num_lods,
-                 "interpolation_type": grid.interpolation_type,
-                 "multiscale_type": grid.multiscale_type},
+        "grid": grid_config,
+        "nef_constructor": type(nef).__name__,
         "nef": {"pos_embedder": nef.pos_embedder_type,
                 "position_input": nef.pos_embed_dim == 3 and nef.pos_embedder_type == "none",
                 "activation_type": nef.activation_type, "layer_type": nef.layer_type,

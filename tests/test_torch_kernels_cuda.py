@@ -351,8 +351,8 @@ def test_octree_query_kernel(dev, with_parents):
     coords[:50] = torch.tensor([1.0, -1.0, 0.3])              # on the faces: inside
     coords = coords.to(dev)
     before = kernels.LAUNCHES["octree_query"]
-    got = octree_query(coords, blas.pidx_maps, 5, with_parents)
-    want = octree_query_plain(coords, blas.pidx_maps, 5, with_parents)
+    got = octree_query(coords, blas.query_routes, 5, with_parents)
+    want = octree_query_plain(coords, blas.query_routes, 5, with_parents)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["octree_query"] == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want.to(torch.int32))
@@ -734,3 +734,123 @@ def test_scatter_max_accumulated_kernel(dev, k):
     scatter_max_plain(ids, vals, 4096, out=want)
     assert out is got and torch.equal(got, want)
     assert kernels.LAUNCHES["scatter_max_acc"] == before + (1 if k else 0)
+
+
+# -- K9's search, dense and bitfield routes, K12's compaction, K17 ---------------------------
+
+def _query_coords(dev, n=6000, seed=13):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    coords = torch.rand(n, 3, generator=g) * 2.2 - 1.1
+    coords[:50] = torch.tensor([1.0, -1.0, 0.3])              # on the faces: inside
+    # points on the shell, where the level-8 cells are occupied
+    shell = torch.randn(n // 2, 3, generator=g)
+    coords[50:50 + n // 2] = 0.6 * shell / shell.norm(dim=-1, keepdim=True)
+    return coords.to(dev)
+
+
+@pytest.mark.parametrize("with_parents", [False, True])
+def test_octree_query_search_kernel(dev, with_parents):
+    """K9 at level 8: the maps below, the binary search at level 8 (counted apart)."""
+    from wisp_tpu_torch.accelstructs.octree_as import octree_query, octree_query_plain
+    blas = _sphere_octree(8, dev)
+    assert blas.query_routes[8].kind == "search" and blas.query_routes[7].kind == "map"
+    coords = _query_coords(dev)
+    before = kernels.LAUNCHES["octree_query_search"]
+    got = octree_query(coords, blas.query_routes, 8, with_parents)
+    want = octree_query_plain(coords, blas.query_routes, 8, with_parents)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["octree_query_search"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    last = got[:, -1] if with_parents else got
+    assert (last >= 0).sum() > 500 and (last < 0).any()
+
+
+@pytest.mark.parametrize("kind", ["dense", "bitfield"])
+def test_octree_query_dense_bitfield_kernel(dev, kind):
+    from wisp_tpu_torch.accelstructs.octree_as import OctreeAS, octree_query, octree_query_plain
+    blas = OctreeAS.make_dense(5, device=dev)
+    with_parents = kind == "dense"
+    if kind == "bitfield":
+        g = torch.Generator(device="cpu").manual_seed(14)
+        blas = blas.update_occupancy((torch.rand(8 ** 5, generator=g) < 0.4).to(dev))
+    coords = _query_coords(dev)
+    before = kernels.LAUNCHES["octree_query"]
+    got = octree_query(coords, blas.query_routes, 5, with_parents)
+    want = octree_query_plain(coords, blas.query_routes, 5, with_parents)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["octree_query"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("r,frac,budget", [(5000, 0.3, 3000), (5000, 0.3, 700),
+                                            (70000, 0.5, 38500), (1, 1.0, 3)])
+def test_compact_rays_kernel(dev, r, frac, budget):
+    """K12's compaction: every slot (kept, then JAX's fill) equal to the plain version."""
+    from wisp_tpu_torch.ops.compaction import compact_rays, compact_rays_plain
+    g = torch.Generator(device="cpu").manual_seed(15)
+    mask = (torch.rand(r, generator=g) < frac).to(dev)
+    o, d = torch.randn(r, 3, generator=g).to(dev), torch.randn(r, 3, generator=g).to(dev)
+    t, tf = torch.rand(r, generator=g).to(dev), torch.rand(r, generator=g).to(dev)
+    for mid in (False, True):
+        counter = "compact_rays_mid" if mid else "compact_rays"
+        before = kernels.LAUNCHES[counter]
+        got = compact_rays(mask, budget, o, d, t, tf, mid=mid)
+        want = compact_rays_plain(mask, budget, o, d, t, tf)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[counter] == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.float32, 3), (torch.float32, 1),
+                                         (torch.bool, 1), (torch.bfloat16, 3)])
+def test_scatter_rows_kernel(dev, dtype, width):
+    from wisp_tpu_torch.ops.compaction import compact_rays_plain, scatter_rows, scatter_rows_plain
+    g = torch.Generator(device="cpu").manual_seed(16)
+    r, budget = 4000, 1500
+    mask = (torch.rand(r, generator=g) < 0.3).to(dev)
+    z = torch.zeros(r, 3, device=dev)
+    idx = compact_rays_plain(mask, budget, z, z, z[:, 0], z[:, 0])[0]
+    v = (torch.rand(budget, width, generator=g) < 0.5) if dtype == torch.bool \
+        else torch.randn(budget, width, generator=g).to(dtype)
+    base = (torch.rand(r, width, generator=g) < 0.5) if dtype == torch.bool \
+        else torch.randn(r, width, generator=g).to(dtype)
+    v, base = v.to(dev), base.to(dev)
+    if width == 1:
+        v, base = v[:, 0].contiguous(), base[:, 0].contiguous()
+    before = kernels.LAUNCHES["scatter_rays"]
+    got = scatter_rows(v, idx, base.clone())
+    want = scatter_rows_plain(v, idx, base.clone())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scatter_rays"] == before + 1
+    assert torch.equal(got, want) and not torch.equal(got, base)
+
+
+@pytest.mark.parametrize("case", _mesh_cases(), ids=lambda c: c[0])
+def test_closest_point_kernel(dev, case):
+    """K17 against its plain version: the triangle equal except where two triangles tie
+    within 2 ulp of d2, distance and point within 1e-6."""
+    from wisp_tpu_torch.ops.mesh.compute_sdf import (closest_point, closest_point_plain,
+                                                     triangle_table)
+    _, (v, f), pts = case
+    x = torch.from_numpy(pts).to(dev)
+    tris = triangle_table(v, f, dev)
+    before = kernels.LAUNCHES["closest_point"]
+    dk, nk, tk = closest_point(x, tris)
+    dp, np_, tp = closest_point_plain(x, tris)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["closest_point"] == before + 1
+    assert tk.dtype == torch.int64 and nk.shape == (x.shape[0], 3)
+    assert float((dk - dp).abs().max()) <= 1e-6
+    assert float((nk - np_).abs().max()) <= 1e-6
+    differ = tk != tp
+    if differ.any():
+        from wisp_tpu_torch.ops.mesh.ops import closest_point_on_triangle, dot3
+        p = x[differ]
+
+        def d2_to(t):
+            cp = closest_point_on_triangle(p, tris[t, 0:3], tris[t, 3:6], tris[t, 6:9])
+            return dot3(p - cp, p - cp)
+
+        a, b = d2_to(tk[differ]), d2_to(tp[differ])
+        assert bool(((a - b).abs() <= 2 * torch.finfo(torch.float32).eps * b).all())

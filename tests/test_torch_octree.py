@@ -121,11 +121,18 @@ def test_query_matches_jax(octrees, level, with_parents):
 
 
 def test_query_outside_the_maps_raises(octrees):
+    """Every level of an octree has a route now (maps, binary search, dense, bitfield:
+    tests/test_torch_octree_search.py); a level the octree lacks raises, and a carved
+    make_dense octree answers at its max level only, as JAX asserts."""
     _, blas = octrees
-    with pytest.raises(NotImplementedError):
-        OctreeAS.make_dense(3, device="cpu").query(torch.zeros(4, 3))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="levels 0..5"):
         blas.query(torch.zeros(4, 3), level=8)
+    carved = OctreeAS.make_dense(3, device="cpu").update_occupancy(torch.ones(8 ** 3,
+                                                                              dtype=torch.bool))
+    with pytest.raises(ValueError, match="max level only"):
+        carved.query(torch.zeros(4, 3), level=2)
+    with pytest.raises(ValueError, match="max level only"):
+        carved.query(torch.zeros(4, 3), with_parents=True)
 
 
 _JAX_FSD = {}

@@ -128,9 +128,10 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["wisp_tpu_torch.config",
-                                    "wisp_tpu_torch.app.nerf.main_nerf"])
+                                    "wisp_tpu_torch.app.nerf.main_nerf",
+                                    "wisp_tpu_torch.app.nglod.main_nglod"])
 def test_front_end_imports_no_jax(module):
-    """The config front end and the NeRF app read the yaml files with the port's own reader
+    """The config front end and the apps read the yaml files with the port's own reader
     and import nothing of JAX, optax, PyYAML or the JAX package."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -125,8 +125,11 @@ def test_analytic_sphere_trace_matches_jax():
     # a tracer that holds the field gives the same trace
     held = PackedSDFTracer(**kw).with_free_dist(nef.grid.blas)(nef, rays)
     assert torch.equal(held.depth, got.depth) and torch.equal(held.hit, got.hit)
-    with pytest.raises(NotImplementedError):
-        PackedSDFTracer(compaction=0.5, **kw)(nef, rays)
+    # compaction is ported (tests/test_torch_sdf_compaction.py): an ample budget gives the
+    # same trace
+    ample = PackedSDFTracer(compaction=0.9, **kw)(nef, rays)
+    assert float(ample.num_overflow) == 0.0
+    assert torch.equal(ample.depth, got.depth) and torch.equal(ample.hit, got.hit)
 
 
 def test_render_lookat_sdf_slice_matches_jax():

@@ -10,7 +10,13 @@ Two kinds of octree, as in JAX:
 * a sparse octree (``from_quantized_points``, ``from_pointcloud``): per level the sorted
   morton codes and grid coords of the occupied cells (host numpy, the topology), the dense
   per-level cell-index maps ``pidx_maps`` through level ``PIDX_MAP_MAX_LEVEL`` (int32, -1 =
-  not occupied, on the device) and the max-level ``occ_grid`` and ``cell_density``.
+  not occupied, on the device), the sorted codes of the levels above them
+  (``code_tables``, int32 on the device, for the query's binary search) and the max-level
+  ``occ_grid`` and ``cell_density``.
+
+``query_routes`` says how the point query (K9) looks up each level: by its map, by a
+binary search in its codes, as a dense octree (index = morton code) or, for a carved
+``make_dense`` octree, by the max-level occupancy.
 
 Kernels: ``raymarch_ray`` is K2 and ``raymarch_voxel`` K7 (``csrc/raymarch.cu``),
 ``octree_query`` K9 and ``free_space_distance`` K11 (``csrc/octree.cu``). On a CUDA tensor
@@ -24,7 +30,7 @@ JAX's).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +41,7 @@ from wisp_tpu_torch.accelstructs.base_as import ASQueryResults, ASRaymarchResult
 from wisp_tpu_torch.core.rays import Rays
 from wisp_tpu_torch.device import DeviceLike, resolve_device
 from wisp_tpu_torch.ops.spc.core import (MAX_OCTREE_LEVEL, build_level_table, dilate_points,
-                                         morton_to_points, quantize_points,
+                                         morton3d, morton_to_points, quantize_points,
                                          quantize_points_np)
 
 
@@ -258,45 +264,92 @@ def raymarch_voxel(origins: torch.Tensor, dirs: torch.Tensor, dist_min: float,
                              mask=mask, cell_density=dens, num_overflow=num_overflow)
 
 
-def octree_query_plain(coords: torch.Tensor, pidx_maps: Sequence[torch.Tensor], level: int,
+class QueryRoute(NamedTuple):
+    """How ``octree_query`` finds the cells of one level: ``kind`` 'map' (``table`` the
+    level's dense pidx map, int32 [8^l]), 'search' (``table`` its sorted morton codes,
+    int32), 'dense' (every cell exists, index = morton code; no table) or 'bitfield'
+    (``table`` the max-level occupancy, bool [8^l]: index = morton code where occupied)."""
+    kind: str
+    table: Optional[torch.Tensor] = None
+
+
+_ROUTE_CODES = {"map": 0, "search": 1, "dense": 2, "bitfield": 3}
+
+
+def octree_query_plain(coords: torch.Tensor, routes: Sequence, level: int,
                        with_parents: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of ``octree_query`` (octree_as.py:199-242, the pidx-map
-    route)."""
+    """Plain PyTorch version of ``octree_query`` (octree_as.py:199-242, every route)."""
     q = quantize_points(coords, level)
     cols = []
     for l in (range(level + 1) if with_parents else [level]):
+        route = routes[l]
         res_l = 2 ** l
         qq = q >> (level - l)
-        cols.append(pidx_maps[l][(qq[:, 0] * res_l + qq[:, 1]) * res_l + qq[:, 2]])
+        flat = (qq[:, 0] * res_l + qq[:, 1]) * res_l + qq[:, 2]
+        code = morton3d(qq).to(torch.int32)
+        if route.kind == "map":
+            pidx = route.table[flat]
+        elif route.kind == "search":
+            table = route.table
+            i = torch.searchsorted(table, code).clamp(0, table.shape[0] - 1)
+            pidx = torch.where(table[i] == code, i.to(torch.int32),
+                               torch.full_like(code, -1))
+        elif route.kind == "dense":
+            pidx = code
+        else:
+            pidx = torch.where(route.table[flat], code, torch.full_like(code, -1))
+        cols.append(pidx.to(torch.int32))
     pidx = torch.stack(cols, dim=-1) if with_parents else cols[0]
     inside = ((coords >= -1.0) & (coords <= 1.0)).all(dim=-1)
     return torch.where(inside[:, None] if with_parents else inside, pidx,
                        torch.full_like(pidx, -1))
 
 
-def octree_query(coords: torch.Tensor, pidx_maps: Sequence[torch.Tensor], level: int,
+def octree_query(coords: torch.Tensor, routes: Sequence, level: int,
                  with_parents: bool = False) -> torch.Tensor:
     """Point -> level-local cell index at ``level`` (K9): [N,3] float32 -> [N] int32, or
     [N, level+1] int32 for the whole ancestor chain. -1 = unoccupied; outside [-1,1]^3
-    (inclusive) always -1. ``pidx_maps[l]`` is level l's dense map, flat index
-    (x*res_l + y)*res_l + z."""
+    (inclusive) always -1. ``routes[l]``, a ``QueryRoute``, says how level l is looked up
+    (``OctreeAS.query_routes``; a map's flat index is (x*res_l + y)*res_l + z). A launch
+    that takes the search route at some level counts under ``octree_query_search``, any
+    other under ``octree_query``."""
     if not coords.is_cuda:
-        return octree_query_plain(coords, pidx_maps, level, with_parents)
+        return octree_query_plain(coords, routes, level, with_parents)
     n = coords.shape[0]
     kernels.check(coords, "coords", torch.float32, (n, 3))
-    if not 0 <= level < len(pidx_maps) or level > 10:
-        raise ValueError(f"octree_query: level {level} needs its map ({len(pidx_maps)} "
+    if not 0 <= level < len(routes) or level > 10:
+        raise ValueError(f"octree_query: level {level} needs its route ({len(routes)} "
                          f"given)")
-    maps = list(pidx_maps[:level + 1])
-    for l, m in enumerate(maps):
-        kernels.check(m, f"pidx_maps[{l}]", torch.int32, (8 ** l,))
+    first = 0 if with_parents else level
+    codes, tables, lens = [], [], []
+    for l in range(level + 1):
+        route = routes[l] if l >= first else QueryRoute("dense")     # not read
+        if route.kind == "map":
+            kernels.check(route.table, f"routes[{l}]", torch.int32, (8 ** l,))
+        elif route.kind == "search":
+            kernels.check(route.table, f"routes[{l}]", torch.int32, (None,))
+            if route.table.shape[0] < 1:
+                raise ValueError(f"octree_query: level {l}'s code table is empty")
+        elif route.kind == "bitfield":
+            kernels.check(route.table, f"routes[{l}]", torch.bool, (8 ** l,))
+        elif route.kind != "dense":
+            raise ValueError(f"octree_query: unknown route {route.kind!r}")
+        codes.append(_ROUTE_CODES[route.kind])
+        tables.append(0 if route.table is None else route.table.data_ptr())
+        lens.append(0 if route.table is None else route.table.shape[0])
     ncols = level + 1 if with_parents else 1
     out = torch.empty((n, ncols) if with_parents else (n,), dtype=torch.int32,
                       device=coords.device)
     if n:
-        ptrs = kernels.pointers(maps)
-        kernels.launch("wisp_octree_query", "octree_query", coords.data_ptr(), n, level,
-                       ctypes.addressof(ptrs), int(bool(with_parents)), out.data_ptr())
+        c_routes = (ctypes.c_int * len(codes))(*codes)
+        c_tables = (ctypes.c_void_p * len(tables))(*tables)
+        c_lens = (ctypes.c_longlong * len(lens))(*lens)
+        searched = any(c == _ROUTE_CODES["search"] for c in codes[first:])
+        kernels.launch("wisp_octree_query",
+                       "octree_query_search" if searched else "octree_query",
+                       coords.data_ptr(), n, level, ctypes.addressof(c_routes),
+                       ctypes.addressof(c_tables), ctypes.addressof(c_lens),
+                       int(bool(with_parents)), out.data_ptr())
     return out
 
 
@@ -373,7 +426,8 @@ class OctreeAS:
                  cell_density: Optional[torch.Tensor], dense: bool,
                  codes: Optional[List[np.ndarray]] = None,
                  points: Optional[List[np.ndarray]] = None,
-                 pidx_maps: Optional[List[torch.Tensor]] = None):
+                 pidx_maps: Optional[List[torch.Tensor]] = None,
+                 code_tables: Optional[List[torch.Tensor]] = None):
         self.max_level = int(max_level)
         self.occ_grid = occ_grid
         self.cell_density = cell_density
@@ -381,10 +435,27 @@ class OctreeAS:
         self.codes = codes
         self.points = points
         self.pidx_maps = pidx_maps
+        # the sorted codes (int32, on the device) of the levels above the pidx maps
+        self.code_tables = code_tables
         # the mesh the octree was built from, where an SDF dataset needs it
         self.extent: Optional[MeshExtent] = None
         self.level_counts = (tuple(int(len(c)) for c in codes) if codes is not None
                              else tuple(8 ** l for l in range(self.max_level + 1)))
+        self.query_routes = self._query_routes()
+
+    def _query_routes(self) -> List[Optional[QueryRoute]]:
+        """How ``query`` looks up each level (JAX's route order, octree_as.py:209-233):
+        dense, bitfield-only (the max level alone; None elsewhere), the pidx maps, the
+        binary search above them."""
+        levels = range(self.max_level + 1)
+        if self.dense:
+            return [QueryRoute("dense") for _ in levels]
+        if self.codes is None:
+            return [QueryRoute("bitfield", self.occ_grid) if l == self.max_level else None
+                    for l in levels]
+        maps = self.pidx_maps
+        return [QueryRoute("map", maps[l]) if l < len(maps)
+                else QueryRoute("search", self.code_tables[l - len(maps)]) for l in levels]
 
     @classmethod
     def make_dense(cls, level: int, device: DeviceLike = None) -> "OctreeAS":
@@ -412,6 +483,9 @@ class OctreeAS:
             m[(p[:, 0] * res_l + p[:, 1]) * res_l + p[:, 2]] = np.arange(len(p),
                                                                          dtype=np.int32)
             maps.append(torch.from_numpy(m).to(device))
+        # the levels above the maps are binary-searched in their sorted codes (< 2^30)
+        tables = [torch.from_numpy(c.astype(np.int32)).to(device)
+                  for c in codes[cls.PIDX_MAP_MAX_LEVEL + 1:]]
         occ = dens = None
         if max_level <= cls.OCC_GRID_MAX_LEVEL:
             res = 2 ** max_level
@@ -421,13 +495,32 @@ class OctreeAS:
             occ = torch.from_numpy(o).to(device)
             dens = torch.where(occ, 0.0, -1.0).to(torch.float32)
         return cls(max_level, occ, dens, dense=False, codes=codes, points=points,
-                   pidx_maps=maps)
+                   pidx_maps=maps, code_tables=tables)
 
     @classmethod
     def from_quantized_points(cls, quantized_points: np.ndarray, level: int,
                               device: DeviceLike = None) -> "OctreeAS":
         codes, _ = build_level_table(np.asarray(quantized_points), level)
         return cls.from_codes(codes, device=device)
+
+    @classmethod
+    def from_mesh(cls, mesh_path: str, level: int, sample_tex: bool = False,
+                  num_samples: int = 100_000_000, device: DeviceLike = None) -> "OctreeAS":
+        """The cells of ``num_samples`` area-weighted surface samples of the .obj at
+        ``mesh_path`` (normalized to 'sphere') and of the same samples jittered by up to a
+        voxel, ``default_rng(0)``, as JAX draws them (octree_as.py:147-163). The octree
+        carries the normalized mesh as ``extent``."""
+        from wisp_tpu_torch.ops.mesh.io import load_obj
+        from wisp_tpu_torch.ops.mesh.ops import normalize, sample_surface
+        out = load_obj(mesh_path, load_materials=sample_tex)
+        vertices, faces = normalize(out[0], out[1], "sphere")
+        samples = sample_surface(vertices, faces, num_samples)
+        rng = np.random.default_rng(0)
+        jitter = (rng.random(samples.shape).astype(np.float32) * 2 - 1) * (1.0 / (2 ** level))
+        pts = np.clip(np.concatenate([samples, samples + jitter]), -1.0, 1.0 - 1e-6)
+        blas = cls.from_quantized_points(quantize_points_np(pts, level), level, device=device)
+        blas.extent = MeshExtent(vertices, faces)
+        return blas
 
     @classmethod
     def from_pointcloud(cls, pointcloud: np.ndarray, level: int, dilate: int = 0,
@@ -451,20 +544,23 @@ class OctreeAS:
         return OctreeAS(self.max_level, occ_grid,
                         cell_density.reshape(occ_grid.shape).to(torch.float32)
                         .contiguous(), dense=False, codes=self.codes, points=self.points,
-                        pidx_maps=self.pidx_maps)
+                        pidx_maps=self.pidx_maps, code_tables=self.code_tables)
 
     def query(self, coords: torch.Tensor, level: Optional[int] = None,
               with_parents: bool = False) -> ASQueryResults:
-        """Point -> cell index at ``level`` (K9; see ``octree_query``)."""
+        """Point -> cell index at ``level`` (K9; see ``octree_query``), by the level's
+        route (``query_routes``). A bitfield-only octree answers at its max level alone,
+        as JAX's does."""
         if level is None:
             level = self.max_level
-        if self.pidx_maps is None:
-            raise NotImplementedError("query on a dense octree is not ported yet "
-                                      "(ROADMAP Queue 1)")
-        if level >= len(self.pidx_maps):
-            raise NotImplementedError(f"query at level {level} > {self.PIDX_MAP_MAX_LEVEL} "
-                                      f"(a binary search in JAX) is not ported yet")
-        return ASQueryResults(pidx=octree_query(coords.contiguous(), self.pidx_maps, level,
+        if not 0 <= level <= self.max_level:
+            raise ValueError(f"query at level {level} of an octree of levels "
+                             f"0..{self.max_level}")
+        needed = range(level + 1) if with_parents else [level]
+        if any(self.query_routes[l] is None for l in needed):
+            raise ValueError("a bitfield-only octree (a carved make_dense) answers queries "
+                             "at its max level only, without parents")
+        return ASQueryResults(pidx=octree_query(coords.contiguous(), self.query_routes, level,
                                                 with_parents))
 
     def occupancy_at(self, coords: torch.Tensor) -> torch.Tensor:

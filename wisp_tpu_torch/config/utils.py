@@ -53,6 +53,7 @@ DROPPED_KEYS: Dict[str, str] = {
     "dataset_num_workers": "JAX's host loader processes; the port's datasets live on the "
                            "device",
     "mode": "a trainer setting that nothing in the JAX package reads either",
+    "log_2d": "an SDF trainer setting that nothing in the JAX package reads either",
     "viz360_num_angles": "the tracker's 360° orbit (JAX tracker.py:195 log_360_orbit), which "
                          "nothing in the JAX package calls; the orbit is not ported",
     "viz360_radius": "the tracker's 360° orbit (JAX tracker.py:195 log_360_orbit), which "

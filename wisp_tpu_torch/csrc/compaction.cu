@@ -29,6 +29,25 @@
 // K3's plus 4 bytes a ray of acc_tau; the cull is one more load (L1-resident: a block's
 // 4,096 positions span at most 4,096 / R + 1 steps of consecutive rays) and a compare.
 //
+// K12 compaction — the SDF tracer's active-ray compaction (wisp_tpu/tracers/
+// packed_sdf_tracer.py:168-220, over wisp_tpu/ops/compaction.py masked_compact_indices on
+// an [R, 1] mask): K3's count, scan and write passes with S = 1, so the kept rays keep
+// their order. The payload of a kept slot is its ray's row: origin and direction (3
+// floats each), its walk depth t and its exit t_far. Unlike K3, every one of the B slots
+// is defined, as JAX defines them: a fourth pass fills the slots past the count with
+// index R and the payload of ray R-1 (JAX's jnp.minimum(idx, R - 1) gather), so the
+// sphere loop can run on all B slots with the empty ones masked dead. The mid-loop
+// re-compaction is the same entry point on the first pass's B slots. Bound on this card:
+// bytes: 1 byte of mask a ray read twice (L2-resident), 32 bytes read and 8 + 32 written
+// a slot.
+//
+// scatter_rows — the tracer's scatter-back of the compacted slots (`.at[idx].set(v,
+// mode="drop")` onto a given base, packed_sdf_tracer.py:207-217): out[idx[k]] = v[k] for
+// the first K slots whose index is below P, rows of any width in bytes (t, xyz, normal and
+// extras as floats, hit as bytes). Bound: bytes, one 8-byte index and one row read and one
+// row written a kept slot. Design: one thread a (slot, 4-byte word), or a (slot, byte)
+// where the row width is not a multiple of 4.
+//
 // scatter_back backward (the autodiff of packed_rf_tracer.py:214, the `.at[idx].set`
 // scatter): a gather of the cotangent rows at the slots' sample indices,
 // grad_v[k, c] = grad_out[idx[k], c] (0 for an empty slot). Bound on this card: bytes, one
@@ -111,20 +130,72 @@ __global__ void write_kernel(const uint8_t* __restrict__ mask,
   }
 }
 
+// the write pass of K12 compaction: S = 1, a ray's row as payload
+__global__ void write_rays_kernel(const uint8_t* __restrict__ mask, int R, long long budget,
+                                  const int* __restrict__ block_offsets,
+                                  const float* __restrict__ origins,
+                                  const float* __restrict__ dirs, const float* __restrict__ t,
+                                  const float* __restrict__ t_far,
+                                  long long* __restrict__ idx, float* __restrict__ o_c,
+                                  float* __restrict__ d_c, float* __restrict__ t_c,
+                                  float* __restrict__ tf_c) {
+  const long long base = (long long)blockIdx.x * kTile;
+  long long slot0 = block_offsets[blockIdx.x];
+  for (int k = 0; k < kItems; ++k) {
+    const long long r = base + k * kThreads + threadIdx.x;
+    const int m = mask_at(mask, nullptr, 0.0f, r, R, 1, R);
+    int total;
+    const int excl = wisp::block_exclusive_scan(m, total);
+    const long long slot = slot0 + excl;
+    if (m && slot < budget) {
+      idx[slot] = r;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        o_c[3 * slot + a] = origins[3 * r + a];
+        d_c[3 * slot + a] = dirs[3 * r + a];
+      }
+      t_c[slot] = t[r];
+      tf_c[slot] = t_far[r];
+    }
+    slot0 += total;
+  }
+}
+
+// slots past the count: index R and ray R-1's row (JAX's fill and clipped gather)
+__global__ void fill_rays_kernel(int R, long long budget, const long long* __restrict__ count,
+                                 const float* __restrict__ origins,
+                                 const float* __restrict__ dirs, const float* __restrict__ t,
+                                 const float* __restrict__ t_far, long long* __restrict__ idx,
+                                 float* __restrict__ o_c, float* __restrict__ d_c,
+                                 float* __restrict__ t_c, float* __restrict__ tf_c) {
+  const long long slot = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= budget || slot < count[0]) return;
+  const long long r = R - 1;
+  idx[slot] = R;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    o_c[3 * slot + a] = origins[3 * r + a];
+    d_c[3 * slot + a] = dirs[3 * r + a];
+  }
+  t_c[slot] = t[r];
+  tf_c[slot] = t_far[r];
+}
+
+template <typename T>
+__global__ void scatter_rows_kernel(const T* __restrict__ v, const long long* __restrict__ idx,
+                                    long long K, int width, long long P, T* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= K * width) return;
+  const long long k = i / width;
+  const int c = (int)(i % width);
+  const long long q = idx[k];
+  if (q < P) out[q * width + c] = v[i];
+}
+
 __global__ void zero_kernel(float* __restrict__ out, long long n) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x)
     out[i] = 0.0f;
-}
-
-__global__ void scatter_kernel(const float* __restrict__ v, const long long* __restrict__ idx,
-                               long long K, int C, long long P, float* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= K * C) return;
-  const long long k = t / C;
-  const int c = (int)(t % C);
-  const long long q = idx[k];
-  if (q < P) out[q * C + c] = v[t];
 }
 
 __global__ void gather_kernel(const float* __restrict__ grad_out,
@@ -172,8 +243,9 @@ WISP_EXPORT int wisp_scatter_back(const float* v, const long long* idx, long lon
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (K * C > 0) {
-    scatter_kernel<<<wisp::ceil_div(K * C, 256), 256, 0, st>>>(v, idx, K, C, P, out);
+  if (K * C > 0) {   // the floats' bits, as scatter_rows moves them
+    scatter_rows_kernel<uint32_t><<<wisp::ceil_div(K * C, 256), 256, 0, st>>>(
+        (const uint32_t*)v, idx, K, C, P, (uint32_t*)out);
   }
   return (int)cudaGetLastError();
 }
@@ -185,6 +257,50 @@ WISP_EXPORT int wisp_scatter_back_bwd(const float* grad_out, const long long* id
   if (K * C > 0) {
     gather_kernel<<<wisp::ceil_div(K * C, 256), 256, 0, (cudaStream_t)stream>>>(
         grad_out, idx, K, C, P, grad_v);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K12 compaction. mask [R] (bytes); origins, dirs [R, 3], t, t_far [R]; block_counts /
+// block_offsets: int32 scratch of ceil(R / 4096) entries; count: one int64, the number of
+// set mask entries (not capped by the budget); idx [B] int64, o_c, d_c [B, 3], t_c,
+// tf_c [B]: every slot written.
+WISP_EXPORT int wisp_compact_rays(const uint8_t* mask, int R, long long budget,
+                                  const float* origins, const float* dirs, const float* t,
+                                  const float* t_far, int* block_counts, int* block_offsets,
+                                  long long* count, long long* idx, float* o_c, float* d_c,
+                                  float* t_c, float* tf_c, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nb = wisp::ceil_div(R, kTile);
+  if (nb == 0 || budget < 1) return (int)cudaErrorInvalidValue;
+  count_kernel<<<nb, kThreads, 0, st>>>(mask, nullptr, 0.0f, R, 1, block_counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  scan_kernel<<<1, 1024, 0, st>>>(block_counts, nb, block_offsets, count);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  write_rays_kernel<<<nb, kThreads, 0, st>>>(mask, R, budget, block_offsets, origins, dirs,
+                                             t, t_far, idx, o_c, d_c, t_c, tf_c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fill_rays_kernel<<<wisp::ceil_div(budget, 256), 256, 0, st>>>(
+      R, budget, count, origins, dirs, t, t_far, idx, o_c, d_c, t_c, tf_c);
+  return (int)cudaGetLastError();
+}
+
+// out[idx[k]] = v[k] for k < K where idx[k] < P; rows of row_bytes bytes; out is given.
+WISP_EXPORT int wisp_scatter_rows(const void* v, const long long* idx, long long K,
+                                  int row_bytes, long long P, void* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (K > 0 && row_bytes > 0) {
+    if (row_bytes % 4 == 0) {
+      const int w = row_bytes / 4;
+      scatter_rows_kernel<uint32_t><<<wisp::ceil_div(K * w, 256), 256, 0, st>>>(
+          (const uint32_t*)v, idx, K, w, P, (uint32_t*)out);
+    } else {
+      scatter_rows_kernel<uint8_t><<<wisp::ceil_div(K * row_bytes, 256), 256, 0, st>>>(
+          (const uint8_t*)v, idx, K, row_bytes, P, (uint8_t*)out);
+    }
   }
   return (int)cudaGetLastError();
 }

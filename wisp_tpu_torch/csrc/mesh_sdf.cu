@@ -22,6 +22,23 @@
 // Design: the block's 256 threads stage the triangles through shared memory in tiles of
 // 256 x 15 floats (15 KB, under the 48 KB of static shared memory) and every thread of a
 // warp reads the same triangle at once (a broadcast, no bank conflict).
+//
+// K17 — the nearest surface point.
+//
+// Replaces wisp_tpu/ops/mesh/compute_sdf.py closest_point (:144), the [points x triangles]
+// brute force of the texture path (closest_tex): for each point, the closest point cp_t on
+// every triangle (closest_point_on_triangle, ops/mesh/ops.py:144), its squared distance,
+// and the first triangle of least distance (jnp.argmin's rule: a strict < over triangles
+// in ascending order). Outputs: the distance sqrt(d2min) [P], the point cp [P, 3] and the
+// triangle [P] int64. It is K16's first pass with the argument kept: the same staging of
+// triangles through shared memory, the same closest_point and d2_to in the same float
+// order without fused multiply-add (the plain version repeats them), so the result equals
+// the plain version's unless two triangles tie within rounding.
+//
+// Bound on this card: float32 operations (~130 a point-triangle pair in the plain
+// version's arithmetic: the closest point 120 and its distance and compare), not bytes: a
+// point reads 12 bytes and writes 24. Design: K16's, one pass instead of two; the thread
+// keeps (d2, triangle, point) in registers.
 #include "common.cuh"
 
 namespace {
@@ -146,7 +163,57 @@ __global__ void __launch_bounds__(kThreads)
   if (active) out[i] = s < 0.0f ? -sqrtf(d2min) : sqrtf(d2min);
 }
 
+__global__ void __launch_bounds__(kThreads)
+    closest_point_kernel(const float* __restrict__ points, long long P,
+                         const float* __restrict__ tris, int T, float* __restrict__ dist,
+                         float* __restrict__ nearest, long long* __restrict__ tidx) {
+  __shared__ float tile[kTile * kTriFloats];
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < P;
+  const V3 p = active ? V3{points[3 * i], points[3 * i + 1], points[3 * i + 2]}
+                      : V3{0.0f, 0.0f, 0.0f};
+  float d2min = INFINITY;
+  V3 best = {0.0f, 0.0f, 0.0f};
+  int best_t = 0;
+  for (int t0 = 0; t0 < T; t0 += kTile) {
+    const int nt = min(kTile, T - t0);
+    stage(tile, tris, t0, nt);
+    if (active) {
+      for (int t = 0; t < nt; ++t) {
+        const float* tri = tile + t * kTriFloats;
+        const V3 cp = closest_point(p, load3(tri), load3(tri + 3), load3(tri + 6));
+        const float d2 = d2_to(p, cp);
+        if (d2 < d2min) {
+          d2min = d2;
+          best = cp;
+          best_t = t0 + t;
+        }
+      }
+    }
+  }
+  if (active) {
+    dist[i] = sqrtf(d2min);
+    nearest[3 * i] = best.x;
+    nearest[3 * i + 1] = best.y;
+    nearest[3 * i + 2] = best.z;
+    tidx[i] = best_t;
+  }
+}
+
 }  // namespace
+
+// K17. points [P, 3]; tris [T, 15] (K16's table; the corners are read); dist [P],
+// nearest [P, 3], tidx [P].
+WISP_EXPORT int wisp_closest_point(const float* points, long long P, const float* tris, int T,
+                                   float* dist, float* nearest, long long* tidx,
+                                   void* stream) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  if (P > 0) {
+    closest_point_kernel<<<wisp::ceil_div(P, kThreads), kThreads, 0,
+                           (cudaStream_t)stream>>>(points, P, tris, T, dist, nearest, tidx);
+  }
+  return (int)cudaGetLastError();
+}
 
 // points [P, 3]; tris [T, 15] (va, vb, vc, unit face normal, interior angles at a, b, c);
 // out [P].

@@ -13,6 +13,21 @@
 // the levels in a loop; the maps' pointers travel in the kernel's argument block, so the
 // wrapper concatenates nothing.
 //
+// The other routes of the same query (octree_as.py:199-240), branches of the same launch,
+// chosen per level by the wrapper:
+// * search (:228-233), the levels above the pidx maps (PIDX_MAP_MAX_LEVEL = 7): the cell's
+//   morton code c at level l (the parent's coordinates interleaved, x in the lowest bit:
+//   ops/spc/core.py morton3d, which JAX shifts right by 3*(level - l)) is looked up by a
+//   lower-bound binary search in level l's sorted code table (int32, uploaded once when the
+//   octree is built); i is clipped to the table, and the cell is found iff table[i] == c,
+//   else -1 (jnp.searchsorted, side 'left'). Bound: bytes. ~log2(n) dependent 4-byte reads
+//   a point (18 at the 256^3 shell's ~250,000 cells); the top of the search tree is read by
+//   every point and stays in L1/L2, the last few steps touch one or two 32-byte sectors.
+// * dense (:212-213), a make_dense octree: every cell exists and its index is c.
+// * bitfield (:214-221), a carved make_dense octree (no level tables): c where the
+//   max-level occupancy holds, else -1; the wrapper allows it at the max level only, as JAX.
+// Integers only: the result equals JAX's and the plain version's exactly.
+//
 // K11 — the free-space distance field.
 //
 // Replaces wisp_tpu/accelstructs/octree_as.py OctreeAS.free_space_distance (:254): the
@@ -36,8 +51,14 @@ namespace {
 
 constexpr int kMaxLevels = 11;
 
-struct MapPtrs {
-  const int* m[kMaxLevels];
+// per level: 0 pidx map (int32 [8^l]), 1 sorted code table (int32 [len]), 2 dense (no
+// table), 3 bitfield (occupancy bytes [8^l])
+enum Route { kMap = 0, kSearch = 1, kDense = 2, kBitfield = 3 };
+
+struct LevelIndex {
+  int route[kMaxLevels];
+  const void* table[kMaxLevels];
+  long long len[kMaxLevels];
 };
 
 __device__ __forceinline__ int quantize(float v, float half_res, int res) {
@@ -45,8 +66,32 @@ __device__ __forceinline__ int quantize(float v, float half_res, int res) {
   return min(max(q, 0), res - 1);
 }
 
+// 10 bits to every third bit (ops/spc/core.py _part1by2)
+__device__ __forceinline__ unsigned part1by2(unsigned v) {
+  v &= 0x3FFu;
+  v = (v | (v << 16)) & 0x30000FFu;
+  v = (v | (v << 8)) & 0x300F00Fu;
+  v = (v | (v << 4)) & 0x30C30C3u;
+  v = (v | (v << 2)) & 0x9249249u;
+  return v;
+}
+
+__device__ __forceinline__ int search(const int* __restrict__ table, long long n,
+                                      unsigned code) {
+  const int c = (int)code;            // codes below 2^30: int32 order is code order
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (__ldg(table + mid) < c) lo = mid + 1;
+    else hi = mid;
+  }
+  const long long i = min(lo, n - 1);
+  return __ldg(table + i) == c ? (int)i : -1;
+}
+
 __global__ void octree_query_kernel(const float* __restrict__ coords, long long N, int level,
-                                    MapPtrs maps, int with_parents, int* __restrict__ out) {
+                                    LevelIndex index, int with_parents,
+                                    int* __restrict__ out) {
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const float x = coords[3 * n], y = coords[3 * n + 1], z = coords[3 * n + 2];
@@ -63,8 +108,23 @@ __global__ void octree_query_kernel(const float* __restrict__ coords, long long 
     if (inside) {
       const int s = level - l;
       const long long res_l = 1LL << l;
-      const long long flat = (((long long)(qx >> s)) * res_l + (qy >> s)) * res_l + (qz >> s);
-      pidx = __ldg(maps.m[l] + flat);
+      const int px = qx >> s, py = qy >> s, pz = qz >> s;
+      const long long flat = ((long long)px * res_l + py) * res_l + pz;
+      const unsigned code = part1by2(px) | (part1by2(py) << 1) | (part1by2(pz) << 2);
+      switch (index.route[l]) {
+        case kMap:
+          pidx = __ldg((const int*)index.table[l] + flat);
+          break;
+        case kSearch:
+          pidx = search((const int*)index.table[l], index.len[l], code);
+          break;
+        case kDense:
+          pidx = (int)code;
+          break;
+        default:  // kBitfield
+          pidx = ((const uint8_t*)index.table[l])[flat] ? (int)code : -1;
+          break;
+      }
     }
     row[l - first] = pidx;
   }
@@ -113,17 +173,25 @@ __global__ void fsd_pass_minmax(const uint8_t* __restrict__ in, int res, long lo
 
 }  // namespace
 
-// maps: a host array of level+1 device pointers (the maps of levels 0..level).
+// routes, tables, lens: host arrays of level+1 entries (levels 0..level): each level's
+// route (see Route), its device table (null for dense) and the table's length (search).
 WISP_EXPORT int wisp_octree_query(const float* coords, long long N, int level,
-                                  const int* const* maps, int with_parents, int* out,
+                                  const int* routes, const void* const* tables,
+                                  const long long* lens, int with_parents, int* out,
                                   void* stream) {
   if (level < 0 || level >= kMaxLevels) return (int)cudaErrorInvalidValue;
-  MapPtrs p = {};
-  for (int l = 0; l <= level; ++l) p.m[l] = maps[l];
+  LevelIndex index = {};
+  for (int l = 0; l <= level; ++l) {
+    if (routes[l] < kMap || routes[l] > kBitfield) return (int)cudaErrorInvalidValue;
+    if (routes[l] == kSearch && lens[l] < 1) return (int)cudaErrorInvalidValue;
+    index.route[l] = routes[l];
+    index.table[l] = tables[l];
+    index.len[l] = lens[l];
+  }
   if (N > 0) {
     const int threads = 256;
     octree_query_kernel<<<wisp::ceil_div(N, threads), threads, 0, (cudaStream_t)stream>>>(
-        coords, N, level, p, with_parents, out);
+        coords, N, level, index, with_parents, out);
   }
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,7 @@ from wisp_tpu_torch.device import DeviceLike, resolve_device
 from wisp_tpu_torch.models.grids.hash_grid import HashGrid
 from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
 from wisp_tpu_torch.models.nefs.nerf import NeuralRadianceField
-from wisp_tpu_torch.models.nefs.neural_sdf import NeuralSDF
+from wisp_tpu_torch.models.nefs.neural_sdf import NeuralSDF, NeuralSDFTex
 from wisp_tpu_torch.models.pipeline import Pipeline
 from wisp_tpu_torch.ops.geometric import sample_fib_sphere
 from wisp_tpu_torch.tracers.packed_rf_tracer import PackedRFTracer
@@ -104,17 +104,20 @@ def build_pipeline(params: Mapping[str, np.ndarray], config: Dict[str, Any],
 
 def build_sdf_pipeline(params: Mapping[str, np.ndarray], config: Dict[str, Any],
                        device: DeviceLike = None) -> Pipeline:
-    """The port's NGLOD pipeline (sparse OctreeAS, OctreeGrid, NeuralSDF, PackedSDFTracer)
-    holding ``params``:
+    """The port's NGLOD pipeline (sparse OctreeAS, OctreeGrid or HashGrid, NeuralSDF or
+    NeuralSDFTex, PackedSDFTracer) holding ``params``:
 
     * ``blas.codes.<l>`` — the sorted morton codes of level l, for l = 0..blas_level;
-    * ``grid.features.<i>`` [V_i, F] — the dual-vertex features of active LOD i;
+    * ``grid.features.<i>`` [V_i, F] — the dual-vertex features of active LOD i, or for a
+      hash grid (``config["grid"]["constructor"] == "HashGrid"``, with ``resolutions``)
+      ``grid.codebook.feats`` [total, F];
     * ``decoder.layers.<i>.weight`` [out, in] / ``.bias``, ``decoder.lout.*``;
     * optional: ``mesh.vertices`` [V, 3] and ``mesh.faces`` [T, 3], the mesh the octree was
       built from, kept as ``blas.extent`` (an SDF dataset samples it).
 
     ``config`` holds ``blas_level`` and the keyword arguments of ``grid`` (OctreeGrid),
-    ``nef`` (NeuralSDF) and ``tracer`` (PackedSDFTracer)."""
+    ``nef`` (NeuralSDF) and ``tracer`` (PackedSDFTracer); ``nef_constructor``
+    "NeuralSDFTex" builds the textured field, whose decoder has four outputs."""
     device = resolve_device(device)
     level = int(config["blas_level"])
     blas = OctreeAS.from_codes([np.asarray(params[f"blas.codes.{l}"])
@@ -122,10 +125,16 @@ def build_sdf_pipeline(params: Mapping[str, np.ndarray], config: Dict[str, Any],
     if "mesh.vertices" in params:
         blas.extent = MeshExtent(np.asarray(params["mesh.vertices"], np.float32),
                                  np.asarray(params["mesh.faces"], np.int32))
-    grid = OctreeGrid(blas=blas, device=device, **config.get("grid", {}))
-    for i, feats in enumerate(grid.features):
-        _load(feats, params[f"grid.features.{i}"], f"grid.features.{i}")
-    nef = NeuralSDF(grid=grid, device=device, **config.get("nef", {}))
+    g = dict(config.get("grid", {}))
+    if g.pop("constructor", "OctreeGrid") == "HashGrid":
+        grid = HashGrid(blas=blas, device=device, **g)
+        _load(grid.codebook.feats, params["grid.codebook.feats"], "grid.codebook.feats")
+    else:
+        grid = OctreeGrid(blas=blas, device=device, **g)
+        for i, feats in enumerate(grid.features):
+            _load(feats, params[f"grid.features.{i}"], f"grid.features.{i}")
+    nef_cls = NeuralSDFTex if config.get("nef_constructor") == "NeuralSDFTex" else NeuralSDF
+    nef = nef_cls(grid=grid, device=device, **config.get("nef", {}))
     _load_decoder(nef.decoder, "decoder", params)
     return Pipeline(nef=nef, tracer=PackedSDFTracer(**config.get("tracer", {})))
 

@@ -41,7 +41,9 @@ LAUNCHES: Dict[str, int] = {"raymarch_ray": 0, "compact": 0, "scatter_back": 0,
                             "sdf_walk": 0, "sphere_step": 0, "octree_interp_bwd": 0,
                             "mesh_sdf": 0, "raymarch_voxel": 0, "hashgrid_bwd_stoch": 0,
                             "compact_live": 0, "integrate_seg_fwd": 0, "integrate_seg_bwd": 0,
-                            "scatter_max_acc": 0}
+                            "scatter_max_acc": 0, "octree_query_search": 0,
+                            "compact_rays": 0, "compact_rays_mid": 0, "scatter_rays": 0,
+                            "scatter_rays_mid": 0, "closest_point": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,8 +88,13 @@ _SIGNATURES = {
                                _P],
     # ids values K size grid stream
     "wisp_scatter_max": [_P, _P, _L, _L, _P, _P],
-    # coords N level maps(host array of pointers) with_parents out stream
-    "wisp_octree_query": [_P, _L, _I, _P, _I, _P, _P],
+    # coords N level routes tables lens (host arrays) with_parents out stream
+    "wisp_octree_query": [_P, _L, _I, _P, _P, _P, _I, _P, _P],
+    # mask R budget origins dirs t t_far block_counts block_offsets count idx o_c d_c t_c
+    # tf_c stream
+    "wisp_compact_rays": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # v idx K row_bytes P out stream
+    "wisp_scatter_rows": [_P, _P, _L, _I, _L, _P, _P],
     # occ level cap scratch dist stream
     "wisp_free_space_distance": [_P, _I, _I, _P, _P, _P],
     # coords pidx N P col0 n_lods F trinkets feats levels (host arrays) sum out stream
@@ -96,6 +103,8 @@ _SIGNATURES = {
     "wisp_octree_interp_bwd": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     # points P tris T out stream
     "wisp_mesh_sdf": [_P, _L, _P, _I, _P, _P],
+    # points P tris T dist nearest tidx stream
+    "wisp_closest_point": [_P, _L, _P, _I, _P, _P, _P, _P],
     # origins dirs t alive t_far free_dist N level num_steps stream
     "wisp_sdf_walk": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     # origins dirs t alive hit t_far d free_dist N level step_size min_dis stream

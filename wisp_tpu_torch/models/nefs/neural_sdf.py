@@ -1,7 +1,9 @@
 """NeuralSDF — neural signed distance field, NGLOD (counterpart of
-wisp_tpu/models/nefs/neural_sdf.py ``NeuralSDF``): grid features, then the optional position
-embedding, into a one-output BasicDecoder. ``position_input`` with the 'none' embedder
-appends the raw xyz after the features."""
+wisp_tpu/models/nefs/neural_sdf.py ``NeuralSDF`` and ``NeuralSDFTex``): grid features, then
+the optional position embedding, into a BasicDecoder. ``position_input`` with the 'none'
+embedder appends the raw xyz after the features. NeuralSDF's decoder has one output, the
+distance; NeuralSDFTex's has four, the distance and the logits of the surface colour
+(``rgbsdf``: rgb = sigmoid of outputs 1-3)."""
 
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ class _Identity(torch.nn.Module):
 
 
 class NeuralSDF(BaseNeuralField):
+    OUTPUT_DIM = 1
+
     def __init__(self, grid=None, pos_embedder: str = "none", pos_multires: int = 4,
                  position_input: bool = False, activation_type: str = "relu",
                  layer_type: str = "linear", hidden_dim: int = 128, num_layers: int = 1,
@@ -34,7 +38,8 @@ class NeuralSDF(BaseNeuralField):
         self.pos_embedder, self.pos_embed_dim = self.init_embedder(
             pos_embedder, pos_multires, position_input, device)
         self.decoder = BasicDecoder(
-            input_dim=self.effective_feature_dim() + self.pos_embed_dim, output_dim=1,
+            input_dim=self.effective_feature_dim() + self.pos_embed_dim,
+            output_dim=self.OUTPUT_DIM,
             activation=get_activation_class(activation_type), bias=True,
             layer=get_layer_class(layer_type.replace("_norm", "")), num_layers=num_layers,
             hidden_dim=hidden_dim, skip=[], generator=generator, device=device)
@@ -58,8 +63,8 @@ class NeuralSDF(BaseNeuralField):
     def register_forward_functions(self):
         self._register_forward_function(self.sdf, ["sdf"])
 
-    def sdf(self, coords: torch.Tensor, lod_idx: Optional[int] = None) -> torch.Tensor:
-        """[N, 3] -> signed distance [N, 1]."""
+    def decode(self, coords: torch.Tensor, lod_idx: Optional[int] = None) -> torch.Tensor:
+        """The decoder's outputs at [N, 3] points: [N, OUTPUT_DIM]."""
         if lod_idx is None:
             lod_idx = self.grid.num_lods - 1
         batch = coords.shape[0]
@@ -69,3 +74,20 @@ class NeuralSDF(BaseNeuralField):
                                                                         self.pos_embed_dim)],
                               dim=-1)
         return self.decoder(feats)
+
+    def sdf(self, coords: torch.Tensor, lod_idx: Optional[int] = None) -> torch.Tensor:
+        """[N, 3] -> signed distance [N, 1]."""
+        return self.decode(coords, lod_idx)
+
+
+class NeuralSDFTex(NeuralSDF):
+    """The textured SDF: a four-output decoder, distance and colour."""
+    OUTPUT_DIM = 4
+
+    def register_forward_functions(self):
+        self._register_forward_function(self.rgbsdf, ["rgb", "sdf"])
+
+    def rgbsdf(self, coords: torch.Tensor, lod_idx: Optional[int] = None):
+        """{'rgb': [N, 3] in (0, 1), 'sdf': [N, 1]}."""
+        out = self.decode(coords, lod_idx)
+        return {"rgb": torch.sigmoid(out[..., 1:4]), "sdf": out[..., 0:1]}

@@ -13,6 +13,13 @@ the JAX scatter). ``compact`` needs no gradient: sample points are not parameter
 Given a per-ray carried optical depth ``acc_tau`` and ``tau_cap``, ``compact`` also culls
 (K6a, the segmented trace's live test, packed_rf_tracer.py:338-343): a sample is valid only
 where its ray's ``acc_tau < tau_cap``, compared in float32 as JAX compares it.
+
+``compact_rays`` and ``scatter_rows`` are K12's compaction, the SDF tracer's (packed_sdf_
+tracer.py:168-220): the same passes over an [R] mask of rays, whose payload is each kept
+ray's origin, direction, depth and exit; every slot is defined (JAX's fill: index R and ray
+R-1's row), and ``scatter_rows`` writes the slots' rows back onto a given tensor, as JAX's
+``.at[idx].set(v, mode="drop")``. Their launches count apart from K3's (``compact_rays``,
+``scatter_rays``, and ``*_mid`` for the tracer's mid-loop pass).
 """
 
 from __future__ import annotations
@@ -160,3 +167,88 @@ def scatter_back(v: torch.Tensor, idx: torch.Tensor, total: int) -> torch.Tensor
     if not v.is_cuda:
         return scatter_back_plain(v, idx, total)
     return _ScatterBackFn.apply(v, idx, total)
+
+
+def ray_budget(num_rays: int, fraction: float) -> int:
+    """Slots of the SDF tracer's ray compaction: ``max(round(R * fraction), 1)``, Python's
+    half-even rounding, as JAX has it (packed_sdf_tracer.py:181, :195)."""
+    return max(int(round(num_rays * float(fraction))), 1)
+
+
+def compact_rays_plain(mask, budget, origins, dirs, t, t_far):
+    """Plain PyTorch version of ``compact_rays``."""
+    r = mask.shape[0]
+    slot = torch.cumsum(mask.to(torch.int64), 0) - 1
+    keep = mask & (slot < budget)
+    idx = torch.full((budget,), r, dtype=torch.int64, device=mask.device)
+    idx[slot[keep]] = torch.nonzero(keep).reshape(-1)
+    safe = idx.clamp(max=r - 1)
+    return idx, origins[safe], dirs[safe], t[safe], t_far[safe], mask.sum()
+
+
+def compact_rays(mask: torch.Tensor, budget: int, origins: torch.Tensor, dirs: torch.Tensor,
+                 t: torch.Tensor, t_far: torch.Tensor, mid: bool = False
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The rays of ``mask`` [R] bool, in order, into ``budget`` slots (K12's compaction;
+    JAX's ``masked_compact_indices(mask[:, None], budget)`` and its clipped gathers).
+
+    Returns ``idx`` [B] int64 (the ray of each slot, R for a slot past the count), the
+    slots' ``origins``, ``dirs`` [B, 3], ``t`` and ``t_far`` [B] (ray R-1's for an empty
+    slot) and ``count``, a 0-d int64 tensor: the rays of the mask, which may exceed the
+    budget. ``mid`` counts the launch as the tracer's mid-loop pass."""
+    if not mask.is_cuda:
+        return compact_rays_plain(mask, budget, origins, dirs, t, t_far)
+    r = mask.shape[0]
+    kernels.check(mask, "mask", torch.bool, (r,))
+    kernels.check(origins, "origins", torch.float32, (r, 3))
+    kernels.check(dirs, "dirs", torch.float32, (r, 3))
+    kernels.check(t, "t", torch.float32, (r,))
+    kernels.check(t_far, "t_far", torch.float32, (r,))
+    if r == 0 or r >= 2 ** 31 or budget < 1:
+        raise ValueError(f"compact_rays: need 0 < R < 2^31 and budget >= 1, got R={r} "
+                         f"budget={budget}")
+    dev = mask.device
+    nb = -(-r // _TILE)
+    scratch = torch.empty((2 * nb,), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    idx = torch.empty((budget,), dtype=torch.int64, device=dev)
+    o_c = torch.empty((budget, 3), dtype=torch.float32, device=dev)
+    d_c = torch.empty((budget, 3), dtype=torch.float32, device=dev)
+    t_c = torch.empty((budget,), dtype=torch.float32, device=dev)
+    tf_c = torch.empty((budget,), dtype=torch.float32, device=dev)
+    kernels.launch("wisp_compact_rays", "compact_rays_mid" if mid else "compact_rays",
+                   mask.data_ptr(), r, budget, origins.data_ptr(), dirs.data_ptr(),
+                   t.data_ptr(), t_far.data_ptr(), scratch.data_ptr(),
+                   scratch[nb:].data_ptr(), count.data_ptr(), idx.data_ptr(), o_c.data_ptr(),
+                   d_c.data_ptr(), t_c.data_ptr(), tf_c.data_ptr())
+    return idx, o_c, d_c, t_c, tf_c, count
+
+
+def scatter_rows_plain(v: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``scatter_rows``."""
+    rows = idx[:v.shape[0]]
+    keep = rows < out.shape[0]
+    out[rows[keep]] = v[keep]
+    return out
+
+
+def scatter_rows(v: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+                 mid: bool = False) -> torch.Tensor:
+    """``out[idx[k]] = v[k]`` in place for the K rows of ``v`` [K, ...] whose slot index is
+    below P = out.shape[0]; an index P (an empty slot) is dropped. ``out`` [P, ...] has
+    ``v``'s dtype and row shape; it is returned. ``mid`` counts the launch as the tracer's
+    mid-loop pass."""
+    if not v.is_cuda:
+        return scatter_rows_plain(v, idx, out)
+    k = v.shape[0]
+    kernels.check(v, "v", v.dtype, None)
+    kernels.check(out, "out", v.dtype, (None,) + tuple(v.shape[1:]))
+    kernels.check(idx, "idx", torch.int64, (None,))
+    if k > idx.shape[0]:
+        raise ValueError(f"scatter_rows: {k} rows for {idx.shape[0]} slots")
+    row_bytes = v[0].numel() * v.element_size() if k else 0
+    if k and row_bytes:
+        kernels.launch("wisp_scatter_rows", "scatter_rays_mid" if mid else "scatter_rays",
+                       v.data_ptr(), idx.data_ptr(), k, row_bytes, out.shape[0],
+                       out.data_ptr())
+    return out

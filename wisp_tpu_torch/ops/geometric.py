@@ -1,10 +1,37 @@
-"""Geometric helpers (counterpart of wisp_tpu/ops/geometric.py: ``sample_fib_sphere`` and
-``voxel_boundary_step``)."""
+"""Geometric helpers (counterpart of wisp_tpu/ops/geometric.py: ``normalized_grid``,
+``normalized_slice``, ``sample_fib_sphere`` and ``voxel_boundary_step``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def normalized_grid(height: int, width: int, use_aspect: bool = True,
+                    device=None) -> torch.Tensor:
+    """[H, W, 2] float32 image-plane coordinates in [-1, 1] (x, then y); with
+    ``use_aspect`` x is scaled by W/H."""
+    ys = torch.linspace(-1.0, 1.0, height, dtype=torch.float32, device=device)
+    xs = torch.linspace(-1.0, 1.0, width, dtype=torch.float32, device=device)
+    if use_aspect:
+        xs = xs * (width / height)
+    grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([grid_x, grid_y], dim=-1)
+
+
+def normalized_slice(height: int, width: int, dim: int = 0, depth: float = 0.0,
+                     device=None) -> torch.Tensor:
+    """[H, W, 3] float32 points of the axis-aligned plane at ``depth`` along axis ``dim``
+    through [-1, 1]^3 (the SDF cross-sections of the trainer's snapshots)."""
+    window = normalized_grid(height, width, use_aspect=False, device=device)
+    plane = torch.full((height, width, 1), float(depth), dtype=torch.float32, device=device)
+    if dim == 0:
+        return torch.cat([plane, window], dim=-1)
+    if dim == 1:
+        return torch.cat([window[..., 0:1], plane, window[..., 1:2]], dim=-1)
+    if dim == 2:
+        return torch.cat([window, plane], dim=-1)
+    raise ValueError(f"dim must be 0, 1 or 2, got {dim}")
 
 
 def sample_fib_sphere(n: int) -> np.ndarray:

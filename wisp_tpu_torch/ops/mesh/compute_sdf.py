@@ -12,6 +12,10 @@ corners a, b, c, the unit face normal and the interior angles at a, b and c, com
 the host as JAX computes them). ``mesh_sdf`` launches K16 on a CUDA tensor and runs
 ``mesh_sdf_plain`` on a CPU tensor; the plain version repeats JAX's two passes over chunks
 of points and triangles.
+
+``closest_point`` (K17, counterpart of compute_sdf.py:144 ``closest_point``) is the first
+pass with its argument kept: each point's nearest surface point, its distance and the
+first triangle of least squared distance (``jnp.argmin``'s rule), from the same table.
 """
 
 from __future__ import annotations
@@ -142,3 +146,45 @@ def compute_sdf_plain(vertices: np.ndarray, faces: np.ndarray, points: torch.Ten
     """``compute_sdf`` through the plain version, on any device."""
     return mesh_sdf_plain(points, triangle_table(vertices, faces, points.device),
                           point_chunk, tri_chunk)
+
+
+def closest_point_plain(points: torch.Tensor, tris: torch.Tensor, point_chunk: int = 8192):
+    """Plain PyTorch version of ``closest_point``: [P, T] candidates a chunk of points,
+    ``argmin`` (its first minimum) over the triangles."""
+    va, vb, vc = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    n = points.shape[0]
+    dist = torch.empty((n,), dtype=torch.float32, device=points.device)
+    nearest = torch.empty((n, 3), dtype=torch.float32, device=points.device)
+    tidx = torch.empty((n,), dtype=torch.int64, device=points.device)
+    for i in range(0, n, point_chunk):
+        p = points[i:i + point_chunk]
+        cp = closest_point_on_triangle(p[:, None], va[None], vb[None], vc[None])
+        e = p[:, None] - cp
+        d2 = dot3(e, e)
+        tmin = torch.argmin(d2, dim=-1)
+        rows = torch.arange(p.shape[0], device=points.device)
+        nearest[i:i + point_chunk] = cp[rows, tmin]
+        dist[i:i + point_chunk] = torch.sqrt(d2[rows, tmin])
+        tidx[i:i + point_chunk] = tmin
+    return dist, nearest, tidx
+
+
+def closest_point(points: torch.Tensor, tris: torch.Tensor):
+    """(distance [P] float32, nearest surface point [P, 3] float32, triangle [P] int64) of
+    ``points`` [P, 3] float32 on the mesh of the triangle table ``tris`` [T, 15] (K17)."""
+    if not points.is_cuda:
+        return closest_point_plain(points, tris)
+    n = points.shape[0]
+    kernels.check(points, "points", torch.float32, (n, 3))
+    kernels.check(tris, "tris", torch.float32, (None, TRI_FLOATS))
+    if tris.shape[0] < 1 or tris.shape[0] >= 2 ** 31:
+        raise ValueError(f"closest_point: {tris.shape[0]} triangles")
+    dev = points.device
+    dist = torch.empty((n,), dtype=torch.float32, device=dev)
+    nearest = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    tidx = torch.empty((n,), dtype=torch.int64, device=dev)
+    if n:
+        kernels.launch("wisp_closest_point", "closest_point", points.data_ptr(), n,
+                       tris.data_ptr(), tris.shape[0], dist.data_ptr(), nearest.data_ptr(),
+                       tidx.data_ptr())
+    return dist, nearest, tidx

@@ -2,8 +2,9 @@
 
 The sampling runs on the host in numpy: with the same ``np.random.default_rng`` it draws the
 same samples as the JAX package. ``closest_point_on_triangle`` is PyTorch, in the JAX
-version's branch-free form and float order; it is the arithmetic of the mesh distance
-kernel's plain version (``ops/mesh/compute_sdf.py``).
+version's branch-free form and float order; it is the arithmetic of the mesh distance and
+closest-point kernels' plain versions (``ops/mesh/compute_sdf.py``).
+``barycentric_coordinates`` is PyTorch too (the texture lookup's, ``closest_tex.py``).
 """
 
 from __future__ import annotations
@@ -53,8 +54,10 @@ def random_face(vertices, faces, num_samples: int, distrib=None, rng=None) -> np
     return rng.choice(len(faces), size=num_samples, p=distrib)
 
 
-def sample_surface(vertices, faces, num_samples: int, rng=None) -> np.ndarray:
-    """[N,3] float32 area-weighted surface samples."""
+def sample_surface(vertices, faces, num_samples: int, rng=None,
+                   return_normals: bool = False):
+    """[N,3] float32 area-weighted surface samples; with ``return_normals`` also the
+    sampled faces' unit normals [N,3] float32."""
     rng = np.random.default_rng(0) if rng is None else rng
     fidx = random_face(vertices, faces, num_samples, rng=rng)
     v = np.asarray(vertices)
@@ -63,7 +66,10 @@ def sample_surface(vertices, faces, num_samples: int, rng=None) -> np.ndarray:
     flip = u.sum(-1) > 1.0
     u[flip] = 1.0 - u[flip]
     a, b = u[:, 0:1], u[:, 1:2]
-    return (v[f[:, 0]] * (1 - a - b) + v[f[:, 1]] * a + v[f[:, 2]] * b).astype(np.float32)
+    pts = (v[f[:, 0]] * (1 - a - b) + v[f[:, 1]] * a + v[f[:, 2]] * b).astype(np.float32)
+    if return_normals:
+        return pts, np.asarray(per_face_normals(vertices, faces), np.float32)[fidx]
+    return pts
 
 
 def per_face_normals(vertices, faces) -> np.ndarray:
@@ -102,6 +108,19 @@ def point_sample(vertices, faces, modes: List[str], num_samples: int, rng=None) 
         else:
             raise ValueError(f"unknown sample mode {mode!r}")
     return np.concatenate(out).astype(np.float32)
+
+
+def barycentric_coordinates(points: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                            c: torch.Tensor) -> torch.Tensor:
+    """[..., 3] barycentric coordinates (u, v, w) of ``points`` on triangles abc, all
+    [..., 3]; the denominator is clamped at 1e-12 (JAX ops.py:126)."""
+    v0, v1, v2 = b - a, c - a, points - a
+    d00, d01, d11 = dot3(v0, v0), dot3(v0, v1), dot3(v1, v1)
+    d20, d21 = dot3(v2, v0), dot3(v2, v1)
+    denom = torch.clamp(d00 * d11 - d01 * d01, min=1e-12)
+    v = (d11 * d20 - d01 * d21) / denom
+    w = (d00 * d21 - d01 * d20) / denom
+    return torch.stack([1.0 - v - w, v, w], dim=-1)
 
 
 def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

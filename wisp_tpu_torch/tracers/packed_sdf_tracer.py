@@ -1,5 +1,5 @@
 """PackedSDFTracer — the NGLOD sphere tracer (counterpart of
-wisp_tpu/tracers/packed_sdf_tracer.py, ``trace`` without compaction).
+wisp_tpu/tracers/packed_sdf_tracer.py).
 
 A trace call computes the free-space distance field of the octree (K11) unless the tracer
 holds one (``with_free_dist``), then:
@@ -13,23 +13,32 @@ holds one (``with_free_dist``), then:
    space advances as the walk does; a ray past its exit dies;
 3. normals from 6 finite-difference taps of the field at the final points.
 
-As in JAX every ray of the chunk is queried at every iteration, and nothing in the loop
-reads the device. ``sdf_walk`` and ``sphere_step`` update t, alive and hit in place: on a
-CUDA tensor they launch ``csrc/sphere_trace.cu``, on a CPU tensor they run their plain
+With ``compaction`` (K12's compaction, ``ops/compaction.py compact_rays``) only the rays
+that are still alive after the walk go through steps 2 and 3, packed into
+``max(round(R * compaction), 1)`` slots; with ``mid_compaction`` too, after
+``round(num_steps * mid_at)`` iterations the rays still alive are packed again into
+``max(round(R * mid_compaction), 1)`` slots for the rest. The results go back onto the
+walk's values (``scatter_rows``): a ray that was dropped keeps the walk's depth and point,
+misses, and has a zero normal. ``num_overflow`` counts the rays dropped by either budget
+(it is 0 without compaction), as JAX does.
+
+As in JAX every ray (or slot) is queried at every iteration, and nothing in the loop reads
+the device. ``sdf_walk`` and ``sphere_step`` update t, alive and hit in place: on a CUDA
+tensor they launch ``csrc/sphere_trace.cu``, on a CPU tensor they run their plain
 versions, which divide by tensors so that kernel and plain version agree bit for bit on t.
-Compaction and mid-loop compaction are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Set
+from typing import Optional, Set
 
 import torch
 
 from wisp_tpu_torch import kernels
 from wisp_tpu_torch.accelstructs.octree_as import aabb_intersect
 from wisp_tpu_torch.core.render_buffer import RenderBuffer
+from wisp_tpu_torch.ops.compaction import compact_rays, ray_budget, scatter_rows
 from wisp_tpu_torch.ops.differential import finitediff_gradient
 from wisp_tpu_torch.ops.geometric import voxel_boundary_step
 from wisp_tpu_torch.ops.spc.core import quantize_points
@@ -131,13 +140,15 @@ def _check_rays(origins, dirs, t, alive, t_far, free_dist, level):
 
 class PackedSDFTracer(BaseTracer):
     def __init__(self, num_steps: int = 1024, step_size: float = 0.8, min_dis: float = 0.0003,
-                 free_dist=None, compaction=None, mid_compaction=None):
+                 free_dist=None, compaction: Optional[float] = None,
+                 mid_compaction: Optional[float] = None, mid_at: float = 0.5):
         super().__init__()
         self.num_steps = num_steps
         self.step_size = step_size
         self.min_dis = min_dis
         self.compaction = compaction
         self.mid_compaction = mid_compaction
+        self.mid_at = mid_at
         self.free_dist = free_dist
 
     def with_free_dist(self, blas) -> "PackedSDFTracer":
@@ -155,10 +166,7 @@ class PackedSDFTracer(BaseTracer):
 
     def trace(self, nef, rays, channels, extra_channels, lod_idx=None, num_steps=64,
               step_size=1.0, min_dis=1e-4, free_dist=None, compaction=None,
-              mid_compaction=None):
-        if compaction is not None or mid_compaction is not None:
-            raise NotImplementedError("PackedSDFTracer compaction and mid_compaction are not "
-                                      "ported yet (ROADMAP Queue 1)")
+              mid_compaction=None, mid_at=0.5):
         if lod_idx is None:
             lod_idx = nef.grid.num_lods - 1
         blas = nef.grid.blas
@@ -166,30 +174,72 @@ class PackedSDFTracer(BaseTracer):
         if free_dist is None:
             free_dist = blas.free_space_distance()
         o, d = rays.origins.contiguous(), rays.dirs.contiguous()
+        num_rays = o.shape[0]
         t_near, t_far = aabb_intersect(o, d, rays.dist_min, rays.dist_max)
         t = t_near.clamp(min=0.0) + 1e-6
         alive = t_far > t
         t_far = t_far.contiguous()
         sdf_walk(o, d, t, alive, t_far, free_dist, level, num_steps)
-        hit = torch.zeros_like(alive)
-        for _ in range(num_steps):
-            pos = o + t[:, None] * d
-            dist = nef(channels="sdf", coords=pos, lod_idx=lod_idx)[:, 0].contiguous()
-            sphere_step(o, d, t, alive, hit, t_far, dist, free_dist, level, step_size,
-                        min_dis)
 
-        xyz = o + t[:, None] * d
-        grad = finitediff_gradient(
-            xyz, lambda pts: nef(channels="sdf", coords=pts, lod_idx=lod_idx))
-        normal = grad / grad.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        def sphere_loop(o, d, t, alive, hit, t_far, n):
+            for _ in range(n):
+                pos = o + t[:, None] * d
+                dist = nef(channels="sdf", coords=pos, lod_idx=lod_idx)[:, 0].contiguous()
+                sphere_step(o, d, t, alive, hit, t_far, dist, free_dist, level, step_size,
+                            min_dis)
+
+        def finalize(o, d, t, hit):
+            xyz = o + t[:, None] * d
+            grad = finitediff_gradient(
+                xyz, lambda pts: nef(channels="sdf", coords=pts, lod_idx=lod_idx))
+            normal = grad / grad.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+            hit_c = hit[:, None]
+            normal = torch.where(hit_c, normal, torch.zeros_like(normal))
+            extras = {}
+            for channel in extra_channels:
+                feats = nef(channels=channel, coords=xyz, lod_idx=lod_idx)
+                extras[channel] = torch.where(hit_c, feats, torch.zeros_like(feats))
+            return xyz, normal, extras
+
+        if compaction is None:
+            hit = torch.zeros_like(alive)
+            sphere_loop(o, d, t, alive, hit, t_far, num_steps)
+            xyz, normal, extras = finalize(o, d, t, hit)
+            num_overflow = torch.zeros((), dtype=torch.float32, device=o.device)
+        else:
+            budget = ray_budget(num_rays, compaction)
+            idx, o_c, d_c, t_c, tf_c, count = compact_rays(alive, budget, o, d, t, t_far)
+            live = idx < num_rays
+            hit_c = torch.zeros_like(live)
+            dropped_mid = 0
+            if mid_compaction is None:
+                sphere_loop(o_c, d_c, t_c, live, hit_c, tf_c, num_steps)
+            else:
+                n1 = min(max(int(round(num_steps * float(mid_at))), 0), num_steps)
+                sphere_loop(o_c, d_c, t_c, live, hit_c, tf_c, n1)
+                budget2 = ray_budget(num_rays, mid_compaction)
+                idx2, o_m, d_m, t_m, tf_m, count2 = compact_rays(live, budget2, o_c, d_c, t_c,
+                                                                 tf_c, mid=True)
+                live2 = idx2 < budget
+                hit_m = torch.zeros_like(live2)
+                sphere_loop(o_m, d_m, t_m, live2, hit_m, tf_m, num_steps - n1)
+                scatter_rows(t_m, idx2, t_c, mid=True)
+                scatter_rows(hit_m, idx2, hit_c, mid=True)
+                dropped_mid = (count2 - budget2).clamp(min=0)
+            xyz_c, normal_c, extras_c = finalize(o_c, d_c, t_c, hit_c)
+            # onto the walk's values: a dropped ray keeps its depth and point and misses
+            xyz = scatter_rows(xyz_c, idx, o + t[:, None] * d)
+            scatter_rows(t_c, idx, t)
+            hit = scatter_rows(hit_c, idx, torch.zeros_like(alive))
+            normal = scatter_rows(normal_c, idx, torch.zeros_like(o))
+            extras = {ch: scatter_rows(v.contiguous(), idx,
+                                       v.new_zeros((num_rays,) + tuple(v.shape[1:])))
+                      for ch, v in extras_c.items()}
+            num_overflow = ((count - budget).clamp(min=0) + dropped_mid).to(torch.float32)
+
         hit_c = hit[:, None]
-        normal = torch.where(hit_c, normal, torch.zeros_like(normal))
-        extras = {}
-        for channel in extra_channels:
-            feats = nef(channels=channel, coords=xyz, lod_idx=lod_idx)
-            extras[channel] = torch.where(hit_c, feats, torch.zeros_like(feats))
         return RenderBuffer(
             xyz=xyz, depth=torch.where(hit, t, torch.zeros_like(t))[:, None], hit=hit_c,
             rgb=torch.where(hit_c, (normal + 1.0) / 2.0, torch.ones_like(normal)),
-            alpha=hit_c.to(torch.float32), normal=normal,
-            num_overflow=torch.zeros((), dtype=torch.float32, device=o.device), **extras)
+            alpha=hit_c.to(torch.float32), normal=normal, num_overflow=num_overflow,
+            **extras)

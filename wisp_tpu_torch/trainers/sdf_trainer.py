@@ -5,31 +5,37 @@ wisp_tpu/trainers/sdf_trainer.py).
   random_seed)``, as JAX does, and indexes the dataset's tensors on the device with them;
   an epoch is ``max(len(dataset) // batch_size, 1)`` steps, fixed at construction.
 * ``step``: per loss LOD (the last only with ``only_last``) the sum of squared errors of
-  the field's sdf, divided by the batch size -> backward -> the optimizer. AMP is the base
-  trainer's bf16 decoder policy. The step's stats are read at once (JAX defers the fetch
-  by a step to hide a device round trip).
-* ``post_epoch`` resamples the dataset when ``resample`` is set.
+  the field's sdf and, when the batch carries 'rgb' (a textured dataset and NeuralSDFTex),
+  of its colour; their sum divided by the batch size -> backward -> the optimizer. AMP is
+  the base trainer's bf16 decoder policy. The step's three stats (loss, l2 and rgb loss
+  over the batch) are read at once, in one device read (JAX defers the fetch by a step to
+  hide a device round trip).
+* ``post_epoch`` resamples the dataset when ``resample`` is set; ``render_snapshot`` (the
+  ``render_every`` cadence) logs the field's cross-sections at 0 along x, y and z
+  (``OfflineRenderer.sdf_slice``) and writes them as ``slice_d<dim>_ep<epoch>.png`` into
+  the run's log dir.
 * ``validate``: the IoU of the inside sets over the training samples (chunks of 65,536),
-  and the volumetric IoU over 50,000 uniform points of ``default_rng(7)`` inside occupied
-  cells against the mesh's exact signed distance (K16). The dataset is an
-  OctreeSampledSDFDataset, whose octree carries the mesh (the mesh-sampled dataset is not
-  ported yet).
+  and the volumetric IoU over 50,000 uniform points of ``default_rng(7)`` against the
+  mesh's exact signed distance (K16): inside occupied cells where the dataset samples an
+  octree (OctreeSampledSDFDataset, a narrowband field), over the whole box for a
+  MeshSampledSDFDataset.
 
-Not ported yet: the texture loss (a batch with 'rgb' raises) and the SDF slice snapshots:
-a ``render_every`` that would fire within ``max_epochs`` (JAX's default is 100) is refused
-when the trainer is made, and so are ``checkpoint_every`` and ``resume``: the training state
-does not carry the dataset's resampled points yet. ``save_every`` (the pipeline) works.
+Not ported yet: the training state (``checkpoint_every`` and ``resume`` are refused when the
+trainer is made): it does not carry the dataset's resampled points yet. ``save_every`` (the
+pipeline) works.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from wisp_tpu_torch.ops.image.io import write_png
 from wisp_tpu_torch.ops.mesh.compute_sdf import compute_sdf
 from wisp_tpu_torch.ops.mesh.ops import sample_uniform
 from wisp_tpu_torch.ops.sdf.metrics import compute_sdf_iou
@@ -54,11 +60,6 @@ class SDFTrainer(BaseTrainer):
                  device=None):
         super().__init__(cfg=cfg, pipeline=pipeline, train_dataset=train_dataset,
                          tracker=tracker, device=device)
-        if 0 <= cfg.render_every <= cfg.max_epochs:
-            raise NotImplementedError(
-                f"render_every {cfg.render_every} selects SDF slice snapshots (ROADMAP Queue 1, "
-                f"item 7): not ported yet, and within max_epochs {cfg.max_epochs} it would "
-                f"fire (off with --trainer.render-every -1)")
         if cfg.resume or cfg.checkpoint_every > -1:
             raise NotImplementedError(
                 "the SDF trainer's training state (its dataset's resampled points and batch "
@@ -93,29 +94,39 @@ class SDFTrainer(BaseTrainer):
         idx = self._batch_rng.integers(0, len(self.train_dataset), size=(self.cfg.batch_size,))
         return self.train_dataset[idx]
 
-    def compute_loss(self, coords: torch.Tensor, gts: torch.Tensor):
-        """(loss, aux): the summed squared sdf error over the loss LODs, over the batch."""
+    def compute_loss(self, coords: torch.Tensor, gts: torch.Tensor,
+                     rgb_gts: Optional[torch.Tensor] = None):
+        """(loss, aux): the summed squared sdf error, and colour error where ``rgb_gts``
+        is given, over the loss LODs, over the batch; aux holds both terms over the
+        batch."""
         l2_loss = 0.0
+        rgb_loss = torch.zeros((), dtype=torch.float32, device=coords.device)
         for lod_idx in self.loss_lods:
-            pred = self.pipeline.nef(channels="sdf", coords=coords, lod_idx=lod_idx)
+            if rgb_gts is not None:
+                out = self.pipeline.nef(channels=["rgb", "sdf"], coords=coords,
+                                        lod_idx=lod_idx)
+                rgb_loss = rgb_loss + ((out["rgb"] - rgb_gts[..., :3]) ** 2).sum()
+                pred = out["sdf"]
+            else:
+                pred = self.pipeline.nef(channels="sdf", coords=coords, lod_idx=lod_idx)
             l2_loss = l2_loss + ((pred - gts) ** 2).sum()
-        loss = l2_loss / coords.shape[0]
-        return loss, {"l2_loss": loss}
+        n = coords.shape[0]
+        loss = (l2_loss + rgb_loss) / n
+        return loss, {"l2_loss": l2_loss / n, "rgb_loss": rgb_loss / n}
 
     def step(self, data):
-        if data.get("rgb") is not None:
-            raise NotImplementedError("the texture (rgb) loss of NeuralSDFTex is not ported "
-                                      "yet")
         coords = data["coords"].contiguous()
         gts = data["sdf"].reshape(coords.shape[0], -1)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.compute_loss(coords, gts)
+        loss, aux = self.compute_loss(coords, gts, data.get("rgb"))
         loss.backward()
         self.optimizer_step()
-        self.last_loss = float(loss.detach())
-        self.tracker.metrics.total_loss += self.last_loss
-        self.tracker.metrics.l2_loss += float(aux["l2_loss"].detach())
-        self.tracker.metrics.rgb_loss += 0.0
+        stats = torch.stack([loss.detach(), aux["l2_loss"].detach(),
+                             aux["rgb_loss"].detach()]).tolist()
+        self.last_loss = stats[0]
+        self.tracker.metrics.total_loss += stats[0]
+        self.tracker.metrics.l2_loss += stats[1]
+        self.tracker.metrics.rgb_loss += stats[2]
 
     def log_console(self):
         l2_loss = self.tracker.metrics.average_metric("l2_loss")
@@ -124,24 +135,38 @@ class SDFTrainer(BaseTrainer):
         self.return_dict["l2_loss"] = l2_loss
         self.return_dict["rgb_loss"] = self.tracker.metrics.average_metric("rgb_loss")
 
+    @torch.no_grad()
     def render_snapshot(self):
-        raise NotImplementedError("SDF slice snapshots (sdf_slice) are not ported yet "
-                                  "(ROADMAP Queue 1, item 7)")
+        """The field's cross-sections at 0 along x, y and z, logged and written as PNG."""
+        if self.tracker.visualizer is None:
+            return
+        nef = self.pipeline.nef
+        for dim in range(3):
+            img = self.tracker.visualizer.sdf_slice(
+                lambda coords: nef(channels="sdf", coords=coords), dim=dim, depth=0.0)
+            self.tracker.log_image(f"sdf_slice/dim{dim}", img, self.epoch)
+            write_png(os.path.join(self.tracker.ensure_log_dir(),
+                                   f"slice_d{dim}_ep{self.epoch}.png"), img)
 
     @torch.no_grad()
     def validate(self) -> Dict[str, Any]:
         nef = self.pipeline.nef
-        coords = self.train_dataset.coordinates
+        dataset = self.train_dataset
+        coords = dataset.coordinates
         preds = [nef(channels="sdf", coords=coords[i:i + VALID_CHUNK].contiguous())
                  for i in range(0, coords.shape[0], VALID_CHUNK)]
-        metrics = {"iou": compute_sdf_iou(torch.cat(preds), self.train_dataset.sdf_data)}
-        # the volumetric IoU inside occupied cells, where a narrowband field is defined
-        blas = self.train_dataset.blas
+        metrics = {"iou": compute_sdf_iou(torch.cat(preds), dataset.sdf_data)}
+        blas = getattr(dataset, "blas", None)
         pts = torch.from_numpy(sample_uniform(VALID_UNIFORM_POINTS,
                                               rng=np.random.default_rng(VALID_SEED)))
         pts = pts.to(coords.device)
-        pts = pts[blas.query(pts).pidx > -1].contiguous()
-        gt = compute_sdf(blas.extent.vertices, blas.extent.faces, pts)
+        if blas is not None:
+            # inside occupied cells, where a narrowband field is defined
+            vertices, faces = blas.extent.vertices, blas.extent.faces
+            pts = pts[blas.query(pts).pidx > -1].contiguous()
+        else:
+            vertices, faces = dataset.vertices, dataset.faces
+        gt = compute_sdf(vertices, faces, pts)
         metrics["volumetric_iou"] = compute_sdf_iou(nef(channels="sdf", coords=pts), gt)
         for k, v in metrics.items():
             self.tracker.log_metric(f"validation/{k}", v, self.epoch)

@@ -2,8 +2,10 @@
 wisp_tpu/trainers/tracker/offline_renderer.py: ``render`` and ``render_lookat``). Every
 channel the tracer returns comes back: the NeRF's rgb, alpha, depth and hit, the SDF
 tracer's xyz and normal too, and scalar channels (``num_overflow``) summed over the chunks.
-``render_snapshot`` is the frame of the trainer's ``render_every`` snapshots. The default
-'rb' shading leaves rgb as the tracer wrote it; matcap and shadows are not ported yet.
+``render_snapshot`` is the frame of the trainer's ``render_every`` snapshots, and
+``sdf_slice`` the colour-mapped cross-section of an SDF that the SDF trainer's snapshots
+log. The default 'rb' shading leaves rgb as the tracer wrote it; matcap and shadows are not
+ported yet.
 
 Rays go through the pipeline in chunks of ``render_batch`` (16,384 by default). The tail
 chunk is padded to the chunk size with copies of its last ray, as in JAX, so that the
@@ -21,6 +23,7 @@ from wisp_tpu_torch.core.camera import Camera
 from wisp_tpu_torch.core.rays import Rays
 from wisp_tpu_torch.core.render_buffer import RenderBuffer
 from wisp_tpu_torch.device import DeviceLike, resolve_device
+from wisp_tpu_torch.ops.geometric import normalized_slice
 from wisp_tpu_torch.ops.raygen.raygen import generate_pinhole_rays
 
 
@@ -71,3 +74,20 @@ class OfflineRenderer:
         """The trainer's render snapshot: one ``render_lookat`` frame."""
         return self.render_lookat(pipeline, f=f, t=t, fov=fov, lod_idx=lod_idx,
                                   camera_clamp=camera_clamp)
+
+    @torch.no_grad()
+    def sdf_slice(self, sdf_fn, dim: int = 0, depth: float = 0.0, res: int = 256
+                  ) -> np.ndarray:
+        """[res, res, 3] float32 image of ``sdf_fn`` ([N, 3] points -> [N, 1] distances) on
+        the plane at ``depth`` along axis ``dim``: outside fades from white at the surface,
+        inside is blue, and the band |d| < 2/res is white (JAX offline_renderer.py:128)."""
+        coords = normalized_slice(res, res, dim=dim, depth=depth,
+                                  device=self.device).reshape(-1, 3)
+        d = sdf_fn(coords).reshape(res, res).float().cpu().numpy()
+        img = np.zeros((res, res, 3), dtype=np.float32)
+        inside = d < 0
+        img[..., 0] = np.where(inside, 0.2, 1.0 - np.clip(np.abs(d) * 4, 0, 1))
+        img[..., 1] = np.where(inside, 0.4 + np.clip(-d * 4, 0, 0.6), 0.8)
+        img[..., 2] = np.where(inside, 1.0, 1.0 - np.clip(np.abs(d) * 4, 0, 1))
+        img[np.abs(d) < (2.0 / res)] = 1.0
+        return img
