@@ -104,15 +104,39 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    texture flags on the yaml, resamples and runs 50 steps (counts from 0: K17 launched);
    holds K12's compaction (both passes), its scatter-back, K9's search (with and without
    the ancestor chain) and K17 against their plain versions and times them;
-14. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+14. SPC browser path ("spc browser"): builds tools/spc_render_bench.py's scene with the
+   port's ``pointcloud_to_octree`` (a level-7 SPC of 1,000,000 surface samples of a
+   radius-0.7, subdivision-4 icosphere, coloured by position), sets the counts to 0, makes
+   the tracer's free-space field (K11, once) and renders one 512x512 orthographic frame
+   through ``OfflineRenderer.render`` in chunks of 65,536 with 64 walk steps (K13 once a
+   chunk, no other kernel), reads the counts; checks the frame (finite, alpha = hit, the
+   sphere's hit share, rgb the hit cells' colours) and times and profiles it; sets the
+   counts to 0 and raytraces one chunk through ``SPCField.grid.raytrace`` (K10 once), holds
+   the walk's first hit to the DDA's (JAX's equivalence: the same hits, depth within the
+   boundary nudge, first cells equal but for corner ties under 1%); holds K13 and K10 to
+   their plain versions exactly and times them; times ``main_spc_browser.main`` at its
+   defaults (level 6, 256x256);
+15. 'uniform' path ("uniform"): parses the flagship yaml with ``--tracer.raymarch-type
+   uniform`` through ``main_nerf.parse_args`` (4 views; checkpoints, snapshots and epoch
+   validation off) and builds it at full width, sets the counts to 0, runs 20
+   ``iterate()`` steps and renders one 512x512 frame, reads the counts (K8 once a step and
+   once a chunk, K2 never; the other training kernels ran), requires the loss to fall;
+   holds one chunk of the frame to the plain versions, K8 to its plain version (midpoints
+   and jittered, on the trained octree and on the render path's carved field at stride
+   2) and times it; then, counts from 0, runs K14 (``hashgrid_query``) once on the trained
+   flagship codebook at that chunk's kept samples, holds it to its plain version exactly
+   and times it beside ``index_select`` of the precomputed rows;
+16. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels, from the SDF training run for its two, from the octree NeRF's 25
    steps for K7, from the stoch path's 25 steps for K1's stochastic backward, from the
-   segmented path's 25 steps for K6a, K6b, K6c and K5 accumulated, and from the nglod app
+   segmented path's 25 steps for K6a, K6b, K6c and K5 accumulated, from the nglod app
    path's frames for K12's compaction, its level-8 steps and chunk for K9's search and its
-   texture resample and steps for K17), the main-path, ``train_path``, ``sdf_path``,
-   ``sdf_train_path``, ``octree_nerf_path``, ``stoch_path``, ``seg_path`` and
-   ``nglod_path`` JSON lines, the nvidia-smi line and, last,
+   texture resample and steps for K17, from the SPC frame for K13 and the SPC raytrace
+   for K10, from the uniform path's steps and frame for K8 and from its one query for
+   K14), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
+   ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
+   ``uniform_path`` JSON lines, the nvidia-smi line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -211,6 +235,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 # profiling sessions that recorded a kernel fewer times than it was called
 PROFILER_SHORTFALLS = []
+# measurements for which every profiling session recorded no kernel at all: a ``timed``
+# pair whose device time is then its CUDA-event time, or a profile with no idle share
+PROFILER_FALLBACKS = []
+PROFILER_SESSIONS = 5
 
 
 def timed(fn, iters: int = 20, warmup: int = 3):
@@ -219,11 +247,13 @@ def timed(fn, iters: int = 20, warmup: int = 3):
     recorded launch times its launches a call (at least one), so that a session that
     misses some launches of a kernel still gives its time a call; the card's work alone.
     The event time brackets back-to-back calls with CUDA events; for a short kernel it
-    measures the wrapper's host time instead."""
+    measures the wrapper's host time instead. A profiling session now and then records no
+    kernel at all; after ``PROFILER_SESSIONS`` such sessions the device time is the event
+    time, and ``PROFILER_FALLBACKS`` names the function."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     event_ms = cuda_ms(fn, iters, warmup)
-    for _ in range(3):       # a profiling session now and then records no kernel at all
+    for _ in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -236,8 +266,9 @@ def timed(fn, iters: int = 20, warmup: int = 3):
             ms = sum(k["ms"] / k["count"] * max(1, round(k["count"] / iters))
                      for k in recorded)
             return ms, event_ms
-    raise SmokeFailure(f"three profiling sessions saw no device time (timing the function "
-                       f"of chip_smoke.py line {fn.__code__.co_firstlineno})")
+    PROFILER_FALLBACKS.append({"timed": f"chip_smoke.py line {fn.__code__.co_firstlineno}",
+                               "device_ms": "event time"})
+    return event_ms, event_ms
 
 
 def events_only(fn, iters: int = 20, warmup: int = 3):
@@ -423,20 +454,39 @@ def kernel_phase(pipeline, rays):
     return rows, {"chunk_rays": r, "valid": valid, "budget": budget, "kept": kept}
 
 
-def profile_frame(renderer, pipeline, top: int = 12) -> dict:
-    """One frame under torch.profiler: device time by kernel name and the share of the
-    frame's wall time in which some kernel ran (an upper bound: kernels on one stream do
-    not overlap, so their sum is the busy time)."""
+def profile_call(fn, top: int = 12):
+    """(wall ms, device busy ms, the ``top`` kernels by device time) of one call of ``fn``
+    under torch.profiler. The busy time is the sum of the kernels' device time (kernels on
+    one stream do not overlap), so 1 - busy / wall is the device's idle share. It is None
+    when the session recorded no kernel (``PROFILER_FALLBACKS`` then names the call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        renderer.render_lookat(pipeline, f=EYE)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top_kernels = device_kernels(prof, top)
+    if not top_kernels:
+        PROFILER_FALLBACKS.append({"profile": f"chip_smoke.py line "
+                                              f"{fn.__code__.co_firstlineno}",
+                                   "device_busy_ms": "not measured"})
+        busy_ms = None
+    return wall_ms, busy_ms, top_kernels
+
+
+def idle_share(busy_ms, wall_ms):
+    """The device's idle share of a profiled call, None where it was not measured."""
+    return 1.0 - busy_ms / wall_ms if busy_ms is not None and wall_ms > 0 else None
+
+
+def profile_frame(renderer, pipeline, top: int = 12) -> dict:
+    """One frame under torch.profiler: device time by kernel name and the share of the
+    frame's wall time in which no kernel ran."""
+    wall_ms, busy_ms, top_kernels = profile_call(
+        lambda: renderer.render_lookat(pipeline, f=EYE), top)
     return {"profile_frame_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms > 0 else None,
+            "device_idle_share": idle_share(busy_ms, wall_ms),
             "top_device_kernels": top_kernels}
 
 
@@ -618,16 +668,9 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
 
 def profile_step(trainer, top: int = 12) -> dict:
     """One training step under torch.profiler: device time by kernel and the idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.iterate()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top_kernels = device_kernels(prof, top)
+    wall_ms, busy_ms, top_kernels = profile_call(trainer.iterate, top)
     return {"profile_step_ms": wall_ms, "step_device_busy_ms": busy_ms,
-            "step_device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms > 0 else None,
+            "step_device_idle_share": idle_share(busy_ms, wall_ms),
             "step_top_device_kernels": top_kernels}
 
 
@@ -2488,18 +2531,16 @@ def nglod_frame(dev, pipeline, tracker):
             f"the trained field's frame hits {info['uncompacted']['hit_share']} of its rays")
     info["launches"] = {k: launches[k] for k in NGLOD_FRAME_KERNELS}
     # one compacted chunk under the profiler
-    from torch.profiler import ProfilerActivity, profile
     chunk = Rays(rays.origins[:NGLOD_CHUNK], rays.dirs[:NGLOD_CHUNK], rays.dist_min,
                  rays.dist_max)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def trace_chunk():
         with torch.no_grad():
             tracers["mid"](nef, chunk)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top_kernels = device_kernels(prof, 12)
+
+    wall_ms, busy_ms, top_kernels = profile_call(trace_chunk)
     info["profile_chunk"] = {"ms": wall_ms, "device_busy_ms": busy_ms,
-                             "device_idle_share": 1.0 - busy_ms / wall_ms,
+                             "device_idle_share": idle_share(busy_ms, wall_ms),
                              "top_device_kernels": top_kernels}
     return info, launches, calls
 
@@ -2802,6 +2843,417 @@ def nglod_phase(dev):
     return rows, info
 
 
+# -- the SPC browser (K13 first-hit walk, K10 DDA raytrace) --------------------------------
+SPC_LEVEL = 7                  # tools/spc_render_bench.py: a level-7 coloured SPC
+SPC_SAMPLES = 1_000_000        # ... of 1,000,000 surface samples
+SPC_RADIUS, SPC_SUBDIV = 0.7, 4  # ... of a radius-0.7, subdivision-4 icosphere
+SPC_SIDE = 512                 # 512x512 orthographic rays
+SPC_CHUNK = 65_536
+SPC_STEPS = 64                 # the walk's budget
+SPC_CHECK_CHUNK = 1            # the chunk the kernels are held and timed on
+SPC_FRAMES = 3
+SPC_DEPTH_NUDGE = 2e-2         # of a voxel: JAX's first-hit equivalence (test_tracers_spc.py)
+
+
+def spc_rays(dev):
+    """The bench's orthographic frame: x, y over linspace(-0.95, 0.95), z = -3, along +z."""
+    import numpy as np
+    import torch
+    from wisp_tpu_torch.core.rays import Rays
+    xs = np.linspace(-0.95, 0.95, SPC_SIDE, dtype=np.float32)
+    xx, yy = np.meshgrid(xs, xs, indexing="ij")
+    n = SPC_SIDE * SPC_SIDE
+    origins = np.stack([xx.ravel(), yy.ravel(), np.full(n, -3.0, np.float32)], axis=-1)
+    dirs = np.zeros_like(origins)
+    dirs[:, 2] = 1.0
+    return Rays(torch.from_numpy(origins).to(dev), torch.from_numpy(dirs).to(dev), 0.0, 10.0)
+
+
+def first_hit_check(rb, rt, blas, rays) -> dict:
+    """The walk's first hit against the DDA's first interval on the same rays (JAX's
+    equivalence, tests/core/test_tracers_spc.py): the same hit set, depth within the
+    boundary nudge, and the same first cell except for ties at a cell corner (under 1%)."""
+    import torch
+    voxel = 2.0 / 2 ** blas.max_level
+    hit = rb.hit[:, 0]
+    ref_hit = rt.mask.any(dim=-1)
+    first = rt.mask.to(torch.int64).argmax(dim=-1, keepdim=True)
+    ref_t = rt.t_entry.gather(1, first)[:, 0]
+    ref_pidx = rt.pidx.gather(1, first)[:, 0]
+    pidx = blas.query(rays.origins + rb.depth * rays.dirs).pidx
+    out = {"rays": int(hit.numel()), "hits": int(hit.sum()),
+           "hit_set_differs": int((hit != ref_hit).sum()),
+           "dda_overflow": int(rt.overflow.sum()),
+           "max_depth_diff_in_voxels": float((rb.depth[:, 0] - ref_t)[hit].abs().max()) / voxel,
+           "pidx_differs": int((pidx != ref_pidx)[hit].sum())}
+    require(out["dda_overflow"] == 0, f"the DDA overflowed its capacity: {out}")
+    require(out["hit_set_differs"] == 0, f"the walk's hits are not the DDA's: {out}")
+    require(out["max_depth_diff_in_voxels"] <= SPC_DEPTH_NUDGE,
+            f"the walk's depth is not the DDA's entry: {out}")
+    require(out["pidx_differs"] <= 0.01 * out["hits"], f"first cells differ: {out}")
+    return out
+
+
+def spc_kernel_rows(blas, tracer, rays, launches) -> list:
+    """K13 and K10 against their plain versions on one chunk, exactly, and timed."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import aabb_intersect, raytrace, raytrace_plain
+    from wisp_tpu_torch.tracers.packed_spc_tracer import spc_trace, spc_trace_plain
+    level = blas.max_level
+    o, d = rays.origins, rays.dirs
+    n = o.shape[0]
+    route = blas.query_routes[level]
+    args = (o, d, rays.dist_min, rays.dist_max, tracer.free_dist, blas.occ_grid, route, level,
+            SPC_STEPS)
+    got, want = spc_trace(*args), spc_trace_plain(*args)
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "spc_trace differs from the plain version")
+    t_near, t_far = aabb_intersect(o, d, rays.dist_min, rays.dist_max)
+    t0 = t_near.clamp(min=0.0) + 1e-6
+    taken, walk_cells = walk_work(o, d, t0, t_far > t0, t_far, tracer.free_dist, level,
+                                  SPC_STEPS)
+    hits = int(got[1].sum())
+    rows = [kernel_row(
+        "spc_trace", "wisp_tpu_torch/csrc/sphere_trace.cu",
+        "wisp_tpu/tracers/packed_spc_tracer.py:50", 0.0, 0.0,
+        timed(lambda: spc_trace(*args)), timed(lambda: spc_trace_plain(*args), iters=3),
+        nbytes=n * 24 + walk_cells * 4 + n * (4 + 1 + 4) + hits * (1 + 4),
+        ops=taken * 50 + n * 30)]
+    rows[-1]["launches"] = launches["spc_trace"]
+    capacity, steps = min(3 * 2 ** level + 2, 512), 3 * 2 ** level + 2
+    rargs = (o, d, rays.dist_min, rays.dist_max, route, level, capacity, steps)
+    rk, rp = raytrace(*rargs), raytrace_plain(*rargs)
+    for key in ("pidx", "t_entry", "t_exit", "mask", "overflow"):
+        require(torch.equal(getattr(rk, key), getattr(rp, key)),
+                f"raytrace: {key} differs from the plain version")
+    rows.append(kernel_row(
+        "raytrace", "wisp_tpu_torch/csrc/octree.cu",
+        "wisp_tpu/accelstructs/octree_as.py:308", 0.0, 0.0,
+        timed(lambda: raytrace(*rargs)), events_only(lambda: raytrace_plain(*rargs), iters=2,
+                                                     warmup=1),
+        nbytes=n * 24 + n * capacity * 13 + n, ops=0.0))
+    rows[-1]["launches"] = launches["raytrace"]
+    rows[-1]["intervals"] = int(rk.mask.sum())
+    return rows
+
+
+def spc_phase(dev):
+    """The SPC browser at tools/spc_render_bench.py's width: build the coloured SPC, counts
+    from 0, the free-space field once and one frame through OfflineRenderer.render in
+    chunks, counts read; the frame's checks; SPCField's raytrace of one chunk (counts from
+    0: K10) held to the walk's first hit; K13 and K10 against their plain versions; the
+    frame timed and profiled; main_spc_browser.main at its defaults timed."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.accelstructs.octree_as import OctreeAS
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.examples.spc_browser import main_spc_browser
+    from wisp_tpu_torch.models.nefs.spc_field import SPCField
+    from wisp_tpu_torch.models.pipeline import Pipeline
+    from wisp_tpu_torch.ops.mesh.io import make_sphere_mesh
+    from wisp_tpu_torch.ops.mesh.ops import sample_surface
+    from wisp_tpu_torch.ops.spc.conversions import pointcloud_to_octree
+    from wisp_tpu_torch.tracers.packed_spc_tracer import PackedSPCTracer
+    from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
+    info = {}
+    t0 = time.perf_counter()
+    v, f = make_sphere_mesh(radius=SPC_RADIUS, subdivisions=SPC_SUBDIV)
+    samples = sample_surface(v, f, SPC_SAMPLES)
+    codes, cell_colors = pointcloud_to_octree(samples, SPC_LEVEL,
+                                              attributes=(samples + 1.0) / 2.0)
+    blas = OctreeAS.from_codes(codes, device=dev)
+    nef = SPCField(blas=blas, colors=cell_colors, device=dev)
+    torch.cuda.synchronize()
+    info["build_s"] = time.perf_counter() - t0
+    info["leaves"] = int(blas.level_counts[-1])
+    info["level_counts"] = list(blas.level_counts)
+    print(json.dumps({"spc_scene": {"leaves": info["leaves"], "build_s": info["build_s"]}}),
+          flush=True)
+    rays = spc_rays(dev)
+    renderer = OfflineRenderer(render_batch=SPC_CHUNK, device=dev)
+    chunks = -(-rays.origins.shape[0] // SPC_CHUNK)
+
+    # -- the main path: counts from 0, the free-space field once, one frame ---------------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pipeline = Pipeline(nef=nef, tracer=PackedSPCTracer(num_steps=SPC_STEPS)
+                        .with_free_dist(blas))
+    rb = renderer.render(pipeline, rays)
+    torch.cuda.synchronize()
+    info["first_frame_ms"] = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    want = {"free_space_distance": 1, "spc_trace": chunks}
+    require({k: launches[k] for k in want} == want
+            and not any(n for k, n in launches.items() if k not in want),
+            f"spc frame launches {launches}, expected exactly {want}")
+    depth, rgb, alpha, hit = rb.depth, rb.rgb, rb.alpha, rb.hit
+    n = rays.origins.shape[0]
+    require(tuple(depth.shape) == (n, 1) and tuple(rgb.shape) == (n, 3)
+            and tuple(hit.shape) == (n, 1), f"bad spc frame shapes {rb}")
+    require(all(bool(torch.isfinite(t).all()) for t in (depth, rgb, alpha)),
+            "non-finite spc frame")
+    require(torch.equal(alpha, hit.to(alpha.dtype)), "alpha is not the hit mask")
+    hit_share = float(hit.float().mean())
+    # the sphere covers pi 0.7^2 / 1.9^2 = 0.426 of the frame
+    require(0.35 < hit_share < 0.5, f"hit share {hit_share}: not the sphere's 0.43")
+    require(float((rgb[~hit[:, 0]]).abs().max()) == 0.0
+            and float(rgb[hit[:, 0]].min()) > 0.0, "rgb is not the hit cells' colours")
+    info.update(hit_share=hit_share, num_overflow=float(rb.num_overflow),
+                launches=launches, chunks=chunks)
+    frames = []
+    for _ in range(SPC_FRAMES):
+        t0 = time.perf_counter()
+        renderer.render(pipeline, rays)
+        torch.cuda.synchronize()
+        frames.append((time.perf_counter() - t0) * 1e3)
+    info["frame_ms"] = frames
+    info["rays_per_s"] = n / (sorted(frames)[len(frames) // 2] / 1e3)
+    wall, busy, top = profile_call(lambda: renderer.render(pipeline, rays))
+    info.update(profile_frame_ms=wall, device_busy_ms=busy,
+                device_idle_share=idle_share(busy, wall), top_device_kernels=top)
+
+    # -- SPCField's raytrace of one chunk (K10): counts from 0, held to the first hit ------
+    sl = slice(SPC_CHECK_CHUNK * SPC_CHUNK, (SPC_CHECK_CHUNK + 1) * SPC_CHUNK)
+    chunk = Rays(rays.origins[sl].contiguous(), rays.dirs[sl].contiguous(), rays.dist_min,
+                 rays.dist_max)
+    kernels.reset_launches()
+    rt = nef.grid.raytrace(chunk)
+    torch.cuda.synchronize()
+    rt_launches = dict(kernels.LAUNCHES)
+    require(rt_launches["raytrace"] == 1 and sum(rt_launches.values()) == 1,
+            f"SPCField.raytrace launches {rt_launches}")
+    info["first_hit_vs_raytrace"] = first_hit_check(rb[sl], rt, blas, chunk)
+    rows = spc_kernel_rows(blas, pipeline.tracer, chunk,
+                           dict(launches, raytrace=rt_launches["raytrace"]))
+
+    # -- the browser's entry point at its defaults (level 6, 256x256) --------------------
+    out_dir = tempfile.mkdtemp(prefix="wisp_spc_")
+    try:
+        t0 = time.perf_counter()
+        main_rb = main_spc_browser.main(out_path=os.path.join(out_dir, "spc.png"))
+        torch.cuda.synchronize()
+        info["browser_main_s"] = time.perf_counter() - t0
+        require(os.path.getsize(os.path.join(out_dir, "spc.png")) > 0, "no browser PNG")
+        info["browser_hit_share"] = float(main_rb.hit.float().mean())
+        require(0.3 < info["browser_hit_share"] < 0.9,
+                f"the browser's frame hit share {info['browser_hit_share']}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    info["spc_path"] = (f"OfflineRenderer.render of a level-{SPC_LEVEL} SPC of "
+                        f"{SPC_SAMPLES} sphere samples, {SPC_SIDE}x{SPC_SIDE} rays in chunks "
+                        f"of {SPC_CHUNK}, {SPC_STEPS} walk steps")
+    return rows, info
+
+
+# -- the 'uniform' march (K8) and hashgrid_query (K14) on the flagship ---------------------
+FLAGSHIP_CONFIG = "app/nerf/configs/nerf_hash_lego_proxy.yaml"
+UNIFORM_STEPS = 20
+UNIFORM_OVERRIDES = ("--tracer.raymarch-type", "uniform", "--dataset.num-views", "4",
+                     "--trainer.save-every", "-1", "--trainer.render-every", "-1",
+                     "--trainer.valid-every", "-1")
+
+
+def uniform_app(dev, log_dir: str):
+    """The flagship yaml with the 'uniform' march through main_nerf's front end (4 views,
+    checkpoints, snapshots and validation off)."""
+    from wisp_tpu_torch.app.nerf import main_nerf
+    cfg = main_nerf.parse_args(["--config", FLAGSHIP_CONFIG, *UNIFORM_OVERRIDES,
+                                "--tracker.log-dir", log_dir, "--device", str(dev)])
+    require(cfg.tracer.raymarch_type == "uniform" and cfg.grid.num_lods == 16
+            and cfg.grid.codebook_bitwidth == 19 and cfg.tracer.num_steps == 512
+            and cfg.tracer.march_stride == 2 and cfg.tracer.compaction == 0.25,
+            f"the flagship yaml did not parse at full width: {cfg.tracer}, {cfg.grid}")
+    return cfg, main_nerf.build(cfg)
+
+
+def uniform_rows(pipeline, rays, launches) -> list:
+    """K8 against its plain version on a render chunk, unjittered and jittered, on the
+    trained octree and on the render path's carved field (stride 2), and timed there."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import raymarch_uniform, raymarch_uniform_plain
+    tracer, blas = pipeline.tracer, pipeline.nef.grid.blas
+    o, d = rays.origins, rays.dirs
+    r, s, stride, level = o.shape[0], tracer.num_steps, tracer.march_stride, blas.max_level
+    occ = torch.from_numpy(carved_occupancy(level, OCCUPANCY, seed=0)).to(o.device)
+    carved = torch.where(occ, 0.0, -1.0).to(torch.float32)
+    own = None if blas.dense else blas.cell_density
+    gen = torch.Generator(device=o.device).manual_seed(1)
+    jitter = torch.rand((r, s), generator=gen, device=o.device)
+    for field in (own, carved):
+        for u in (None, jitter):
+            args = (o, d, rays.dist_min, rays.dist_max, s, stride, field, level, u)
+            mk, mp = raymarch_uniform(*args), raymarch_uniform_plain(*args)
+            for key in ("samples", "depth_samples", "deltas", "mask"):
+                require(torch.equal(getattr(mk, key), getattr(mp, key)),
+                        f"raymarch_uniform: {key} differs from the plain version")
+            require(field is None or torch.equal(mk.cell_density, mp.cell_density),
+                    "raymarch_uniform: cell density differs from the plain version")
+    args = (o, d, rays.dist_min, rays.dist_max, s, stride, carved, level)
+    mp = raymarch_uniform_plain(*args)
+    nc = -(-s // stride)
+    row = kernel_row(
+        "raymarch_uniform", "wisp_tpu_torch/csrc/raymarch.cu",
+        "wisp_tpu/accelstructs/octree_as.py:612", 0.0, 0.0,
+        timed(lambda: raymarch_uniform(*args)),
+        timed(lambda: raymarch_uniform_plain(*args), iters=5),
+        nbytes=r * 24 + field_cells_touched(mp.samples, stride, level) * 4
+        + r * s * (12 + 4 + 1 + 4) + r * 4,
+        ops=r * s * 12 + r * nc * 2 * 9)
+    row["launches"] = launches["raymarch_uniform"]
+    row["valid_share_carved"] = float(mp.mask.float().mean())
+    return [row]
+
+
+def query_row(grid, coords) -> tuple:
+    """K14 on the flagship codebook at one render chunk's kept samples: counts from 0, one
+    call, counts read; held to its plain version exactly (NaN where the plain version has
+    NaN), timed beside index_select of the precomputed rows."""
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.ops import grid as grid_ops
+    table = grid.codebook.feats.detach()
+    args = (grid.codebook.resolutions, grid.codebook_bitwidth, grid.num_lods - 1, table,
+            grid.codebook.begin_idxes, grid.codebook.num_feats)
+    kernels.reset_launches()
+    got = grid_ops.hashgrid_query(coords, *args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require(launches["hashgrid_query"] == 1 and sum(launches.values()) == 1,
+            f"hashgrid_query launches {launches}")
+    want = grid_ops.hashgrid_query_plain(coords, *args)
+    require(torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)),
+            "hashgrid_query differs from the plain version")
+    n, n_lods, f_dim = coords.shape[0], grid.num_lods, grid.feature_dim
+    offsets = torch.as_tensor(grid_ops.corner_offsets(3), device=coords.device)
+    rows = []
+    for i in range(n_lods):
+        res = grid.resolutions[i]
+        x = torch.clamp((coords + 1.0) / 2.0 * res, 0.0, res - 1 - 1e-5)
+        corners = torch.floor(x).to(torch.int64)[:, None, :] + offsets[None]
+        rows.append(grid_ops.hash_index(corners, res, grid.codebook_size)
+                    + grid.codebook.begin_idxes[i])
+    rows = torch.stack(rows, dim=1).reshape(-1)
+    distinct = int(torch.unique(rows).numel())
+    row = kernel_row(
+        "hashgrid_query", "wisp_tpu_torch/csrc/hashgrid.cu", "wisp_tpu/ops/grid.py:369",
+        0.0, 0.0, timed(lambda: grid_ops.hashgrid_query(coords, *args)),
+        events_only(lambda: grid_ops.hashgrid_query_plain(coords, *args), iters=3, warmup=1),
+        nbytes=n * 12 + distinct * f_dim * 4 + n * n_lods * 8 * f_dim * 4,
+        ops=n * n_lods * (3 * 4 + 8 * 6),
+        library_ms=timed(lambda: torch.index_select(table, 0, rows)))
+    row["launches"] = launches["hashgrid_query"]
+    return row, {"points": n, "lods": n_lods, "distinct_rows": distinct,
+                 "nan_entries": int(got.isnan().sum())}
+
+
+def uniform_phase(dev):
+    """The flagship yaml with --tracer.raymarch-type uniform through main_nerf: counts
+    from 0, 20 steps and one 512x512 frame, counts read (K8 launched, K2 never); the frame
+    and one chunk of it against the plain versions; K8 against its plain version; K14 on
+    the trained codebook at the chunk's kept samples."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.core.camera import Camera
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.ops.compaction import compact, compaction_budget
+    from wisp_tpu_torch.ops.raygen.raygen import generate_pinhole_rays
+    from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
+    log_dir = tempfile.mkdtemp(prefix="wisp_uniform_")
+    try:
+        t0 = time.perf_counter()
+        cfg, (pipeline, trainer, _) = uniform_app(dev, log_dir)
+        torch.cuda.synchronize()
+        info = {"setup_s": time.perf_counter() - t0}
+        renderer = OfflineRenderer(render_res=(RES, RES), device=dev)
+        tracer = pipeline.tracer
+
+        # -- the path: counts from 0, 20 steps, one frame, counts read right after ---------
+        steps = []
+        kernels.reset_launches()
+        for i in range(UNIFORM_STEPS):
+            rays_n = trainer.train_dataset.transform.num_samples
+            t1 = time.perf_counter()
+            trainer.iterate()
+            torch.cuda.synchronize()
+            steps.append({"step": i + 1, "ms": (time.perf_counter() - t1) * 1e3,
+                          "rays": rays_n, "loss": trainer.last_loss,
+                          "valid_fraction": trainer._prev_num_samples
+                          / (rays_n * tracer.num_steps)})
+        t1 = time.perf_counter()
+        rb = renderer.render_lookat(pipeline, f=EYE)
+        torch.cuda.synchronize()
+        info["frame_ms"] = (time.perf_counter() - t1) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        frame_chunks = -(-RES * RES // renderer.render_batch)
+        require(launches["raymarch_uniform"] == UNIFORM_STEPS + frame_chunks
+                and launches["raymarch_ray"] == 0,
+                f"uniform path launches {launches}: K8 must run once a step and a chunk, "
+                f"K2 never")
+        missing = [k for k in TRAIN_KERNELS if k != "raymarch_ray" and launches[k] <= 0]
+        require(not missing, f"kernels not launched on the uniform path: {missing}")
+        losses = [st["loss"] for st in steps]
+        require(all(math.isfinite(x) for x in losses), f"non-finite uniform loss: {losses}")
+        first, late = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        require(late < first, f"the uniform loss did not fall: {first} -> {late}")
+        rgb, alpha = rb.rgb, rb.alpha
+        require(tuple(rgb.shape) == (RES, RES, 3)
+                and all(bool(torch.isfinite(t).all()) for t in (rgb, alpha, rb.depth)),
+                "bad uniform frame")
+        steady = sorted(st["ms"] for st in steps[1:])
+        info.update(step_ms_median=steady[len(steady) // 2], loss_steps_1_5=first,
+                    loss_steps_16_20=late, steps=steps, launches=launches,
+                    hit_share=float(rb.hit.float().mean()),
+                    valid_sample_fraction=float(rb.num_valid_samples)
+                    / (RES * RES * tracer.num_steps))
+
+        # -- one chunk of the frame against the plain versions ----------------------------
+        cam = Camera.from_args(eye=EYE, at=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0), width=RES,
+                               height=RES, fov=np.radians(30.0), near=0.0, far=10.0)
+        all_rays = generate_pinhole_rays(cam, device=dev)
+        n_chunk = renderer.render_batch
+        sl = slice(CHUNK_INDEX * n_chunk, (CHUNK_INDEX + 1) * n_chunk)
+        chunk = Rays(all_rays.origins[sl].contiguous(), all_rays.dirs[sl].contiguous(),
+                     all_rays.dist_min, all_rays.dist_max)
+        with torch.no_grad():
+            a = pipeline(rays=chunk)
+            with plain_versions():
+                b = pipeline(rays=chunk)
+        chunk_err = {k: float((a.channels[k] - b.channels[k]).abs().max())
+                     for k in ("rgb", "alpha", "depth")}
+        require(all(e <= 1e-3 for e in chunk_err.values())
+                and float(a.num_valid_samples) == float(b.num_valid_samples),
+                f"uniform chunk differs from the plain versions: {chunk_err}")
+        info["chunk_max_abs_err_vs_plain"] = chunk_err
+        rows = uniform_rows(pipeline, chunk, launches)
+
+        # -- K14 on the trained codebook at the chunk's kept samples -----------------------
+        with torch.no_grad():
+            mr = pipeline.nef.grid.raymarch(chunk, raymarch_type="uniform",
+                                            num_samples=tracer.num_steps,
+                                            stride=tracer.march_stride)
+            budget = compaction_budget(n_chunk, tracer.num_steps, tracer.compaction)
+            _, cflat, _, count = compact(mr.mask, mr.samples, chunk.dirs, budget)
+        kept = min(int(count), budget)
+        row, info["hashgrid_query_shapes"] = query_row(pipeline.nef.grid,
+                                                       cflat[:kept].contiguous())
+        rows.append(row)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    info["uniform_path"] = (f"main_nerf parse_args/build of {FLAGSHIP_CONFIG} with "
+                            f"--tracer.raymarch-type uniform: {UNIFORM_STEPS} steps, one "
+                            f"{RES}x{RES} frame; hashgrid_query on one chunk's kept samples")
+    return rows, info
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -2946,9 +3398,18 @@ def run() -> dict:
     phase_s["seg"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     nglod_rows, nglod_info = nglod_phase(dev)
+    torch.cuda.empty_cache()
     phase_s["nglod app"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spc_rows_, spc_info = spc_phase(dev)
+    torch.cuda.empty_cache()
+    phase_s["spc browser"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    uniform_rows_, uniform_info = uniform_phase(dev)
+    phase_s["uniform"] = time.perf_counter() - t0
     print(json.dumps({"kernels": rows + train_rows + sdf_rows + sdf_train_rows
-                      + octree_rows[:1] + stoch_rows + seg_rows + nglod_rows}), flush=True)
+                      + octree_rows[:1] + stoch_rows + seg_rows + nglod_rows + spc_rows_
+                      + uniform_rows_}), flush=True)
     print(json.dumps(main), flush=True)
     print(json.dumps(train_info), flush=True)
     print(json.dumps(sdf_info), flush=True)
@@ -2958,8 +3419,10 @@ def run() -> dict:
     print(json.dumps(stoch_info), flush=True)
     print(json.dumps(seg_info), flush=True)
     print(json.dumps(nglod_info), flush=True)
-    print(json.dumps({"phase_s": phase_s, "profiler_shortfalls": PROFILER_SHORTFALLS}),
-          flush=True)
+    print(json.dumps(spc_info), flush=True)
+    print(json.dumps(uniform_info), flush=True)
+    print(json.dumps({"phase_s": phase_s, "profiler_shortfalls": PROFILER_SHORTFALLS,
+                      "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}

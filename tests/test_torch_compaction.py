@@ -5,6 +5,9 @@ Everything here is integer indexing and copying, so the comparison is exact, wit
 both above and below the valid count (where the latest steps must be the ones dropped).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,15 +19,22 @@ from wisp_tpu_torch.ops.compaction import (compact, compaction_budget, scatter_b
                                            scatter_back_plain)
 
 
-def _jax_compact(mask, samples, dirs, budget):
-    """The JAX tracer's compaction, remap and gathers (packed_rf_tracer.py:193-206)."""
+@functools.partial(jax.jit, static_argnums=3)
+def _jax_compact_jit(mask, samples, dirs, budget):
     n, s = mask.shape
-    idx_t = masked_compact_indices(jnp.asarray(mask).T, budget)
+    idx_t = masked_compact_indices(mask.T, budget)
     idx = jnp.where(idx_t < n * s, (idx_t % n) * s + (idx_t // n), n * s)
-    flat = jnp.asarray(samples).reshape(n * s, 3)
-    ray_d = jnp.broadcast_to(jnp.asarray(dirs)[:, None, :], (n, s, 3)).reshape(n * s, 3)
+    flat = samples.reshape(n * s, 3)
+    ray_d = jnp.broadcast_to(dirs[:, None, :], (n, s, 3)).reshape(n * s, 3)
     safe = jnp.minimum(idx, n * s - 1)
-    return np.asarray(idx), np.asarray(flat[safe]), np.asarray(ray_d[safe])
+    return idx, flat[safe], ray_d[safe]
+
+
+def _jax_compact(mask, samples, dirs, budget):
+    """The JAX tracer's compaction, remap and gathers (packed_rf_tracer.py:193-206),
+    jitted: integer indexing and copies only, so the compile changes no value."""
+    out = _jax_compact_jit(jnp.asarray(mask), jnp.asarray(samples), jnp.asarray(dirs), budget)
+    return tuple(np.asarray(x) for x in out)
 
 
 @pytest.mark.parametrize("shape,frac,compaction",

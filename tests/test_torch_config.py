@@ -102,7 +102,7 @@ def test_print_config_reads_back(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--config", OCTREE, "--tracer.raymarch-type", "uniform"], "K8"),
+    (["--config", OCTREE, "--trainer.save-valid-imgs", "true"], "save_valid_imgs"),
     (["--config", OCTREE, "--tracer.early-stop", "0.01"], "early_stop"),
     (["--config", HASH, "--trainer.render-segments", "4"], "render_segments"),
     (["--config", str(ROOT / "app/nerf/configs/nerf_triplanar_lego_proxy.yaml")],
@@ -141,7 +141,9 @@ def _built(tmp_path, monkeypatch, *args, tensorboard=False):
     (["--config", OCTREE, "--trainer.resume", "auto"], lambda p, t: t.cfg.resume == "auto"),
     (["--config", HASH, "--tracer.seg-early-stop", "1e-3", "--tracer.seg-count", "4"],
      lambda p, t: (p.tracer.seg_early_stop, p.tracer.seg_count) == (1e-3, 4)),
-], ids=["stoch-yaml", "stoch-flag", "checkpoint-every", "resume", "seg-cull"])
+    (["--config", HASH, "--tracer.raymarch-type", "uniform"],
+     lambda p, t: p.tracer.raymarch_type == "uniform" and p.tracer.march_stride == 2),
+], ids=["stoch-yaml", "stoch-flag", "checkpoint-every", "resume", "seg-cull", "uniform-march"])
 def test_ported_settings_reach_their_objects(tmp_path, monkeypatch, args, reaches):
     """Settings the port refused until it ported them: each is read and reaches the grid
     or the trainer that acts on it."""

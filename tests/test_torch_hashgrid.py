@@ -45,10 +45,11 @@ def test_hashgrid_matches_jax_and_naive(dim):
     coords = np.random.default_rng(1).uniform(-1.05, 1.05, size=(500, dim)).astype(np.float32)
     coords[:4] = [[-1.0] * dim, [1.0] * dim, [0.0] * dim, [0.5] * dim]  # cell boundaries
     lod_idx = 3
-    want = np.asarray(jgrid.hashgrid(jnp.asarray(coords), resolutions, 10, lod_idx,
-                                     jnp.asarray(table), first, sizes, dense_matmul=None))
-    naive = np.asarray(jgrid.hashgrid_naive(jnp.asarray(coords), resolutions, 10, lod_idx,
-                                            jnp.asarray(table), sizes, first))
+    jc, jt = jnp.asarray(coords), jnp.asarray(table)
+    want = np.asarray(jax.jit(lambda c, t: jgrid.hashgrid(
+        c, resolutions, 10, lod_idx, t, first, sizes, dense_matmul=None))(jc, jt))
+    naive = np.asarray(jax.jit(lambda c, t: jgrid.hashgrid_naive(
+        c, resolutions, 10, lod_idx, t, sizes, first))(jc, jt))
     got = tgrid.hashgrid(torch.from_numpy(coords), resolutions, 10, lod_idx,
                          torch.from_numpy(table), first, sizes).numpy()
     assert got.shape == (500, 4 * 2)

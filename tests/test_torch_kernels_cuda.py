@@ -854,3 +854,117 @@ def test_closest_point_kernel(dev, case):
 
         a, b = d2_to(tk[differ]), d2_to(tp[differ])
         assert bool(((a - b).abs() <= 2 * torch.finfo(torch.float32).eps * b).all())
+
+
+@pytest.mark.parametrize("carved,stride,jittered", [(False, 1, False), (True, 1, False),
+                                                    (True, 2, False), (True, 2, True)])
+def test_raymarch_uniform_kernel(dev, carved, stride, jittered):
+    """K8, the 'uniform' mode of K2's kernel: every output exactly."""
+    from wisp_tpu_torch.accelstructs.octree_as import raymarch_uniform, raymarch_uniform_plain
+    o, d = (torch.from_numpy(a).to(dev) for a in ray_arrays(300, seed=3))
+    field = torch.from_numpy(carved_field(4, 1)).to(dev) if carved else None
+    jitter = None
+    if jittered:
+        g = torch.Generator(device="cpu").manual_seed(17)
+        jitter = torch.rand(300, 67, generator=g).to(dev)
+    before = kernels.LAUNCHES["raymarch_uniform"]
+    got = raymarch_uniform(o, d, 0.0, 8.0, 67, stride, field, 4, jitter)
+    want = raymarch_uniform_plain(o, d, 0.0, 8.0, 67, stride, field, 4, jitter)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["raymarch_uniform"] == before + 1
+    for k in ("samples", "depth_samples", "deltas", "mask"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert got.mask.any() and not got.mask.all()
+    if carved:
+        assert torch.equal(got.cell_density, want.cell_density)
+
+
+def _traced_octree(kind, dev):
+    """An octree whose max level takes route ``kind``: a sphere shell at level 5 (maps), at
+    level 8 (the binary search), a dense level-5 octree, a carved one (bitfield)."""
+    from wisp_tpu_torch.accelstructs.octree_as import OctreeAS
+    if kind == "dense":
+        return OctreeAS.make_dense(5, device=dev)
+    if kind == "bitfield":
+        g = torch.Generator(device="cpu").manual_seed(18)
+        return OctreeAS.make_dense(5, device=dev).update_occupancy(
+            (torch.rand(8 ** 5, generator=g) < 0.02).to(dev))
+    return _sphere_octree(8 if kind == "search" else 5, dev)
+
+
+def _spc_rays(n, dev, seed=19):
+    """Rays from a sphere of radius 2.5 towards the centre, offset by up to 1.2 a
+    coordinate: some miss the box, more miss the shell."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = (-2.5 * d + rng.uniform(-1.2, 1.2, (n, 3))).astype(np.float32)
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+@pytest.mark.parametrize("kind,capacity", [("map", None), ("map", 4), ("search", None),
+                                           ("dense", None), ("bitfield", None)])
+def test_raytrace_kernel(dev, kind, capacity):
+    """K10 on every route, and at a capacity that overflows: every output exactly."""
+    from wisp_tpu_torch.accelstructs.octree_as import raytrace, raytrace_plain
+    blas = _traced_octree(kind, dev)
+    level = blas.max_level
+    assert blas.query_routes[level].kind == kind
+    route = blas.query_routes[level]
+    cap = capacity or min(3 * 2 ** level + 2, 512)
+    o, d = _spc_rays(2000, dev)
+    before = kernels.LAUNCHES["raytrace"]
+    got = raytrace(o, d, 0.0, 10.0, route, level, cap, 3 * 2 ** level + 2)
+    want = raytrace_plain(o, d, 0.0, 10.0, route, level, cap, 3 * 2 ** level + 2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["raytrace"] == before + 1
+    for k in ("pidx", "t_entry", "t_exit", "mask", "overflow"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert got.mask.any()
+    assert bool(got.overflow.any()) == (capacity is not None)
+
+
+@pytest.mark.parametrize("kind,steps", [("map", 256), ("map", 3), ("search", 256),
+                                        ("dense", 256), ("bitfield", 256)])
+def test_spc_trace_kernel(dev, kind, steps):
+    """K13 on every route, and with a walk budget that runs out: t, hit, pidx and the
+    overflow count exactly."""
+    from wisp_tpu_torch.tracers.packed_spc_tracer import spc_trace, spc_trace_plain
+    blas = _traced_octree(kind, dev)
+    level = blas.max_level
+    free_dist = blas.free_space_distance()
+    occ = None if blas.dense else blas.occ_grid
+    o, d = _spc_rays(5000, dev)
+    args = (o, d, 0.0, 10.0, free_dist, occ, blas.query_routes[level], level, steps)
+    before = kernels.LAUNCHES["spc_trace"]
+    got = spc_trace(*args)
+    want = spc_trace_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spc_trace"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[1].any() and not got[1].all()
+    assert float(got[3]) == 0.0 if kind == "dense" else (float(got[3]) > 0) == (steps == 3)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_hashgrid_query_kernel(dev, dim):
+    """K14 in 3D and 2D on dense and hashed LODs, NaN past a 2D dense LOD's table."""
+    resolutions = [4, 16, 300, 512] if dim == 2 else [4, 8, 16, 64]
+    bitwidth = 17 if dim == 2 else 10
+    sizes = [min(r ** dim, 2 ** bitwidth) for r in resolutions]
+    first = np.concatenate([[0], np.cumsum(sizes)]).astype(int).tolist()
+    g = torch.Generator(device="cpu").manual_seed(20)
+    table = torch.randn(first[-1], 2, generator=g).to(dev)
+    coords = (torch.rand(4000, dim, generator=g) * 2.1 - 1.05)
+    coords[:4] = 1.0
+    coords = coords.to(dev)
+    before = kernels.LAUNCHES["hashgrid_query"]
+    got = grid_ops.hashgrid_query(coords, resolutions, bitwidth, 3, table, first, sizes)
+    want = grid_ops.hashgrid_query_plain(coords, resolutions, bitwidth, 3, table, first,
+                                         sizes)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hashgrid_query"] == before + 1
+    assert got.shape == (4000, 4, 2 ** dim, 2)
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().any() == (dim == 2)

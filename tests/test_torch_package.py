@@ -127,19 +127,41 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     assert '"ok": true' not in out.stdout
 
 
-@pytest.mark.parametrize("module", ["wisp_tpu_torch.config",
-                                    "wisp_tpu_torch.app.nerf.main_nerf",
-                                    "wisp_tpu_torch.app.nglod.main_nglod"])
-def test_front_end_imports_no_jax(module):
-    """The config front end and the apps read the yaml files with the port's own reader
-    and import nothing of JAX, optax, PyYAML or the JAX package."""
-    code = (f"import sys, importlib; importlib.import_module({module!r}); "
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'wisp_tpu', 'yaml', 'optax')))")
+FRONT_END = ["wisp_tpu_torch.config", "wisp_tpu_torch.app.nerf.main_nerf",
+             "wisp_tpu_torch.app.nglod.main_nglod",
+             "wisp_tpu_torch.examples.spc_browser.main_spc_browser"]
+
+
+@pytest.fixture(scope="module")
+def front_end_imports():
+    """{module: the forbidden modules loaded once it and those before it are imported}, in
+    one fresh interpreter: a module that pulls one in shows it, whatever came before."""
+    code = ("import sys, importlib\n"
+            f"for name in {FRONT_END!r}:\n"
+            "    importlib.import_module(name)\n"
+            "    print(name, sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'wisp_tpu', 'yaml', 'optax')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    lines = out.stdout.strip().splitlines()[-len(FRONT_END):]
+    return dict(line.split(" ", 1) for line in lines)
+
+
+@pytest.mark.parametrize("module", FRONT_END)
+def test_front_end_imports_no_jax(front_end_imports, module):
+    """The config front end and the entry points (the apps read the yaml files with the
+    port's own reader) import nothing of JAX, optax, PyYAML or the JAX package."""
+    assert front_end_imports[module] == "[]"
+
+
+def test_spc_browser_needs_a_card_or_the_cpu(tmp_path):
+    from wisp_tpu_torch.examples.spc_browser import main_spc_browser
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the no-card path cannot be shown here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_spc_browser.main(out_path=str(tmp_path / "spc.png"), res=4)
+    assert not (tmp_path / "spc.png").exists()
 
 
 def test_app_needs_a_card_or_the_cpu():

@@ -57,8 +57,9 @@ def test_raymarch_ray_matches_jax(carve_seed, stride):
 
 
 def test_other_march_types_raise():
-    """'uniform' (K8) is not ported yet; 'voxel' (K7) is, in test_torch_raymarch_voxel.py."""
+    """A march type JAX does not have raises, as in JAX; 'uniform' (K8) and 'voxel' (K7)
+    are held to JAX in test_torch_raymarch_uniform.py and test_torch_raymarch_voxel.py."""
     _, tr = both_rays(*ray_arrays(4))
     blas = OctreeAS.make_dense(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blas.raymarch(tr, raymarch_type="uniform", num_samples=8)
+    with pytest.raises(ValueError, match="Unknown raymarch_type"):
+        blas.raymarch(tr, raymarch_type="cone", num_samples=8)

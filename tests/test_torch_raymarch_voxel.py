@@ -132,7 +132,13 @@ def test_config_slots_and_overflow():
 
 
 def test_uniform_march_raises():
+    """The 'uniform' march (K8) no longer raises: on a dense octree it keeps the samples
+    in the box and before each ray's exit, one global step apart."""
     _, tr = both_rays(*ray_arrays(4))
-    with pytest.raises(NotImplementedError, match="K8"):
-        OctreeAS.make_dense(2, device="cpu").raymarch(tr, raymarch_type="uniform",
-                                                      num_samples=8)
+    got = OctreeAS.make_dense(2, device="cpu").raymarch(tr, raymarch_type="uniform",
+                                                        num_samples=8)
+    _, t_far = OctreeAS.aabb_intersect(tr)
+    inside = ((got.samples >= -1.0) & (got.samples < 1.0)).all(dim=-1)
+    assert torch.equal(got.mask, inside & (got.depth_samples < t_far[:, None]))
+    steps = got.depth_samples[:, 1:] - got.depth_samples[:, :-1]
+    assert torch.allclose(steps, got.deltas.expand_as(steps), atol=1e-6)

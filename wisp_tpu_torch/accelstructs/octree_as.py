@@ -18,13 +18,14 @@ Two kinds of octree, as in JAX:
 binary search in its codes, as a dense octree (index = morton code) or, for a carved
 ``make_dense`` octree, by the max-level occupancy.
 
-Kernels: ``raymarch_ray`` is K2 and ``raymarch_voxel`` K7 (``csrc/raymarch.cu``),
-``octree_query`` K9 and ``free_space_distance`` K11 (``csrc/octree.cu``). On a CUDA tensor
-each launches its kernel, on a CPU tensor it runs its plain version. Rendering marches at
-midpoints; training passes a ``key``: a ``torch.Generator`` from which the march draws a
-uniform jitter ([R, S] for 'ray', [R, K, S] for 'voxel') on the rays' device, or that
-jitter itself as a float32 tensor (what JAX's key would draw; the parity tests pass
-JAX's).
+Kernels: ``raymarch_ray`` is K2, ``raymarch_uniform`` K8 (a mode of K2's kernel) and
+``raymarch_voxel`` K7 (``csrc/raymarch.cu``), ``octree_query`` K9, ``raytrace`` K10 and
+``free_space_distance`` K11 (``csrc/octree.cu``; K9 and K10 share the route lookup of
+``csrc/octree_lookup.cuh``). On a CUDA tensor each launches its kernel, on a CPU tensor it
+runs its plain version. Rendering marches at midpoints; training passes a ``key``: a
+``torch.Generator`` from which the march draws a uniform jitter ([R, S] for 'ray' and
+'uniform', [R, K, S] for 'voxel') on the rays' device, or that jitter itself as a float32
+tensor (what JAX's key would draw; the parity tests pass JAX's).
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from wisp_tpu_torch import kernels
-from wisp_tpu_torch.accelstructs.base_as import ASQueryResults, ASRaymarchResults
+from wisp_tpu_torch.accelstructs.base_as import (ASQueryResults, ASRaymarchResults,
+                                                  ASRaytraceResults)
 from wisp_tpu_torch.core.rays import Rays
 from wisp_tpu_torch.device import DeviceLike, resolve_device
 from wisp_tpu_torch.ops.spc.core import (MAX_OCTREE_LEVEL, build_level_table, dilate_points,
@@ -63,11 +65,36 @@ def _inside(p: torch.Tensor) -> torch.Tensor:
     return ((p >= -1.0) & (p < 1.0)).all(dim=-1)
 
 
+def _sample_grid_plain(origins, dirs, depths, stride: int,
+                       cell_density: Optional[torch.Tensor], level: int):
+    """(points, occupancy mask, density) of samples at ``depths`` [R, S] (JAX
+    ``_sample_grid``, octree_as.py:443-490): in the box, and, with a field, its strided
+    test or the next one hit; the density of the sample's strided test (None without a
+    field)."""
+    s = depths.shape[1]
+    coords = origins[:, None, :] + dirs[:, None, :] * depths[..., None]
+    inside = _inside(coords)
+    if cell_density is None:
+        return coords, inside, None
+    res = 2 ** level
+    c_str = coords[:, ::stride]
+    q = quantize_points(c_str, level)
+    flat = (q[..., 0] * res + q[..., 1]) * res + q[..., 2]
+    vals = torch.where(_inside(c_str), cell_density[flat],
+                       torch.full_like(flat, -1, dtype=torch.float32))
+    occ = vals >= 0.0
+    if stride > 1:
+        occ = occ | torch.cat([occ[:, 1:], torch.zeros_like(occ[:, :1])], dim=1)
+    mask = occ.repeat_interleave(stride, dim=1)[:, :s] & inside
+    dens = vals.clamp(min=0.0).repeat_interleave(stride, dim=1)[:, :s]
+    return coords, mask, dens
+
+
 def raymarch_ray_plain(origins, dirs, dist_min, dist_max, num_samples: int, stride: int,
                        cell_density: Optional[torch.Tensor], level: int,
                        jitter: Optional[torch.Tensor] = None) -> ASRaymarchResults:
     """Plain PyTorch version of ``raymarch_ray`` (octree_as.py:443-510)."""
-    n, s = origins.shape[0], num_samples
+    s = num_samples
     t_near, t_far = aabb_intersect(origins, dirs, dist_min, dist_max)
     t_near = t_near.clamp(min=0.0)
     span = (t_far - t_near).clamp(min=0.0)
@@ -78,26 +105,39 @@ def raymarch_ray_plain(origins, dirs, dist_min, dist_max, num_samples: int, stri
     num = torch.full((1, 1), float(s), device=origins.device)
     u = u / num
     depths = t_near[:, None] + span[:, None] * u
-    coords = origins[:, None, :] + dirs[:, None, :] * depths[..., None]
-    inside = _inside(coords)
+    coords, mask, dens = _sample_grid_plain(origins, dirs, depths, stride, cell_density,
+                                            level)
     hit = (t_far > t_near)[:, None]
-    dens = None
-    if cell_density is None:
-        mask = inside
-    else:
-        res = 2 ** level
-        c_str = coords[:, ::stride]
-        q = quantize_points(c_str, level)
-        flat = (q[..., 0] * res + q[..., 1]) * res + q[..., 2]
-        vals = torch.where(_inside(c_str), cell_density[flat],
-                           torch.full_like(flat, -1, dtype=torch.float32))
-        occ = vals >= 0.0
-        if stride > 1:
-            occ = occ | torch.cat([occ[:, 1:], torch.zeros_like(occ[:, :1])], dim=1)
-        mask = occ.repeat_interleave(stride, dim=1)[:, :s] & inside
-        dens = vals.clamp(min=0.0).repeat_interleave(stride, dim=1)[:, :s]
     return ASRaymarchResults(samples=coords, depth_samples=depths,
                              deltas=span[:, None] / num, mask=mask & hit, cell_density=dens)
+
+
+def _march(counter: str, origins, dirs, dist_min, dist_max, num_samples: int, stride: int,
+           cell_density, level: int, jitter, ustep: float) -> ASRaymarchResults:
+    """Launch ``wisp_raymarch_ray``: K2 with ``ustep`` 0, K8 with the uniform step."""
+    n = origins.shape[0]
+    s = int(num_samples)
+    kernels.check(origins, "origins", torch.float32, (n, 3))
+    kernels.check(dirs, "dirs", torch.float32, (n, 3))
+    if cell_density is not None:
+        kernels.check(cell_density, "cell_density", torch.float32, (8 ** level,))
+    if jitter is not None:
+        kernels.check(jitter, "jitter", torch.float32, (n, s))
+    if s < 1 or stride < 1 or not 0 <= level <= 10:
+        raise ValueError(f"{counter}: bad num_samples {s}, stride {stride} or level {level}")
+    dev = origins.device
+    samples = torch.empty((n, s, 3), dtype=torch.float32, device=dev)
+    depths = torch.empty((n, s), dtype=torch.float32, device=dev)
+    mask = torch.empty((n, s), dtype=torch.bool, device=dev)
+    dens = (torch.empty((n, s), dtype=torch.float32, device=dev)
+            if cell_density is not None else None)
+    deltas = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    kernels.launch("wisp_raymarch_ray", counter, origins.data_ptr(), dirs.data_ptr(),
+                   kernels.ptr(jitter), n, s, int(stride), float(ustep), float(dist_min),
+                   float(dist_max), kernels.ptr(cell_density), int(level), samples.data_ptr(),
+                   depths.data_ptr(), mask.data_ptr(), kernels.ptr(dens), deltas.data_ptr())
+    return ASRaymarchResults(samples=samples, depth_samples=depths, deltas=deltas,
+                             mask=mask, cell_density=dens)
 
 
 def raymarch_ray(origins: torch.Tensor, dirs: torch.Tensor, dist_min: float, dist_max: float,
@@ -112,30 +152,47 @@ def raymarch_ray(origins: torch.Tensor, dirs: torch.Tensor, dist_min: float, dis
     if not origins.is_cuda:
         return raymarch_ray_plain(origins, dirs, dist_min, dist_max, num_samples, stride,
                                   cell_density, level, jitter)
-    n = origins.shape[0]
-    s = int(num_samples)
-    kernels.check(origins, "origins", torch.float32, (n, 3))
-    kernels.check(dirs, "dirs", torch.float32, (n, 3))
-    if cell_density is not None:
-        kernels.check(cell_density, "cell_density", torch.float32, (8 ** level,))
-    if jitter is not None:
-        kernels.check(jitter, "jitter", torch.float32, (n, s))
-    if s < 1 or stride < 1 or not 0 <= level <= 10:
-        raise ValueError(f"raymarch_ray: bad num_samples {s}, stride {stride} or "
-                         f"level {level}")
-    dev = origins.device
-    samples = torch.empty((n, s, 3), dtype=torch.float32, device=dev)
-    depths = torch.empty((n, s), dtype=torch.float32, device=dev)
-    mask = torch.empty((n, s), dtype=torch.bool, device=dev)
-    dens = (torch.empty((n, s), dtype=torch.float32, device=dev)
-            if cell_density is not None else None)
-    deltas = torch.empty((n, 1), dtype=torch.float32, device=dev)
-    kernels.launch("wisp_raymarch_ray", "raymarch_ray", origins.data_ptr(), dirs.data_ptr(),
-                   kernels.ptr(jitter), n, s, int(stride), float(dist_min), float(dist_max),
-                   kernels.ptr(cell_density), int(level), samples.data_ptr(),
-                   depths.data_ptr(), mask.data_ptr(), kernels.ptr(dens), deltas.data_ptr())
-    return ASRaymarchResults(samples=samples, depth_samples=depths, deltas=deltas,
-                             mask=mask, cell_density=dens)
+    return _march("raymarch_ray", origins, dirs, dist_min, dist_max, num_samples, stride,
+                  cell_density, level, jitter, 0.0)
+
+
+def uniform_step(num_samples: int) -> float:
+    """The 'uniform' march's step, float32(2*sqrt(3) / S): the box's diagonal in S steps."""
+    return float(np.float32(2.0 * float(np.sqrt(3)) / num_samples))
+
+
+def raymarch_uniform_plain(origins, dirs, dist_min, dist_max, num_samples: int, stride: int,
+                           cell_density: Optional[torch.Tensor], level: int,
+                           jitter: Optional[torch.Tensor] = None) -> ASRaymarchResults:
+    """Plain PyTorch version of ``raymarch_uniform`` (octree_as.py:612-633), in JAX's order
+    of operations: t_near + u * step."""
+    t_near, t_far = aabb_intersect(origins, dirs, dist_min, dist_max)
+    t_near = t_near.clamp(min=0.0)
+    u = torch.arange(num_samples, dtype=torch.float32, device=origins.device)[None, :]
+    u = u + (0.5 if jitter is None else jitter)
+    step = torch.tensor(uniform_step(num_samples), device=origins.device)
+    depths = t_near[:, None] + u * step
+    coords, mask, dens = _sample_grid_plain(origins, dirs, depths, stride, cell_density,
+                                            level)
+    return ASRaymarchResults(samples=coords, depth_samples=depths,
+                             deltas=step.expand(origins.shape[0], 1).contiguous(),
+                             mask=mask & (depths < t_far[:, None]), cell_density=dens)
+
+
+def raymarch_uniform(origins: torch.Tensor, dirs: torch.Tensor, dist_min: float,
+                     dist_max: float, num_samples: int, stride: int,
+                     cell_density: Optional[torch.Tensor], level: int,
+                     jitter: Optional[torch.Tensor] = None) -> ASRaymarchResults:
+    """Samples at one global step over the box's diagonal, masked by occupancy (K8): sample
+    i of a ray sits at t_near + (i + u_i) * ``uniform_step(S)``, u_i as in ``raymarch_ray``,
+    and is valid where the occupancy test of ``raymarch_ray`` holds (the same ``stride``
+    rule) and its depth lies before the ray's exit. ``deltas`` [R, 1] holds the step (JAX
+    fills [R, S] with it)."""
+    if not origins.is_cuda:
+        return raymarch_uniform_plain(origins, dirs, dist_min, dist_max, num_samples, stride,
+                                      cell_density, level, jitter)
+    return _march("raymarch_uniform", origins, dirs, dist_min, dist_max, num_samples, stride,
+                  cell_density, level, jitter, uniform_step(num_samples))
 
 
 def num_coarse_segments(level: int) -> int:
@@ -276,29 +333,31 @@ class QueryRoute(NamedTuple):
 _ROUTE_CODES = {"map": 0, "search": 1, "dense": 2, "bitfield": 3}
 
 
+def cell_index_plain(route: QueryRoute, q: torch.Tensor, l: int) -> torch.Tensor:
+    """[N] int32 index of the cells ``q`` [N, 3] (integer coords in [0, 2^l)) at level l by
+    ``route`` (see ``QueryRoute``); -1 = not occupied."""
+    res_l = 2 ** l
+    flat = (q[:, 0] * res_l + q[:, 1]) * res_l + q[:, 2]
+    code = morton3d(q).to(torch.int32)
+    if route.kind == "map":
+        pidx = route.table[flat]
+    elif route.kind == "search":
+        table = route.table
+        i = torch.searchsorted(table, code).clamp(0, table.shape[0] - 1)
+        pidx = torch.where(table[i] == code, i.to(torch.int32), torch.full_like(code, -1))
+    elif route.kind == "dense":
+        pidx = code
+    else:
+        pidx = torch.where(route.table[flat], code, torch.full_like(code, -1))
+    return pidx.to(torch.int32)
+
+
 def octree_query_plain(coords: torch.Tensor, routes: Sequence, level: int,
                        with_parents: bool = False) -> torch.Tensor:
     """Plain PyTorch version of ``octree_query`` (octree_as.py:199-242, every route)."""
     q = quantize_points(coords, level)
-    cols = []
-    for l in (range(level + 1) if with_parents else [level]):
-        route = routes[l]
-        res_l = 2 ** l
-        qq = q >> (level - l)
-        flat = (qq[:, 0] * res_l + qq[:, 1]) * res_l + qq[:, 2]
-        code = morton3d(qq).to(torch.int32)
-        if route.kind == "map":
-            pidx = route.table[flat]
-        elif route.kind == "search":
-            table = route.table
-            i = torch.searchsorted(table, code).clamp(0, table.shape[0] - 1)
-            pidx = torch.where(table[i] == code, i.to(torch.int32),
-                               torch.full_like(code, -1))
-        elif route.kind == "dense":
-            pidx = code
-        else:
-            pidx = torch.where(route.table[flat], code, torch.full_like(code, -1))
-        cols.append(pidx.to(torch.int32))
+    cols = [cell_index_plain(routes[l], q >> (level - l), l)
+            for l in (range(level + 1) if with_parents else [level])]
     pidx = torch.stack(cols, dim=-1) if with_parents else cols[0]
     inside = ((coords >= -1.0) & (coords <= 1.0)).all(dim=-1)
     return torch.where(inside[:, None] if with_parents else inside, pidx,
@@ -324,19 +383,10 @@ def octree_query(coords: torch.Tensor, routes: Sequence, level: int,
     codes, tables, lens = [], [], []
     for l in range(level + 1):
         route = routes[l] if l >= first else QueryRoute("dense")     # not read
-        if route.kind == "map":
-            kernels.check(route.table, f"routes[{l}]", torch.int32, (8 ** l,))
-        elif route.kind == "search":
-            kernels.check(route.table, f"routes[{l}]", torch.int32, (None,))
-            if route.table.shape[0] < 1:
-                raise ValueError(f"octree_query: level {l}'s code table is empty")
-        elif route.kind == "bitfield":
-            kernels.check(route.table, f"routes[{l}]", torch.bool, (8 ** l,))
-        elif route.kind != "dense":
-            raise ValueError(f"octree_query: unknown route {route.kind!r}")
-        codes.append(_ROUTE_CODES[route.kind])
-        tables.append(0 if route.table is None else route.table.data_ptr())
-        lens.append(0 if route.table is None else route.table.shape[0])
+        code, table, length = route_args(route, l, f"routes[{l}]")
+        codes.append(code)
+        tables.append(table)
+        lens.append(length)
     ncols = level + 1 if with_parents else 1
     out = torch.empty((n, ncols) if with_parents else (n,), dtype=torch.int32,
                       device=coords.device)
@@ -351,6 +401,105 @@ def octree_query(coords: torch.Tensor, routes: Sequence, level: int,
                        ctypes.addressof(c_tables), ctypes.addressof(c_lens),
                        int(bool(with_parents)), out.data_ptr())
     return out
+
+
+def route_args(route: QueryRoute, level: int, name: str):
+    """(route code, table pointer, table length) of one level's route, checked."""
+    if route.kind == "map":
+        kernels.check(route.table, name, torch.int32, (8 ** level,))
+    elif route.kind == "search":
+        kernels.check(route.table, name, torch.int32, (None,))
+        if route.table.shape[0] < 1:
+            raise ValueError(f"{name}: level {level}'s code table is empty")
+    elif route.kind == "bitfield":
+        kernels.check(route.table, name, torch.bool, (8 ** level,))
+    elif route.kind != "dense":
+        raise ValueError(f"{name}: unknown route {route.kind!r}")
+    table = route.table
+    return (_ROUTE_CODES[route.kind], 0 if table is None else table.data_ptr(),
+            0 if table is None else table.shape[0])
+
+
+def raytrace_plain(origins, dirs, dist_min, dist_max, route: QueryRoute, level: int,
+                   capacity: int, max_steps: int) -> ASRaytraceResults:
+    """Plain PyTorch version of ``raytrace``: JAX's ``trace_one`` (octree_as.py:371-409)
+    over all rays at once, step by step, in its float order."""
+    res = 2 ** level
+    voxel = 2.0 / res
+    n, dev = origins.shape[0], origins.device
+    t_near, tf = aabb_intersect(origins, dirs, dist_min, dist_max)
+    tn = t_near.clamp(min=0.0)
+    d_safe = torch.where(dirs.abs() > 1e-9, dirs, torch.full_like(dirs, 1e-9))
+    start = origins + (tn + torch.tensor(1e-6, device=dev))[:, None] * dirs
+    # floor, then the int32 cast (saturating, as XLA's) and the clip
+    iv = torch.floor((start + 1.0) / voxel).clamp(-1, res).to(torch.int64).clamp(0, res - 1)
+    step = torch.where(d_safe > 0, 1, -1).to(torch.int64)
+    next_bound = (iv + (step > 0).to(torch.int64)).to(torch.float32) * voxel - 1.0
+    t_max = (next_bound - origins) / d_safe
+    t_delta = (torch.full_like(d_safe, voxel) / d_safe).abs()
+    pidx_buf = torch.full((n, capacity), -1, dtype=torch.int32, device=dev)
+    t_in = torch.zeros((n, capacity), dtype=torch.float32, device=dev)
+    t_out = torch.zeros((n, capacity), dtype=torch.float32, device=dev)
+    ptr = torch.zeros((n,), dtype=torch.int64, device=dev)
+    overflow = torch.zeros((n,), dtype=torch.bool, device=dev)
+    rows = torch.arange(n, device=dev)
+    t_cur = tn
+    alive = tf > tn
+    for _ in range(max_steps):
+        if not bool(alive.any()):      # a dead ray is frozen: nothing is written any more
+            break
+        axis = torch.where(t_max[:, 1] < t_max[:, 0], 1, 0)      # jnp.argmin: first on a tie
+        axis = torch.where(t_max[:, 2] < t_max[rows, axis], 2, axis)
+        t_next = torch.minimum(t_max[rows, axis], tf)
+        inb = ((iv >= 0) & (iv < res)).all(dim=1)
+        pidx = torch.where(inb, cell_index_plain(route, iv.clamp(0, res - 1), level),
+                           torch.full_like(ptr, -1, dtype=torch.int32))
+        hit = alive & (pidx >= 0)
+        write = hit & (ptr < capacity)
+        overflow |= hit & (ptr >= capacity)
+        w_rows, w_slots = rows[write], ptr[write]
+        pidx_buf[w_rows, w_slots] = pidx[write]
+        t_in[w_rows, w_slots] = t_cur[write]
+        t_out[w_rows, w_slots] = t_next[write]
+        ptr = ptr + write.to(torch.int64)
+        iv[rows, axis] += step[rows, axis]
+        t_max[rows, axis] += t_delta[rows, axis]
+        alive = alive & (t_next < tf) & ((iv >= 0) & (iv < res)).all(dim=1)
+        t_cur = t_next
+    return ASRaytraceResults(pidx=pidx_buf, t_entry=t_in, t_exit=t_out, mask=pidx_buf >= 0,
+                             overflow=overflow)
+
+
+def raytrace(origins: torch.Tensor, dirs: torch.Tensor, dist_min: float, dist_max: float,
+             route: QueryRoute, level: int, capacity: int, max_steps: int
+             ) -> ASRaytraceResults:
+    """The occupied cells of ``level`` that each ray crosses, in ray order (K10): a 3-D DDA
+    of ``max_steps`` steps from the cell at t_near + 1e-6 (t_near clamped at 0), each cell
+    looked up by ``route`` (the level's ``QueryRoute``), each occupied one's (pidx, entry
+    depth, exit depth) in the ray's next slot of ``capacity``; a ray with more occupied
+    cells than slots has ``overflow`` set. Empty slots hold -1, 0 and 0."""
+    if not origins.is_cuda:
+        return raytrace_plain(origins, dirs, dist_min, dist_max, route, level, capacity,
+                              max_steps)
+    n = origins.shape[0]
+    kernels.check(origins, "origins", torch.float32, (n, 3))
+    kernels.check(dirs, "dirs", torch.float32, (n, 3))
+    if not 0 <= level <= 10 or capacity < 1 or max_steps < 0:
+        raise ValueError(f"raytrace: bad level {level}, capacity {capacity} or max_steps "
+                         f"{max_steps}")
+    code, table, length = route_args(route, level, "route")
+    dev = origins.device
+    pidx = torch.empty((n, capacity), dtype=torch.int32, device=dev)
+    t_in = torch.empty((n, capacity), dtype=torch.float32, device=dev)
+    t_out = torch.empty((n, capacity), dtype=torch.float32, device=dev)
+    mask = torch.empty((n, capacity), dtype=torch.bool, device=dev)
+    overflow = torch.empty((n,), dtype=torch.bool, device=dev)
+    kernels.launch("wisp_raytrace", "raytrace", origins.data_ptr(), dirs.data_ptr(), n,
+                   float(dist_min), float(dist_max), int(level), code, table, length,
+                   int(capacity), int(max_steps), pidx.data_ptr(), t_in.data_ptr(),
+                   t_out.data_ptr(), mask.data_ptr(), overflow.data_ptr())
+    return ASRaytraceResults(pidx=pidx, t_entry=t_in, t_exit=t_out, mask=mask,
+                             overflow=overflow)
 
 
 def free_space_distance_plain(occ_grid: torch.Tensor, level: int,
@@ -585,11 +734,50 @@ class OctreeAS:
     def aabb_intersect(rays: Rays) -> Tuple[torch.Tensor, torch.Tensor]:
         return aabb_intersect(rays.origins, rays.dirs, rays.dist_min, rays.dist_max)
 
+    # the byte guard of capacity='exact' (13 bytes a slot: pidx, both depths, the mask)
+    RAYTRACE_EXACT_MAX_BYTES = 2 * 1024 ** 3
+
+    def raytrace(self, rays: Rays, level: Optional[int] = None, with_exit: bool = False,
+                 capacity=None, max_steps: Optional[int] = None) -> ASRaytraceResults:
+        """The occupied cells of ``level`` (default the max level) that each ray crosses
+        (K10; see ``raytrace``), looked up by the level's route. ``capacity`` defaults to
+        min(3·2^level + 2, 512), the cells a ray can cross at most, capped; 'exact' takes
+        that bound at any level and raises if the buffers would pass
+        ``RAYTRACE_EXACT_MAX_BYTES`` (chunk the rays then). ``max_steps`` defaults to
+        3·2^level + 2. ``with_exit`` is JAX's vestigial flag: both depths are always
+        returned."""
+        if level is None:
+            level = self.max_level
+        if not 0 <= level <= self.max_level:
+            raise ValueError(f"raytrace at level {level} of an octree of levels "
+                             f"0..{self.max_level}")
+        route = self.query_routes[level]
+        if route is None:
+            raise ValueError("a bitfield-only octree (a carved make_dense) is traced at its "
+                             "max level only")
+        res = 2 ** level
+        n = rays.origins.shape[0]
+        if capacity == "exact":
+            capacity = 3 * res + 2
+            need = n * capacity * 13
+            if need > self.RAYTRACE_EXACT_MAX_BYTES:
+                raise ValueError(
+                    f"raytrace(capacity='exact') at level {level} needs ~{need / 2**30:.1f}"
+                    f" GB of interval buffers for {n} rays; chunk the rays (limit "
+                    f"{self.RAYTRACE_EXACT_MAX_BYTES / 2**30:.1f} GB)")
+        if capacity is None:
+            capacity = min(3 * res + 2, 512)
+        if max_steps is None:
+            max_steps = 3 * res + 2
+        return raytrace(rays.origins.contiguous(), rays.dirs.contiguous(), rays.dist_min,
+                        rays.dist_max, route, level, int(capacity), int(max_steps))
+
     def raymarch(self, rays: Rays, raymarch_type: str = "voxel", num_samples: int = 64,
                  level: Optional[int] = None, key=None, budget: Optional[int] = None,
                  stride: int = 1, early_stop: float = 0.0) -> ASRaymarchResults:
         """``budget`` ('voxel' only): the fine samples a ray keeps, ``budget //
-        num_samples`` voxels (default 1024). ``stride`` ('ray' only): see ``raymarch_ray``.
+        num_samples`` voxels (default 1024). ``stride`` ('ray' and 'uniform'): see
+        ``raymarch_ray``.
         ``early_stop`` ('voxel' only): the coarse transmittance cull of ``raymarch_voxel``;
         0 = off."""
         if level is None:
@@ -600,21 +788,33 @@ class OctreeAS:
             return self._raymarch_voxel(rays, num_samples, level, key, budget=budget or 1024,
                                         early_stop=early_stop)
         if raymarch_type == "uniform":
-            raise NotImplementedError("'uniform' march is not ported yet "
-                                      "(ROADMAP Queue 2, K8)")
+            return self._raymarch_uniform(rays, num_samples, key, stride=stride)
         raise ValueError(f"Unknown raymarch_type {raymarch_type!r}")
 
     def _raymarch_ray(self, rays: Rays, num_samples: int, key=None,
                       stride: int = 1) -> ASRaymarchResults:
-        jitter = None
-        if isinstance(key, torch.Generator):
-            jitter = torch.rand((rays.origins.shape[0], num_samples), generator=key,
-                                dtype=torch.float32, device=rays.origins.device)
-        elif key is not None:
-            jitter = key.to(torch.float32).contiguous()
-        field = None if self.dense else self.cell_density
         return raymarch_ray(rays.origins, rays.dirs, rays.dist_min, rays.dist_max,
-                            num_samples, stride, field, self.max_level, jitter)
+                            num_samples, stride, self._march_field(),
+                            self.max_level, self._jitter(rays, num_samples, key))
+
+    def _raymarch_uniform(self, rays: Rays, num_samples: int, key=None,
+                          stride: int = 1) -> ASRaymarchResults:
+        """K8: the box's diagonal in ``num_samples`` steps from each ray's entry."""
+        return raymarch_uniform(rays.origins, rays.dirs, rays.dist_min, rays.dist_max,
+                                num_samples, stride, self._march_field(),
+                                self.max_level, self._jitter(rays, num_samples, key))
+
+    def _march_field(self) -> Optional[torch.Tensor]:
+        """The field the 'ray' and 'uniform' marches test: none for a dense octree."""
+        return None if self.dense else self.cell_density
+
+    @staticmethod
+    def _jitter(rays: Rays, num_samples: int, key) -> Optional[torch.Tensor]:
+        """The [R, S] march jitter of ``key``: drawn from a ``torch.Generator``, or given."""
+        if isinstance(key, torch.Generator):
+            return torch.rand((rays.origins.shape[0], num_samples), generator=key,
+                              dtype=torch.float32, device=rays.origins.device)
+        return None if key is None else key.to(torch.float32).contiguous()
 
     def _raymarch_voxel(self, rays: Rays, num_samples: int, level: int, key=None,
                         budget: int = 1024, early_stop: float = 0.0) -> ASRaymarchResults:

@@ -66,7 +66,6 @@ DROPPED_KEYS: Dict[str, str] = {
 NOT_PORTED: Dict[str, Tuple[Callable[[Any], bool], str]] = {
     "early_stop": (lambda v: v is not None and float(v) > 0.0,
                    "early_stop > 0, the transmittance cull (ROADMAP Queue 1, item 5)"),
-    "raymarch_type": (lambda v: v == "uniform", "the 'uniform' march (ROADMAP Queue 2, K8)"),
     "random_lod": (bool, "random_lod (ROADMAP Queue 1, item 5)"),
     "save_valid_imgs": (bool, "save_valid_imgs (ROADMAP Queue 1, item 5)"),
     "render_segments": (lambda v: v is not None and int(v) > 1,

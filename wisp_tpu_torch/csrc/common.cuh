@@ -12,6 +12,27 @@ constexpr unsigned kFullMask = 0xffffffffu;
 
 inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
+// A direction component kept away from 0, as aabb_intersect and raytrace take it
+__device__ __forceinline__ float safe_dir(float d) { return fabsf(d) > 1e-9f ? d : 1e-9f; }
+
+// The slab test against [-1,1]^3 (accelstructs/octree_as.py aabb_intersect): the ray's
+// entry and exit depths, clamped to [dist_min, dist_max]; t_near > t_far is a miss.
+__device__ __forceinline__ void slab_test(const float o[3], const float d[3], float dist_min,
+                                          float dist_max, float& t_near, float& t_far) {
+  t_near = -INFINITY;
+  t_far = INFINITY;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float inv = 1.0f / safe_dir(d[a]);
+    const float t0 = (-1.0f - o[a]) * inv;
+    const float t1 = (1.0f - o[a]) * inv;
+    t_near = fmaxf(t_near, fminf(t0, t1));
+    t_far = fminf(t_far, fmaxf(t0, t1));
+  }
+  t_near = fmaxf(t_near, dist_min);
+  t_far = fminf(t_far, dist_max);
+}
+
 // Exclusive scan of one int per thread over a block of blockDim.x threads (a multiple of
 // 32, at most 1024). ``total`` receives the block's sum. All threads must call it.
 __device__ __forceinline__ int block_exclusive_scan(int v, int& total) {

@@ -44,6 +44,19 @@
 // torch's sin on the CPU, and the hash multiplies the phase's last bits by 4e4, so the drawn
 // corners agree across implementations only through an injected u0; the in-kernel hash is
 // held statistically (uniform, unbiased).
+//
+// K14 — the raw corner-feature query, hashgrid_query.
+//
+// Replaces wisp_tpu/ops/grid.py hashgrid_query (:369-390): for every point and LOD 0..lod
+// the feature rows of the 2^d cell corners, no blend: [N, L, 2^d, F]. JAX's body, not K1's:
+// x = clip((c + 1) / 2 * res, 0, res-1-1e-5) per axis (K1 scales by res/2 instead), the
+// corners floor(x) + _corner_offsets, their rows by hash_index (the same dense row-major
+// index or uint32 hash as K1) into the LOD's slice of the table; a row at or past the
+// slice's end reads NaN, as jnp.take's default fill mode does (a dense LOD whose clip
+// rounds up to res-1 in float32). Bound on this card: bytes, the [N, L, 2^d, F] output
+// (1 KB a point at the flagship's 16 LODs, F 2) and the rows read. Design: one thread a
+// (point, LOD, corner), so a warp writes 32 consecutive rows of the output; the per-LOD
+// constants travel in the argument block.
 #include "common.cuh"
 
 namespace {
@@ -302,6 +315,76 @@ cudaError_t dispatch_f(int F, bool backward, const float* coords, const float* t
   }
 }
 
+
+// K14's per-LOD constants.
+struct QueryTable {
+  int n_lods;
+  int res[kMaxLods];
+  float hi[kMaxLods];         // res - 1 - 1e-5
+  long long begin[kMaxLods];  // first table row of the LOD
+  long long rows[kMaxLods];   // rows of the LOD's slice
+  int dense[kMaxLods];
+  unsigned codebook_size;
+};
+
+template <int D, int F>
+__global__ void hashgrid_query_kernel(const float* __restrict__ coords,
+                                      const float* __restrict__ table, long long N,
+                                      QueryTable q, float* __restrict__ out) {
+  constexpr int C = 1 << D;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= N * q.n_lods * C) return;
+  const int c = (int)(tid % C);
+  const int l = (int)((tid / C) % q.n_lods);
+  const long long n = tid / ((long long)C * q.n_lods);
+  const unsigned primes[3] = {1u, 2654435761u, 805459861u};
+  const unsigned res = (unsigned)q.res[l];
+  unsigned idx = 0u, stride = 1u;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    float x = (coords[n * D + d] + 1.0f) / 2.0f * (float)q.res[l];
+    x = fminf(fmaxf(x, 0.0f), q.hi[l]);
+    const unsigned cc = (unsigned)(int)floorf(x) + ((c >> (D - 1 - d)) & 1u);
+    if (q.dense[l]) {
+      idx += cc * stride;
+      stride *= res;
+    } else {
+      idx = d == 0 ? cc * primes[0] : idx ^ (cc * primes[d]);
+    }
+  }
+  if (!q.dense[l]) idx %= q.codebook_size;
+  float* o = out + tid * F;
+  if ((long long)idx >= q.rows[l]) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) o[f] = __int_as_float(0x7fc00000);   // NaN
+    return;
+  }
+  const Row<F> row = load_row<F>(table, q.begin[l] + (long long)idx);
+#pragma unroll
+  for (int f = 0; f < F; ++f) o[f] = row.v[f];
+}
+
+template <int D>
+cudaError_t query_dispatch(int F, const float* coords, const float* table, long long N,
+                           const QueryTable& q, float* out, cudaStream_t st) {
+  const long long total = N * q.n_lods * (1 << D);
+  if (total == 0) return cudaGetLastError();
+  const int threads = 256;
+  const int blocks = wisp::ceil_div(total, threads);
+  switch (F) {
+    case 1: hashgrid_query_kernel<D, 1><<<blocks, threads, 0, st>>>(coords, table, N, q, out);
+            break;
+    case 2: hashgrid_query_kernel<D, 2><<<blocks, threads, 0, st>>>(coords, table, N, q, out);
+            break;
+    case 4: hashgrid_query_kernel<D, 4><<<blocks, threads, 0, st>>>(coords, table, N, q, out);
+            break;
+    case 8: hashgrid_query_kernel<D, 8><<<blocks, threads, 0, st>>>(coords, table, N, q, out);
+            break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 int run(bool backward, const float* coords, const float* table, long long N, int dim,
         int F, int n_lods, int out_lods, const int* res, const float* scale, const float* hi,
         const long long* begin, const int* dense, unsigned codebook_size, float* out,
@@ -364,4 +447,30 @@ WISP_EXPORT int wisp_hashgrid_bwd(const float* coords, const float* grad_out,
   return run(true, coords, grad_out, N, dim, F, n_lods, out_lods, res, scale, hi, begin,
              dense, codebook_size, grad_table, stream,
              StochArgs{stoch != nullptr ? &s : nullptr, u0_in, u0_out});
+}
+
+// K14. res/hi/begin/rows/dense: host arrays of n_lods entries (rows: each LOD's slice of the
+// table); out: [N, n_lods, 2^dim, F].
+WISP_EXPORT int wisp_hashgrid_query(const float* coords, const float* table, long long N,
+                                    int dim, int F, int n_lods, const int* res,
+                                    const float* hi, const long long* begin,
+                                    const long long* rows, const int* dense,
+                                    unsigned codebook_size, float* out, void* stream) {
+  if (n_lods < 1 || n_lods > kMaxLods) return (int)cudaErrorInvalidValue;
+  QueryTable q;
+  q.n_lods = n_lods;
+  q.codebook_size = codebook_size;
+  for (int l = 0; l < n_lods; ++l) {
+    q.res[l] = res[l];
+    q.hi[l] = hi[l];
+    q.begin[l] = begin[l];
+    q.rows[l] = rows[l];
+    q.dense[l] = dense[l];
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dim) {
+    case 2: return (int)query_dispatch<2>(F, coords, table, N, q, out, st);
+    case 3: return (int)query_dispatch<3>(F, coords, table, N, q, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -45,15 +45,32 @@
 // and x take min over the line of max(|offset|, previous pass), scanning outward and
 // stopping once the offset reaches the best value found. Values are capped at `cap`
 // (uint8 scratch); the x pass quantizes and writes int32. One entry point, three launches.
-#include "common.cuh"
+//
+// K10 — the octree's DDA raytrace.
+//
+// Replaces wisp_tpu/accelstructs/octree_as.py OctreeAS.raytrace (:308-412): per ray the
+// slab test, t_near clamped at 0, then a 3-D DDA through the cells of `level` from the cell
+// of o + (t_near + 1e-6) d (clipped into the grid), for max_steps steps. A step looks up
+// the current cell by the level's route (octree_lookup.cuh, the routes of JAX's
+// occupied()), and an occupied cell's (pidx, entry depth, exit depth) goes to the next free
+// slot of the ray's row, or sets its overflow flag when the `capacity` slots are full. The
+// exit depth is min(t_max[axis], t_far) on the axis of the smallest t_max (the first one on
+// a tie, as jnp.argmin); the ray lives while that depth is below t_far and the cell is in
+// the grid. Float operations follow trace_one (:371-409) in its order: d_safe, true
+// divisions by d_safe for t_max and t_delta, the boundary (iv + (step > 0)) * voxel - 1,
+// no fused multiply-add, so depths agree bit for bit with the plain version.
+//
+// Bound on this card: bytes, the output. 13 bytes a slot ([R, capacity] int32 pidx, two
+// float32 depths, a bool mask) against 24 bytes of ray in; at level 7 (capacity 386) a
+// 65,536-ray chunk writes 329 MB. Design: one entry point, two launches. A fill pass writes
+// every slot's empty value (-1, 0, 0, false) coalesced; then one thread a ray runs its DDA
+// in registers and writes only its occupied cells. A dead ray stops (JAX's masks freeze
+// it, so the result is the same).
+#include "octree_lookup.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 11;
-
-// per level: 0 pidx map (int32 [8^l]), 1 sorted code table (int32 [len]), 2 dense (no
-// table), 3 bitfield (occupancy bytes [8^l])
-enum Route { kMap = 0, kSearch = 1, kDense = 2, kBitfield = 3 };
+using wisp::kMaxLevels;
 
 struct LevelIndex {
   int route[kMaxLevels];
@@ -64,29 +81,6 @@ struct LevelIndex {
 __device__ __forceinline__ int quantize(float v, float half_res, int res) {
   int q = (int)floorf((v + 1.0f) * half_res);
   return min(max(q, 0), res - 1);
-}
-
-// 10 bits to every third bit (ops/spc/core.py _part1by2)
-__device__ __forceinline__ unsigned part1by2(unsigned v) {
-  v &= 0x3FFu;
-  v = (v | (v << 16)) & 0x30000FFu;
-  v = (v | (v << 8)) & 0x300F00Fu;
-  v = (v | (v << 4)) & 0x30C30C3u;
-  v = (v | (v << 2)) & 0x9249249u;
-  return v;
-}
-
-__device__ __forceinline__ int search(const int* __restrict__ table, long long n,
-                                      unsigned code) {
-  const int c = (int)code;            // codes below 2^30: int32 order is code order
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (__ldg(table + mid) < c) lo = mid + 1;
-    else hi = mid;
-  }
-  const long long i = min(lo, n - 1);
-  return __ldg(table + i) == c ? (int)i : -1;
 }
 
 __global__ void octree_query_kernel(const float* __restrict__ coords, long long N, int level,
@@ -107,24 +101,8 @@ __global__ void octree_query_kernel(const float* __restrict__ coords, long long 
     int pidx = -1;
     if (inside) {
       const int s = level - l;
-      const long long res_l = 1LL << l;
-      const int px = qx >> s, py = qy >> s, pz = qz >> s;
-      const long long flat = ((long long)px * res_l + py) * res_l + pz;
-      const unsigned code = part1by2(px) | (part1by2(py) << 1) | (part1by2(pz) << 2);
-      switch (index.route[l]) {
-        case kMap:
-          pidx = __ldg((const int*)index.table[l] + flat);
-          break;
-        case kSearch:
-          pidx = search((const int*)index.table[l], index.len[l], code);
-          break;
-        case kDense:
-          pidx = (int)code;
-          break;
-        default:  // kBitfield
-          pidx = ((const uint8_t*)index.table[l])[flat] ? (int)code : -1;
-          break;
-      }
+      pidx = wisp::lookup_cell(index.route[l], index.table[l], index.len[l], l, qx >> s,
+                               qy >> s, qz >> s);
     }
     row[l - first] = pidx;
   }
@@ -171,6 +149,84 @@ __global__ void fsd_pass_minmax(const uint8_t* __restrict__ in, int res, long lo
   }
 }
 
+
+// K10: fill the interval buffers with JAX's empty slot (pidx -1, depths 0, mask 0).
+__global__ void raytrace_fill_kernel(long long total, int* __restrict__ pidx,
+                                     float* __restrict__ t_entry, float* __restrict__ t_exit,
+                                     uint8_t* __restrict__ mask) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  pidx[i] = -1;
+  t_entry[i] = 0.0f;
+  t_exit[i] = 0.0f;
+  mask[i] = 0;
+}
+
+// K10: one ray's DDA at `level`, the occupied cells' intervals into its row.
+__global__ void raytrace_kernel(const float* __restrict__ origins,
+                                const float* __restrict__ dirs, long long R, float dist_min,
+                                float dist_max, int level, int route, const void* table,
+                                long long len, int capacity, int max_steps,
+                                int* __restrict__ pidx_out, float* __restrict__ t_entry,
+                                float* __restrict__ t_exit, uint8_t* __restrict__ mask,
+                                uint8_t* __restrict__ overflow) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const float o[3] = {origins[3 * r], origins[3 * r + 1], origins[3 * r + 2]};
+  const float d[3] = {dirs[3 * r], dirs[3 * r + 1], dirs[3 * r + 2]};
+  float tn, tf;
+  wisp::slab_test(o, d, dist_min, dist_max, tn, tf);
+  tn = fmaxf(tn, 0.0f);
+  const int res = 1 << level;
+  const float voxel = 2.0f / (float)res;
+  const float t_start = tn + 1e-6f;
+  int iv[3], step[3];
+  float t_max[3], t_delta[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float ds = wisp::safe_dir(d[a]);
+    const float start = o[a] + t_start * d[a];
+    // floor, then JAX's saturating int32 cast and clip (the float is clamped first)
+    const float cell = fminf(fmaxf(floorf((start + 1.0f) / voxel), -1.0f), (float)res);
+    iv[a] = min(max((int)cell, 0), res - 1);
+    step[a] = ds > 0.0f ? 1 : -1;
+    const float next_bound = (float)(iv[a] + (step[a] > 0 ? 1 : 0)) * voxel - 1.0f;
+    t_max[a] = (next_bound - o[a]) / ds;
+    t_delta[a] = fabsf(voxel / ds);
+  }
+  int* row_p = pidx_out + r * capacity;
+  float* row_in = t_entry + r * capacity;
+  float* row_out = t_exit + r * capacity;
+  uint8_t* row_m = mask + r * capacity;
+  float t_cur = tn;
+  bool alive = tf > tn;
+  bool ovf = false;
+  int ptr = 0;
+  // JAX's masks freeze a ray once it is dead, so the loop may stop there
+  for (int s = 0; s < max_steps && alive; ++s) {
+    int axis = 0;                      // jnp.argmin: the first index on a tie
+    if (t_max[1] < t_max[axis]) axis = 1;
+    if (t_max[2] < t_max[axis]) axis = 2;
+    const float t_next = fminf(t_max[axis], tf);
+    const int pidx = wisp::lookup_cell(route, table, len, level, iv[0], iv[1], iv[2]);
+    if (pidx >= 0) {
+      if (ptr < capacity) {
+        row_p[ptr] = pidx;
+        row_in[ptr] = t_cur;
+        row_out[ptr] = t_next;
+        row_m[ptr] = 1;
+        ++ptr;
+      } else {
+        ovf = true;
+      }
+    }
+    iv[axis] += step[axis];
+    t_max[axis] = t_max[axis] + t_delta[axis];
+    alive = t_next < tf && iv[axis] >= 0 && iv[axis] < res;
+    t_cur = t_next;
+  }
+  overflow[r] = (uint8_t)ovf;
+}
 }  // namespace
 
 // routes, tables, lens: host arrays of level+1 entries (levels 0..level): each level's
@@ -182,8 +238,8 @@ WISP_EXPORT int wisp_octree_query(const float* coords, long long N, int level,
   if (level < 0 || level >= kMaxLevels) return (int)cudaErrorInvalidValue;
   LevelIndex index = {};
   for (int l = 0; l <= level; ++l) {
-    if (routes[l] < kMap || routes[l] > kBitfield) return (int)cudaErrorInvalidValue;
-    if (routes[l] == kSearch && lens[l] < 1) return (int)cudaErrorInvalidValue;
+    if (routes[l] < wisp::kMap || routes[l] > wisp::kBitfield) return (int)cudaErrorInvalidValue;
+    if (routes[l] == wisp::kSearch && lens[l] < 1) return (int)cudaErrorInvalidValue;
     index.route[l] = routes[l];
     index.table[l] = tables[l];
     index.len[l] = lens[l];
@@ -209,5 +265,28 @@ WISP_EXPORT int wisp_free_space_distance(const uint8_t* occ, int level, int cap,
   fsd_pass_z<<<blocks, threads, 0, s>>>(occ, res, cap, a);
   fsd_pass_minmax<<<blocks, threads, 0, s>>>(a, res, (long long)res, cap, b, nullptr);
   fsd_pass_minmax<<<blocks, threads, 0, s>>>(b, res, (long long)res * res, cap, nullptr, dist);
+  return (int)cudaGetLastError();
+}
+
+// K10. route/table/len: the traced level's lookup (see wisp::Route); outputs [R, capacity]
+// pidx, t_entry, t_exit, mask and [R] overflow, all written here.
+WISP_EXPORT int wisp_raytrace(const float* origins, const float* dirs, long long R,
+                              float dist_min, float dist_max, int level, int route,
+                              const void* table, long long len, int capacity, int max_steps,
+                              int* pidx, float* t_entry, float* t_exit, uint8_t* mask,
+                              uint8_t* overflow, void* stream) {
+  if (level < 0 || level >= kMaxLevels || route < wisp::kMap || route > wisp::kBitfield ||
+      capacity < 1 || (route == wisp::kSearch && len < 1))
+    return (int)cudaErrorInvalidValue;
+  if (R > 0) {
+    const int threads = 256;
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long total = R * capacity;
+    raytrace_fill_kernel<<<wisp::ceil_div(total, threads), threads, 0, s>>>(
+        total, pidx, t_entry, t_exit, mask);
+    raytrace_kernel<<<wisp::ceil_div(R, threads), threads, 0, s>>>(
+        origins, dirs, R, dist_min, dist_max, level, route, table, len, capacity, max_steps,
+        pidx, t_entry, t_exit, mask, overflow);
+  }
   return (int)cudaGetLastError();
 }

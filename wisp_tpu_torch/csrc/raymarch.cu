@@ -16,6 +16,16 @@
 // issued once per strided sample and every output is written exactly once. The order of
 // float operations is the plain version's, and the library is built without fused
 // multiply-add, so points, cells and masks agree bit for bit.
+//
+// K8 — occupancy ray march, 'uniform' mode, a mode of the same kernel (ustep > 0).
+//
+// Replaces wisp_tpu/accelstructs/octree_as.py OctreeAS._raymarch_uniform (:612) with the
+// same _sample_grid (:443). The depths take one global step over the box's diagonal
+// instead of the ray's span: t_near + (i + u_i) * step, step = float32(2*sqrt(3) / S), in
+// JAX's order (u times step, then the sum); the deltas are that step; a sample is valid
+// where the strided occupancy test holds, it lies in the box and its depth is below the
+// ray's exit (JAX masks `depths < t_far` in place of K2's whole-ray hit). Bound and design
+// are K2's: the same bytes a sample, the same thread per strided sample.
 #include "common.cuh"
 
 namespace {
@@ -26,8 +36,6 @@ struct Ray {
   bool hit;
 };
 
-__device__ __forceinline__ float safe_dir(float d) { return fabsf(d) > 1e-9f ? d : 1e-9f; }
-
 __device__ __forceinline__ Ray load_ray(const float* origins, const float* dirs, int r,
                                         float dist_min, float dist_max) {
   Ray ray;
@@ -35,17 +43,8 @@ __device__ __forceinline__ Ray load_ray(const float* origins, const float* dirs,
   ray.dx = dirs[3 * r]; ray.dy = dirs[3 * r + 1]; ray.dz = dirs[3 * r + 2];
   const float o[3] = {ray.ox, ray.oy, ray.oz};
   const float d[3] = {ray.dx, ray.dy, ray.dz};
-  float t_near = -INFINITY, t_far = INFINITY;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float inv = 1.0f / safe_dir(d[a]);
-    const float t0 = (-1.0f - o[a]) * inv;
-    const float t1 = (1.0f - o[a]) * inv;
-    t_near = fmaxf(t_near, fminf(t0, t1));
-    t_far = fminf(t_far, fmaxf(t0, t1));
-  }
-  t_near = fmaxf(t_near, dist_min);
-  t_far = fminf(t_far, dist_max);
+  float t_near, t_far;
+  wisp::slab_test(o, d, dist_min, dist_max, t_near, t_far);
   t_near = fmaxf(t_near, 0.0f);
   ray.t_near = t_near;
   ray.t_far = t_far;
@@ -54,12 +53,13 @@ __device__ __forceinline__ Ray load_ray(const float* origins, const float* dirs,
   return ray;
 }
 
-// u_row: the ray's [S] jitter, or null for midpoints
-__device__ __forceinline__ void sample_at(const Ray& ray, int j, int S,
+// u_row: the ray's [S] jitter, or null for midpoints. ustep > 0 selects the 'uniform'
+// march (K8): t_near + (j + u) * ustep; else the 'ray' march: t_near + span * ((j + u) / S).
+__device__ __forceinline__ void sample_at(const Ray& ray, int j, int S, float ustep,
                                           const float* __restrict__ u_row, float& t, float& x,
                                           float& y, float& z) {
-  const float u = ((float)j + (u_row != nullptr ? u_row[j] : 0.5f)) / (float)S;
-  t = ray.t_near + ray.span * u;
+  const float uj = (float)j + (u_row != nullptr ? u_row[j] : 0.5f);
+  t = ustep > 0.0f ? ray.t_near + uj * ustep : ray.t_near + ray.span * (uj / (float)S);
   x = ray.ox + ray.dx * t;
   y = ray.oy + ray.dy * t;
   z = ray.oz + ray.dz * t;
@@ -75,12 +75,12 @@ __device__ __forceinline__ int quantize(float v, float half_res, int res) {
 }
 
 // Field value at sample j: -1 outside the box or in an empty cell.
-__device__ __forceinline__ float field_at(const Ray& ray, int j, int S,
+__device__ __forceinline__ float field_at(const Ray& ray, int j, int S, float ustep,
                                           const float* __restrict__ u_row,
                                           const float* __restrict__ cell_density, int res,
                                           float half_res) {
   float t, x, y, z;
-  sample_at(ray, j, S, u_row, t, x, y, z);
+  sample_at(ray, j, S, ustep, u_row, t, x, y, z);
   if (!inside_box(x, y, z)) return -1.0f;
   const long long flat = ((long long)quantize(x, half_res, res) * res
                           + quantize(y, half_res, res)) * res + quantize(z, half_res, res);
@@ -90,7 +90,7 @@ __device__ __forceinline__ float field_at(const Ray& ray, int j, int S,
 __global__ void raymarch_ray_kernel(const float* __restrict__ origins,
                                     const float* __restrict__ dirs,
                                     const float* __restrict__ jitter, int R, int S,
-                                    int stride, float dist_min, float dist_max,
+                                    int stride, float ustep, float dist_min, float dist_max,
                                     const float* __restrict__ cell_density, int level,
                                     float* __restrict__ samples, float* __restrict__ depths,
                                     uint8_t* __restrict__ mask, float* __restrict__ dens,
@@ -101,7 +101,7 @@ __global__ void raymarch_ray_kernel(const float* __restrict__ origins,
   const int r = (int)(tid / nc);
   const int g = (int)(tid % nc);
   const Ray ray = load_ray(origins, dirs, r, dist_min, dist_max);
-  if (g == 0) deltas[r] = ray.span / (float)S;
+  if (g == 0) deltas[r] = ustep > 0.0f ? ustep : ray.span / (float)S;
   const float* u_row = jitter != nullptr ? jitter + (long long)r * S : nullptr;
 
   const int res = 1 << level;
@@ -109,10 +109,10 @@ __global__ void raymarch_ray_kernel(const float* __restrict__ origins,
   bool occ = true;
   float val = 0.0f;
   if (cell_density != nullptr) {
-    val = field_at(ray, g * stride, S, u_row, cell_density, res, half_res);
+    val = field_at(ray, g * stride, S, ustep, u_row, cell_density, res, half_res);
     occ = val >= 0.0f;
     if (stride > 1 && g + 1 < nc) {
-      occ = occ || field_at(ray, (g + 1) * stride, S, u_row, cell_density, res,
+      occ = occ || field_at(ray, (g + 1) * stride, S, ustep, u_row, cell_density, res,
                             half_res) >= 0.0f;
     }
   }
@@ -121,23 +121,26 @@ __global__ void raymarch_ray_kernel(const float* __restrict__ origins,
     const int j = g * stride + k;
     if (j >= S) break;
     float t, x, y, z;
-    sample_at(ray, j, S, u_row, t, x, y, z);
+    sample_at(ray, j, S, ustep, u_row, t, x, y, z);
     const long long o = (long long)r * S + j;
     samples[3 * o] = x;
     samples[3 * o + 1] = y;
     samples[3 * o + 2] = z;
     depths[o] = t;
-    mask[o] = (uint8_t)(occ && inside_box(x, y, z) && ray.hit);
+    // 'ray' masks a ray that misses the box, 'uniform' a sample past the exit
+    mask[o] = (uint8_t)(occ && inside_box(x, y, z) && (ustep > 0.0f ? t < ray.t_far
+                                                                     : ray.hit));
     if (dens != nullptr) dens[o] = dval;
   }
 }
 
 }  // namespace
 
-// jitter: [R, S] uniforms in [0, 1), or null for midpoint samples.
+// jitter: [R, S] uniforms in [0, 1), or null for midpoint samples; ustep: 0 for the 'ray'
+// march (K2), float32(2*sqrt(3)/S) for the 'uniform' march (K8).
 WISP_EXPORT int wisp_raymarch_ray(const float* origins, const float* dirs,
                                   const float* jitter, int R, int S,
-                                  int stride, float dist_min, float dist_max,
+                                  int stride, float ustep, float dist_min, float dist_max,
                                   const float* cell_density, int level, float* samples,
                                   float* depths, uint8_t* mask, float* dens, float* deltas,
                                   void* stream) {
@@ -146,8 +149,8 @@ WISP_EXPORT int wisp_raymarch_ray(const float* origins, const float* dirs,
   if (n > 0) {
     const int threads = 256;
     raymarch_ray_kernel<<<wisp::ceil_div(n, threads), threads, 0, (cudaStream_t)stream>>>(
-        origins, dirs, jitter, R, S, stride, dist_min, dist_max, cell_density, level, samples,
-        depths, mask, dens, deltas);
+        origins, dirs, jitter, R, S, stride, ustep, dist_min, dist_max, cell_density, level,
+        samples, depths, mask, dens, deltas);
   }
   return (int)cudaGetLastError();
 }

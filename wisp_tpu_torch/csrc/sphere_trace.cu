@@ -19,7 +19,24 @@
 // a ray; the walk keeps its state in registers for all its steps. The float operations are
 // the plain version's, in its order (true divisions, no fused multiply-add), so t agrees bit
 // for bit.
+//
+// K13 — the SPC tracer's first-hit walk, fused.
+//
+// Replaces wisp_tpu/tracers/packed_spc_tracer.py PackedSPCTracer.trace (:50-93): the slab
+// test, t = max(t_near, 0) + 1e-6, alive = t_far > t; the walk walk_body (:62-73), which is
+// K12's walk (the same Walker, the same steps); then at the final point o + t*d the
+// occupancy test (occupancy_at: in [-1,1)^3 and, where the octree has one, the max-level
+// occupancy), has_hit = alive & occupied, the cell index of a hit by the max level's route
+// (query(pos).pidx through octree_lookup.cuh, K9's lookup), else -1, and the ray's share of
+// num_overflow (alive and not in an occupied cell: the walk's budget ran out) added to one
+// float. Outputs: t, hit and pidx a ray.
+//
+// Bound on this card: bytes. Per ray 24 bytes of ray in, 9 bytes out, and one 4-byte gather
+// of the free-space field a walk step (8 MB at level 7, in L2); the occupancy and the index
+// map add one gather each. Design: one thread a ray, the walk in registers; the overflow
+// count takes one atomic per overflowing ray.
 #include "common.cuh"
+#include "octree_lookup.cuh"
 
 namespace {
 
@@ -131,6 +148,55 @@ __global__ void sphere_step_kernel(const float* __restrict__ origins,
   alive_io[r] = (uint8_t)(t_new <= t_far_in[r]);
 }
 
+
+__global__ void spc_trace_kernel(const float* __restrict__ origins,
+                                 const float* __restrict__ dirs, long long N, float dist_min,
+                                 float dist_max, const int* __restrict__ free_dist,
+                                 const uint8_t* __restrict__ occ, int level, int num_steps,
+                                 int route, const void* table, long long len,
+                                 float* __restrict__ t_out, uint8_t* __restrict__ hit_out,
+                                 int* __restrict__ pidx_out, float* __restrict__ num_overflow) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= N) return;
+  Walker w;
+  w.init(origins, dirs, r, level);
+  const float o[3] = {w.ox, w.oy, w.oz};
+  const float d[3] = {w.dx, w.dy, w.dz};
+  float t_near, t_far;
+  wisp::slab_test(o, d, dist_min, dist_max, t_near, t_far);
+  float t = fmaxf(t_near, 0.0f) + 1e-6f;
+  bool alive = t_far > t;
+  float px, py, pz;
+  if (alive) {
+    for (int i = 0; i < num_steps; ++i) {
+      const int k = w.fsd(free_dist, t, px, py, pz);
+      if (k <= 0) break;
+      t = t + w.free_step(k, px, py, pz);
+      if (!(t <= t_far)) {
+        alive = false;
+        break;
+      }
+    }
+  }
+  px = w.ox + t * w.dx;
+  py = w.oy + t * w.dy;
+  pz = w.oz + t * w.dz;
+  const bool inside = px >= -1.0f && px < 1.0f && py >= -1.0f && py < 1.0f && pz >= -1.0f &&
+                      pz < 1.0f;
+  int qx = 0, qy = 0, qz = 0;
+  bool in_occ = inside;
+  if (inside) {
+    qx = min(max((int)floorf((px + 1.0f) * w.half_res), 0), w.res - 1);
+    qy = min(max((int)floorf((py + 1.0f) * w.half_res), 0), w.res - 1);
+    qz = min(max((int)floorf((pz + 1.0f) * w.half_res), 0), w.res - 1);
+    if (occ != nullptr) in_occ = occ[((long long)qx * w.res + qy) * w.res + qz] != 0;
+  }
+  const bool hit = alive && in_occ;
+  if (alive && !in_occ) atomicAdd(num_overflow, 1.0f);
+  t_out[r] = t;
+  hit_out[r] = (uint8_t)hit;
+  pidx_out[r] = hit ? wisp::lookup_cell(route, table, len, level, qx, qy, qz) : -1;
+}
 }  // namespace
 
 WISP_EXPORT int wisp_sdf_walk(const float* origins, const float* dirs, float* t,
@@ -152,6 +218,26 @@ WISP_EXPORT int wisp_sphere_step(const float* origins, const float* dirs, float*
     const int threads = 256;
     sphere_step_kernel<<<wisp::ceil_div(N, threads), threads, 0, (cudaStream_t)stream>>>(
         origins, dirs, t, alive, hit, t_far, d, free_dist, N, level, step_size, min_dis);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K13. occ: the max-level occupancy bytes [8^level], or null (a dense octree, or none: the
+// box alone); route/table/len: the max level's lookup (see wisp::Route); num_overflow: one
+// zeroed float.
+WISP_EXPORT int wisp_spc_trace(const float* origins, const float* dirs, long long N,
+                               float dist_min, float dist_max, const int* free_dist,
+                               const uint8_t* occ, int level, int num_steps, int route,
+                               const void* table, long long len, float* t, uint8_t* hit,
+                               int* pidx, float* num_overflow, void* stream) {
+  if (level < 0 || level >= wisp::kMaxLevels || route < wisp::kMap ||
+      route > wisp::kBitfield || (route == wisp::kSearch && len < 1))
+    return (int)cudaErrorInvalidValue;
+  if (N > 0) {
+    const int threads = 128;
+    spc_trace_kernel<<<wisp::ceil_div(N, threads), threads, 0, (cudaStream_t)stream>>>(
+        origins, dirs, N, dist_min, dist_max, free_dist, occ, level, num_steps, route, table,
+        len, t, hit, pidx, num_overflow);
   }
   return (int)cudaGetLastError();
 }

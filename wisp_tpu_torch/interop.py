@@ -1,10 +1,12 @@
 """Weights carried across: build the port's pipeline from the JAX pipeline's parameters,
 given as numpy arrays, so that both packages compute the same function.
 
-``build_pipeline`` builds a NeRF (on a hash grid or an octree grid) and
-``build_sdf_pipeline`` the NGLOD SDF (see each). ``sphere_sdf_decoder`` makes the deterministic decoder weights under which a
-NeuralSDF approximates the sphere |x| - 0.9 (the checks of a render need a field that
-converges; random weights do not).
+``build_pipeline`` builds a NeRF (on a hash grid or an octree grid; any of its marches,
+'ray', 'uniform' or 'voxel', as ``config["tracer"]`` says), ``build_sdf_pipeline`` the
+NGLOD SDF and ``build_spc_field`` the SPC browser's field (see each).
+``sphere_sdf_decoder`` makes the deterministic decoder weights under which a NeuralSDF
+approximates the sphere |x| - 0.9 (the checks of a render need a field that converges;
+random weights do not).
 
 ``build_pipeline``'s ``params`` keys (the JAX module paths):
 
@@ -30,7 +32,7 @@ into such a dict is the caller's business (the parity tests do it).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -41,6 +43,7 @@ from wisp_tpu_torch.models.grids.hash_grid import HashGrid
 from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
 from wisp_tpu_torch.models.nefs.nerf import NeuralRadianceField
 from wisp_tpu_torch.models.nefs.neural_sdf import NeuralSDF, NeuralSDFTex
+from wisp_tpu_torch.models.nefs.spc_field import SPCField
 from wisp_tpu_torch.models.pipeline import Pipeline
 from wisp_tpu_torch.ops.geometric import sample_fib_sphere
 from wisp_tpu_torch.tracers.packed_rf_tracer import PackedRFTracer
@@ -137,6 +140,17 @@ def build_sdf_pipeline(params: Mapping[str, np.ndarray], config: Dict[str, Any],
     nef = nef_cls(grid=grid, device=device, **config.get("nef", {}))
     _load_decoder(nef.decoder, "decoder", params)
     return Pipeline(nef=nef, tracer=PackedSDFTracer(**config.get("tracer", {})))
+
+
+def build_spc_field(codes_per_level, colors: Optional[np.ndarray] = None,
+                    normals: Optional[np.ndarray] = None, device: DeviceLike = None
+                    ) -> SPCField:
+    """The port's SPCField of a JAX one: its octree's sorted morton codes of each level 0..L
+    (``blas.codes``, numpy) and its cell colours [num_leaves, 3] (and normals), numpy."""
+    device = resolve_device(device)
+    blas = OctreeAS.from_codes([np.asarray(c, dtype=np.uint64) for c in codes_per_level],
+                               device=device)
+    return SPCField(blas=blas, colors=colors, normals=normals, device=device)
 
 
 def sphere_sdf_decoder(feature_dim: int, hidden_dim: int, seed: int = 0,

@@ -43,16 +43,18 @@ LAUNCHES: Dict[str, int] = {"raymarch_ray": 0, "compact": 0, "scatter_back": 0,
                             "compact_live": 0, "integrate_seg_fwd": 0, "integrate_seg_bwd": 0,
                             "scatter_max_acc": 0, "octree_query_search": 0,
                             "compact_rays": 0, "compact_rays_mid": 0, "scatter_rays": 0,
-                            "scatter_rays_mid": 0, "closest_point": 0}
+                            "scatter_rays_mid": 0, "closest_point": 0, "raymarch_uniform": 0,
+                            "raytrace": 0, "spc_trace": 0, "hashgrid_query": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # origins dirs jitter R S stride dist_min dist_max cell_density level
+    # origins dirs jitter R S stride ustep dist_min dist_max cell_density level
     # samples depths mask dens deltas stream
-    "wisp_raymarch_ray": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _I, _P, _P, _P, _P, _P, _P],
+    "wisp_raymarch_ray": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _I, _P, _P, _P, _P, _P,
+                          _P],
     # origins dirs jitter R S K nc voxel step dist_min dist_max occ cell_density max_level
     # early_stop samples depths mask dens num_overflow stream
     "wisp_raymarch_voxel": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _I, _F, _P,
@@ -109,6 +111,16 @@ _SIGNATURES = {
     "wisp_sdf_walk": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     # origins dirs t alive hit t_far d free_dist N level step_size min_dis stream
     "wisp_sphere_step": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _P],
+    # origins dirs N dist_min dist_max free_dist occ level num_steps route table len t hit
+    # pidx num_overflow stream
+    "wisp_spc_trace": [_P, _P, _L, _F, _F, _P, _P, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P],
+    # origins dirs R dist_min dist_max level route table len capacity max_steps pidx t_entry
+    # t_exit mask overflow stream
+    "wisp_raytrace": [_P, _P, _L, _F, _F, _I, _I, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P],
+    # coords table N dim F n_lods res hi begin rows dense (host arrays) codebook_size out
+    # stream
+    "wisp_hashgrid_query": [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_uint32, _P,
+                            _P],
 }
 
 _lock = threading.Lock()

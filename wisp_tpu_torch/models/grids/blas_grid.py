@@ -12,5 +12,8 @@ class BLASGrid(nn.Module):
     def raymarch(self, rays, *args, **kwargs):
         return self.blas.raymarch(rays, *args, **kwargs)
 
+    def raytrace(self, rays, *args, **kwargs):
+        return self.blas.raytrace(rays, *args, **kwargs)
+
     def interpolate(self, coords, lod_idx):
         raise NotImplementedError

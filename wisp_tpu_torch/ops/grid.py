@@ -17,8 +17,10 @@ plain version take the LOD flags (``stoch_mask``): on the card one launch covers
 set of stochastic and exact LODs, counted as ``hashgrid_bwd_stoch``; on the CPU an autograd
 Function runs ``hashgrid_plain`` forward and ``hashgrid_bwd_plain`` backward.
 
-``grid_interpolate`` is the JAX blend of given corner features (K14's blend); the octree
-grid's kernel (K15) folds it in on the card.
+``hashgrid_query`` is JAX's raw corner query (K14): the 2^d corner rows of every LOD, no
+blend; on a CUDA tensor it launches ``wisp_hashgrid_query`` (``csrc/hashgrid.cu``), on a CPU
+tensor it runs ``hashgrid_query_plain``. ``grid_interpolate`` is the JAX blend of given
+corner features; the octree grid's kernel (K15) folds it in on the card.
 
 The JAX package's dense-LOD MXU matmul (``_lod_features_dense_matmul``) is a TPU layout
 trick and is not ported: every LOD gathers its corner rows in float32. Its branch rule
@@ -406,3 +408,61 @@ def grid_interpolate(coords: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
     offsets = torch.as_tensor(corner_offsets(coords.shape[-1]), device=coords.device).bool()
     w = torch.where(offsets[None], coords[:, None, :], 1.0 - coords[:, None, :])
     return torch.sum(feats * torch.prod(w, dim=-1)[..., None].to(feats.dtype), dim=1)
+
+
+def hashgrid_query_plain(coords: torch.Tensor, resolutions: Sequence[int],
+                         codebook_bitwidth: int, lod_idx: int, codebook: torch.Tensor,
+                         codebook_first_idx: Sequence[int], codebook_sizes: Sequence[int]
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of ``hashgrid_query``: JAX's body (ops/grid.py:369-390)."""
+    codebook_size = 2 ** int(codebook_bitwidth)
+    offsets = torch.as_tensor(corner_offsets(coords.shape[-1]), device=coords.device)
+    out = []
+    for i in range(int(lod_idx) + 1):
+        res = int(resolutions[i])
+        x = torch.clamp((coords + 1.0) / 2.0 * res, 0.0, res - 1 - 1e-5)
+        corners = torch.floor(x).to(torch.int64)[:, None, :] + offsets[None]
+        idx = hash_index(corners, res, codebook_size)                          # [N, C]
+        size = int(codebook_sizes[i])
+        level = codebook[int(codebook_first_idx[i]):int(codebook_first_idx[i]) + size]
+        rows = level[idx.clamp(max=size - 1)]
+        # jnp.take's default fill mode: a row past the LOD's slice reads NaN
+        out.append(torch.where((idx < size)[..., None], rows,
+                               torch.full_like(rows, float("nan"))))
+    return torch.stack(out, dim=1)
+
+
+def hashgrid_query(coords: torch.Tensor, resolutions: Sequence[int], codebook_bitwidth: int,
+                   lod_idx: int, codebook: torch.Tensor, codebook_first_idx: Sequence[int],
+                   codebook_sizes: Sequence[int]) -> torch.Tensor:
+    """The raw feature rows of the 2^d cell corners of every point at LODs 0..``lod_idx``
+    (K14): [N, d] coords in [-1, 1] -> [N, lod_idx+1, 2^d, F], corners in
+    ``corner_offsets`` order. The cell is that of clip((c+1)/2 * res, 0, res-1-1e-5) (JAX's
+    transform, not K1's), its corners' rows ``hash_index`` within the LOD's table; a row past
+    the LOD's ``codebook_sizes`` entry reads NaN, as in JAX."""
+    if not coords.is_cuda:
+        return hashgrid_query_plain(coords, resolutions, codebook_bitwidth, lod_idx, codebook,
+                                    codebook_first_idx, codebook_sizes)
+    n_lods = int(lod_idx) + 1
+    n, dim = coords.shape[0], coords.shape[1]
+    f_dim = codebook.shape[-1]
+    kernels.check(coords, "coords", torch.float32, (n, dim))
+    kernels.check(codebook, "codebook", torch.float32, (None, f_dim))
+    if dim not in (2, 3) or f_dim not in (1, 2, 4, 8) or not 1 <= n_lods <= 32:
+        raise ValueError(f"hashgrid_query takes dim 2/3, F in 1/2/4/8 and 1-32 LODs, got "
+                         f"{dim}, {f_dim}, {n_lods}")
+    codebook_size = 2 ** int(codebook_bitwidth)
+    res = [int(resolutions[i]) for i in range(n_lods)]
+    first = [int(codebook_first_idx[i]) for i in range(n_lods)]
+    sizes = [int(codebook_sizes[i]) for i in range(n_lods)]
+    if any(f + s > codebook.shape[0] for f, s in zip(first, sizes)):
+        raise ValueError("hashgrid_query: codebook is smaller than its LOD tables")
+    arrays = (np.asarray(res, np.int32), np.asarray([r - 1 - 1e-5 for r in res], np.float32),
+              np.asarray(first, np.int64), np.asarray(sizes, np.int64),
+              np.asarray([int(r ** dim <= codebook_size) for r in res], np.int32))
+    out = torch.empty((n, n_lods, 2 ** dim, f_dim), dtype=torch.float32, device=coords.device)
+    if n:
+        kernels.launch("wisp_hashgrid_query", "hashgrid_query", coords.data_ptr(),
+                       codebook.data_ptr(), n, dim, f_dim, n_lods,
+                       *(a.ctypes.data for a in arrays), codebook_size, out.data_ptr())
+    return out
