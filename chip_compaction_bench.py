@@ -1,0 +1,202 @@
+#!/usr/bin/env python3
+"""Time the compaction kernels and the paths that call them, on one NVIDIA GPU.
+
+Run from the root of a checkout; it imports that checkout's ``chip_smoke.py`` and
+``wisp_tpu_torch``, so the same file run from two checkouts compares them:
+
+    python3 chip_compaction_bench.py kernels
+    python3 chip_compaction_bench.py paths [label]
+    python3 chip_compaction_bench.py sdf [label]
+
+``kernels``: ``compact`` (K3, K6a) and ``compact_rays`` (K12, its mid pass) at the four
+shapes of ``PERF.md``'s compaction rows, on seeded inputs (march-like runs of valid steps;
+K12's masks with the rows' live counts): each held exactly to its plain version and to the
+earlier three-pass design, then timed (``chip_smoke.timed``: device ms, CUDA-event ms)
+beside the three-pass design and ``torch.nonzero``, with the device ms of each kernel a
+call and the launches a call.
+
+``paths``: without profiler or recording, 15 flagship render frames (the render phase's
+carved field), 40 flagship training steps (the train phase's trainer; the first two left
+out) and, after 300 NGLOD app steps, 10 each of the 512x512 SDF frame uncompacted, at
+compaction 0.55 and with the mid pass at 0.3 (the nglod app phase's settings), in turns.
+``sdf``: the SDF frames of ``paths`` alone, in a process that runs nothing before them.
+Each mode prints one JSON line; run ``paths`` from the parent's and the change's checkouts
+in turns (parent, change, change, parent, ...) to compare them: these paths are bound by
+the host, and their spread from process to process is wide.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import statistics
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, ".")        # the checkout this is run from, not this file's
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from wisp_tpu_torch import kernels
+from wisp_tpu_torch.ops.compaction import (compact, compact_plain, compact_rays,
+                                           compact_rays_plain)
+
+K3_SHAPES = {                  # rays, steps, share of steps in a ray's run, budget, carry
+    "K3 render chunk": (16384, 512, 0.09, 2097152, False),
+    "K6a segment": (2048, 128, 0.12, 65536, True),
+    "K3 train step": (8192, 512, 0.2, 1048576, False),
+    "K3 voxel march": (4096, 464, 0.2, 1900544, False),
+}
+K12_SHAPES = {                 # rays, live rays, budget
+    "K12 compaction": (65536, 38511, 36045),
+    "K12 mid compaction": (36045, 5475, 19661),
+}
+
+
+def ms_by_kernel(fn, iters: int = 20) -> list:
+    """Device ms a call of each kernel ``fn`` launches, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    _, recorded = cs.device_kernels(prof, None)
+    return [(k["name"][:60], k["ms"] / iters) for k in recorded]
+
+
+def march_mask(gen, r: int, s: int, share: float, dev):
+    """Each ray valid over a run of up to 2 * share * s steps from a random step, with 10%
+    of the run's steps dropped."""
+    start = torch.randint(0, s, (r, 1), generator=gen)
+    length = (torch.rand(r, 1, generator=gen) * 2 * share * s).long()
+    steps = torch.arange(s)[None]
+    keep = torch.rand(r, s, generator=gen) < 0.9
+    return ((steps >= start) & (steps < start + length) & keep).to(dev)
+
+
+def kernels_mode(dev) -> dict:
+    started = cs.start_threepass_build()
+    kernels.build()
+    cs.THREEPASS = cs.ThreePass(started)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    out = {}
+    for name, (r, s, share, budget, carry) in K3_SHAPES.items():
+        mask = march_mask(gen, r, s, share, dev)
+        samples = torch.randn(r, s, 3, generator=gen).to(dev)
+        dirs = torch.randn(r, 3, generator=gen).to(dev)
+        acc = (torch.rand(r, generator=gen) * 3.0).to(dev) if carry else None
+        cap = 6.9077554 if carry else None
+        args = (mask, samples, dirs, budget, acc, cap)
+        want = compact_plain(*args)
+        cs.require(cs.compact_equal(compact(*args), want, budget), f"{name}: differs")
+        cs.require(cs.compact_equal(cs.THREEPASS.compact(*args), want, budget),
+                   f"{name}: the three-pass design differs")
+        live = mask if acc is None else mask & (acc < cap)[:, None]
+        out[name] = {"valid": int(want[3]), "ms": cs.timed(lambda: compact(*args)),
+                     "was_ms": cs.timed(lambda: cs.THREEPASS.compact(*args)),
+                     "nonzero_ms": cs.timed(lambda: torch.nonzero(live.T)),
+                     "launches_per_call": cs.launches_per_call(lambda: compact(*args)),
+                     "ms_by_kernel": ms_by_kernel(lambda: compact(*args))}
+    for name, (r, live, budget) in K12_SHAPES.items():
+        mask = torch.zeros(r, dtype=torch.bool)
+        mask[torch.randperm(r, generator=gen)[:live]] = True
+        mask = mask.to(dev)
+        o, d = (torch.randn(r, 3, generator=gen).to(dev) for _ in "od")
+        t, tf = (torch.rand(r, generator=gen).to(dev) for _ in "tf")
+        args = (mask, budget, o, d, t, tf)
+        want = compact_rays_plain(*args)
+        cs.require(cs.rays_equal(compact_rays(*args), want), f"{name}: differs")
+        cs.require(cs.rays_equal(cs.THREEPASS.compact_rays(*args), want),
+                   f"{name}: the three-pass design differs")
+        out[name] = {"count": int(want[5]), "ms": cs.timed(lambda: compact_rays(*args)),
+                     "was_ms": cs.timed(lambda: cs.THREEPASS.compact_rays(*args)),
+                     "nonzero_ms": cs.timed(lambda: torch.nonzero(mask)),
+                     "launches_per_call": cs.launches_per_call(lambda: compact_rays(*args)),
+                     "ms_by_kernel": ms_by_kernel(lambda: compact_rays(*args))}
+    return out
+
+
+def clock(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def paths_mode(dev, flagship: bool) -> dict:
+    from wisp_tpu_torch.core.camera import Camera
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.ops.raygen.raygen import generate_pinhole_rays
+    from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
+    kernels.build()
+    out = {}
+    if flagship:
+        pipeline, _ = cs.flagship_pipeline(dev)
+        renderer = OfflineRenderer(render_res=(cs.RES, cs.RES), device=dev)
+        clock(lambda: renderer.render_lookat(pipeline, f=cs.EYE))
+        out["render_frame_ms"] = [clock(lambda: renderer.render_lookat(pipeline, f=cs.EYE))
+                                  for _ in range(15)]
+        del pipeline, renderer
+        trainer = cs.flagship_trainer(dev)
+        out["train_step_ms"] = [clock(trainer.iterate) for _ in range(40)][2:]
+        del trainer
+        torch.cuda.empty_cache()
+
+    _, pipe, tr = cs.nglod_app("--tracker.log-dir", tempfile.mkdtemp(prefix="wisp_bench_"),
+                               "--tracker.run-name", "bench")
+    for _ in range(300):
+        tr.iterate()
+    nef, vis = pipe.nef, tr.tracker.cfg.vis_camera
+    cam = Camera.from_args(eye=tuple(vis.camera_origin), at=tuple(vis.camera_lookat),
+                           up=(0.0, 1.0, 0.0), width=cs.NGLOD_FRAME_RES,
+                           height=cs.NGLOD_FRAME_RES, fov=np.radians(vis.camera_fov),
+                           near=vis.camera_clamp[0], far=vis.camera_clamp[1])
+    rays = generate_pinhole_rays(cam, device=dev)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(
+        rays.origins.reshape(-1, 3).shape[0])).to(dev)
+    rays = Rays(rays.origins.reshape(-1, 3)[perm].contiguous(),
+                rays.dirs.reshape(-1, 3)[perm].contiguous(), rays.dist_min, rays.dist_max)
+    base = pipe.tracer.with_free_dist(nef.grid.blas)
+    variants = {"uncompacted": {}, "compacted": {"compaction": cs.NGLOD_COMPACTION},
+                "mid": {"compaction": cs.NGLOD_COMPACTION,
+                        "mid_compaction": cs.NGLOD_MID_COMPACTION, "mid_at": cs.NGLOD_MID_AT}}
+    tracers = {}
+    for name, kw in variants.items():
+        tracers[name] = copy.copy(base)
+        for k, v in kw.items():
+            setattr(tracers[name], k, v)
+        cs.trace_chunks(nef, tracers[name], rays, cs.NGLOD_CHUNK)       # warm-up
+    for name in tracers:
+        out[f"sdf_{name}_frame_ms"] = []
+    for _ in range(10):
+        for name, tracer in tracers.items():
+            out[f"sdf_{name}_frame_ms"].append(
+                clock(lambda: cs.trace_chunks(nef, tracer, rays, cs.NGLOD_CHUNK)))
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) < 2 or sys.argv[1] not in ("kernels", "paths", "sdf"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_compaction_bench: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    mode = sys.argv[1]
+    result = kernels_mode(dev) if mode == "kernels" else paths_mode(dev, mode == "paths")
+    if mode != "kernels":
+        result = {"median_ms": {k: statistics.median(v) for k, v in result.items()},
+                  "all_ms": result}
+    print(json.dumps({"mode": mode, "label": sys.argv[2] if len(sys.argv) > 2
+                      else None, "device": cs.nvidia_smi_line(), **result}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

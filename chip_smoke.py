@@ -20,7 +20,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    version and times kernel, plain version and, for the compaction, ``torch.nonzero``
    after warm-up: ``ms`` is device time a call (``timed``: the kernels' own time under
    torch.profiler), with the CUDA-event time of back-to-back calls beside it as
-   ``event_ms``;
+   ``event_ms``. The compaction rows (K3, K6a, K12 and its mid pass) also carry their
+   device launches a call (``launches_per_call``, counted by torch.profiler) and
+   ``was_ms``, the time of the earlier three-pass design
+   (``wisp_tpu_torch/csrc/baselines/compaction_threepass.cu``, built by this script beside
+   the kernel library) on the same inputs, held exactly to the plain version first;
 6. training path: builds the flagship-width trainer (the same config, AMP, AdamW with the
    scheduler, adaptive rays and compaction, sample-fed pruning) on a ``make_dense`` level-7
    octree and a 4-view 512x512 lego-proxy dataset (the config has 100 views: a cut of
@@ -126,7 +130,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    2) and times it; then, counts from 0, runs K14 (``hashgrid_query``) once on the trained
    flagship codebook at that chunk's kept samples, holds it to its plain version exactly
    and times it beside ``index_select`` of the precomputed rows;
-16. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+16. compaction step ("compaction"): holds both compaction kernels, and the three-pass
+   design, exactly to their plain versions on the last compaction that each phase's
+   tracers made (a render chunk, a training step's budget, the octree NeRF's step, the
+   stoch and uniform paths', a seg segment with its carry, an SDF chunk and its mid pass),
+   times each beside the three-pass design, then runs them all again back to back on one
+   stream with no synchronisation between the calls and holds every result once more;
+17. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels, from the SDF training run for its two, from the octree NeRF's 25
    steps for K7, from the stoch path's 25 steps for K1's stochastic backward, from the
@@ -136,7 +146,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    for K10, from the uniform path's steps and frame for K8 and from its one query for
    K14), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
    ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
-   ``uniform_path`` JSON lines, the nvidia-smi line and, last,
+   ``uniform_path`` JSON lines, the ``compaction_shapes`` line, the nvidia-smi line and,
+   last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -148,6 +159,7 @@ import subprocess
 import sys
 import time
 from contextlib import contextmanager
+from typing import Optional
 from unittest import mock
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
@@ -278,6 +290,129 @@ def events_only(fn, iters: int = 20, warmup: int = 3):
     return ms, ms
 
 
+def launches_per_call(fn, iters: int = 10) -> Optional[int]:
+    """The device kernels (memsets and copies included) that one call of ``fn`` launches,
+    counted by torch.profiler: the most of 3 sessions, since a session may miss launches;
+    None if none recorded a kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        _, recorded = device_kernels(prof, None)
+        if recorded:
+            n = round(sum(k["count"] for k in recorded) / iters)
+            best = n if best is None else max(best, n)
+    return best
+
+
+# -- the earlier three-pass compaction, the yardstick of the compaction rows' "was_ms" -------
+THREEPASS_SRC = "wisp_tpu_torch/csrc/baselines/compaction_threepass.cu"
+THREEPASS = None               # a ThreePass once built (run())
+
+
+def start_threepass_build():
+    """Start nvcc on the three-pass compaction (built beside, not into, the kernel library)."""
+    from wisp_tpu_torch import kernels
+    out = kernels.BUILD_ROOT / "baselines" / "libwisp_threepass.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC),
+           THREEPASS_SRC, "-o", str(out)]
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+
+
+class ThreePass:
+    """The earlier design of ``compact`` and ``compact_rays`` (three and four launches),
+    called on the current stream with the wrappers' arguments; its launches are not the
+    port's and are not counted."""
+
+    def __init__(self, started):
+        import ctypes
+        out, proc = started
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"nvcc failed for {THREEPASS_SRC}:\n{log}")
+        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        self.lib = ctypes.CDLL(str(out))
+        self.lib.wisp_compact_threepass.argtypes = [P, P, F, P, P, I, I, L, P, P, P, P, P, P,
+                                                    P]
+        self.lib.wisp_compact_rays_threepass.argtypes = [P, I, L, P, P, P, P, P, P, P, P, P,
+                                                         P, P, P, P]
+
+    @staticmethod
+    def _stream() -> int:
+        import torch
+        return torch.cuda.current_stream().cuda_stream
+
+    def compact(self, mask, samples, dirs, budget, acc_tau=None, tau_cap=None):
+        import torch
+        r, s = mask.shape
+        nb = -(-r * s // 4096)
+        scratch = torch.empty((2 * nb,), dtype=torch.int32, device=mask.device)
+        count = torch.empty((), dtype=torch.int64, device=mask.device)
+        idx = torch.empty((budget,), dtype=torch.int64, device=mask.device)
+        cflat = torch.empty((budget, 3), dtype=torch.float32, device=mask.device)
+        cray_d = torch.empty((budget, 3), dtype=torch.float32, device=mask.device)
+        status = self.lib.wisp_compact_threepass(
+            mask.data_ptr(), None if acc_tau is None else acc_tau.data_ptr(),
+            0.0 if tau_cap is None else float(tau_cap), samples.data_ptr(), dirs.data_ptr(),
+            r, s, budget, scratch.data_ptr(), scratch[nb:].data_ptr(), count.data_ptr(),
+            idx.data_ptr(), cflat.data_ptr(), cray_d.data_ptr(), self._stream())
+        require(status == 0, f"wisp_compact_threepass failed to launch ({status})")
+        return idx, cflat, cray_d, count
+
+    def compact_rays(self, mask, budget, o, d, t, tf):
+        import torch
+        r = mask.shape[0]
+        nb = -(-r // 4096)
+        dev = mask.device
+        scratch = torch.empty((2 * nb,), dtype=torch.int32, device=dev)
+        count = torch.empty((), dtype=torch.int64, device=dev)
+        idx = torch.empty((budget,), dtype=torch.int64, device=dev)
+        o_c, d_c = (torch.empty((budget, 3), dtype=torch.float32, device=dev) for _ in "od")
+        t_c, tf_c = (torch.empty((budget,), dtype=torch.float32, device=dev) for _ in "tf")
+        status = self.lib.wisp_compact_rays_threepass(
+            mask.data_ptr(), r, budget, o.data_ptr(), d.data_ptr(), t.data_ptr(),
+            tf.data_ptr(), scratch.data_ptr(), scratch[nb:].data_ptr(), count.data_ptr(),
+            idx.data_ptr(), o_c.data_ptr(), d_c.data_ptr(), t_c.data_ptr(), tf_c.data_ptr(),
+            self._stream())
+        require(status == 0, f"wisp_compact_rays_threepass failed to launch ({status})")
+        return idx, o_c, d_c, t_c, tf_c, count
+
+
+def compact_equal(got, want, budget) -> bool:
+    """``compact``'s contract: the same count and the same first min(count, budget) slots."""
+    import torch
+    kept = min(int(want[3]), budget)
+    return torch.equal(got[3], want[3]) and all(torch.equal(a[:kept], b[:kept])
+                                                for a, b in zip(got[:3], want[:3]))
+
+
+def rays_equal(got, want) -> bool:
+    """``compact_rays``'s contract: every slot and the count equal."""
+    import torch
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def add_launches_and_was(row, fn, was_fn, check_was):
+    """The row's launches a call (``fn``'s, and the earlier design's) and ``was_ms``, the
+    earlier three-pass design's time on the same inputs, held exact first."""
+    row["launches_per_call"] = launches_per_call(fn)
+    if THREEPASS is None:
+        return row
+    require(check_was(), f"{row['name']}: the three-pass design differs from the plain version")
+    was = timed(was_fn)
+    row.update(was_ms=was[0], was_event_ms=was[1],
+               was_launches_per_call=launches_per_call(was_fn),
+               was_design="csrc/baselines/compaction_threepass.cu (three-pass; K12 four)")
+    return row
+
+
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -404,6 +539,11 @@ def kernel_phase(pipeline, rays):
         timed(lambda: compact_plain(mask, samples, d, budget), iters=5),
         nbytes=r * s + r * 12 + kept * (12 + 8 + 24) + 8, ops=0.0,
         library_ms=timed(lambda: torch.nonzero(mask.T)))
+    rows[-1]["library_call"] = "torch.nonzero(mask.T)"
+    add_launches_and_was(rows[-1], lambda: compact(mask, samples, d, budget),
+                         lambda: THREEPASS.compact(mask, samples, d, budget),
+                         lambda: compact_equal(THREEPASS.compact(mask, samples, d, budget),
+                                               want, budget))
     idx, cflat, cray_d = got[0], got[1][:kept], got[2][:kept]
 
     # K1 hash grid forward, at the main path's LODs (max_compute_lod and the 'cat' quirk)
@@ -452,6 +592,77 @@ def kernel_phase(pipeline, rays):
                                         tracer.bg_color)),
         nbytes=r * s * (4 + 4 + 1 + 12) + r * 4 + r * (12 + 4 + 4 + 1), ops=r * s * 16)
     return rows, {"chunk_rays": r, "valid": valid, "budget": budget, "kept": kept}
+
+
+# the arguments of the last compaction each phase's tracers made: (phase, counter) -> args
+COMPACTION_CALLS = {}
+COMPACTION_PHASE = ["render"]
+
+
+@contextmanager
+def recording_compactions():
+    """Keep the arguments of the last ``compact`` (K3, K6a) and ``compact_rays`` (K12, first
+    and mid pass) call that the tracers make in each phase (``COMPACTION_PHASE``)."""
+    from wisp_tpu_torch.tracers import packed_rf_tracer, packed_sdf_tracer
+    compact, compact_rays = packed_rf_tracer.compact, packed_sdf_tracer.compact_rays
+
+    def rec_compact(mask, samples, dirs, budget, acc_tau=None, tau_cap=None):
+        key = (COMPACTION_PHASE[0], "compact" if acc_tau is None else "compact_live")
+        COMPACTION_CALLS[key] = (mask, samples, dirs, budget,
+                                 None if acc_tau is None else acc_tau.clone(), tau_cap)
+        return compact(mask, samples, dirs, budget, acc_tau, tau_cap)
+
+    def rec_rays(mask, budget, o, d, t, tf, mid=False):
+        key = (COMPACTION_PHASE[0], "compact_rays_mid" if mid else "compact_rays")
+        COMPACTION_CALLS[key] = (mask, budget, o, d, t, tf)
+        return compact_rays(mask, budget, o, d, t, tf, mid=mid)
+
+    with mock.patch.object(packed_rf_tracer, "compact", rec_compact), \
+            mock.patch.object(packed_sdf_tracer, "compact_rays", rec_rays):
+        yield
+
+
+def compaction_phase() -> dict:
+    """Both compaction kernels at every shape the paths gave them (each phase's last call):
+    exactly equal to the plain version and to the earlier three-pass design, timed beside
+    it, then all of them again back to back on one stream with no synchronisation between
+    the calls, each result held to the plain version once more."""
+    import torch
+    from wisp_tpu_torch.ops.compaction import (compact, compact_plain, compact_rays,
+                                               compact_rays_plain)
+    require(COMPACTION_CALLS, "no phase recorded a compaction")
+    out, checks = {}, []
+    for (phase, kind), args in sorted(COMPACTION_CALLS.items()):
+        if kind.startswith("compact_rays"):
+            mask, budget = args[:2]
+            run_new = functools.partial(compact_rays, *args, mid=kind.endswith("mid"))
+            run_was = functools.partial(THREEPASS.compact_rays, *args)
+            want = compact_rays_plain(*args)
+            equal = rays_equal
+            shape = {"rays": mask.shape[0], "budget": budget, "count": int(want[5])}
+        else:
+            mask, budget = args[0], args[3]
+            run_new = functools.partial(compact, *args)
+            run_was = functools.partial(THREEPASS.compact, *args)
+            want = compact_plain(*args)
+            equal = functools.partial(compact_equal, budget=budget)
+            shape = {"rays": mask.shape[0], "steps": mask.shape[1], "budget": budget,
+                     "count": int(want[3])}
+        where = f"{kind} at the {phase} phase's shape {shape}"
+        require(equal(run_new(), want), f"{where} differs from the plain version")
+        require(equal(run_was(), want), f"the three-pass {where} differs from the plain "
+                                        f"version")
+        new, was = timed(run_new), timed(run_was)
+        out[f"{phase}: {kind}"] = dict(shape, ms=new[0], event_ms=new[1], was_ms=was[0],
+                                       was_event_ms=was[1])
+        checks.append((run_new, want, equal, where))
+    torch.cuda.synchronize()
+    got = [c[0]() for c in checks]
+    torch.cuda.synchronize()
+    for g, (_, want, equal, where) in zip(got, checks):
+        require(equal(g, want), f"{where}, called back to back, differs from the plain "
+                                f"version")
+    return out
 
 
 def profile_call(fn, top: int = 12):
@@ -2158,7 +2369,14 @@ def seg_kernel_phase(calls):
         timed(lambda: compact_plain(mask, samples, dirs, budget, acc, cap), iters=5),
         nbytes=r * s + r * 4 + kept * (12 + 8 + 24) + 8, ops=0.0,
         library_ms=timed(lambda: torch.nonzero((mask & (acc < cap)[:, None]).T)))]
-    rows[-1].update(culling_carry_rays_culled=culled_rays, culling_carry_valid=int(want[3]))
+    rows[-1].update(culling_carry_rays_culled=culled_rays, culling_carry_valid=int(want[3]),
+                    library_call="torch.nonzero((mask & (acc < cap)[:, None]).T)")
+    want = compact_plain(mask, samples, dirs, budget, acc, cap)
+    add_launches_and_was(
+        rows[-1], lambda: compact(mask, samples, dirs, budget, acc, cap),
+        lambda: THREEPASS.compact(mask, samples, dirs, budget, acc, cap),
+        lambda: compact_equal(THREEPASS.compact(mask, samples, dirs, budget, acc, cap), want,
+                              budget))
 
     density, deltas, depths, smask, color, acc_in = c["integrate"]
     fk = integrate_segment(density, deltas, depths, smask, color, acc_in)
@@ -2570,6 +2788,10 @@ def ray_compaction_rows(calls, launches):
             nbytes=r + 8 + kept * (32 + 8 + 32) + (budget - kept) * (8 + 32) + 32,
             ops=r * 2, library_ms=timed(lambda: torch.nonzero(mask))))
         rows[-1]["library_call"] = "torch.nonzero(mask)"
+        add_launches_and_was(
+            rows[-1], lambda: compact_rays(mask, budget, o, d, t, tf, mid=mid),
+            lambda: THREEPASS.compact_rays(mask, budget, o, d, t, tf),
+            lambda: rays_equal(THREEPASS.compact_rays(mask, budget, o, d, t, tf), want))
         shapes[name] = {"rays": r, "budget": budget, "count": int(want[5])}
         if not mid:
             r0, idx, o_c = r, want[0], want[1]
@@ -3255,13 +3477,9 @@ def uniform_phase(dev):
 
 
 def run() -> dict:
-    import numpy as np
     import torch
     try:
         from wisp_tpu_torch import kernels
-        from wisp_tpu_torch.core.rays import Rays
-        from wisp_tpu_torch.ops.compaction import compaction_budget
-        from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
     except ImportError as e:
         raise SmokeFailure(f"wisp_tpu_torch not importable ({e}); run from the root of "
                            f"a checkout")
@@ -3272,7 +3490,10 @@ def run() -> dict:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
+    threepass_build = start_threepass_build()
     kernels.build(verbose=True)
+    global THREEPASS
+    THREEPASS = ThreePass(threepass_build)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in str(kernels.BUILD_INFO.get("log", "")).splitlines()
              if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
@@ -3280,6 +3501,31 @@ def run() -> dict:
     kernels.library()
 
     dev = torch.device("cuda")
+    with recording_compactions():
+        phases = run_phases(dev, build_s)
+    t0 = time.perf_counter()
+    compaction_info = compaction_phase()
+    phases["phase_s"]["compaction"] = time.perf_counter() - t0
+    print(json.dumps({"kernels": phases["kernels"]}), flush=True)
+    for line in phases["lines"]:
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"compaction_shapes": compaction_info}), flush=True)
+    print(json.dumps({"phase_s": phases["phase_s"], "profiler_shortfalls": PROFILER_SHORTFALLS,
+                      "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
+    print(smi, flush=True)
+    return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}}
+
+
+def run_phases(dev, build_s: float) -> dict:
+    """The ten paths in order; their kernel rows, JSON lines and seconds."""
+    import numpy as np
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.ops.compaction import compaction_budget
+    from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
+    COMPACTION_PHASE[0] = "render"
     t_render = time.perf_counter()
     pipeline, occ_frac = flagship_pipeline(dev)
     renderer = OfflineRenderer(render_res=(RES, RES), device=dev)
@@ -3372,60 +3618,56 @@ def run() -> dict:
     main.update(profile_frame(renderer, pipeline))
     del pipeline, renderer, rb
     phase_s = {"build": build_s, "render": time.perf_counter() - t_render}
+    COMPACTION_PHASE[0] = "train"
     t0 = time.perf_counter()
     train_rows, train_info = train_phase(dev)
     torch.cuda.empty_cache()
     phase_s["train"] = time.perf_counter() - t0
+    COMPACTION_PHASE[0] = "sdf render"
     t0 = time.perf_counter()
     sdf_rows, sdf_info = sdf_phase(dev)
     torch.cuda.empty_cache()
     phase_s["sdf render"] = time.perf_counter() - t0
+    COMPACTION_PHASE[0] = "sdf train"
     t0 = time.perf_counter()
     sdf_train_rows, sdf_train_info = sdf_train_phase(dev)
     torch.cuda.empty_cache()
     phase_s["sdf train"] = time.perf_counter() - t0
+    COMPACTION_PHASE[0] = "octree nerf"
     t0 = time.perf_counter()
     octree_rows, octree_info = octree_phase(dev)
     torch.cuda.empty_cache()
     phase_s["octree nerf"] = time.perf_counter() - t0
+    COMPACTION_PHASE[0] = "stoch"
     t0 = time.perf_counter()
     stoch_rows, stoch_info = stoch_phase(dev)
     torch.cuda.empty_cache()
     phase_s["stoch"] = time.perf_counter() - t0
+    COMPACTION_PHASE[0] = "seg"
     t0 = time.perf_counter()
     seg_rows, seg_info = seg_phase(dev)
     torch.cuda.empty_cache()
     phase_s["seg"] = time.perf_counter() - t0
+    COMPACTION_PHASE[0] = "nglod app"
     t0 = time.perf_counter()
     nglod_rows, nglod_info = nglod_phase(dev)
     torch.cuda.empty_cache()
     phase_s["nglod app"] = time.perf_counter() - t0
+    COMPACTION_PHASE[0] = "spc browser"
     t0 = time.perf_counter()
     spc_rows_, spc_info = spc_phase(dev)
     torch.cuda.empty_cache()
     phase_s["spc browser"] = time.perf_counter() - t0
+    COMPACTION_PHASE[0] = "uniform"
     t0 = time.perf_counter()
     uniform_rows_, uniform_info = uniform_phase(dev)
     phase_s["uniform"] = time.perf_counter() - t0
-    print(json.dumps({"kernels": rows + train_rows + sdf_rows + sdf_train_rows
-                      + octree_rows[:1] + stoch_rows + seg_rows + nglod_rows + spc_rows_
-                      + uniform_rows_}), flush=True)
-    print(json.dumps(main), flush=True)
-    print(json.dumps(train_info), flush=True)
-    print(json.dumps(sdf_info), flush=True)
-    print(json.dumps(sdf_train_info), flush=True)
-    print(json.dumps({"octree_nerf_path": octree_info, "raymarch_voxel_rows": octree_rows}),
-          flush=True)
-    print(json.dumps(stoch_info), flush=True)
-    print(json.dumps(seg_info), flush=True)
-    print(json.dumps(nglod_info), flush=True)
-    print(json.dumps(spc_info), flush=True)
-    print(json.dumps(uniform_info), flush=True)
-    print(json.dumps({"phase_s": phase_s, "profiler_shortfalls": PROFILER_SHORTFALLS,
-                      "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
-    print(smi, flush=True)
-    return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                   "count": torch.cuda.device_count()}}
+    return {"kernels": rows + train_rows + sdf_rows + sdf_train_rows + octree_rows[:1]
+            + stoch_rows + seg_rows + nglod_rows + spc_rows_ + uniform_rows_,
+            "lines": [main, train_info, sdf_info, sdf_train_info,
+                      {"octree_nerf_path": octree_info, "raymarch_voxel_rows": octree_rows},
+                      stoch_info, seg_info, nglod_info, spc_info, uniform_info],
+            "phase_s": phase_s}
 
 
 def main() -> int:

@@ -41,7 +41,9 @@ def _jax_compact(mask, samples, dirs, budget):
                          [((40, 24), 0.1, 0.25),   # budget above the valid count
                           ((40, 24), 0.6, 0.25),   # overflow: latest steps dropped
                           ((33, 17), 1.0, 0.5),    # every sample valid
-                          ((16, 64), 0.0, 0.25)])  # nothing valid
+                          ((16, 64), 0.0, 0.25),   # nothing valid
+                          ((1, 300), 0.6, 0.25),   # R = 1, overflow
+                          ((300, 1), 0.6, 0.25)])  # S = 1, overflow
 def test_compact_matches_jax(shape, frac, compaction):
     rng = np.random.default_rng(int(frac * 10) + shape[0])
     mask = rng.random(shape) < frac
@@ -63,6 +65,31 @@ def test_compact_matches_jax(shape, frac, compaction):
         dropped = np.flatnonzero(mask.reshape(-1))
         dropped = np.setdiff1d(dropped, np_of(idx))
         assert steps.max() <= (dropped % shape[1]).min()
+
+
+@pytest.mark.parametrize("budget", [1024, 256])
+def test_compact_live_matches_jax(budget):
+    """K6a: with a carry that kills some rays, ``compact(..., acc_tau, tau_cap)`` equals
+    JAX's compaction of the live mask (mask & acc_tau < tau_cap, in float32), the budget
+    above and below the live count."""
+    rng = np.random.default_rng(6)
+    shape = (40, 24)
+    mask = rng.random(shape) < 0.6
+    samples = rng.normal(size=(*shape, 3)).astype(np.float32)
+    dirs = rng.normal(size=(shape[0], 3)).astype(np.float32)
+    tau_cap = float(np.float32(-np.log(1e-3)))
+    acc_tau = (rng.random(shape[0]) * 2.0 * tau_cap).astype(np.float32)
+    acc_tau[:3] = np.float32(tau_cap)                  # at the cap: not live
+    live = mask & (acc_tau < np.float32(tau_cap))[:, None]
+    assert 0 < live.sum() < mask.sum()
+    w_idx, w_flat, w_dir = _jax_compact(live, samples, dirs, budget)
+    idx, cflat, cray_d, count = compact(torch.from_numpy(mask), torch.from_numpy(samples),
+                                        torch.from_numpy(dirs), budget,
+                                        torch.from_numpy(acc_tau), tau_cap)
+    np.testing.assert_array_equal(np_of(idx), w_idx)
+    np.testing.assert_array_equal(np_of(cflat), w_flat)
+    np.testing.assert_array_equal(np_of(cray_d), w_dir)
+    assert int(count) == int(live.sum())
 
 
 @pytest.mark.parametrize("kept", [None, 5])

@@ -968,3 +968,160 @@ def test_hashgrid_query_kernel(dev, dim):
     assert got.shape == (4000, 4, 2 ** dim, 2)
     assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
     assert torch.equal(got.isnan(), want.isnan()) and got.isnan().any() == (dim == 2)
+
+
+# -- the compaction kernels' cases: tiles, budgets, alignment, path shapes, back to back --------
+
+def _compact_inputs(dev, r, s, frac, seed, cull=False, offset=0):
+    """A mask with whole rays empty and the rest valid at about ``frac`` of their steps,
+    its points and directions, and a carry that culls about a third of the rays (or None).
+    ``offset`` > 0 puts the mask at that many bytes past an aligned allocation."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mask = (torch.rand(r, s, generator=g) < frac) & (torch.rand(r, 1, generator=g) < 0.8)
+    if frac >= 1.0:
+        mask[:] = True
+    buf = torch.zeros(offset + r * s, dtype=torch.bool)
+    buf[offset:] = mask.reshape(-1)
+    mask = buf.to(dev)[offset:].view(r, s)
+    samples = torch.randn(r, s, 3, generator=g).to(dev)
+    dirs = torch.randn(r, 3, generator=g).to(dev)
+    tau_cap = float(np.float32(-np.log(1e-3)))
+    acc = (torch.rand(r, generator=g) * 1.5 * tau_cap).to(dev) if cull else None
+    return mask, samples, dirs, acc, tau_cap
+
+
+def _assert_compact_equal(got, want, budget):
+    assert torch.equal(got[3], want[3])
+    kept = min(int(want[3]), budget)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a[:kept], b[:kept])
+
+
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("r,s,frac,budget,offset", [
+    (1000, 77, 0.3, 20000, 0),      # many tiles, odd S: byte loads, partial tiles both ways
+    (1000, 100, 0.3, 20000, 0),     # S a multiple of 4, not 16: 4-byte loads
+    (700, 144, 0.3, 30000, 0),      # 16-byte loads, a half step tile at the end
+    (700, 144, 0.3, 30000, 1),      # the same mask at an odd address: byte loads
+    (9000, 96, 0.5, 50000, 0),      # 36 ray tiles (two groups): count above the budget
+    (9000, 600, 0.05, 300000, 0),   # 1,200 group totals: the stream's words grow
+    (1000, 96, 0.0, 128, 0),        # count 0
+    (1000, 96, 1.0, 96000, 0),      # every sample valid, the budget all of them
+    (1000, 96, 0.4, 0, 0),          # budget 0: the count alone
+    (5000, 1, 0.5, 1000, 0),        # S = 1
+    (1, 300, 0.5, 100, 0),          # R = 1
+])
+def test_compact_kernel_cases(dev, r, s, frac, budget, offset, cull):
+    """wisp_compact (K3, and K6a with a culling carry) exactly equal to its plain version,
+    one launch count a call."""
+    mask, samples, dirs, acc, cap = _compact_inputs(dev, r, s, frac, seed=r + s, cull=cull,
+                                                    offset=offset)
+    counter = "compact_live" if cull else "compact"
+    before = kernels.LAUNCHES[counter]
+    got = compact(mask, samples, dirs, budget, acc, cap if cull else None)
+    want = compact_plain(mask, samples, dirs, budget, acc, cap if cull else None)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[counter] == before + 1
+    _assert_compact_equal(got, want, budget)
+    if frac == 1.0 and not cull:
+        assert int(got[3]) == r * s
+
+
+@pytest.mark.parametrize("r,s,frac,budget,cull", [
+    (16384, 512, 0.1, 2097152, False),   # a flagship render chunk (budget 0.25)
+    (4096, 512, 0.3, 524288, False),     # a training step's rays at the config's budget
+    (4096, 464, 0.2, 1900544, False),    # the octree NeRF's 'voxel' march, budget 1.0
+    (2048, 128, 0.3, 65536, True),       # a segment of the segmented cull
+])
+def test_compact_kernel_path_shapes(dev, r, s, frac, budget, cull):
+    mask, samples, dirs, acc, cap = _compact_inputs(dev, r, s, frac, seed=s, cull=cull)
+    counter = "compact_live" if cull else "compact"
+    before = kernels.LAUNCHES[counter]
+    got = compact(mask, samples, dirs, budget, acc, cap if cull else None)
+    want = compact_plain(mask, samples, dirs, budget, acc, cap if cull else None)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[counter] == before + 1
+    _assert_compact_equal(got, want, budget)
+
+
+def _ray_inputs(dev, r, frac, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    mask = torch.rand(r, generator=g) < frac
+    if frac >= 1.0:
+        mask[:] = True
+    o, d = torch.randn(r, 3, generator=g).to(dev), torch.randn(r, 3, generator=g).to(dev)
+    t, tf = torch.rand(r, generator=g).to(dev), torch.rand(r, generator=g).to(dev)
+    return mask.to(dev), o, d, t, tf
+
+
+@pytest.mark.parametrize("r,frac,budget", [
+    (5000, 0.3, 2000),       # five tiles, R not a multiple of the tile, fill past the count
+    (70000, 0.6, 20000),     # count above the budget: nothing to fill
+    (70000, 0.0, 5000),      # count 0: every slot filled
+    (3000, 1.0, 3000),       # every ray alive
+    (1, 1.0, 1), (1, 0.0, 4),   # R = 1
+    (65536, 0.5876, 36045),  # an SDF chunk's first pass (compaction 0.55)
+    (36045, 0.1519, 19661),  # its mid pass (mid_compaction 0.3)
+])
+def test_compact_rays_kernel_cases(dev, r, frac, budget):
+    """wisp_compact_rays: every slot (kept, then JAX's fill) equal to the plain version, as
+    the first pass and as the mid pass, one launch count a call."""
+    from wisp_tpu_torch.ops.compaction import compact_rays, compact_rays_plain
+    mask, o, d, t, tf = _ray_inputs(dev, r, frac, seed=r)
+    for mid in (False, True):
+        counter = "compact_rays_mid" if mid else "compact_rays"
+        before = kernels.LAUNCHES[counter]
+        got = compact_rays(mask, budget, o, d, t, tf, mid=mid)
+        want = compact_rays_plain(mask, budget, o, d, t, tf)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[counter] == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_compaction_kernels_back_to_back(dev):
+    """200 calls of both kernels, of varying sizes, launched back to back on one stream
+    with no synchronisation between them, then a few on a side stream: every result equals
+    its plain version, so no counter or status word carries over from a call to the next."""
+    from wisp_tpu_torch.ops.compaction import compact_rays, compact_rays_plain
+    rng = np.random.default_rng(21)
+    calls = []
+    for i in range(200):
+        if i % 2:
+            r = int(rng.integers(1, 9000))
+            inputs = _ray_inputs(dev, r, float(rng.random()), seed=i)
+            calls.append(("rays", inputs, int(rng.integers(1, r + 64))))
+        else:
+            r, s = int(rng.integers(1, 2000)), int(rng.choice([1, 7, 32, 96, 130, 512]))
+            inputs = _compact_inputs(dev, r, s, float(rng.random()), seed=i, cull=i % 4 == 0)
+            calls.append(("samples", inputs, int(rng.integers(0, r * s + 1))))
+
+    def run(kind, inputs, budget):
+        if kind == "rays":
+            return compact_rays(*inputs[:1], budget, *inputs[1:])
+        mask, samples, dirs, acc, cap = inputs
+        return compact(mask, samples, dirs, budget, acc, cap if acc is not None else None)
+
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    got = [run(*c) for c in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_side = [run(*c) for c in calls[:6]]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    n_rays = sum(c[0] == "rays" for c in calls)
+    n_live = sum(c[0] == "samples" and c[1][3] is not None for c in calls)
+    assert kernels.LAUNCHES["compact_rays"] - before["compact_rays"] == n_rays + 3
+    assert kernels.LAUNCHES["compact_live"] - before["compact_live"] == n_live + 2
+    assert kernels.LAUNCHES["compact"] - before["compact"] == 200 - n_rays - n_live + 1
+    for (kind, inputs, budget), a in zip(calls + calls[:6], got + got_side):
+        if kind == "rays":
+            want = compact_rays_plain(inputs[0], budget, *inputs[1:])
+            assert all(torch.equal(x, y) for x, y in zip(a, want))
+        else:
+            mask, samples, dirs, acc, cap = inputs
+            want = compact_plain(mask, samples, dirs, budget, acc,
+                                 cap if acc is not None else None)
+            _assert_compact_equal(a, want, budget)

@@ -139,3 +139,25 @@ def test_dropped_rays_keep_the_walk(monkeypatch):
     assert dropped.numel() == int(got.num_overflow)
     assert torch.equal(got.xyz[dropped], o[dropped] + t0[dropped, None] * d[dropped])
     assert not got.hit[dropped].any() and not got.normal[dropped].any()
+
+
+@pytest.mark.parametrize("r,alive,budget", [(300, 0.0, 40),    # count 0: every slot filled
+                                            (300, 0.6, 100),   # count above the budget
+                                            (300, 1.0, 300),   # every ray alive
+                                            (1, 1.0, 3)])      # R = 1
+def test_compact_rays_matches_jax(r, alive, budget):
+    """``compact_rays`` against JAX's ``masked_compact_indices(mask[:, None], budget)`` and
+    its clipped gathers (packed_sdf_tracer.py:182-185), every slot."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(r + budget)
+    mask = rng.random(r) < alive
+    o, d = (rng.normal(size=(r, 3)).astype(np.float32) for _ in range(2))
+    t, tf = (rng.random(r).astype(np.float32) for _ in range(2))
+    indices = jax.jit(jcompaction.masked_compact_indices, static_argnums=1)
+    idx = np.asarray(indices(jnp.asarray(mask[:, None]), budget))
+    safe = np.minimum(idx, r - 1)
+    got = compaction.compact_rays(torch.from_numpy(mask), budget, torch.from_numpy(o),
+                                  torch.from_numpy(d), torch.from_numpy(t),
+                                  torch.from_numpy(tf))
+    for a, b in zip(got, (idx, o[safe], d[safe], t[safe], tf[safe], mask.sum())):
+        np.testing.assert_array_equal(np_of(a), b)

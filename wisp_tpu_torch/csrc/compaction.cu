@@ -8,38 +8,76 @@
 // the latest steps across all rays are dropped. Only the first min(count, B) slots are
 // written: the tracer reads no other (JAX fills the rest with R*S and the last sample, and
 // so does the plain version, which the CPU parity tests hold against JAX). The point and
-// the ray direction of every kept slot are gathered in the same pass. scatter_back writes
-// per-slot rows [K, C] back into a zero-filled [R*S, C].
-//
-// Bound on this card: bytes. The mask is read once per pass (1 byte per sample; it stays
-// in L2 between passes), and each kept sample costs a 12-byte read of its point and
-// 8 + 24 bytes of writes. Design: a
-// three-pass prefix sum, which needs no cross-block ordering: (1) each block of 256
-// threads counts the valid samples of its 4,096 consecutive step-major positions;
-// (2) one block scans the block counts and writes the total; (3) each block scans its
-// positions again, 256 at a time in order, and writes its slots. Consecutive threads read
-// consecutive rays of one step, so mask reads are strided by S bytes; the 8 MB mask of a
-// 16,384 x 512 chunk stays in L2. A decoupled look-back scan would fuse the passes.
+// the ray direction of every kept slot are gathered in the same pass; count is the
+// uncapped number of valid samples. scatter_back writes per-slot rows [K, C] back into a
+// zero-filled [R*S, C].
 //
 // K6a — the live cull of the segmented trace (wisp_tpu/tracers/packed_rf_tracer.py
 // _trace_segmented :338-343): with a per-ray carried optical depth acc_tau [R] and a cap
-// tau_cap = -log(eps), position p is valid iff mask[r*S+s] && acc_tau[r] < tau_cap, so the
-// samples of rays whose transmittance fell to eps or below are neither counted nor kept.
-// The order, the kept-slot contract and the returned count are those of K3. Bound: bytes,
-// K3's plus 4 bytes a ray of acc_tau; the cull is one more load (L1-resident: a block's
-// 4,096 positions span at most 4,096 / R + 1 steps of consecutive rays) and a compare.
+// tau_cap = -log(eps), sample (r, s) is valid iff mask[r*S+s] && acc_tau[r] < tau_cap
+// (float32), so the samples of rays whose transmittance fell to eps or below are neither
+// counted nor kept. The order, the kept-slot contract and the count are those of K3.
+//
+// Design of K3 / K6a (wisp_compact), two launches. The mask is row-major [R, S] while the
+// slots are step-major, so a block takes a tile of 256 rays x 32 steps: one ray a thread,
+// whose 32 step bytes are contiguous in its row and are read as 16-byte vectors (4-byte
+// words where the row or the pointer is not 16-byte aligned, bytes at an odd S), so every
+// sector of the mask that is fetched is used whole. Each thread folds its 32 bytes into one
+// 32-bit word (bit k: step s0 + k is valid; K6a reads acc_tau once a ray and clears the
+// word of a culled ray). The tile is transposed to step-major order in registers rather
+// than in shared memory: a warp's 32 ballots of those words are its 32 x 32 bit tile by
+// steps (ballot k: the warp's rays valid at step s0 + k, in ray order), lane k keeps
+// ballot k, and __popc of a ballot under a lane ranks that lane's sample in the step.
+//   1. count: each block stores its warps' ballots (one bit a sample: R*S/8 bytes of
+//      scratch on the main path's shapes), writes its per-step counts to counts[s * nR +
+//      jr] (nR ray tiles) and adds them to group_totals[s * nG + jr / 32] (atomics; a
+//      group is 32 ray tiles). The last block to finish (a counter taken with atomicAdd
+//      after a fence) scans the S * nG group totals in step-major order into the groups'
+//      first slots, writes the uncapped count, and sets the totals and the counter back to
+//      0. That scan is a few thousand ints at most on the main path (512 x 2 at a render
+//      chunk), so no launch of its own is needed.
+//   2. write: each block reads its warps' ballots (not the mask again), gets each step's
+//      first slot as its group's first slot plus the counts of the (at most 31) ray tiles
+//      before it in the group, one a lane, plus the warps before it in the block. Then 8
+//      steps at a time, each lane loads its ray's points of those steps together (they
+//      are contiguous in samples) and writes each valid one to its slot with the ray's
+//      direction and its index. No block-wide scan.
+//   On the card, writing each warp's samples in slot order (32 consecutive slots a store)
+//   or staging a block's runs of slots in shared memory made the write pass slower than
+//   these per-step stores (PERF.md, section 6, the compaction redesign).
+// Bound on this card: bytes. The mask once (1 byte a sample), acc_tau once (K6a), each
+// kept sample's 12-byte point read and 8 + 12 + 12 bytes written. The design adds the
+// ballots, written once and read once (1 bit a sample).
 //
 // K12 compaction — the SDF tracer's active-ray compaction (wisp_tpu/tracers/
 // packed_sdf_tracer.py:168-220, over wisp_tpu/ops/compaction.py masked_compact_indices on
-// an [R, 1] mask): K3's count, scan and write passes with S = 1, so the kept rays keep
-// their order. The payload of a kept slot is its ray's row: origin and direction (3
-// floats each), its walk depth t and its exit t_far. Unlike K3, every one of the B slots
-// is defined, as JAX defines them: a fourth pass fills the slots past the count with
-// index R and the payload of ray R-1 (JAX's jnp.minimum(idx, R - 1) gather), so the
-// sphere loop can run on all B slots with the empty ones masked dead. The mid-loop
-// re-compaction is the same entry point on the first pass's B slots. Bound on this card:
-// bytes: 1 byte of mask a ray read twice (L2-resident), 32 bytes read and 8 + 32 written
-// a slot.
+// an [R, 1] mask): the rays of an [R] mask in order into B slots. The payload of a kept
+// slot is its ray's row: origin and direction (3 floats each), its walk depth t and its
+// exit t_far. Unlike K3, every one of the B slots is defined, as JAX defines them: the
+// slots past the count hold index R and the payload of ray R-1 (JAX's jnp.minimum(idx,
+// R - 1) gather), so the sphere loop can run on all B slots with the empty ones masked
+// dead. The mid-loop re-compaction is the same entry point on the first pass's B slots.
+//
+// Design of K12 (wisp_compact_rays): one launch, a single-pass scan with decoupled
+// look-back. A block takes a ticket from an atomic counter, so the tiles before its own
+// are already running; tickets below the tile count are tiles of 1,024 rays (8 warps of
+// 4 ballots of 32 rays), the rest are fill blocks of 2,048 slots. A tile counts its rays
+// with ballots, publishes its aggregate, looks back over its predecessors' status words
+// (one warp, 32 at a time: aggregates are summed until an inclusive prefix is found),
+// publishes its inclusive prefix and writes its kept rays, ranked by __popc of the ballot
+// under each lane. The last tile writes the count. A fill block waits for the last tile's
+// inclusive prefix (the total) and writes JAX's fill into its slots at or past it.
+// Bound on this card: bytes: 1 byte of mask a ray, 32 bytes read and 8 + 32 written a kept
+// slot, 8 + 32 written a filled slot.
+//
+// State across calls. Nothing is cleared by a memset or an extra launch. The wrapper keeps
+// one set of words a stream, made zero once: K3's block counter and group totals are set
+// back to 0 by the last block of the count pass; K12's ticket counter is set back to 0 by
+// the block that takes the last ticket (every block has taken its ticket by then), and
+// each K12 status word carries the call's epoch (a number the wrapper raises every call,
+// never 0) in its upper 32 bits, so a word left by an earlier call never matches. Calls on
+// one stream run in order, and calls on two streams use two sets of words, so a call
+// reads no state of another. Positions, counts and prefixes are int32: R*S < 2^31.
 //
 // scatter_rows — the tracer's scatter-back of the compacted slots (`.at[idx].set(v,
 // mode="drop")` onto a given base, packed_sdf_tracer.py:207-217): out[idx[k]] = v[k] for
@@ -59,119 +97,233 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 16;
-constexpr int kTile = kThreads * kItems;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileRays = kThreads;            // K3: one ray a thread ...
+constexpr int kTileSteps = 32;                 // ... and one bit a step of a 32-bit word
+constexpr int kGroupTiles = 32;                // K3: ray tiles whose counts a step adds up
+constexpr int kBatch = 8;                      // K3: steps whose points a lane loads at once
+constexpr int kGroups = 4;                     // K12: ballots of 32 rays a warp
+constexpr int kRayTile = kThreads * kGroups;   // K12: rays a tile
+constexpr int kFillSlots = kThreads * 8;       // K12: slots a fill block
+constexpr unsigned long long kInclusive = 1ull << 31;   // status flag; else an aggregate
+constexpr unsigned long long kValueMask = kInclusive - 1;
 
-// acc_tau null: no cull (K3); else the sample's ray must have acc_tau < tau_cap (K6a)
-__device__ __forceinline__ int mask_at(const uint8_t* __restrict__ mask,
-                                       const float* __restrict__ acc_tau, float tau_cap,
-                                       long long p, int R, int S, long long P) {
-  if (p >= P) return 0;
-  const long long r = p % R;
-  const long long s = p / R;
-  return mask[r * S + s] != 0 && (acc_tau == nullptr || acc_tau[r] < tau_cap);
+// bit k set where byte k of w is not 0
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  return ((__vcmpne4(w, 0u) & 0x08040201u) * 0x01010101u) >> 24;
 }
 
-__global__ void count_kernel(const uint8_t* __restrict__ mask,
-                             const float* __restrict__ acc_tau, float tau_cap, int R, int S,
-                             int* __restrict__ block_counts) {
-  const long long P = (long long)R * S;
-  const long long base = (long long)blockIdx.x * kTile;
-  int c = 0;
+// Bit k: sample (r, s0 + k) is valid, for k < min(32, S - s0); 0 for a ray past R or one
+// that acc_tau culls. W is the width of the row's loads in bytes (16, 4 or 1), which the
+// launcher picks from S and the mask's alignment.
+template <int W>
+__device__ __forceinline__ uint32_t tile_bits(const uint8_t* __restrict__ mask,
+                                              const float* __restrict__ acc_tau,
+                                              float tau_cap, long long r, int R, int S,
+                                              int s0) {
+  if (r >= R || (acc_tau != nullptr && !(acc_tau[r] < tau_cap))) return 0u;
+  const uint8_t* row = mask + r * S + s0;
+  const int n = min(kTileSteps, S - s0);
+  uint32_t bits = 0u;
+  if (W == 16) {
 #pragma unroll
-  for (int k = 0; k < kItems; ++k)
-    c += mask_at(mask, acc_tau, tau_cap, base + k * kThreads + threadIdx.x, R, S, P);
+    for (int c = 0; c < kTileSteps / 16; ++c) {
+      if (16 * c < n) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(row) + c);
+        bits |= (nonzero_bytes(v.x) | (nonzero_bytes(v.y) << 4) | (nonzero_bytes(v.z) << 8)
+                 | (nonzero_bytes(v.w) << 12)) << (16 * c);
+      }
+    }
+  } else if (W == 4) {
+#pragma unroll
+    for (int c = 0; c < kTileSteps / 4; ++c)
+      if (4 * c < n)
+        bits |= nonzero_bytes(__ldg(reinterpret_cast<const uint32_t*>(row) + c)) << (4 * c);
+  } else {
+    for (int k = 0; k < n; ++k) bits |= (uint32_t)(row[k] != 0) << k;
+  }
+  return bits;
+}
+
+// Lane k of the warp receives the ballot of bit k: the lanes whose bit k is set.
+__device__ __forceinline__ uint32_t step_ballots(uint32_t bits, int lane) {
+  uint32_t mine = 0u;
+#pragma unroll
+  for (int k = 0; k < kTileSteps; ++k) {
+    const uint32_t b = __ballot_sync(wisp::kFullMask, (bits >> k) & 1u);
+    mine = lane == k ? b : mine;
+  }
+  return mine;
+}
+
+// Pass 1 of K3 / K6a. Block b takes step tile b % nS of ray tile b / nS.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+count_kernel(const uint8_t* __restrict__ mask, const float* __restrict__ acc_tau,
+             float tau_cap, int R, int S, int nR, int nS, int nG,
+             uint32_t* __restrict__ ballots, int* __restrict__ counts,
+             int* __restrict__ group_prefix, int* __restrict__ group_totals,
+             unsigned int* __restrict__ done, long long* __restrict__ count) {
+  __shared__ int warp_counts[kWarps][kTileSteps];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int js = blockIdx.x % nS, jr = blockIdx.x / nS;
+  const int s0 = js * kTileSteps;
+  const uint32_t bits = tile_bits<W>(mask, acc_tau, tau_cap,
+                                     (long long)jr * kTileRays + threadIdx.x, R, S, s0);
+  const uint32_t ballot = step_ballots(bits, lane);
+  ballots[(long long)blockIdx.x * kThreads + threadIdx.x] = ballot;
+  warp_counts[warp][lane] = __popc(ballot);
+  __syncthreads();
+  const int s = s0 + (int)threadIdx.x;
+  if (threadIdx.x < kTileSteps && s < S) {
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) c += warp_counts[w][threadIdx.x];
+    counts[(long long)s * nR + jr] = c;
+    if (c) atomicAdd(group_totals + (long long)s * nG + jr / kGroupTiles, c);
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block: every block's counts and group totals are in place. Scan the group
+  // totals in step-major order, each thread a run of them, and leave them 0.
+  __threadfence();
+  const int m = S * nG;
+  const int per = (m + kThreads - 1) / kThreads;
+  const int lo = min(m, per * (int)threadIdx.x), hi = min(m, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += __ldcg(group_totals + i);
   int total;
-  wisp::block_exclusive_scan(c, total);
-  if (threadIdx.x == 0) block_counts[blockIdx.x] = total;
-}
-
-__global__ void scan_kernel(const int* __restrict__ block_counts, int nb,
-                            int* __restrict__ block_offsets, long long* __restrict__ count) {
-  long long carry = 0;
-  for (int i0 = 0; i0 < nb; i0 += blockDim.x) {
-    const int i = i0 + threadIdx.x;
-    const int v = i < nb ? block_counts[i] : 0;
-    int total;
-    const int excl = wisp::block_exclusive_scan(v, total);
-    if (i < nb) block_offsets[i] = (int)(carry + excl);
-    carry += total;
+  int run = wisp::block_exclusive_scan(sum, total);
+  for (int i = lo; i < hi; ++i) {
+    const int v = __ldcg(group_totals + i);
+    group_prefix[i] = run;
+    run += v;
+    group_totals[i] = 0;
   }
-  if (threadIdx.x == 0) count[0] = carry;
+  if (threadIdx.x == 0) {
+    *count = total;
+    *done = 0u;
+  }
 }
 
-__global__ void write_kernel(const uint8_t* __restrict__ mask,
-                             const float* __restrict__ acc_tau, float tau_cap,
-                             const float* __restrict__ samples,
-                             const float* __restrict__ dirs, int R, int S, long long budget,
-                             const int* __restrict__ block_offsets,
-                             long long* __restrict__ idx, float* __restrict__ cflat,
-                             float* __restrict__ cray_d) {
-  const long long P = (long long)R * S;
-  const long long base = (long long)blockIdx.x * kTile;
-  long long slot0 = block_offsets[blockIdx.x];
-  for (int k = 0; k < kItems; ++k) {
-    const long long p = base + k * kThreads + threadIdx.x;
-    const int m = mask_at(mask, acc_tau, tau_cap, p, R, S, P);
-    int total;
-    const int excl = wisp::block_exclusive_scan(m, total);
-    const long long slot = slot0 + excl;
-    if (m && slot < budget) {
-      const long long r = p % R;
-      const long long q = r * S + p / R;
-      idx[slot] = q;
+// Pass 2 of K3 / K6a: the kept slots of the block's tile, from its ballots.
+__global__ void __launch_bounds__(kThreads)
+write_kernel(const float* __restrict__ samples, const float* __restrict__ dirs, int R, int S,
+             int nR, int nS, int nG, long long budget, const uint32_t* __restrict__ ballots,
+             const int* __restrict__ counts, const int* __restrict__ group_prefix,
+             long long* __restrict__ idx, float* __restrict__ cflat,
+             float* __restrict__ cray_d) {
+  __shared__ int warp_counts[kWarps][kTileSteps];
+  __shared__ int step_base[kTileSteps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int js = blockIdx.x % nS, jr = blockIdx.x / nS;
+  const int s0 = js * kTileSteps;
+  const long long r = (long long)jr * kTileRays + threadIdx.x;
+  // lane k: the ballot of step s0 + k, the warp's rays valid at that step
+  const uint32_t ballot = ballots[(long long)blockIdx.x * kThreads + threadIdx.x];
+  warp_counts[warp][lane] = __popc(ballot);
+  // each warp: the first slot of kTileSteps / kWarps of the tile's steps, the prefix of
+  // the step's group of ray tiles plus the counts of the tiles before this one in it
+  const int g0 = jr - jr % kGroupTiles;
+  for (int i = 0; i < kTileSteps / kWarps; ++i) {
+    const int k = warp * (kTileSteps / kWarps) + i;
+    const int s = s0 + k;
+    int before = s < S && g0 + lane < jr ? counts[(long long)s * nR + g0 + lane] : 0;
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        cflat[3 * slot + a] = samples[3 * q + a];
-        cray_d[3 * slot + a] = dirs[3 * r + a];
+    for (int o = 16; o > 0; o >>= 1) before += __shfl_xor_sync(wisp::kFullMask, before, o);
+    if (lane == 0)
+      step_base[k] = s < S ? group_prefix[(long long)s * nG + jr / kGroupTiles] + before : 0;
+  }
+  __syncthreads();
+  if (__any_sync(wisp::kFullMask, ballot != 0u) == 0) return;
+  // lane k: the slot of this warp's first valid sample at step s0 + k
+  int base = step_base[lane];
+  for (int w = 0; w < warp; ++w) base += warp_counts[w][lane];
+  const unsigned below = (1u << lane) - 1u;
+  float d[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) d[a] = r < R ? dirs[3 * r + a] : 0.0f;
+  // kBatch steps at a time: the lane's points of those steps are loaded together (they are
+  // contiguous in samples), then each step's ballot ranks them and they are written
+  for (int k0 = 0; k0 < kTileSteps; k0 += kBatch) {
+    uint32_t b[kBatch];
+    uint32_t any = 0u;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      b[i] = __shfl_sync(wisp::kFullMask, ballot, k0 + i);
+      any |= b[i];
+    }
+    if (any == 0u) continue;
+    const long long q0 = r * S + s0 + k0;
+    float p[kBatch][3];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        p[i][a] = (b[i] >> lane) & 1u ? samples[3 * (q0 + i) + a] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const long long slot =
+          (long long)__shfl_sync(wisp::kFullMask, base, k0 + i) + __popc(b[i] & below);
+      if (((b[i] >> lane) & 1u) && slot < budget) {
+        idx[slot] = q0 + i;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          cflat[3 * slot + a] = p[i][a];
+          cray_d[3 * slot + a] = d[a];
+        }
       }
     }
-    slot0 += total;
   }
 }
 
-// the write pass of K12 compaction: S = 1, a ray's row as payload
-__global__ void write_rays_kernel(const uint8_t* __restrict__ mask, int R, long long budget,
-                                  const int* __restrict__ block_offsets,
-                                  const float* __restrict__ origins,
-                                  const float* __restrict__ dirs, const float* __restrict__ t,
-                                  const float* __restrict__ t_far,
-                                  long long* __restrict__ idx, float* __restrict__ o_c,
-                                  float* __restrict__ d_c, float* __restrict__ t_c,
-                                  float* __restrict__ tf_c) {
-  const long long base = (long long)blockIdx.x * kTile;
-  long long slot0 = block_offsets[blockIdx.x];
-  for (int k = 0; k < kItems; ++k) {
-    const long long r = base + k * kThreads + threadIdx.x;
-    const int m = mask_at(mask, nullptr, 0.0f, r, R, 1, R);
-    int total;
-    const int excl = wisp::block_exclusive_scan(m, total);
-    const long long slot = slot0 + excl;
-    if (m && slot < budget) {
-      idx[slot] = r;
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// One warp: the exclusive prefix of tile `tile` > 0 from its predecessors' status words.
+__device__ int look_back(const unsigned long long* status, int tile, unsigned int epoch,
+                         int lane) {
+  int prefix = 0;
+  for (int end = tile;; end -= 32) {
+    const int pred = end - 1 - lane;     // lane 0: the nearest predecessor
+    unsigned long long w;
+    bool ready;
+    do {
+      // a lane before tile 0 reads as an inclusive prefix of 0; tile 0 is inclusive, so
+      // such a lane lies past the first inclusive one and adds nothing
+      w = pred >= 0 ? load_status(status + pred)
+                    : ((unsigned long long)epoch << 32 | kInclusive);
+      ready = (unsigned int)(w >> 32) == epoch;
+    } while (!__all_sync(wisp::kFullMask, ready));
+    const unsigned inclusive = __ballot_sync(wisp::kFullMask, (w & kInclusive) != 0);
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    int v = lane <= stop ? (int)(w & kValueMask) : 0;
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        o_c[3 * slot + a] = origins[3 * r + a];
-        d_c[3 * slot + a] = dirs[3 * r + a];
-      }
-      t_c[slot] = t[r];
-      tf_c[slot] = t_far[r];
-    }
-    slot0 += total;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(wisp::kFullMask, v, o);
+    prefix += v;
+    if (inclusive) return prefix;
   }
 }
 
-// slots past the count: index R and ray R-1's row (JAX's fill and clipped gather)
-__global__ void fill_rays_kernel(int R, long long budget, const long long* __restrict__ count,
-                                 const float* __restrict__ origins,
-                                 const float* __restrict__ dirs, const float* __restrict__ t,
-                                 const float* __restrict__ t_far, long long* __restrict__ idx,
-                                 float* __restrict__ o_c, float* __restrict__ d_c,
-                                 float* __restrict__ t_c, float* __restrict__ tf_c) {
-  const long long slot = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= budget || slot < count[0]) return;
-  const long long r = R - 1;
-  idx[slot] = R;
+__device__ __forceinline__ void copy_ray(long long slot, long long r,
+                                         const float* __restrict__ origins,
+                                         const float* __restrict__ dirs,
+                                         const float* __restrict__ t,
+                                         const float* __restrict__ t_far,
+                                         float* __restrict__ o_c, float* __restrict__ d_c,
+                                         float* __restrict__ t_c, float* __restrict__ tf_c) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     o_c[3 * slot + a] = origins[3 * r + a];
@@ -179,6 +331,98 @@ __global__ void fill_rays_kernel(int R, long long budget, const long long* __res
   }
   t_c[slot] = t[r];
   tf_c[slot] = t_far[r];
+}
+
+// K12 compaction: n_tiles tiles of kRayTile rays, then fill blocks of kFillSlots slots.
+__global__ void __launch_bounds__(kThreads)
+compact_rays_kernel(const uint8_t* __restrict__ mask, int R, long long budget, int n_tiles,
+                    const float* __restrict__ origins, const float* __restrict__ dirs,
+                    const float* __restrict__ t, const float* __restrict__ t_far,
+                    unsigned long long* __restrict__ status, unsigned int* __restrict__ ticket,
+                    unsigned int epoch, long long* __restrict__ count,
+                    long long* __restrict__ idx, float* __restrict__ o_c,
+                    float* __restrict__ d_c, float* __restrict__ t_c,
+                    float* __restrict__ tf_c) {
+  __shared__ int s_ticket, s_prefix;
+  __shared__ int warp_prefix[kWarps];
+  const unsigned long long tag = (unsigned long long)epoch << 32;
+  if (threadIdx.x == 0) {
+    const unsigned int tk = atomicAdd(ticket, 1u);
+    if (tk == gridDim.x - 1) atomicExch(ticket, 0u);   // every block has its ticket
+    s_ticket = (int)tk;
+  }
+  __syncthreads();
+  const int tile = s_ticket;
+  if (tile >= n_tiles) {                 // a fill block: JAX's fill at or past the count
+    if (threadIdx.x == 0) {
+      unsigned long long w;
+      while (true) {
+        w = load_status(status + n_tiles - 1);
+        if ((unsigned int)(w >> 32) == epoch && (w & kInclusive)) break;
+        __nanosleep(100);
+      }
+      s_prefix = (int)(w & kValueMask);
+    }
+    __syncthreads();
+    const long long lo = (long long)(tile - n_tiles) * kFillSlots;
+    const long long hi = min(budget, lo + kFillSlots);
+    for (long long slot = max(lo, (long long)s_prefix) + threadIdx.x; slot < hi;
+         slot += kThreads) {
+      idx[slot] = R;
+      copy_ray(slot, R - 1, origins, dirs, t, t_far, o_c, d_c, t_c, tf_c);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r0 = (long long)tile * kRayTile + warp * (32 * kGroups) + lane;
+  unsigned ballots[kGroups];
+  int mine = 0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const long long r = r0 + 32 * g;
+    ballots[g] = __ballot_sync(wisp::kFullMask, r < R && mask[r] != 0);
+    mine += __popc(ballots[g]);
+  }
+  if (lane == 0) warp_prefix[warp] = mine;
+  __syncthreads();
+  if (warp == 0) {
+    const int v = lane < kWarps ? warp_prefix[lane] : 0;
+    int x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(wisp::kFullMask, x, o);
+      if (lane >= o) x += y;
+    }
+    const int aggregate = __shfl_sync(wisp::kFullMask, x, kWarps - 1);
+    if (lane < kWarps) warp_prefix[lane] = x - v;
+    int prefix = 0;
+    if (tile == 0) {
+      if (lane == 0) store_status(status, tag | kInclusive | (unsigned long long)aggregate);
+    } else {
+      if (lane == 0) store_status(status + tile, tag | (unsigned long long)aggregate);
+      prefix = look_back(status, tile, epoch, lane);
+      if (lane == 0)
+        store_status(status + tile, tag | kInclusive | (unsigned long long)(prefix + aggregate));
+    }
+    if (lane == 0) {
+      s_prefix = prefix;
+      if (tile == n_tiles - 1) *count = (long long)prefix + aggregate;
+    }
+  }
+  __syncthreads();
+  long long slot0 = (long long)s_prefix + warp_prefix[warp];
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const unsigned b = ballots[g];
+    const long long slot = slot0 + __popc(b & below);
+    if (((b >> lane) & 1u) && slot < budget) {
+      const long long r = r0 + 32 * g;
+      idx[slot] = r;
+      copy_ray(slot, r, origins, dirs, t, t_far, o_c, d_c, t_c, tf_c);
+    }
+    slot0 += __popc(b);
+  }
 }
 
 template <typename T>
@@ -209,28 +453,55 @@ __global__ void gather_kernel(const float* __restrict__ grad_out,
   grad_v[t] = q < P ? grad_out[q * C + c] : 0.0f;
 }
 
+template <int W>
+cudaError_t launch_compact(const uint8_t* mask, const float* acc_tau, float tau_cap,
+                           const float* samples, const float* dirs, int R, int S,
+                           long long budget, int* scratch, int* group_totals,
+                           unsigned int* done, long long* count, long long* idx, float* cflat,
+                           float* cray_d, cudaStream_t st) {
+  const int nR = wisp::ceil_div(R, kTileRays);
+  const int nS = wisp::ceil_div(S, kTileSteps);
+  const int nG = wisp::ceil_div(nR, kGroupTiles);
+  const long long nb = (long long)nR * nS;
+  uint32_t* ballots = reinterpret_cast<uint32_t*>(scratch);
+  int* counts = scratch + nb * kThreads;
+  int* group_prefix = counts + (long long)S * nR;
+  count_kernel<W><<<(unsigned)nb, kThreads, 0, st>>>(mask, acc_tau, tau_cap, R, S, nR, nS, nG,
+                                                     ballots, counts, group_prefix,
+                                                     group_totals, done, count);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || budget == 0) return err;
+  write_kernel<<<(unsigned)nb, kThreads, 0, st>>>(samples, dirs, R, S, nR, nS, nG, budget,
+                                                  ballots, counts, group_prefix, idx, cflat,
+                                                  cray_d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// block_counts / block_offsets: int32 scratch of ceil(R*S / 4096) entries; count: one
-// int64, the number of valid samples (not capped by the budget). acc_tau [R] may be null
-// (K3); else only the samples of rays with acc_tau < tau_cap are valid (K6a).
+// K3 / K6a. With nR = ceil(R / 256), nS = ceil(S / 32) and nG = ceil(nR / 32): scratch:
+// 32-bit words, 256 * nR * nS of ballots then S * (nR + nG) of counts and prefixes;
+// group_totals: int32 [>= S * nG] and done: one uint32, both the stream's and 0 between
+// calls (the kernel leaves them so); count: one int64, the number of valid samples (not
+// capped by the budget). acc_tau [R] may be null (K3); else only the
+// samples of rays with acc_tau < tau_cap are valid (K6a).
 WISP_EXPORT int wisp_compact(const uint8_t* mask, const float* acc_tau, float tau_cap,
-                             const float* samples, const float* dirs,
-                             int R, int S, long long budget, int* block_counts,
-                             int* block_offsets, long long* count, long long* idx,
+                             const float* samples, const float* dirs, int R, int S,
+                             long long budget, int* scratch, int* group_totals,
+                             unsigned int* done, long long* count, long long* idx,
                              float* cflat, float* cray_d, void* stream) {
+  if (R < 1 || S < 1 || (long long)R * S >= (1LL << 31) || budget < 0)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t a = (uintptr_t)mask;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nb = wisp::ceil_div((long long)R * S, kTile);
-  if (nb == 0) return (int)cudaErrorInvalidValue;
-  count_kernel<<<nb, kThreads, 0, st>>>(mask, acc_tau, tau_cap, R, S, block_counts);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_kernel<<<1, 1024, 0, st>>>(block_counts, nb, block_offsets, count);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  write_kernel<<<nb, kThreads, 0, st>>>(mask, acc_tau, tau_cap, samples, dirs, R, S,
-                                        budget, block_offsets, idx, cflat, cray_d);
-  return (int)cudaGetLastError();
+  if (S % 16 == 0 && a % 16 == 0)
+    return (int)launch_compact<16>(mask, acc_tau, tau_cap, samples, dirs, R, S, budget,
+                                   scratch, group_totals, done, count, idx, cflat, cray_d, st);
+  if (S % 4 == 0 && a % 4 == 0)
+    return (int)launch_compact<4>(mask, acc_tau, tau_cap, samples, dirs, R, S, budget,
+                                  scratch, group_totals, done, count, idx, cflat, cray_d, st);
+  return (int)launch_compact<1>(mask, acc_tau, tau_cap, samples, dirs, R, S, budget, scratch,
+                                group_totals, done, count, idx, cflat, cray_d, st);
 }
 
 WISP_EXPORT int wisp_scatter_back(const float* v, const long long* idx, long long K, int C,
@@ -261,30 +532,23 @@ WISP_EXPORT int wisp_scatter_back_bwd(const float* grad_out, const long long* id
   return (int)cudaGetLastError();
 }
 
-// K12 compaction. mask [R] (bytes); origins, dirs [R, 3], t, t_far [R]; block_counts /
-// block_offsets: int32 scratch of ceil(R / 4096) entries; count: one int64, the number of
-// set mask entries (not capped by the budget); idx [B] int64, o_c, d_c [B, 3], t_c,
-// tf_c [B]: every slot written.
+// K12 compaction. mask [R] (bytes); origins, dirs [R, 3], t, t_far [R]; status: uint64
+// [>= ceil(R / 1024)] and ticket: one uint32 (0 between calls), both the stream's; epoch:
+// this call's, not 0 and not that of the stream's previous call; count: one int64, the
+// number of set mask entries (not capped by the budget); idx [B] int64, o_c, d_c [B, 3],
+// t_c, tf_c [B]: every slot written.
 WISP_EXPORT int wisp_compact_rays(const uint8_t* mask, int R, long long budget,
                                   const float* origins, const float* dirs, const float* t,
-                                  const float* t_far, int* block_counts, int* block_offsets,
-                                  long long* count, long long* idx, float* o_c, float* d_c,
-                                  float* t_c, float* tf_c, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nb = wisp::ceil_div(R, kTile);
-  if (nb == 0 || budget < 1) return (int)cudaErrorInvalidValue;
-  count_kernel<<<nb, kThreads, 0, st>>>(mask, nullptr, 0.0f, R, 1, block_counts);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_kernel<<<1, 1024, 0, st>>>(block_counts, nb, block_offsets, count);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  write_rays_kernel<<<nb, kThreads, 0, st>>>(mask, R, budget, block_offsets, origins, dirs,
-                                             t, t_far, idx, o_c, d_c, t_c, tf_c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fill_rays_kernel<<<wisp::ceil_div(budget, 256), 256, 0, st>>>(
-      R, budget, count, origins, dirs, t, t_far, idx, o_c, d_c, t_c, tf_c);
+                                  const float* t_far, unsigned long long* status,
+                                  unsigned int* ticket, unsigned int epoch, long long* count,
+                                  long long* idx, float* o_c, float* d_c, float* t_c,
+                                  float* tf_c, void* stream) {
+  if (R < 1 || budget < 1 || epoch == 0u) return (int)cudaErrorInvalidValue;
+  const int n_tiles = wisp::ceil_div(R, kRayTile);
+  const long long blocks = n_tiles + (long long)wisp::ceil_div(budget, kFillSlots);
+  compact_rays_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      mask, R, budget, n_tiles, origins, dirs, t, t_far, status, ticket, epoch, count, idx,
+      o_c, d_c, t_c, tf_c);
   return (int)cudaGetLastError();
 }
 

@@ -59,9 +59,9 @@ _SIGNATURES = {
     # early_stop samples depths mask dens num_overflow stream
     "wisp_raymarch_voxel": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _I, _F, _P,
                             _P, _P, _P, _P, _P],
-    # mask acc_tau tau_cap samples dirs R S budget block_counts block_offsets count idx cflat
+    # mask acc_tau tau_cap samples dirs R S budget scratch group_totals done count idx cflat
     # cray_d stream
-    "wisp_compact": [_P, _P, _F, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P],
+    "wisp_compact": [_P, _P, _F, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P],
     # v idx K C P out stream
     "wisp_scatter_back": [_P, _P, _L, _I, _L, _P, _P],
     # grad_out idx K C P grad_v stream
@@ -92,9 +92,10 @@ _SIGNATURES = {
     "wisp_scatter_max": [_P, _P, _L, _L, _P, _P],
     # coords N level routes tables lens (host arrays) with_parents out stream
     "wisp_octree_query": [_P, _L, _I, _P, _P, _P, _I, _P, _P],
-    # mask R budget origins dirs t t_far block_counts block_offsets count idx o_c d_c t_c
-    # tf_c stream
-    "wisp_compact_rays": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # mask R budget origins dirs t t_far status ticket epoch count idx o_c d_c t_c tf_c
+    # stream
+    "wisp_compact_rays": [_P, _I, _L, _P, _P, _P, _P, _P, _P, ctypes.c_uint32, _P, _P, _P,
+                          _P, _P, _P, _P],
     # v idx K row_bytes P out stream
     "wisp_scatter_rows": [_P, _P, _L, _I, _L, _P, _P],
     # occ level cap scratch dist stream

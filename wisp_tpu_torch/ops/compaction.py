@@ -15,23 +15,75 @@ Given a per-ray carried optical depth ``acc_tau`` and ``tau_cap``, ``compact`` a
 where its ray's ``acc_tau < tau_cap``, compared in float32 as JAX compares it.
 
 ``compact_rays`` and ``scatter_rows`` are K12's compaction, the SDF tracer's (packed_sdf_
-tracer.py:168-220): the same passes over an [R] mask of rays, whose payload is each kept
-ray's origin, direction, depth and exit; every slot is defined (JAX's fill: index R and ray
+tracer.py:168-220): the rays of an [R] mask in order, whose payload is each kept ray's
+origin, direction, depth and exit; every slot is defined (JAX's fill: index R and ray
 R-1's row), and ``scatter_rows`` writes the slots' rows back onto a given tensor, as JAX's
 ``.at[idx].set(v, mode="drop")``. Their launches count apart from K3's (``compact_rays``,
 ``scatter_rays``, and ``*_mid`` for the tracer's mid-loop pass).
+
+``compact`` (two launches) and ``compact_rays`` (one) keep a few words on the device across
+calls, one set a stream (``_StreamState``), so that no call clears state with a launch of
+its own.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
 
 from wisp_tpu_torch import kernels
 
-_TILE = 4096  # step-major positions per block of the compaction kernel
+# the kernels' tiles (csrc/compaction.cu): K3 takes 256 rays x 32 steps a block and sums a
+# step's counts by groups of 32 ray tiles; K12 takes 1,024 rays a tile
+_RAY_TILE = 256
+_STEP_TILE = 32
+_GROUP_TILES = 32
+_RAYS_TILE = 1024
+
+
+class _StreamState:
+    """The words the compaction kernels keep across calls on one stream, made zero once and
+    grown (zero again) when a call needs more: ``words`` holds K3's block counter (word 0),
+    K12's ticket counter (word 1) and K12's tile status words (from word 2); ``totals`` K3's
+    group totals. The kernels leave the counters and totals at 0; K12 tags each status
+    word with its call's ``epoch``, which every call raises (never 0 as a uint32)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.words = torch.zeros((2 + 64,), dtype=torch.int64, device=device)
+        self.totals = torch.zeros((1024,), dtype=torch.int32, device=device)
+        self.epoch = 0
+
+    def need(self, tiles: int = 0, totals: int = 0) -> "_StreamState":
+        if 2 + tiles > self.words.numel():
+            self.words = torch.zeros((2 + 2 * tiles,), dtype=torch.int64, device=self.device)
+        if totals > self.totals.numel():
+            self.totals = torch.zeros((2 * totals,), dtype=torch.int32, device=self.device)
+        return self
+
+    def next_epoch(self) -> int:
+        self.epoch = self.epoch % 0xFFFFFFFF + 1
+        return self.epoch
+
+
+_STATES = {}
+# held from reading a stream's state to the launch that uses it, so that two threads never
+# draw one epoch, nor grow the words while another thread's launch is about to use them
+_STATE_LOCK = threading.Lock()
+
+
+def _stream_state() -> _StreamState:
+    """The current stream's state (the stream ``kernels.launch`` launches on); the caller
+    holds ``_STATE_LOCK``."""
+    index = torch._C._cuda_getDevice()
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    state = _STATES.get(key)
+    if state is None:
+        state = _STATES[key] = _StreamState(torch.device("cuda", index))
+    return state
 
 
 def compaction_budget(num_rays: int, num_steps: int, compaction: float) -> int:
@@ -90,18 +142,25 @@ def compact(mask: torch.Tensor, samples: torch.Tensor, dirs: torch.Tensor,
         raise ValueError(f"compact: need 0 < R*S < 2^31 and 0 <= budget <= R*S, got "
                          f"R={r} S={s} budget={budget}")
     dev = mask.device
-    nb = -(-r * s // _TILE)
-    scratch = torch.empty((2 * nb,), dtype=torch.int32, device=dev)
+    n_tiles = -(-r // _RAY_TILE)
+    n_groups = -(-n_tiles // _GROUP_TILES)
+    # each tile's step ballots, then the counts of each (step, ray tile) and each step's
+    # group prefixes
+    n_ballots = _RAY_TILE * n_tiles * -(-s // _STEP_TILE)
+    scratch = torch.empty((n_ballots + s * (n_tiles + n_groups),), dtype=torch.int32,
+                          device=dev)
     count = torch.empty((), dtype=torch.int64, device=dev)
     idx = torch.empty((budget,), dtype=torch.int64, device=dev)
     cflat = torch.empty((budget, 3), dtype=torch.float32, device=dev)
     cray_d = torch.empty((budget, 3), dtype=torch.float32, device=dev)
-    kernels.launch("wisp_compact", "compact" if acc_tau is None else "compact_live",
-                   mask.data_ptr(), kernels.ptr(acc_tau),
-                   0.0 if tau_cap is None else float(tau_cap), samples.data_ptr(),
-                   dirs.data_ptr(), r, s, budget, scratch.data_ptr(),
-                   scratch[nb:].data_ptr(), count.data_ptr(), idx.data_ptr(),
-                   cflat.data_ptr(), cray_d.data_ptr())
+    with _STATE_LOCK:
+        state = _stream_state().need(totals=s * n_groups)
+        kernels.launch("wisp_compact", "compact" if acc_tau is None else "compact_live",
+                       mask.data_ptr(), kernels.ptr(acc_tau),
+                       0.0 if tau_cap is None else float(tau_cap), samples.data_ptr(),
+                       dirs.data_ptr(), r, s, budget, scratch.data_ptr(),
+                       state.totals.data_ptr(), state.words.data_ptr(), count.data_ptr(),
+                       idx.data_ptr(), cflat.data_ptr(), cray_d.data_ptr())
     return idx, cflat, cray_d, count
 
 
@@ -208,19 +267,20 @@ def compact_rays(mask: torch.Tensor, budget: int, origins: torch.Tensor, dirs: t
         raise ValueError(f"compact_rays: need 0 < R < 2^31 and budget >= 1, got R={r} "
                          f"budget={budget}")
     dev = mask.device
-    nb = -(-r // _TILE)
-    scratch = torch.empty((2 * nb,), dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int64, device=dev)
     idx = torch.empty((budget,), dtype=torch.int64, device=dev)
     o_c = torch.empty((budget, 3), dtype=torch.float32, device=dev)
     d_c = torch.empty((budget, 3), dtype=torch.float32, device=dev)
     t_c = torch.empty((budget,), dtype=torch.float32, device=dev)
     tf_c = torch.empty((budget,), dtype=torch.float32, device=dev)
-    kernels.launch("wisp_compact_rays", "compact_rays_mid" if mid else "compact_rays",
-                   mask.data_ptr(), r, budget, origins.data_ptr(), dirs.data_ptr(),
-                   t.data_ptr(), t_far.data_ptr(), scratch.data_ptr(),
-                   scratch[nb:].data_ptr(), count.data_ptr(), idx.data_ptr(), o_c.data_ptr(),
-                   d_c.data_ptr(), t_c.data_ptr(), tf_c.data_ptr())
+    with _STATE_LOCK:
+        state = _stream_state().need(tiles=-(-r // _RAYS_TILE))
+        kernels.launch("wisp_compact_rays", "compact_rays_mid" if mid else "compact_rays",
+                       mask.data_ptr(), r, budget, origins.data_ptr(), dirs.data_ptr(),
+                       t.data_ptr(), t_far.data_ptr(), state.words.data_ptr() + 16,
+                       state.words.data_ptr() + 8, state.next_epoch(), count.data_ptr(),
+                       idx.data_ptr(), o_c.data_ptr(), d_c.data_ptr(), t_c.data_ptr(),
+                       tf_c.data_ptr())
     return idx, o_c, d_c, t_c, tf_c, count
 
 
