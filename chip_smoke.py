@@ -24,7 +24,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    device launches a call (``launches_per_call``, counted by torch.profiler) and
    ``was_ms``, the time of the earlier three-pass design
    (``wisp_tpu_torch/csrc/baselines/compaction_threepass.cu``, built by this script beside
-   the kernel library) on the same inputs, held exactly to the plain version first;
+   the kernel library) on the same inputs, held exactly to the plain version first; the
+   K1 forward row likewise, beside the earlier K1 design
+   (``wisp_tpu_torch/csrc/baselines/hashgrid_v1.cu``, also built beside the library);
 6. training path: builds the flagship-width trainer (the same config, AMP, AdamW with the
    scheduler, adaptive rays and compaction, sample-fed pruning) on a ``make_dense`` level-7
    octree and a 4-view 512x512 lego-proxy dataset (the config has 100 views: a cut of
@@ -33,7 +35,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    requires finite losses that fall from steps 1-5 to steps 16-20;
 7. profiles step 20 and, after the counts are read, holds each training kernel (K1, K3
    and K4 backward, K5, and the jittered march) against its plain version at the shapes
-   of step 25 and times it;
+   of step 25 and times it (K1 backward beside the earlier K1 design, with its bound
+   counting the whole table gradient it writes); the prune's and step 25's K1 calls are
+   recorded for the "hashgrid" step;
 8. SDF path: builds the NGLOD pipeline of app/nglod/configs/nglod_octree.yaml at full
    width on main_nglod.py's procedural icosphere (octree level 7; OctreeGrid 16 features
    x 6 LODs, 'sum'; NeuralSDF hidden 128; PackedSDFTracer 32 steps, step 0.8) with the
@@ -75,7 +79,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    and cotangents with injected uniforms (flips allowed only at ties within 4 ulps, and
    under 1e-4 of the draws), its own sin hash to uniformity (mean, Kolmogorov-Smirnov) and
    the mean of 256 draws to the exact backward (in units of the Monte-Carlo error); times
-   it beside the exact backward and the plain version; saves the pipeline ('full') and
+   it beside the exact backward, the plain version and the earlier K1 design (held by the
+   same parity check); saves the pipeline ('full') and
    reloads it (one chunk rendered equal), saves the train state, resumes a second trainer
    from it and runs 5 steps of each (the losses within 1e-4 relative, the codebook within
    1e-5 of its largest entry), and renders one snapshot through the tracker's visualizer;
@@ -136,7 +141,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    stoch and uniform paths', a seg segment with its carry, an SDF chunk and its mid pass),
    times each beside the three-pass design, then runs them all again back to back on one
    stream with no synchronisation between the calls and holds every result once more;
-17. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+17. hash-grid step ("hashgrid"): holds K1 forward, exact and stochastic backward, and the
+   earlier K1 design, to their plain versions on the K1 calls the phases recorded (a render
+   chunk, train step 25 and the prune's 2,097,152 cells, the stoch step with injected
+   uniforms, the seg step, the uniform chunk): the forward within 1e-5, the backward within
+   1e-5 of the largest entry, the stochastic backward by ``stoch_parity`` (no flip outside
+   tie rows, counts exact); times each beside the earlier design, then makes 200 calls
+   back to back on one stream and holds each shape's last result to its first;
+18. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels, from the SDF training run for its two, from the octree NeRF's 25
    steps for K7, from the stoch path's 25 steps for K1's stochastic backward, from the
@@ -146,8 +158,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    for K10, from the uniform path's steps and frame for K8 and from its one query for
    K14), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
    ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
-   ``uniform_path`` JSON lines, the ``compaction_shapes`` line, the nvidia-smi line and,
-   last,
+   ``uniform_path`` JSON lines, the ``compaction_shapes`` and ``hashgrid_shapes`` lines,
+   the ``phase_s`` line, the nvidia-smi line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -311,20 +323,35 @@ def launches_per_call(fn, iters: int = 10) -> Optional[int]:
     return best
 
 
-# -- the earlier three-pass compaction, the yardstick of the compaction rows' "was_ms" -------
+# -- the earlier designs, the yardsticks of the redesigned rows' "was_ms" --------------------
 THREEPASS_SRC = "wisp_tpu_torch/csrc/baselines/compaction_threepass.cu"
 THREEPASS = None               # a ThreePass once built (run())
+THREEPASS_DESIGN = "csrc/baselines/compaction_threepass.cu (three-pass; K12 four)"
+HASHGRID_V1_SRC = "wisp_tpu_torch/csrc/baselines/hashgrid_v1.cu"
+HASHGRID_V1 = None             # a HashGridV1 once built (run())
+HASHGRID_V1_DESIGN = ("csrc/baselines/hashgrid_v1.cu (a thread a (sample, LOD); scalar "
+                      "atomics)")
 
 
-def start_threepass_build():
-    """Start nvcc on the three-pass compaction (built beside, not into, the kernel library)."""
+def start_baseline_build(src: str, lib: str):
+    """Start nvcc on an earlier design's source (built beside, not into, the kernel
+    library); (library path, process)."""
     from wisp_tpu_torch import kernels
-    out = kernels.BUILD_ROOT / "baselines" / "libwisp_threepass.so"
+    out = kernels.BUILD_ROOT / "baselines" / lib
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC),
-           THREEPASS_SRC, "-o", str(out)]
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC), src, "-o",
+           str(out)]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                  text=True)
+
+
+def finish_baseline_build(started, src: str):
+    """The loaded library of ``start_baseline_build``, once nvcc is done."""
+    import ctypes
+    out, proc = started
+    log, _ = proc.communicate()
+    require(proc.returncode == 0, f"nvcc failed for {src}:\n{log}")
+    return ctypes.CDLL(str(out))
 
 
 class ThreePass:
@@ -334,11 +361,8 @@ class ThreePass:
 
     def __init__(self, started):
         import ctypes
-        out, proc = started
-        log, _ = proc.communicate()
-        require(proc.returncode == 0, f"nvcc failed for {THREEPASS_SRC}:\n{log}")
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        self.lib = ctypes.CDLL(str(out))
+        self.lib = finish_baseline_build(started, THREEPASS_SRC)
         self.lib.wisp_compact_threepass.argtypes = [P, P, F, P, P, I, I, L, P, P, P, P, P, P,
                                                     P]
         self.lib.wisp_compact_rays_threepass.argtypes = [P, I, L, P, P, P, P, P, P, P, P, P,
@@ -385,6 +409,75 @@ class ThreePass:
         return idx, o_c, d_c, t_c, tf_c, count
 
 
+class HashGridV1:
+    """The earlier design of K1 forward and backward, exact and stochastic (one thread a
+    (sample, LOD), scalar atomics), called on the current stream with a wrapper's geometry
+    (``grid._lod_args``); its launches are not the port's and are not counted."""
+
+    def __init__(self, started):
+        import ctypes
+        P, I, L, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
+        self.lib = finish_baseline_build(started, HASHGRID_V1_SRC)
+        self.lib.wisp_hashgrid_v1_fwd.argtypes = [P, P, L, I, I, I, I, P, P, P, P, P, U, P, P]
+        self.lib.wisp_hashgrid_v1_bwd.argtypes = [P, P, P, P, L, I, I, I, I, P, P, P, P, P, P,
+                                                  U, P, P]
+
+    def fwd(self, coords, table, geometry):
+        import torch
+        dim, f_dim, n_lods, out_lods, codebook_size, arrays = geometry
+        n = coords.shape[0]
+        out = torch.empty((n, out_lods * f_dim), dtype=torch.float32, device=coords.device)
+        if n:
+            status = self.lib.wisp_hashgrid_v1_fwd(
+                coords.data_ptr(), table.data_ptr(), n, dim, f_dim, n_lods, out_lods,
+                *(a.ctypes.data for a in arrays), codebook_size, out.data_ptr(),
+                ThreePass._stream())
+            require(status == 0, f"wisp_hashgrid_v1_fwd failed to launch ({status})")
+        return out
+
+    def bwd(self, coords, grad_out, geometry, table_rows, stoch_mask=None, u0=None):
+        import numpy as np
+        import torch
+        dim, f_dim, n_lods, out_lods, codebook_size, arrays = geometry
+        n = coords.shape[0]
+        grad = torch.zeros((table_rows, f_dim), dtype=torch.float32, device=coords.device)
+        flags = None if stoch_mask is None else \
+            np.asarray([int(bool(stoch_mask[i])) for i in range(n_lods)], np.int32)
+        if n:
+            status = self.lib.wisp_hashgrid_v1_bwd(
+                coords.data_ptr(), grad_out.data_ptr(), None if u0 is None else u0.data_ptr(),
+                None, n, dim, f_dim, n_lods, out_lods, *(a.ctypes.data for a in arrays),
+                None if flags is None else flags.ctypes.data, codebook_size, grad.data_ptr(),
+                ThreePass._stream())
+            require(status == 0, f"wisp_hashgrid_v1_bwd failed to launch ({status})")
+        return grad
+
+    def hashgrid(self, coords, resolutions, bitwidth, lod_idx, table, first, sizes,
+                 out_lods=None):
+        """``grid.hashgrid``'s forward with this design."""
+        return self.fwd(coords, table, k1_geometry(coords, table, (
+            resolutions, bitwidth, lod_idx, None, first, sizes), out_lods))
+
+    def hashgrid_bwd(self, coords, grad_out, resolutions, bitwidth, lod_idx, table_rows, first,
+                     sizes, out_lods=None, stoch_mask=None, u0=None):
+        """``grid.hashgrid_bwd`` with this design."""
+        import torch
+        f_dim = grad_out.shape[1] // (out_lods if out_lods is not None else lod_idx + 1)
+        rows = torch.empty((table_rows, f_dim), dtype=torch.float32, device=coords.device)
+        geometry = k1_geometry(coords, rows, (resolutions, bitwidth, lod_idx, table_rows, first,
+                                              sizes), out_lods)
+        return self.bwd(coords, grad_out, geometry, table_rows, stoch_mask, u0)
+
+
+def k1_geometry(coords, table, args, out_lods):
+    """The K1 wrappers' geometry (``grid._lod_args``) of a call with ``args`` = (resolutions,
+    bitwidth, lod_idx, table or its rows, first, sizes); ``table`` is any [rows, F] tensor
+    of the table's shape."""
+    from wisp_tpu_torch.ops import grid as grid_ops
+    return grid_ops._lod_args(coords, table, args[0], args[1], args[2], args[4], args[5],
+                              out_lods)
+
+
 def compact_equal(got, want, budget) -> bool:
     """``compact``'s contract: the same count and the same first min(count, budget) slots."""
     import torch
@@ -399,17 +492,18 @@ def rays_equal(got, want) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def add_launches_and_was(row, fn, was_fn, check_was):
+def add_launches_and_was(row, fn, was_fn, check_was, design=THREEPASS_DESIGN):
     """The row's launches a call (``fn``'s, and the earlier design's) and ``was_ms``, the
-    earlier three-pass design's time on the same inputs, held exact first."""
+    earlier ``design``'s time on the same inputs, held to the plain version first
+    (``check_was``). ``was_fn`` is None where that design was not built."""
     row["launches_per_call"] = launches_per_call(fn)
-    if THREEPASS is None:
+    if was_fn is None:
         return row
-    require(check_was(), f"{row['name']}: the three-pass design differs from the plain version")
+    require(check_was(), f"{row['name']}: the earlier design ({design}) differs from the "
+                         f"plain version")
     was = timed(was_fn)
     row.update(was_ms=was[0], was_event_ms=was[1],
-               was_launches_per_call=launches_per_call(was_fn),
-               was_design="csrc/baselines/compaction_threepass.cu (three-pass; K12 four)")
+               was_launches_per_call=launches_per_call(was_fn), was_design=design)
     return row
 
 
@@ -541,7 +635,7 @@ def kernel_phase(pipeline, rays):
         library_ms=timed(lambda: torch.nonzero(mask.T)))
     rows[-1]["library_call"] = "torch.nonzero(mask.T)"
     add_launches_and_was(rows[-1], lambda: compact(mask, samples, d, budget),
-                         lambda: THREEPASS.compact(mask, samples, d, budget),
+                         THREEPASS and (lambda: THREEPASS.compact(mask, samples, d, budget)),
                          lambda: compact_equal(THREEPASS.compact(mask, samples, d, budget),
                                                want, budget))
     idx, cflat, cray_d = got[0], got[1][:kept], got[2][:kept]
@@ -563,6 +657,11 @@ def kernel_phase(pipeline, rays):
         nbytes=kept * 12 + hash_rows_touched(cflat, grid, n_lods) * f_dim * 4
         + kept * grid.num_lods * f_dim * 4,
         ops=kept * n_lods * (9 + 8 * (2 + 2 * f_dim)))
+    add_launches_and_was(
+        rows[-1], lambda: grid_ops.hashgrid(cflat, *args, out_lods=grid.num_lods),
+        HASHGRID_V1 and (lambda: HASHGRID_V1.hashgrid(cflat, *args, out_lods=grid.num_lods)),
+        lambda: float((HASHGRID_V1.hashgrid(cflat, *args, out_lods=grid.num_lods)
+                       - hp).abs().max()) <= 1e-5, HASHGRID_V1_DESIGN)
 
     # K3 scatter-back of the field's colours
     with torch.no_grad():
@@ -662,6 +761,164 @@ def compaction_phase() -> dict:
     for g, (_, want, equal, where) in zip(got, checks):
         require(equal(g, want), f"{where}, called back to back, differs from the plain "
                                 f"version")
+    return out
+
+
+# the K1 calls that the paths made, for the "hashgrid" step: key -> inputs (cloned)
+HASHGRID_CALLS = {}
+
+
+def k1_record(key, coords, geometry, table=None, grad_out=None, table_rows=None,
+              stoch_mask=None, u0=None):
+    """Keep one K1 call's inputs under ``key``: a forward (``table``) or a backward
+    (``grad_out``, ``table_rows``, the stochastic LODs' flags and uniforms)."""
+    HASHGRID_CALLS[key] = {
+        "coords": coords.detach().clone(), "geometry": geometry,
+        "table": None if table is None else table.detach().clone(),
+        "grad_out": None if grad_out is None else grad_out.detach().clone(),
+        "table_rows": table_rows, "stoch_mask": stoch_mask,
+        "u0": None if u0 is None else u0.clone()}
+
+
+@contextmanager
+def recording_k1(key: str, copy_at_exit: bool = False):
+    """Keep the inputs of the last K1 forward and backward launched inside, under
+    "<key>: fwd" and "<key>: bwd": copied at the call, or with ``copy_at_exit`` held and
+    copied when the block ends, so that a time taken inside the block leaves the copies out
+    (only for a block that changes no input after its call, as a prune leaves the
+    codebook)."""
+    from wisp_tpu_torch.ops import grid as grid_ops
+    fwd, bwd = grid_ops._hashgrid_fwd, grid_ops._hashgrid_bwd
+    held = {}
+    keep = held.__setitem__ if copy_at_exit else lambda k, kw: k1_record(k, **kw)
+
+    def rec_fwd(coords, codebook, geometry):
+        keep(f"{key}: fwd", dict(coords=coords, geometry=geometry, table=codebook))
+        return fwd(coords, codebook, geometry)
+
+    def rec_bwd(coords, grad_out, geometry, grad, stoch_mask=None, u0=None, u0_out=None):
+        keep(f"{key}: bwd", dict(coords=coords, geometry=geometry, grad_out=grad_out,
+                                 table_rows=grad.shape[0], stoch_mask=stoch_mask, u0=u0))
+        return bwd(coords, grad_out, geometry, grad, stoch_mask, u0, u0_out)
+
+    with mock.patch.object(grid_ops, "_hashgrid_fwd", rec_fwd), \
+            mock.patch.object(grid_ops, "_hashgrid_bwd", rec_bwd):
+        yield
+    for k, kw in held.items():
+        k1_record(k, **kw)
+
+
+def k1_plain_args(geometry, rows):
+    """``(resolutions, bitwidth, lod_idx, rows, first, sizes)`` of a K1 geometry."""
+    dim, _, n_lods, _, codebook_size, arrays = geometry
+    res = [int(r) for r in arrays[0]]
+    return (res, codebook_size.bit_length() - 1, n_lods - 1, rows,
+            [int(b) for b in arrays[3]], [min(r ** dim, codebook_size) for r in res])
+
+
+# the "hashgrid" step also takes the first N samples of train step 25's calls as short calls
+# (the seg phase's sizes and one between the routes' thresholds), and times the backward of
+# a step with LODs 0..k-1 in shared memory for each k below HASHGRID_SHARED_SETS
+HASHGRID_SHORT = (822, 4096, 22580, 50000)
+HASHGRID_SHARED_SETS = 4
+
+
+def hashgrid_phase() -> dict:
+    """K1 forward and backward, exact and stochastic, at every shape the paths recorded
+    (a render chunk, train step 25 and the prune's cells, the stoch step with injected
+    uniforms, the seg step, the uniform chunk) and at the first ``HASHGRID_SHORT`` samples
+    of train step 25: both designs held to the plain version (forward within 1e-5; backward
+    within 1e-5 of the largest entry; the stochastic one by ``stoch_parity``: no flip
+    outside tie rows, counts exact) and timed side by side. A backward of 65,536 samples or
+    more (the privatizing route) is also held and timed with each of the first
+    ``HASHGRID_SHARED_SETS`` shared LOD sets (``shared_ms``; ``grid.SHARED_LOD_BYTES`` set
+    to their bytes). Then 200 calls of the redesign back to back on one stream with no
+    synchronisation between them, short and long routes in turns, each entry's last result
+    held to its own first (forward equal; backward within 1e-5 of the largest entry, the
+    atomics' order)."""
+    import torch
+    from wisp_tpu_torch.ops import grid as grid_ops
+    require(HASHGRID_CALLS, "no phase recorded a K1 call")
+    calls = dict(HASHGRID_CALLS)
+    for kind in ("fwd", "bwd"):
+        c = HASHGRID_CALLS.get(f"train step 25: {kind}")
+        for n in HASHGRID_SHORT if c is not None else ():
+            calls[f"train step 25, first {n}: {kind}"] = dict(
+                c, coords=c["coords"][:n].contiguous(),
+                grad_out=None if c["grad_out"] is None else c["grad_out"][:n].contiguous())
+    out, checks = {}, []
+    for key, c in sorted(calls.items()):
+        coords, geometry = c["coords"], c["geometry"]
+        dim, f_dim, n_lods, out_lods, _, arrays = geometry
+        n = coords.shape[0]
+        shape = {"samples": n, "lods": n_lods, "out_lods": out_lods}
+        if c["table"] is not None:
+            table = c["table"]
+            args = k1_plain_args(geometry, table)
+            run_new = functools.partial(grid_ops._hashgrid_fwd, coords, table, geometry)
+            run_was = functools.partial(HASHGRID_V1.fwd, coords, table, geometry)
+            want = grid_ops.hashgrid_plain(coords, args[0], args[1], args[2], table, args[4],
+                                           args[5], out_lods)
+            errs = [float((f() - want).abs().max()) if n else 0.0 for f in (run_new, run_was)]
+            require(all(e <= 1e-5 for e in errs), f"K1 forward at {key} {shape}: max abs err "
+                                                  f"(new, earlier) {errs}, tolerance 1e-5")
+            shape["max_abs_err"] = errs[0]
+        else:
+            g, rows, mask, u0 = c["grad_out"], c["table_rows"], c["stoch_mask"], c["u0"]
+            args = k1_plain_args(geometry, rows)
+
+            def run_new(coords=coords, g=g, geometry=geometry, rows=rows, mask=mask, u0=u0):
+                grad = torch.zeros((rows, f_dim), dtype=torch.float32, device=coords.device)
+                return grid_ops._hashgrid_bwd(coords, g, geometry, grad, mask, u0)
+
+            run_was = functools.partial(HASHGRID_V1.bwd, coords, g, geometry, rows, mask, u0)
+            if mask is None:
+                want = grid_ops.hashgrid_bwd_plain(coords, g, *args, out_lods=out_lods)
+                tol = 1e-5 * float(want.abs().max())
+
+                def held(fns, want=want, tol=tol):
+                    errs = [float((f() - want).abs().max()) for f in fns]
+                    return all(e <= tol for e in errs), {"max_abs_err": errs[0], "tol": tol,
+                                                         "errs (new, earlier)": errs}
+            else:
+                require(u0 is not None, f"{key}: a stochastic backward needs its uniforms")
+
+                def held(fns, c=coords, g=g, a=args, m=mask, u=u0, o=out_lods):
+                    parity = [stoch_parity(c, g, a, m, u, o, bwd) for bwd in
+                              (grid_ops.hashgrid_bwd, HASHGRID_V1.hashgrid_bwd)[:len(fns)]]
+                    return all(p["held"] for p in parity), {
+                        "stoch_lods": int(sum(m[:n_lods])), "flips": parity[0]["flips"],
+                        "tie_draws": parity[0]["tie_draws"], "max_abs_err": parity[0]["err"],
+                        "tol": parity[0]["tol"], "parity (new, earlier)": parity}
+
+            ok, found = held((run_new, run_was))
+            require(ok, f"K1 backward at {key} {shape}: {found}")
+            found.pop("errs (new, earlier)", None)
+            found.pop("parity (new, earlier)", None)
+            shape.update(found)
+            if n >= 65536:
+                lod_bytes = [int(r) ** dim * f_dim * 4 for r in arrays[0]]
+                shape["shared_ms"] = {}
+                for k in range(HASHGRID_SHARED_SETS):
+                    with mock.patch.object(grid_ops, "SHARED_LOD_BYTES", sum(lod_bytes[:k])):
+                        ok, found = held((run_new,))
+                        require(ok, f"K1 backward at {key} with {k} shared LODs: {found}")
+                        shape["shared_ms"][k] = timed(run_new)[0]
+        new, was = timed(run_new), timed(run_was)
+        out[key] = dict(shape, ms=new[0], event_ms=new[1], was_ms=was[0], was_event_ms=was[1])
+        ref = run_new()
+        tol = 0.0 if c["table"] is not None else 1e-5 * float(ref.abs().max()) if n else 0.0
+        checks.append((key, run_new, ref, tol))
+    torch.cuda.synchronize()
+    last = {}
+    for i in range(200):
+        key, run_new, _, _ = checks[i % len(checks)]
+        last[key] = run_new()
+    torch.cuda.synchronize()
+    for key, _, ref, tol in checks:
+        err = float((last[key] - ref).abs().max()) if ref.numel() else 0.0
+        require(err <= tol, f"K1 at {key}, called back to back, differs from its first result "
+                            f"by {err} (tolerance {tol})")
     return out
 
 
@@ -818,15 +1075,25 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
     hk = grid_ops.hashgrid_bwd(coords, g_feat, *args, out_lods=grid.num_lods)
     hp = grid_ops.hashgrid_bwd_plain(coords, g_feat, *args, out_lods=grid.num_lods)
     scale = max(1.0, float(hp.abs().max()))
+    # bytes: the coords and the computed LODs' cotangent read once, the whole table gradient
+    # (which the op returns dense) written once
     row("hashgrid_bwd", "wisp_tpu_torch/csrc/hashgrid.cu", "wisp_tpu/ops/grid.py:55",
         float((hk - hp).abs().max()), 1e-5 * scale,
         timed(lambda: grid_ops.hashgrid_bwd(coords, g_feat, *args,
                                               out_lods=grid.num_lods)),
         timed(lambda: grid_ops.hashgrid_bwd_plain(coords, g_feat, *args,
                                                     out_lods=grid.num_lods), iters=3),
-        nbytes=kept * 12 + kept * n_lods * f_dim * 4
-        + hash_rows_touched(coords, grid, n_lods) * f_dim * 4,
+        nbytes=kept * 12 + kept * n_lods * f_dim * 4 + args[3] * f_dim * 4,
         ops=kept * n_lods * (9 + 8 * (2 + 2 * f_dim)))
+    add_launches_and_was(
+        rows[-1], lambda: grid_ops.hashgrid_bwd(coords, g_feat, *args, out_lods=grid.num_lods),
+        HASHGRID_V1 and (lambda: HASHGRID_V1.hashgrid_bwd(coords, g_feat, *args,
+                                                          out_lods=grid.num_lods)),
+        lambda: float((HASHGRID_V1.hashgrid_bwd(coords, g_feat, *args, out_lods=grid.num_lods)
+                       - hp).abs().max()) <= 1e-5 * scale, HASHGRID_V1_DESIGN)
+    rows[-1].update(table_rows=args[3], shared_lods=grid_ops.shared_lods(
+        grid.codebook.resolutions, grid.codebook_bitwidth, 3, f_dim, n_lods,
+        grid_ops.SHARED_LOD_BYTES))
 
     # scatter-back backward of the colour channel (the gather)
     g_col = torch.randn((r * s, 3), generator=g, device=o.device)
@@ -903,10 +1170,12 @@ def train_phase(dev):
     for i in range(TRAIN_STEPS_BEFORE_PRUNE + TRAIN_STEPS_AFTER_PRUNE):
         if i == TRAIN_STEPS_BEFORE_PRUNE:
             fed = float((trainer._density_max_grid > 0).float().mean())
-            t0 = time.perf_counter()
-            trainer.prune()          # the method pre_step calls on its cadence
-            torch.cuda.synchronize()
-            prune = {"prune_ms": (time.perf_counter() - t0) * 1e3,
+            with recording_k1("prune", copy_at_exit=True):
+                t0 = time.perf_counter()
+                trainer.prune()      # the method pre_step calls on its cadence
+                torch.cuda.synchronize()
+                prune_ms = (time.perf_counter() - t0) * 1e3
+            prune = {"prune_ms": prune_ms,
                      "cells_fed_by_training_samples": fed,
                      "occupancy_after_prune": float(nef.grid.blas.occ_grid.float().mean())}
         rays = trainer.train_dataset.transform.num_samples
@@ -916,7 +1185,11 @@ def train_phase(dev):
             ms = profiled["profile_step_ms"]
         else:
             t0 = time.perf_counter()
-            trainer.iterate()
+            if i == TRAIN_STEPS_BEFORE_PRUNE + TRAIN_STEPS_AFTER_PRUNE - 1:
+                with recording_k1("train step 25"):
+                    trainer.iterate()
+            else:
+                trainer.iterate()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
         valid = trainer._prev_num_samples
@@ -1076,8 +1349,11 @@ def sdf_kernel_phase(pipeline, rays):
     n = o.shape[0]
     rows = []
 
-    def copies(*ts, count=48):
-        """Fresh inputs for each call of an in-place kernel (timed makes 43 calls)."""
+    def copies(*ts, iters=20):
+        """Fresh inputs for each call of an in-place kernel, made before ``timed`` with
+        ``iters`` starts: as many as it can make (3 warm-ups, the timed calls and every
+        profiling session it may retry)."""
+        count = 3 + iters * (1 + PROFILER_SESSIONS)
         it = iter([tuple(x.clone() for x in ts) for _ in range(count)])
         return lambda: next(it)
 
@@ -1106,7 +1382,7 @@ def sdf_kernel_phase(pipeline, rays):
     require(torch.equal(tk, tp) and torch.equal(ak, ap),
             "sdf_walk differs from the plain version")
     taken, walk_cells = walk_work(o, d, t0, a0, t_far, fk, level, steps)
-    state, plain_state = copies(t0, a0), copies(t0, a0, count=16)
+    state, plain_state = copies(t0, a0), copies(t0, a0, iters=5)
     rows.append(kernel_row(
         "sdf_walk", "wisp_tpu_torch/csrc/sphere_trace.cu",
         "wisp_tpu/tracers/packed_sdf_tracer.py:121", 0.0, 0.0,
@@ -1131,7 +1407,7 @@ def sdf_kernel_phase(pipeline, rays):
     require(all(torch.equal(a, b) for a, b in zip(sk, sp)),
             "sphere_step differs from the plain version")
     live = int(alive.sum())
-    state, plain_state = copies(t, alive, hit), copies(t, alive, hit, count=16)
+    state, plain_state = copies(t, alive, hit), copies(t, alive, hit, iters=5)
     rows.append(kernel_row(
         "sphere_step", "wisp_tpu_torch/csrc/sphere_trace.cu",
         "wisp_tpu/tracers/packed_sdf_tracer.py:136", 0.0, 0.0,
@@ -1466,7 +1742,8 @@ def sdf_train_kernel_phase(trainer, coords):
         + offset * f_dim * 4,
         ops=valid * (3 * 5 + 8 * (2 + 2 * f_dim)),
         library_ms=timed(lambda: table.index_add_(0, idx, vals))))
-    rows[-1]["library_call"] = "index_add_ of precomputed w*g rows into one [V, F] table"
+    rows[-1]["library_call"] = ("index_add_ of precomputed w*g rows into one [V, F] table "
+                                "(over precomputed rows: not the same function)")
     rows[-1]["check_s"] = time.perf_counter() - t0
 
     # K16 at the resample's points
@@ -1992,16 +2269,18 @@ def ks_distance(u) -> float:
     return max(float(((i + 1) / n - s).max()), float((s - i / n).max()))
 
 
-def stoch_parity(coords, g, args, mask, u0, out_lods) -> dict:
+def stoch_parity(coords, g, args, mask, u0, out_lods, bwd=None) -> dict:
     """K1's stochastic backward against its plain version with the injected uniforms ``u0``.
     The flips are counted exactly: with a unit cotangent on the stochastic LODs each table
     row holds the number of draws that chose it (an integer, exact in float32 in any order
     of the atomics), so the two differ by one in each of two rows for every draw that fell
     the other way. A flip is allowed only on the rows of a draw within 4 ulps of a running
     weight sum. On the step's own cotangent ``g``, every other row agrees to 1e-5 of the
-    largest entry of the table gradient (the atomics' order)."""
+    largest entry of the table gradient (the atomics' order). ``bwd`` is the backward held,
+    ``grid.hashgrid_bwd`` by default."""
     import torch
     from wisp_tpu_torch.ops import grid as grid_ops
+    bwd = grid_ops.hashgrid_bwd if bwd is None else bwd
     n, n_lods = coords.shape[0], args[2] + 1
     f_dim = g.shape[1] // out_lods
     tie_rows, ties = grid_ops.stoch_tie_rows(coords, args[0], args[1], n_lods - 1, args[4],
@@ -2010,14 +2289,13 @@ def stoch_parity(coords, g, args, mask, u0, out_lods) -> dict:
     for i in range(n_lods):
         if mask[i]:
             ones[:, i * f_dim:(i + 1) * f_dim] = 1.0
-    counts_k = grid_ops.hashgrid_bwd(coords, ones, *args, out_lods=out_lods, stoch_mask=mask,
-                                     u0=u0)
+    counts_k = bwd(coords, ones, *args, out_lods=out_lods, stoch_mask=mask, u0=u0)
     counts_p = grid_ops.hashgrid_bwd_plain(coords, ones, *args, out_lods=out_lods,
                                            stoch_mask=mask, u0=u0)
     moved = (counts_k - counts_p)[:, 0]
     off = moved != 0
     off[tie_rows] = False
-    got = grid_ops.hashgrid_bwd(coords, g, *args, out_lods=out_lods, stoch_mask=mask, u0=u0)
+    got = bwd(coords, g, *args, out_lods=out_lods, stoch_mask=mask, u0=u0)
     want = grid_ops.hashgrid_bwd_plain(coords, g, *args, out_lods=out_lods, stoch_mask=mask,
                                        u0=u0)
     scale = float(want.abs().max())
@@ -2076,7 +2354,8 @@ def stoch_kernel_phase(trainer, rec):
             f"the stochastic backward looks biased: rms z {z_rms}, share over 4 sd {z_over}")
 
     rows_written = int((hashed != 0).any(dim=1).sum())
-    nbytes = n * 12 + n * n_lods * f_dim * 4 + rows_written * f_dim * 4
+    # the coords and the computed LODs' cotangent read once, the whole table gradient written
+    nbytes = n * 12 + n * n_lods * f_dim * 4 + args[3] * f_dim * 4
     # a (sample, LOD): the cell (9), 8 corner weights (16), their running sum and the draw
     # (16), the hash and its fold (~8)
     ops = n * n_lods * 49
@@ -2088,6 +2367,15 @@ def stoch_kernel_phase(trainer, rec):
         timed(lambda: grid_ops.hashgrid_bwd_plain(coords, g, *args, out_lods=out_lods,
                                                   stoch_mask=mask), iters=3),
         nbytes, ops)
+    add_launches_and_was(
+        row, lambda: grid_ops.hashgrid_bwd(coords, g, *args, out_lods=out_lods, stoch_mask=mask),
+        HASHGRID_V1 and (lambda: HASHGRID_V1.hashgrid_bwd(coords, g, *args, out_lods=out_lods,
+                                                          stoch_mask=mask)),
+        lambda: stoch_parity(coords, g, args, mask, u0, out_lods,
+                             HASHGRID_V1.hashgrid_bwd)["held"], HASHGRID_V1_DESIGN)
+    k1_record("stoch step 25 (injected uniforms): bwd", coords,
+              k1_geometry(coords, hashed, args, out_lods), grad_out=g, table_rows=args[3],
+              stoch_mask=mask, u0=u0)
     exact_ms = timed(lambda: grid_ops.hashgrid_bwd(coords, g, *args, out_lods=out_lods))
     row.update({"exact_bwd_ms": exact_ms[0], "exact_bwd_event_ms": exact_ms[1],
                 "flip_share": flip_share, "flips": parity["flips"], "tie_draws": ties,
@@ -2374,7 +2662,7 @@ def seg_kernel_phase(calls):
     want = compact_plain(mask, samples, dirs, budget, acc, cap)
     add_launches_and_was(
         rows[-1], lambda: compact(mask, samples, dirs, budget, acc, cap),
-        lambda: THREEPASS.compact(mask, samples, dirs, budget, acc, cap),
+        THREEPASS and (lambda: THREEPASS.compact(mask, samples, dirs, budget, acc, cap)),
         lambda: compact_equal(THREEPASS.compact(mask, samples, dirs, budget, acc, cap), want,
                               budget))
 
@@ -2521,7 +2809,7 @@ def seg_phase(dev):
         if i == SEG_STEPS_BEFORE_PRUNE - 1:
             profiled = profile_step(trainer)     # step 20 runs under the profiler
         elif last:
-            with recording_segments(calls):
+            with recording_segments(calls), recording_k1("seg step 25"):
                 trainer.iterate()
         else:
             trainer.iterate()
@@ -2790,7 +3078,7 @@ def ray_compaction_rows(calls, launches):
         rows[-1]["library_call"] = "torch.nonzero(mask)"
         add_launches_and_was(
             rows[-1], lambda: compact_rays(mask, budget, o, d, t, tf, mid=mid),
-            lambda: THREEPASS.compact_rays(mask, budget, o, d, t, tf),
+            THREEPASS and (lambda: THREEPASS.compact_rays(mask, budget, o, d, t, tf)),
             lambda: rays_equal(THREEPASS.compact_rays(mask, budget, o, d, t, tf), want))
         shapes[name] = {"rays": r, "budget": budget, "count": int(want[5])}
         if not mid:
@@ -3369,6 +3657,8 @@ def query_row(grid, coords) -> tuple:
         ops=n * n_lods * (3 * 4 + 8 * 6),
         library_ms=timed(lambda: torch.index_select(table, 0, rows)))
     row["launches"] = launches["hashgrid_query"]
+    row["library_call"] = ("index_select of the precomputed corner rows (over precomputed "
+                           "rows: not the same function)")
     return row, {"points": n, "lods": n_lods, "distinct_rows": distinct,
                  "nan_entries": int(got.isnan().sum())}
 
@@ -3446,7 +3736,8 @@ def uniform_phase(dev):
         chunk = Rays(all_rays.origins[sl].contiguous(), all_rays.dirs[sl].contiguous(),
                      all_rays.dist_min, all_rays.dist_max)
         with torch.no_grad():
-            a = pipeline(rays=chunk)
+            with recording_k1("uniform chunk"):
+                a = pipeline(rays=chunk)
             with plain_versions():
                 b = pipeline(rays=chunk)
         chunk_err = {k: float((a.channels[k] - b.channels[k]).abs().max())
@@ -3490,10 +3781,12 @@ def run() -> dict:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    threepass_build = start_threepass_build()
+    threepass_build = start_baseline_build(THREEPASS_SRC, "libwisp_threepass.so")
+    hashgrid_v1_build = start_baseline_build(HASHGRID_V1_SRC, "libwisp_hashgrid_v1.so")
     kernels.build(verbose=True)
-    global THREEPASS
+    global THREEPASS, HASHGRID_V1
     THREEPASS = ThreePass(threepass_build)
+    HASHGRID_V1 = HashGridV1(hashgrid_v1_build)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in str(kernels.BUILD_INFO.get("log", "")).splitlines()
              if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
@@ -3506,10 +3799,14 @@ def run() -> dict:
     t0 = time.perf_counter()
     compaction_info = compaction_phase()
     phases["phase_s"]["compaction"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hashgrid_info = hashgrid_phase()
+    phases["phase_s"]["hashgrid"] = time.perf_counter() - t0
     print(json.dumps({"kernels": phases["kernels"]}), flush=True)
     for line in phases["lines"]:
         print(json.dumps(line), flush=True)
     print(json.dumps({"compaction_shapes": compaction_info}), flush=True)
+    print(json.dumps({"hashgrid_shapes": hashgrid_info}), flush=True)
     print(json.dumps({"phase_s": phases["phase_s"], "profiler_shortfalls": PROFILER_SHORTFALLS,
                       "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi, flush=True)
@@ -3582,7 +3879,8 @@ def run_phases(dev, build_s: float) -> dict:
     chunk = Rays(all_rays.origins[sl].contiguous(), all_rays.dirs[sl].contiguous(),
                  all_rays.dist_min, all_rays.dist_max)
     with torch.no_grad():
-        a = pipeline(rays=chunk)
+        with recording_k1("render chunk"):
+            a = pipeline(rays=chunk)
         with plain_versions():
             b = pipeline(rays=chunk)
     chunk_err = {k: float((a.channels[k] - b.channels[k]).abs().max())

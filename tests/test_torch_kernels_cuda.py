@@ -1125,3 +1125,187 @@ def test_compaction_kernels_back_to_back(dev):
             want = compact_plain(mask, samples, dirs, budget, acc,
                                  cap if acc is not None else None)
             _assert_compact_equal(a, want, budget)
+
+
+# -- K1 as redesigned for Hopper: one thread a sample over its LODs; the backward's leading dense
+# -- LODs in shared memory (grid.shared_lods), vector atomics for the others
+
+def _flagship_geometry(num_lods=16, bitwidth=19, lo=16, hi=512, dim=3):
+    b = np.exp((np.log(hi) - np.log(lo)) / (num_lods - 1))
+    resolutions = [int(np.floor(lo * b ** lod)) for lod in range(num_lods)]
+    sizes, first, _ = _table(dim, resolutions, bitwidth, 0)
+    return resolutions, sizes, first
+
+
+def _clustered_coords(n, dim, seed, spread=0.05, centres=6):
+    """Samples around a few centres, so that the coarse LODs' rows take many of them."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-0.6, 0.6, size=(centres, dim))
+    pick = rng.integers(0, centres, size=n)
+    x = c[pick] + rng.normal(scale=spread, size=(n, dim))
+    return np.clip(x, -1.0, 1.0).astype(np.float32)
+
+
+def _check_k1(dev, coords, resolutions, bitwidth, lod_idx, sizes, first, out_lods, f_dim,
+              mask=None, seed=0):
+    """K1 forward, exact backward and (with ``mask``) stochastic backward on ``coords``
+    against the plain versions: forward within 1e-5, exact backward within 1e-5 of the
+    largest entry, stochastic draws equal outside tie rows with counts exact; each wrapper
+    launched once where there are samples."""
+    n = coords.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table = (0.5 * torch.randn(first[-1], f_dim, generator=g)).to(dev)
+    grad_out = torch.randn(n, out_lods * f_dim, generator=g).to(dev)
+    u0 = torch.rand(n, generator=g).to(dev)
+    fargs = (resolutions, bitwidth, lod_idx, table, first, sizes)
+    bargs = (resolutions, bitwidth, lod_idx, first[-1], first, sizes)
+    before = dict(kernels.LAUNCHES)
+    got = grid_ops.hashgrid(coords, *fargs, out_lods=out_lods)
+    gb = grid_ops.hashgrid_bwd(coords, grad_out, *bargs, out_lods=out_lods)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hashgrid_fwd"] == before["hashgrid_fwd"] + (n > 0)
+    assert kernels.LAUNCHES["hashgrid_bwd"] == before["hashgrid_bwd"] + (n > 0)
+    want = grid_ops.hashgrid_plain(coords, *fargs, out_lods=out_lods)
+    assert got.shape == (n, out_lods * f_dim)
+    if n:
+        assert (got - want).abs().max().item() <= 1e-5
+        assert not got[:, (lod_idx + 1) * f_dim:].any()
+    wb = grid_ops.hashgrid_bwd_plain(coords, grad_out, *bargs, out_lods=out_lods)
+    assert gb.shape == wb.shape
+    assert (gb - wb).abs().max().item() <= 1e-5 * max(wb.abs().max().item(), 1e-30)
+    if mask is None:
+        return
+    gs = grid_ops.hashgrid_bwd(coords, grad_out, *bargs, out_lods=out_lods, stoch_mask=mask,
+                               u0=u0)
+    ws = grid_ops.hashgrid_bwd_plain(coords, grad_out, *bargs, out_lods=out_lods,
+                                     stoch_mask=mask, u0=u0)
+    tie_rows, ties = grid_ops.stoch_tie_rows(coords, resolutions, bitwidth, lod_idx, first,
+                                             mask, u0)
+    bad = ((gs - ws).abs() > 1e-5 * max(ws.abs().max().item(), 1e-30)).any(dim=1)
+    bad[tie_rows.to(dev)] = False
+    assert not bad.any()
+    ones = torch.cat([torch.full((n, f_dim), float(m), device=dev) for m in mask]
+                     + [torch.zeros((n, (out_lods - len(mask)) * f_dim), device=dev)], dim=1)
+    moved = (grid_ops.hashgrid_bwd(coords, ones, *bargs, out_lods=out_lods, stoch_mask=mask,
+                                   u0=u0)
+             - grid_ops.hashgrid_bwd_plain(coords, ones, *bargs, out_lods=out_lods,
+                                           stoch_mask=mask, u0=u0))[:, 0]
+    moved[tie_rows.to(dev)] = 0.0
+    assert not moved.any()
+    assert kernels.LAUNCHES["hashgrid_bwd_stoch"] == before["hashgrid_bwd_stoch"] + 2 * (n > 0)
+
+
+@pytest.mark.parametrize("spread", [0.02, 0.3])
+def test_hashgrid_kernels_at_the_flagship_geometry(dev, spread):
+    """16 LODs over 16..512 at bitwidth 19, F 2, LODs 0-12 computed (the tracer's cut), on
+    120,000 samples around six centres (tight: the coarse rows take hundreds of corner
+    updates each), with the flagship's LOD rule for the stochastic backward."""
+    resolutions, sizes, first = _flagship_geometry()
+    assert grid_ops.shared_lods(resolutions, 19, 3, 2, 13, grid_ops.SHARED_LOD_BYTES) >= 1
+    coords = torch.from_numpy(_clustered_coords(120_000, 3, 1, spread)).to(dev)
+    mask = grid_ops.stoch_lods(resolutions[:13], 19, 3, 2_097_152, "bf16")
+    assert any(mask) and not all(mask)
+    _check_k1(dev, coords, resolutions, 19, 12, sizes, first, 16, 2, mask)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 127, 129, 513, 4097, 32_767, 32_769, 65_535, 65_537,
+                               100_003])
+def test_hashgrid_kernels_ragged_sample_counts(dev, n):
+    """N = 0 and N that is not a multiple of the forward's (128) or the backward's (512)
+    block, on both sides of the forward's short-call size (32,768) and of the backward's
+    (65,536: below it a sample's LODs spread over threads, above LOD 0 in shared memory)."""
+    resolutions = [4, 8, 16, 32, 64]
+    sizes, first, _ = _table(3, resolutions, 10, 0)
+    coords = torch.from_numpy(_clustered_coords(n, 3, n, 0.3)).to(dev)
+    _check_k1(dev, coords, resolutions, 10, 4, sizes, first, 5, 2, (True, False) * 2 + (True,))
+
+
+def test_hashgrid_kernels_at_the_clip_edge(dev):
+    """Coordinates at -1, at 1, beyond the box and a hair below 1 (x at res-1-1e-5 after the
+    clip): every corner stays inside its LOD's rows, in shared memory too."""
+    edge = np.asarray([-1.05, -1.0, -1.0 + 1e-7, 1.0 - 1e-7, 1.0, 1.05, 0.0], np.float32)
+    grid = np.stack(np.meshgrid(edge, edge, edge, indexing="ij"), -1).reshape(-1, 3)
+    # 68,600 samples: one thread a sample, LOD 0 in shared memory; the 343 distinct ones
+    # alone: a sample's LODs spread over threads
+    coords = torch.from_numpy(np.repeat(grid, 200, axis=0)).to(dev)
+    resolutions, sizes, first = _flagship_geometry()
+    _check_k1(dev, coords[::200].contiguous(), resolutions, 19, 12, sizes, first, 16, 2,
+              (True,) * 13)
+    _check_k1(dev, coords, resolutions, 19, 12, sizes, first, 16, 2, (True,) * 13)
+    resolutions = [4, 8, 16, 32, 64]
+    sizes, first, _ = _table(3, resolutions, 10, 0)
+    _check_k1(dev, coords, resolutions, 10, 4, sizes, first, 5, 4, (True,) * 5)
+
+
+@pytest.mark.parametrize("n", [6000, 70_000])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("f_dim", [1, 2, 4, 8])
+def test_hashgrid_kernels_every_route(dev, dim, f_dim, n):
+    """Every (dim, F) the wrapper takes, with a mixed stochastic LOD set and a LOD cut, in a
+    short call (a thread a LOD) and a long one (a thread a sample; shared memory)."""
+    resolutions = [4, 8, 16, 32, 64]
+    sizes, first, _ = _table(dim, resolutions, 10, 0)
+    coords = torch.from_numpy(_clustered_coords(n, dim, 7, 0.3)).to(dev)
+    _check_k1(dev, coords, resolutions, 10, 3, sizes, first, 5, f_dim,
+              (False, True, True, False))
+
+
+@pytest.mark.parametrize("limit", ["none", "one", "full"])
+def test_hashgrid_bwd_privatized_sets(dev, monkeypatch, limit):
+    """The backward, exact and stochastic, with no LOD in shared memory, with one, and with
+    every LOD (all dense and within a block): the same gradient."""
+    resolutions = [4, 8, 16]
+    sizes, first, _ = _table(3, resolutions, 12, 0)
+    assert sizes == [64, 512, 4096]
+    bytes_ = {"none": 0, "one": 64 * 2 * 4, "full": grid_ops.SHARED_MEMORY_BYTES}[limit]
+    monkeypatch.setattr(grid_ops, "SHARED_LOD_BYTES", bytes_)
+    assert grid_ops.shared_lods(resolutions, 12, 3, 2, 3, grid_ops.SHARED_LOD_BYTES) == \
+        {"none": 0, "one": 1, "full": 3}[limit]
+    coords = torch.from_numpy(_clustered_coords(70_000, 3, 3, 0.05)).to(dev)
+    _check_k1(dev, coords, resolutions, 12, 2, sizes, first, 3, 2, (False, True, True))
+
+
+def test_hashgrid_kernels_back_to_back(dev):
+    """60 forward, exact and stochastic backward calls of several shapes on one stream with
+    no synchronisation between them, each held to the plain version afterwards. Every
+    fourth call takes 70,000 to 130,000 samples, so the long routes (the forward's tile,
+    the persistent backward with LOD 0 in shared memory) alternate with the short ones."""
+    rng = np.random.default_rng(5)
+    resolutions, sizes, first = _flagship_geometry()
+    g = torch.Generator(device="cpu").manual_seed(9)
+    table = (0.5 * torch.randn(first[-1], 2, generator=g)).to(dev)
+    calls = []
+    for i in range(60):
+        n = int(rng.integers(70_000, 130_000) if i % 4 == 3 else rng.integers(0, 20_000))
+        lod_idx = int(rng.integers(0, 13))
+        coords = torch.from_numpy(_clustered_coords(n, 3, i, float(rng.uniform(0.02, 0.5))))
+        grad_out = torch.randn(n, 32, generator=g)
+        u0 = torch.rand(n, generator=g)
+        mask = tuple(bool(m) for m in rng.random(lod_idx + 1) < 0.5)
+        calls.append((i % 3, coords.to(dev), grad_out.to(dev), u0.to(dev), lod_idx, mask))
+
+    def run(kind, coords, grad_out, u0, lod_idx, mask, plain=False):
+        fargs = (resolutions, 19, lod_idx, table, first, sizes)
+        bargs = (resolutions, 19, lod_idx, first[-1], first, sizes)
+        if kind == 0:
+            fn = grid_ops.hashgrid_plain if plain else grid_ops.hashgrid
+            return fn(coords, *fargs, out_lods=16)
+        fn = grid_ops.hashgrid_bwd_plain if plain else grid_ops.hashgrid_bwd
+        if kind == 1:
+            return fn(coords, grad_out, *bargs, out_lods=16)
+        return fn(coords, grad_out, *bargs, out_lods=16, stoch_mask=mask, u0=u0)
+
+    torch.cuda.synchronize()
+    got = [run(*c) for c in calls]
+    torch.cuda.synchronize()
+    for c, a in zip(calls, got):
+        want = run(*c, plain=True)
+        if c[0] == 2:
+            tie_rows, _ = grid_ops.stoch_tie_rows(c[1], resolutions, 19, c[4], first, c[5],
+                                                  c[3])
+            keep = torch.ones(want.shape[0], dtype=torch.bool, device=dev)
+            keep[tie_rows.to(dev)] = False
+            a, want = a[keep], want[keep]
+        scale = 1.0 if c[0] == 0 else max(want.abs().max().item(), 1e-30) if want.numel() \
+            else 1.0
+        assert a.numel() == 0 or (a - want).abs().max().item() <= 1e-5 * scale

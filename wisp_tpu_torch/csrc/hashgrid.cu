@@ -6,27 +6,54 @@
 // table rows (dense row-major index x + y*res + z*res^2 when res^d fits the table, else the
 // uint32 hash x*1 ^ y*2654435761 ^ z*805459861 mod 2^bitwidth), and the tri/bilinear blend.
 // The output is [N, out_lods*F], features fastest; LODs at or above n_lods are written as
-// zeros (the tracer's LOD truncation and the 'cat' LOD quirk).
+// zeros (the tracer's LOD truncation and the 'cat' LOD quirk). Every product and sum is
+// rounded as the plain version rounds it (corner order, no fused multiply-add), so the
+// cells and corners agree exactly and the features to float32 rounding.
 //
-// Bound on this card: random reads. Each (sample, LOD) reads 2^d table rows at hashed
-// addresses; the flagship table (5.2M rows x 2 floats, 42 MB) mostly fits the 50 MB L2,
-// so the kernel is bound by L2 sector traffic and by its compulsory bytes (coords in,
-// features out). Design: one thread per (sample, LOD), so neighbouring threads touch
-// neighbouring LODs of one sample and write one contiguous output row together; each row
-// is loaded as one float2 when F == 2. LOD parameters travel in the kernel's argument
-// block (no device table, no constant-memory copy).
+// Bound on this card: the compulsory bytes are coords in and features out (at the
+// flagship, 128 B of output a sample), but each (sample, LOD) gathers 2^d rows at hashed
+// addresses of a 42 MB table, so the gathers' L1 wavefronts (one a distinct 128-byte line
+// that a warp's load touches) and L2 sectors set the time. Design: one thread a sample,
+// looping over the LODs, so a warp works on one LOD at a time: its 32 samples take the
+// same dense or hash branch (no divergence), and where neighbouring samples are close in
+// space (a render chunk's step-major samples are neighbouring pixels at one step) their
+// corner rows fall in the same lines and one wavefront serves many lanes. No division or
+// modulo: the sample is the thread, the hash's modulo is a mask by 2^bitwidth - 1, and row
+// indices are 32-bit. With F = 2, the x-neighbour corners whose rows are the two halves of
+// one aligned 16-byte pair (a dense LOD's x, x+1 at an even row; a hashed LOD's even x,
+// whose rows differ in bit 0 only) are read with one 16-byte load. Each thread writes its
+// output row into a shared-memory tile; the block then stores the tile one row a warp,
+// coalesced, evict-first (the output is not read again by this kernel, and the table
+// should stay in L2). A short call (under 32,768 samples), where one thread's chain of
+// LODs would set the time, takes one thread a (sample, LOD) instead, a sample's LODs on
+// consecutive threads (one 32-bit division a thread).
 //
 // K1 (backward) — the exact table gradient, replacing wisp_tpu/ops/grid.py
 // _gather_rows_bwd (:55), the scatter-add of w*g into the 2^d corner rows of every
-// (sample, LOD). Coords get no gradient (they are not parameters). Bound on this card: the
-// same random row traffic as the forward, now as read-modify-write atomics into L2. Design:
-// one thread per (sample, computed LOD); it recomputes the corners and weights exactly as
-// the forward does (same float order, no fused multiply-add) and atomicAdds w*g into the F
-// floats of each corner row of a table gradient the wrapper zeroed. The coarse dense LODs
-// (res 16: 4,096 rows) take many samples per row, so their atomics contend; warp
-// aggregation or shared-memory accumulation of those LODs is later work. The summation
-// order changes from run to run, so the result matches the plain version to float32
-// rounding, not bit for bit.
+// (sample, LOD). Coords get no gradient (they are not parameters). Bound on this card:
+// bytes, the coords and the cotangent read once and the whole [T, F] table gradient
+// written (the wrapper zero-fills it; 41.7 MB at the flagship); the time is set by the
+// atomics, a read-modify-write in L2 for every (sample, LOD, corner). Design: one thread
+// a sample, looping over the LODs, with the same corners and weights as the forward.
+// - The coarse dense LODs take many samples a row (the flagship's res-16 LOD: ~255 corner
+//   updates a row a step), so their atomics contend in L2. The leading LODs that
+//   ops/grid.py shared_lods picks (n_shared, a prefix of dense LODs whose rows fit its
+//   budget of a block's shared memory) are privatized: the grid is persistent (as many
+//   blocks as are resident at once, each over a contiguous range of samples), each block
+//   accumulates those LODs in shared memory with shared atomics and adds its copy's
+//   non-zero rows to the gradient once at the end, one vector atomic a row, consecutive
+//   threads on consecutive rows. A float atomicAdd to shared memory is a compare-and-swap
+//   loop on sm_90, and a large copy leaves few blocks resident, so the budget is small
+//   (LOD 0 at the flagship; PERF.md, section 6).
+// - The other LODs make one vector atomicAdd a corner row (float2 at F = 2, float4 at
+//   F = 4, two at F = 8; native on sm_90) in place of F scalar ones, and at F = 2 the
+//   x-neighbour rows that are one aligned 16-byte pair (as in the forward) take one float4
+//   atomic for both. The time is then set by the L2's atomic operations, whatever their
+//   width.
+// - A short call (under 65,536 samples) spreads each sample's LODs over several threads
+//   and privatizes none.
+// The summation order changes from run to run, so the result matches the plain version to
+// float32 rounding, not bit for bit.
 //
 // K1 (stochastic backward) — replaces wisp_tpu/ops/grid.py interp_rows_stoch (:66) with
 // its backward _irs_bwd (:94), the corner draw of _lod_features (:182-191), the per-sample
@@ -34,16 +61,18 @@
 // whole cotangent row g of a (sample, LOD) goes to ONE corner, drawn with probability equal
 // to its trilinear weight: u0 = frac(|sin(12.9898x + 78.233y + 37.719z)| * 43758.5453) (or
 // the caller's u0), u = frac(u0 + 0.61803398875 (l+1)), the weights' running sum wcum in
-// corner order, chosen = #{c : wcum[c] < u * wcum[last]}, clamped. That is F atomics a
-// (sample, LOD) against the exact backward's 2^d * F. LODs not flagged take the exact
-// branch above, so one launch covers the mixed LOD set of JAX's dense_lod_matmul rule. The
-// entry point is the exact backward's: a null flag array selects the template instantiation
-// without the draw, which keeps the exact kernel's code. Bound on this card: the cotangent
-// read (N * L * F floats) and the scattered row updates; the hash LODs' rows are spread over
-// 42 MB, so the atomics land in L2 almost without contention. CUDA's sinf is not XLA's or
-// torch's sin on the CPU, and the hash multiplies the phase's last bits by 4e4, so the drawn
-// corners agree across implementations only through an injected u0; the in-kernel hash is
-// held statistically (uniform, unbiased).
+// corner order, chosen = #{c : wcum[c] < u * wcum[last]}, clamped. That is one row update
+// a (sample, LOD) against the exact backward's 2^d. LODs not flagged take the exact branch
+// above, so one launch covers the mixed LOD set of JAX's dense_lod_matmul rule. The entry
+// point is the exact backward's: a null flag array selects the template instantiation
+// without the draw, which keeps the exact kernel's code. Privatized LODs take their draws
+// in shared memory too. CUDA's sinf is not XLA's or torch's sin on the CPU, and the hash
+// multiplies the phase's last bits by 4e4, so the drawn corners agree across
+// implementations only through an injected u0; the in-kernel hash is held statistically
+// (uniform, unbiased).
+//
+// The earlier design (one thread a (sample, LOD), scalar atomics) is kept in
+// baselines/hashgrid_v1.cu as the yardstick.
 //
 // K14 — the raw corner-feature query, hashgrid_query.
 //
@@ -57,22 +86,507 @@
 // (1 KB a point at the flagship's 16 LODs, F 2) and the rows read. Design: one thread a
 // (point, LOD, corner), so a warp writes 32 consecutive rows of the output; the per-LOD
 // constants travel in the argument block.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxLods = 32;
+constexpr int kBwdThreads = 512;
+constexpr int kSharedBytesMax = 232448;   // a block's shared memory on sm_90 (227 KB)
+// A short call is not to be bound by one thread's chain of LODs. Below kShortFwd samples the
+// forward takes one thread a (sample, output LOD), a sample's LODs on consecutive threads so
+// that a warp's stores are contiguous. Below kSpreadBwd samples the backward gives each
+// sample G = ceil(kSpreadBwd / N) threads (at most one a LOD; gridDim.y = G), each over every
+// G-th LOD, and privatizes no LOD.
+constexpr int kShortFwd = 32768;
+constexpr int kSpreadBwd = 65536;
+
+// the backward's LOD groups over N samples
+inline int lod_groups(int N, int n_lods) {
+  return N >= kSpreadBwd ? 1 : std::min(n_lods, (kSpreadBwd + N - 1) / N);
+}
 
 struct LodTable {
-  int n_lods;                 // LODs computed
-  int out_lods;               // LODs in the output row (the rest are zeros)
+  int n_lods;                    // LODs computed
+  int out_lods;                  // LODs in the output row (the rest are zeros)
   int res[kMaxLods];
-  float scale[kMaxLods];      // res / 2
-  float hi[kMaxLods];         // res - 1 - 1e-5
-  long long begin[kMaxLods];  // first table row of the LOD
-  int dense[kMaxLods];        // 1: row-major index, 0: spatial hash
-  unsigned codebook_size;     // 2^bitwidth
+  float scale[kMaxLods];         // res / 2
+  float hi[kMaxLods];            // res - 1 - 1e-5
+  unsigned begin[kMaxLods];      // first table row of the LOD
+  int dense[kMaxLods];           // 1: row-major index, 0: spatial hash
+  unsigned hash_mask;            // 2^bitwidth - 1
+  int n_shared;                  // backward: LODs 0..n_shared-1 accumulate in shared memory
+  unsigned sbegin[kMaxLods + 1]; // ... LOD l from shared row sbegin[l]; sbegin[n_shared] rows
 };
+
+// one LOD's cell: the terms of the row index at the cell's low and high corner along
+// each axis, and the fractions; ``dense`` is the LOD's branch, uniform across a warp (a
+// literal at most call sites, which the compiler folds)
+template <int D>
+struct Cell {
+  unsigned lo[D], up[D];
+  float frac[D], omf[D];     // frac and 1 - frac
+};
+
+template <int D>
+__device__ __forceinline__ Cell<D> lod_cell(const float (&c)[D], int l, const LodTable& t,
+                                            bool dense) {
+  const unsigned primes[3] = {1u, 2654435761u, 805459861u};
+  const unsigned res = (unsigned)t.res[l];
+  Cell<D> cell;
+  unsigned stride = 1u;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    float x = (c[d] + 1.0f) * t.scale[l];
+    x = fminf(fmaxf(x, 0.0f), t.hi[l]);
+    const float fl = floorf(x);
+    const unsigned c0 = (unsigned)(int)fl;
+    cell.frac[d] = x - fl;
+    cell.omf[d] = 1.0f - cell.frac[d];
+    if (dense) {
+      cell.lo[d] = c0 * stride;
+      cell.up[d] = (c0 + 1u) * stride;
+      stride *= res;
+    } else {
+      cell.lo[d] = c0 * primes[d];
+      cell.up[d] = (c0 + 1u) * primes[d];
+    }
+  }
+  return cell;
+}
+
+// corner k's table row (k may be a runtime value: no array is indexed by it)
+template <int D>
+__device__ __forceinline__ unsigned corner_row(const Cell<D>& cell, int k, int l,
+                                               const LodTable& t, bool dense) {
+  unsigned idx = 0u;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const unsigned term = (k >> (D - 1 - d)) & 1 ? cell.up[d] : cell.lo[d];
+    idx = d == 0 ? term : (dense ? idx + term : idx ^ term);
+  }
+  return t.begin[l] + (dense ? idx : (idx & t.hash_mask));
+}
+
+// corner k's weight, the axes' factors multiplied in axis order
+template <int D>
+__device__ __forceinline__ float corner_weight(const Cell<D>& cell, int k) {
+  float w = 1.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float wd = (k >> (D - 1 - d)) & 1 ? cell.frac[d] : cell.omf[d];
+    w = d == 0 ? wd : w * wd;
+  }
+  return w;
+}
+
+// one LOD's corner rows and weights, in corner order and the plain version's float order
+template <int D>
+__device__ __forceinline__ void lod_corners(const float (&c)[D], int l, const LodTable& t,
+                                            bool dense, unsigned (&row)[1 << D],
+                                            float (&w)[1 << D]) {
+  const Cell<D> cell = lod_cell<D>(c, l, t, dense);
+#pragma unroll
+  for (int k = 0; k < (1 << D); ++k) {
+    row[k] = corner_row<D>(cell, k, l, t, dense);
+    w[k] = corner_weight<D>(cell, k);
+  }
+}
+
+template <int F>
+__device__ __forceinline__ void gather_row(const float* __restrict__ table, unsigned r,
+                                         float (&v)[F]) {
+  if constexpr (F == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(table) + r);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else if constexpr (F == 4 || F == 8) {
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(table) + (size_t)r * (F / 4) + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+    v[0] = __ldg(table + r);
+  }
+}
+
+// the 2^d corner rows; at F = 2 an x-neighbour pair that is one aligned 16-byte pair of
+// rows (rows 2k and 2k+1) is read with one load
+template <int D, int F>
+__device__ __forceinline__ void load_corners(const float* __restrict__ table,
+                                             const unsigned (&row)[1 << D],
+                                             float (&v)[1 << D][F]) {
+  constexpr int X = 1 << (D - 1);   // the corner bit of the x axis
+#pragma unroll
+  for (int k = 0; k < X; ++k) {
+    const unsigned a = row[k], b = row[k | X];
+    if constexpr (F == 2) {
+      if ((a ^ b) == 1u) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(table) + (a >> 1));
+        const bool odd = a & 1u;
+        v[k][0] = odd ? q.z : q.x;
+        v[k][1] = odd ? q.w : q.y;
+        v[k | X][0] = odd ? q.x : q.z;
+        v[k | X][1] = odd ? q.y : q.w;
+        continue;
+      }
+    }
+    gather_row<F>(table, a, v[k]);
+    gather_row<F>(table, b, v[k | X]);
+  }
+}
+
+template <int D, int F>
+__device__ __forceinline__ void lod_features(const float (&c)[D], int l, const LodTable& t,
+                                             bool dense, const float* __restrict__ table,
+                                             float* o) {
+  unsigned row[1 << D];
+  float w[1 << D];
+  lod_corners<D>(c, l, t, dense, row, w);
+  float v[1 << D][F];
+  load_corners<D, F>(table, row, v);
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < (1 << D); ++k) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] += v[k][f] * w[k];
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) o[f] = acc[f];
+}
+
+// one thread a sample; the block's output rows go through a shared tile of blockDim.x rows
+// of width + 1 floats (the odd pitch keeps a warp's stores to it on distinct banks)
+template <int D, int F>
+__global__ void __launch_bounds__(128) hashgrid_fwd_kernel(const float* __restrict__ coords,
+                                                           const float* __restrict__ table,
+                                                           int N,
+                                                           const __grid_constant__ LodTable t,
+                                                           float* __restrict__ out) {
+  extern __shared__ float tile[];
+  const int width = t.out_lods * F;
+  const int pitch = width + 1;
+  const int n0 = blockIdx.x * blockDim.x;
+  const int n = n0 + (int)threadIdx.x;
+  if (n < N) {
+    float c[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) c[d] = coords[(size_t)n * D + d];
+    float* my = tile + threadIdx.x * pitch;
+    for (int l = 0; l < t.n_lods; ++l) {
+      if (t.dense[l]) {
+        lod_features<D, F>(c, l, t, true, table, my + l * F);
+      } else {
+        lod_features<D, F>(c, l, t, false, table, my + l * F);
+      }
+    }
+    for (int j = t.n_lods * F; j < width; ++j) my[j] = 0.0f;
+  }
+  __syncthreads();
+  const int rows = min((int)blockDim.x, N - n0);
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5) {
+    float* o = out + (size_t)(n0 + r) * width;
+    const float* s = tile + r * pitch;
+    for (int j = lane; j < width; j += 32) {
+      __stcs(o + j, s[j]);
+    }
+  }
+}
+
+// a short call (N < kShortFwd): one thread a (sample, output LOD), LOD fastest
+template <int D, int F>
+__global__ void __launch_bounds__(256) hashgrid_fwd_short_kernel(
+    const float* __restrict__ coords, const float* __restrict__ table, int N,
+    const __grid_constant__ LodTable t, float* __restrict__ out) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= N * t.out_lods) return;
+  const int n = tid / t.out_lods;
+  const int l = tid - n * t.out_lods;
+  float* o = out + (size_t)tid * F;
+  if (l >= t.n_lods) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) o[f] = 0.0f;
+    return;
+  }
+  float c[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) c[d] = coords[(size_t)n * D + d];
+  if (t.dense[l]) {
+    lod_features<D, F>(c, l, t, true, table, o);
+  } else {
+    lod_features<D, F>(c, l, t, false, table, o);
+  }
+}
+
+// per-LOD flags of the stochastic backward: stoch[l] != 0 draws one corner, ushift[l] is
+// float32(0.61803398875 * (l + 1)), the golden-ratio shift of _fold_u as JAX rounds it
+struct StochTable {
+  int stoch[kMaxLods];
+  float ushift[kMaxLods];
+};
+
+// the per-sample uniform of _hashgrid_impl: phase summed left to right, no fused multiply-add
+template <int D>
+__device__ __forceinline__ float sin_hash_u0(const float (&c)[D]) {
+  float phase = c[0] * 12.9898f + c[1] * 78.233f;
+  if constexpr (D == 3) phase = phase + c[2] * 37.719f;
+  const float u = fabsf(sinf(phase)) * 43758.5453f;
+  return u - floorf(u);
+}
+
+// the F floats of table row r += v
+template <int F>
+__device__ __forceinline__ void add_row_global(float* __restrict__ grad, unsigned r,
+                                               const float (&v)[F]) {
+  float* p = grad + (size_t)r * F;
+  if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else if constexpr (F == 4 || F == 8) {
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q)
+      atomicAdd(reinterpret_cast<float4*>(p) + q,
+                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+  } else {
+    atomicAdd(p, v[0]);
+  }
+}
+
+// LOD l's row r (a table row) += v: in the block's shared copy when the LOD is privatized
+template <int F>
+__device__ __forceinline__ void add_row(float* priv, float* __restrict__ grad, int l,
+                                        const LodTable& t, unsigned r, const float (&v)[F]) {
+  if (l < t.n_shared) {
+    float* p = priv + (size_t)(r - t.begin[l] + t.sbegin[l]) * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) atomicAdd(p + f, v[f]);
+  } else {
+    add_row_global<F>(grad, r, v);
+  }
+}
+
+template <int D, int F, bool STOCH>
+__device__ __forceinline__ void lod_backward(const float (&c)[D], int l, const LodTable& t,
+                                             bool dense, const StochTable& s, float u0,
+                                             const float (&g)[F], float* priv,
+                                             float* __restrict__ grad) {
+  constexpr int C = 1 << D;
+  const Cell<D> cell = lod_cell<D>(c, l, t, dense);
+  if (STOCH && s.stoch[l]) {
+    float w[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) w[k] = corner_weight<D>(cell, k);
+    // the running weight sum in corner order, twice (its total first)
+    float total = w[0];
+#pragma unroll
+    for (int k = 1; k < C; ++k) total = total + w[k];
+    float u = u0 + s.ushift[l];
+    u = u - floorf(u);
+    const float target = u * total;
+    int chosen = 0;
+    float wcum = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      wcum = k == 0 ? w[0] : wcum + w[k];
+      chosen += wcum < target ? 1 : 0;
+    }
+    add_row<F>(priv, grad, l, t, corner_row<D>(cell, min(chosen, C - 1), l, t, dense), g);
+    return;
+  }
+  constexpr int X = 1 << (D - 1);   // the corner bit of the x axis
+#pragma unroll
+  for (int k = 0; k < X; ++k) {
+    const unsigned a = corner_row<D>(cell, k, l, t, dense);
+    const unsigned b = corner_row<D>(cell, k | X, l, t, dense);
+    float va[F], vb[F];
+    const float wa = corner_weight<D>(cell, k), wb = corner_weight<D>(cell, k | X);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      va[f] = g[f] * wa;
+      vb[f] = g[f] * wb;
+    }
+    if constexpr (F == 2) {
+      // x-neighbour rows that are one aligned 16-byte pair: one float4 atomic for both
+      if (l >= t.n_shared && (a ^ b) == 1u) {
+        const bool odd = a & 1u;
+        atomicAdd(reinterpret_cast<float4*>(grad) + (a >> 1),
+                  odd ? make_float4(vb[0], vb[1], va[0], va[1])
+                      : make_float4(va[0], va[1], vb[0], vb[1]));
+        continue;
+      }
+    }
+    add_row<F>(priv, grad, l, t, a, va);
+    add_row<F>(priv, grad, l, t, b, vb);
+  }
+}
+
+// STOCH false: the exact backward. STOCH true: LODs flagged in ``s`` draw one corner from
+// u0_in (or the sin hash when it is null); u0_out, when given, receives each sample's u0.
+// Block (b, g) takes samples [b * per_block, (b + 1) * per_block), one thread a sample,
+// and LODs g, g + gridDim.y, ...
+template <int D, int F, bool STOCH>
+__global__ void __launch_bounds__(kBwdThreads) hashgrid_bwd_kernel(
+    const float* __restrict__ coords, const float* __restrict__ grad_out,
+    const float* __restrict__ u0_in, float* __restrict__ u0_out, int N, int per_block,
+    const __grid_constant__ LodTable t, const __grid_constant__ StochTable s,
+    float* __restrict__ grad_table) {
+  extern __shared__ float4 priv4[];
+  float* priv = reinterpret_cast<float*>(priv4);
+  if (t.n_shared > 0) {
+    const int n4 = ((int)t.sbegin[t.n_shared] * F + 3) / 4;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) priv4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+  }
+  const int width = t.out_lods * F;
+  const long long first = (long long)blockIdx.x * per_block;
+  const int last = (int)min((long long)N, first + per_block);
+  for (int n = (int)first + (int)threadIdx.x; n < last; n += blockDim.x) {
+    float c[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) c[d] = coords[(size_t)n * D + d];
+    float u0 = 0.0f;
+    if (STOCH) {
+      if (u0_in != nullptr) {
+        u0 = u0_in[n];
+      } else {
+        u0 = sin_hash_u0<D>(c);
+        if (u0_out != nullptr && blockIdx.y == 0) u0_out[n] = u0;
+      }
+    }
+    const float* g = grad_out + (size_t)n * width;
+    for (int l = blockIdx.y; l < t.n_lods; l += gridDim.y) {
+      float gv[F];
+      bool any = false;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        gv[f] = g[l * F + f];
+        any = any || gv[f] != 0.0f;
+      }
+      if (!any) continue;   // a zero cotangent adds nothing
+      if (t.dense[l]) {
+        lod_backward<D, F, STOCH>(c, l, t, true, s, u0, gv, priv, grad_table);
+      } else {
+        lod_backward<D, F, STOCH>(c, l, t, false, s, u0, gv, priv, grad_table);
+      }
+    }
+  }
+  if (t.n_shared > 0) {
+    __syncthreads();
+    for (int l = 0; l < t.n_shared; ++l) {
+      const unsigned s0 = t.sbegin[l], s1 = t.sbegin[l + 1];
+      for (unsigned r = s0 + threadIdx.x; r < s1; r += blockDim.x) {
+        float v[F];
+        bool any = false;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          v[f] = priv[(size_t)r * F + f];
+          any = any || v[f] != 0.0f;
+        }
+        if (any) add_row_global<F>(grad_table, t.begin[l] + (r - s0), v);
+      }
+    }
+  }
+}
+
+template <int D, int F>
+cudaError_t launch_fwd(const float* coords, const float* table, int N, const LodTable& t,
+                       float* out, cudaStream_t st) {
+  if (N == 0) return cudaGetLastError();
+  const int width = t.out_lods * F;
+  // the tile (threads x (width + 1) floats) stays within the 48 KB of static shared memory
+  if (N < kShortFwd) {
+    hashgrid_fwd_short_kernel<D, F><<<wisp::ceil_div((long long)N * t.out_lods, 256), 256, 0,
+                                      st>>>(coords, table, N, t, out);
+    return cudaGetLastError();
+  }
+  const int threads = width <= 95 ? 128 : width <= 191 ? 64 : 32;
+  const size_t smem = (size_t)threads * (width + 1) * sizeof(float);
+  hashgrid_fwd_kernel<D, F><<<wisp::ceil_div(N, threads), threads, smem, st>>>(coords, table,
+                                                                            N, t, out);
+  return cudaGetLastError();
+}
+
+// the SMs of the current device, read once
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+template <int D, int F, bool STOCH>
+cudaError_t launch_bwd(const float* coords, const float* grad_out, const float* u0_in,
+                       float* u0_out, int N, LodTable t, const StochTable& s,
+                       float* grad_table, cudaStream_t st) {
+  if (N == 0) return cudaGetLastError();
+  auto kernel = hashgrid_bwd_kernel<D, F, STOCH>;
+  const int groups = lod_groups(N, t.n_lods);
+  if (groups > 1) t.n_shared = 0;
+  const int smem = ((int)t.sbegin[t.n_shared] * F * (int)sizeof(float) + 15) / 16 * 16;
+  int blocks = wisp::ceil_div(N, kBwdThreads);
+  if (t.n_shared > 0) {
+    // persistent: as many blocks as are resident at once, so that each block's shared copy
+    // gathers as many samples as it can before it is added to the gradient. The occupancy
+    // of the last shared size is kept, so a train run asks the runtime once.
+    static int last_smem = -1, last_per_sm = 0;
+    if (smem != last_smem) {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
+      if (e != cudaSuccess) return e;
+      int per_sm = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBwdThreads, smem);
+      if (e != cudaSuccess) return e;
+      if (per_sm < 1) return cudaErrorInvalidConfiguration;
+      last_smem = smem;
+      last_per_sm = per_sm;
+    }
+    const int resident = last_per_sm * sm_count();
+    if (resident < 1) return cudaErrorInvalidConfiguration;
+    blocks = std::min(blocks, resident);
+  }
+  const int per_block = wisp::ceil_div(N, blocks);
+  kernel<<<dim3(blocks, groups), kBwdThreads, smem, st>>>(coords, grad_out, u0_in, u0_out, N,
+                                                          per_block, t, s, grad_table);
+  return cudaGetLastError();
+}
+
+// backward: `table` is the cotangent [N, out_lods*F] and `out` the table gradient; `s` is
+// null for the exact backward
+template <int D, int F>
+cudaError_t launch(bool backward, const float* coords, const float* table, int N,
+                   const LodTable& t, const StochTable* s, const float* u0_in, float* u0_out,
+                   float* out, cudaStream_t st) {
+  if (!backward) return launch_fwd<D, F>(coords, table, N, t, out, st);
+  if (s == nullptr)
+    return launch_bwd<D, F, false>(coords, table, nullptr, nullptr, N, t, StochTable{}, out,
+                                   st);
+  return launch_bwd<D, F, true>(coords, table, u0_in, u0_out, N, t, *s, out, st);
+}
+
+template <int D>
+cudaError_t dispatch_f(int F, bool backward, const float* coords, const float* table, int N,
+                       const LodTable& t, const StochTable* s, const float* u0_in,
+                       float* u0_out, float* out, cudaStream_t st) {
+  switch (F) {
+    case 1: return launch<D, 1>(backward, coords, table, N, t, s, u0_in, u0_out, out, st);
+    case 2: return launch<D, 2>(backward, coords, table, N, t, s, u0_in, u0_out, out, st);
+    case 4: return launch<D, 4>(backward, coords, table, N, t, s, u0_in, u0_out, out, st);
+    case 8: return launch<D, 8>(backward, coords, table, N, t, s, u0_in, u0_out, out, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 template <int F>
 struct Row { float v[F]; };
@@ -90,231 +604,6 @@ __device__ __forceinline__ Row<F> load_row(const float* __restrict__ table, long
   }
   return out;
 }
-
-template <int D, int F>
-__global__ void hashgrid_fwd_kernel(const float* __restrict__ coords,
-                                    const float* __restrict__ table, long long N,
-                                    LodTable t, float* __restrict__ out) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= N * t.out_lods) return;
-  const long long n = tid / t.out_lods;
-  const int l = (int)(tid % t.out_lods);
-  float* o = out + tid * F;
-  if (l >= t.n_lods) {
-#pragma unroll
-    for (int f = 0; f < F; ++f) o[f] = 0.0f;
-    return;
-  }
-  const int res = t.res[l];
-  unsigned c0[D];
-  float frac[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    float x = (coords[n * D + d] + 1.0f) * t.scale[l];
-    x = fminf(fmaxf(x, 0.0f), t.hi[l]);
-    const float fl = floorf(x);
-    c0[d] = (unsigned)(int)fl;
-    frac[d] = x - fl;
-  }
-  const unsigned primes[3] = {1u, 2654435761u, 805459861u};
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < (1 << D); ++c) {
-    float w = 1.0f;
-    unsigned idx = 0u, stride = 1u;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const unsigned bit = (c >> (D - 1 - d)) & 1u;
-      const unsigned cc = c0[d] + bit;
-      const float wd = bit ? frac[d] : 1.0f - frac[d];
-      w = d == 0 ? wd : w * wd;
-      if (t.dense[l]) {
-        idx += cc * stride;
-        stride *= (unsigned)res;
-      } else {
-        idx = d == 0 ? cc * primes[0] : idx ^ (cc * primes[d]);
-      }
-    }
-    if (!t.dense[l]) idx %= t.codebook_size;
-    const Row<F> row = load_row<F>(table, t.begin[l] + (long long)idx);
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] += row.v[f] * w;
-  }
-#pragma unroll
-  for (int f = 0; f < F; ++f) o[f] = acc[f];
-}
-
-// per-LOD flags of the stochastic backward: stoch[l] != 0 draws one corner, ushift[l] is
-// float32(0.61803398875 * (l + 1)), the golden-ratio shift of _fold_u as JAX rounds it
-struct StochTable {
-  int stoch[kMaxLods];
-  float ushift[kMaxLods];
-};
-
-// the per-sample uniform of _hashgrid_impl: phase summed left to right, no fused multiply-add
-template <int D>
-__device__ __forceinline__ float sin_hash_u0(const float* __restrict__ c) {
-  float phase = c[0] * 12.9898f + c[1] * 78.233f;
-  if (D == 3) phase = phase + c[2] * 37.719f;
-  const float u = fabsf(sinf(phase)) * 43758.5453f;
-  return u - floorf(u);
-}
-
-// corner c's table row (within its LOD) and trilinear weight, in the forward's float order
-template <int D>
-__device__ __forceinline__ void corner_row(int c, const unsigned* c0, const float* frac,
-                                           int res, bool dense, unsigned codebook_size,
-                                           unsigned& idx, float& w) {
-  const unsigned primes[3] = {1u, 2654435761u, 805459861u};
-  unsigned stride = 1u;
-  idx = 0u;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const unsigned bit = (c >> (D - 1 - d)) & 1u;
-    const unsigned cc = c0[d] + bit;
-    const float wd = bit ? frac[d] : 1.0f - frac[d];
-    w = d == 0 ? wd : w * wd;
-    if (dense) {
-      idx += cc * stride;
-      stride *= (unsigned)res;
-    } else {
-      idx = d == 0 ? cc * primes[0] : idx ^ (cc * primes[d]);
-    }
-  }
-  if (!dense) idx %= codebook_size;
-}
-
-// STOCH false: the exact backward. STOCH true: LODs flagged in ``s`` draw one corner from
-// u0_in (or the sin hash when it is null); u0_out, when given, receives each sample's u0.
-template <int D, int F, bool STOCH>
-__global__ void hashgrid_bwd_kernel(const float* __restrict__ coords,
-                                    const float* __restrict__ grad_out,
-                                    const float* __restrict__ u0_in,
-                                    float* __restrict__ u0_out, long long N, LodTable t,
-                                    StochTable s, float* __restrict__ grad_table) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= N * t.n_lods) return;
-  const long long n = tid / t.n_lods;
-  const int l = (int)(tid % t.n_lods);
-  if (STOCH && u0_out != nullptr && l == 0) u0_out[n] = sin_hash_u0<D>(coords + n * D);
-  const float* g = grad_out + (n * t.out_lods + l) * F;
-  float gv[F];
-  bool any = false;
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    gv[f] = g[f];
-    any = any || gv[f] != 0.0f;
-  }
-  if (!any) return;  // a zero cotangent adds nothing
-  const int res = t.res[l];
-  const bool dense = t.dense[l] != 0;
-  unsigned c0[D];
-  float frac[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    float x = (coords[n * D + d] + 1.0f) * t.scale[l];
-    x = fminf(fmaxf(x, 0.0f), t.hi[l]);
-    const float fl = floorf(x);
-    c0[d] = (unsigned)(int)fl;
-    frac[d] = x - fl;
-  }
-  if (STOCH && s.stoch[l]) {
-    float wcum[1 << D];
-#pragma unroll
-    for (int c = 0; c < (1 << D); ++c) {
-      unsigned idx;
-      float w;
-      corner_row<D>(c, c0, frac, res, dense, t.codebook_size, idx, w);
-      wcum[c] = c == 0 ? w : wcum[c - 1] + w;
-    }
-    const float u0 = u0_in != nullptr ? u0_in[n] : sin_hash_u0<D>(coords + n * D);
-    float u = u0 + s.ushift[l];
-    u = u - floorf(u);
-    const float target = u * wcum[(1 << D) - 1];
-    int chosen = 0;
-#pragma unroll
-    for (int c = 0; c < (1 << D); ++c) chosen += wcum[c] < target ? 1 : 0;
-    chosen = min(chosen, (1 << D) - 1);
-    unsigned idx;
-    float w;
-    corner_row<D>(chosen, c0, frac, res, dense, t.codebook_size, idx, w);
-    float* row = grad_table + (t.begin[l] + (long long)idx) * F;
-#pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(row + f, gv[f]);
-    return;
-  }
-#pragma unroll
-  for (int c = 0; c < (1 << D); ++c) {
-    unsigned idx;
-    float w;
-    corner_row<D>(c, c0, frac, res, dense, t.codebook_size, idx, w);
-    float* row = grad_table + (t.begin[l] + (long long)idx) * F;
-#pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(row + f, gv[f] * w);
-  }
-}
-
-template <int D, int F>
-cudaError_t launch_bwd(const float* coords, const float* grad_out, long long N,
-                       const LodTable& t, const StochTable* s, const float* u0_in,
-                       float* u0_out, float* grad_table, cudaStream_t st) {
-  const long long n = N * t.n_lods;
-  if (n > 0) {
-    const int threads = 256;
-    if (s == nullptr) {
-      hashgrid_bwd_kernel<D, F, false><<<wisp::ceil_div(n, threads), threads, 0, st>>>(
-          coords, grad_out, nullptr, nullptr, N, t, StochTable{}, grad_table);
-    } else {
-      hashgrid_bwd_kernel<D, F, true><<<wisp::ceil_div(n, threads), threads, 0, st>>>(
-          coords, grad_out, u0_in, u0_out, N, t, *s, grad_table);
-    }
-  }
-  return cudaGetLastError();
-}
-
-template <int D, int F>
-cudaError_t launch(const float* coords, const float* table, long long N, const LodTable& t,
-                   float* out, cudaStream_t st) {
-  const long long n = N * t.out_lods;
-  if (n > 0) {
-    const int threads = 256;
-    hashgrid_fwd_kernel<D, F><<<wisp::ceil_div(n, threads), threads, 0, st>>>(
-        coords, table, N, t, out);
-  }
-  return cudaGetLastError();
-}
-
-// the backward's stochastic part: the per-LOD flags and the caller's uniforms
-struct StochArgs {
-  const StochTable* table;  // null: the exact backward
-  const float* u0_in;
-  float* u0_out;
-};
-
-// backward: `table` is the cotangent [N, out_lods*F] and `out` the table gradient
-template <int D>
-cudaError_t dispatch_f(int F, bool backward, const float* coords, const float* table,
-                       long long N, const LodTable& t, const StochArgs& sa, float* out,
-                       cudaStream_t st) {
-  switch (F) {
-    case 1: return backward ? launch_bwd<D, 1>(coords, table, N, t, sa.table, sa.u0_in,
-                                               sa.u0_out, out, st)
-                            : launch<D, 1>(coords, table, N, t, out, st);
-    case 2: return backward ? launch_bwd<D, 2>(coords, table, N, t, sa.table, sa.u0_in,
-                                               sa.u0_out, out, st)
-                            : launch<D, 2>(coords, table, N, t, out, st);
-    case 4: return backward ? launch_bwd<D, 4>(coords, table, N, t, sa.table, sa.u0_in,
-                                               sa.u0_out, out, st)
-                            : launch<D, 4>(coords, table, N, t, out, st);
-    case 8: return backward ? launch_bwd<D, 8>(coords, table, N, t, sa.table, sa.u0_in,
-                                               sa.u0_out, out, st)
-                            : launch<D, 8>(coords, table, N, t, out, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 
 // K14's per-LOD constants.
 struct QueryTable {
@@ -385,55 +674,95 @@ cudaError_t query_dispatch(int F, const float* coords, const float* table, long 
   return cudaGetLastError();
 }
 
-int run(bool backward, const float* coords, const float* table, long long N, int dim,
-        int F, int n_lods, int out_lods, const int* res, const float* scale, const float* hi,
-        const long long* begin, const int* dense, unsigned codebook_size, float* out,
-        void* stream, const StochArgs& sa = StochArgs{nullptr, nullptr, nullptr}) {
-  if (n_lods > kMaxLods || out_lods > kMaxLods || n_lods > out_lods)
-    return (int)cudaErrorInvalidValue;
-  LodTable t;
+// The LOD table of both directions, checked: the hash modulo is a mask (codebook_size a
+// power of two), every LOD's rows end below 2^32 (32-bit row indices), and the privatized
+// LODs are dense, their float32 clip stays below res - 1 (so no corner leaves the LOD's
+// rows) and their rows fit a block's shared memory.
+cudaError_t make_table(int dim, int F, int n_lods, int out_lods, const int* res,
+                       const float* scale, const float* hi, const long long* begin,
+                       const int* dense, unsigned codebook_size, int n_shared, LodTable& t) {
+  if (n_lods < 1 || n_lods > kMaxLods || out_lods > kMaxLods || n_lods > out_lods ||
+      codebook_size == 0 || (codebook_size & (codebook_size - 1)) != 0 || n_shared < 0 ||
+      n_shared > n_lods)
+    return cudaErrorInvalidValue;
   t.n_lods = n_lods;
   t.out_lods = out_lods;
-  t.codebook_size = codebook_size;
+  t.hash_mask = codebook_size - 1u;
+  t.n_shared = n_shared;
+  t.sbegin[0] = 0u;
   for (int l = 0; l < n_lods; ++l) {
+    long long rows = dense[l] ? 1 : (long long)codebook_size;
+    if (dense[l]) {
+      for (int d = 0; d < dim; ++d) rows *= res[l];
+    }
+    if (res[l] < 1 || begin[l] < 0 || begin[l] + rows > 0xffffffffLL)
+      return cudaErrorInvalidValue;
     t.res[l] = res[l];
     t.scale[l] = scale[l];
     t.hi[l] = hi[l];
-    t.begin[l] = begin[l];
+    t.begin[l] = (unsigned)begin[l];
     t.dense[l] = dense[l];
+    if (l < n_shared) {
+      if (!dense[l] || !(hi[l] < (float)(res[l] - 1))) return cudaErrorInvalidValue;
+      t.sbegin[l + 1] = t.sbegin[l] + (unsigned)rows;
+      if ((long long)t.sbegin[l + 1] * F * (long long)sizeof(float) > kSharedBytesMax)
+        return cudaErrorInvalidValue;
+    }
   }
+  return cudaSuccess;
+}
+
+int run(bool backward, const float* coords, const float* table, long long N, int dim,
+        int F, int n_lods, int out_lods, const int* res, const float* scale, const float* hi,
+        const long long* begin, const int* dense, unsigned codebook_size, int n_shared,
+        float* out, void* stream, const StochTable* s = nullptr,
+        const float* u0_in = nullptr, float* u0_out = nullptr) {
+  // the kernels index samples with int and read the table (forward) and add to the
+  // gradient (backward) in 16-byte vectors
+  const float* vec = backward ? out : table;
+  if (N < 0 || N > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(vec) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  LodTable t;
+  const cudaError_t e = make_table(dim, F, n_lods, out_lods, res, scale, hi, begin, dense,
+                                   codebook_size, n_shared, t);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dim) {
-    case 2: return (int)dispatch_f<2>(F, backward, coords, table, N, t, sa, out, st);
-    case 3: return (int)dispatch_f<3>(F, backward, coords, table, N, t, sa, out, st);
+    case 2: return (int)dispatch_f<2>(F, backward, coords, table, (int)N, t, s, u0_in, u0_out,
+                                      out, st);
+    case 3: return (int)dispatch_f<3>(F, backward, coords, table, (int)N, t, s, u0_in, u0_out,
+                                      out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// res/scale/hi/begin/dense: host arrays of n_lods entries.
+// res/scale/hi/begin/dense: host arrays of n_lods entries. table: 16-byte aligned.
 WISP_EXPORT int wisp_hashgrid_fwd(const float* coords, const float* table, long long N,
                                   int dim, int F, int n_lods, int out_lods, const int* res,
                                   const float* scale, const float* hi,
                                   const long long* begin, const int* dense,
                                   unsigned codebook_size, float* out, void* stream) {
   return run(false, coords, table, N, dim, F, n_lods, out_lods, res, scale, hi, begin,
-             dense, codebook_size, out, stream);
+             dense, codebook_size, 0, out, stream);
 }
 
 // grad_out: [N, out_lods*F] cotangent of the forward's output; grad_table: the [T, F]
-// table gradient, zeroed by the caller, into which LODs 0..n_lods-1 accumulate. stoch: null
-// for the exact backward, else a host array of n_lods flags, stoch[l] != 0 sending the whole
-// cotangent row of LOD l to one drawn corner. u0_in: [N] uniforms, or null for the in-kernel
-// sin hash; u0_out: null, or [N] to receive the hash's uniforms (u0_in must then be null);
-// both are null in the exact backward.
+// table gradient, zeroed by the caller and 16-byte aligned, into which LODs 0..n_lods-1
+// accumulate. stoch: null for the exact backward, else a host array of n_lods flags,
+// stoch[l] != 0 sending the whole cotangent row of LOD l to one drawn corner. u0_in: [N]
+// uniforms, or null for the in-kernel sin hash; u0_out: null, or [N] to receive the hash's
+// uniforms (u0_in must then be null); both are null in the exact backward. n_shared: LODs
+// 0..n_shared-1 (dense) are accumulated in each block's shared memory (ops/grid.py
+// shared_lods), 0 for none; a launch over fewer than kSpreadBwd samples privatizes none.
 WISP_EXPORT int wisp_hashgrid_bwd(const float* coords, const float* grad_out,
                                   const float* u0_in, float* u0_out, long long N, int dim,
                                   int F, int n_lods, int out_lods, const int* res,
                                   const float* scale, const float* hi,
                                   const long long* begin, const int* dense, const int* stoch,
-                                  unsigned codebook_size, float* grad_table, void* stream) {
+                                  int n_shared, unsigned codebook_size, float* grad_table,
+                                  void* stream) {
   if (n_lods > kMaxLods || (u0_in != nullptr && u0_out != nullptr) ||
       (stoch == nullptr && (u0_in != nullptr || u0_out != nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -445,8 +774,8 @@ WISP_EXPORT int wisp_hashgrid_bwd(const float* coords, const float* grad_out,
     }
   }
   return run(true, coords, grad_out, N, dim, F, n_lods, out_lods, res, scale, hi, begin,
-             dense, codebook_size, grad_table, stream,
-             StochArgs{stoch != nullptr ? &s : nullptr, u0_in, u0_out});
+             dense, codebook_size, n_shared, grad_table, stream,
+             stoch != nullptr ? &s : nullptr, u0_in, u0_out);
 }
 
 // K14. res/hi/begin/rows/dense: host arrays of n_lods entries (rows: each LOD's slice of the

@@ -70,8 +70,8 @@ _SIGNATURES = {
     "wisp_hashgrid_fwd": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_uint32,
                           _P, _P],
     # coords grad_out u0_in u0_out N dim F n_lods out_lods res scale hi begin dense stoch
-    # codebook_size grad_table stream
-    "wisp_hashgrid_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+    # n_shared codebook_size grad_table stream
+    "wisp_hashgrid_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                           ctypes.c_uint32, _P, _P],
     # density deltas depths mask color extra R S Ce bg0 bg1 bg2 rgb alpha depth hit
     # extra_out stream

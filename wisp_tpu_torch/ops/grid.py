@@ -44,6 +44,13 @@ _U32 = 0xFFFFFFFF
 DENSE_MM_MAX_ELEMS = 2 ** 30
 # the golden-ratio shift that decorrelates the draws of the LODs (_fold_u, ops/grid.py:295)
 GOLDEN_SHIFT = 0.61803398875
+# a block's shared memory on the H100 (sm_90: 227 KB), and the part of it in which K1's
+# backward accumulates its leading dense LODs (``shared_lods``): a quarter of an SM's 228 KB
+# less the 1 KB each block reserves, so that four blocks of 512 threads stay resident. On
+# the card that was as fast as LODs 0-1 or 0-2 for the exact backward and the fastest for
+# the stochastic one (PERF.md, section 6)
+SHARED_MEMORY_BYTES = 232_448
+SHARED_LOD_BYTES = 57_344
 
 
 def stoch_lods(resolutions: Sequence[int], codebook_bitwidth: int, dim: int, rows: int,
@@ -62,6 +69,31 @@ def stoch_lods(resolutions: Sequence[int], codebook_bitwidth: int, dim: int, row
         out.append(not (dense_lod_matmul is not None and dense
                         and int(rows) * r * r <= DENSE_MM_MAX_ELEMS))
     return tuple(out)
+
+
+def shared_lods(resolutions: Sequence[int], codebook_bitwidth: int, dim: int, f_dim: int,
+                n_lods: int, limit: int = SHARED_LOD_BYTES) -> int:
+    """How many leading LODs K1's backward accumulates in each block's shared memory before
+    it adds them to the table gradient once a block: the longest prefix of LODs
+    0..n_lods-1 that are dense (res^dim rows fit the 2^bitwidth table) and whose rows,
+    res^dim x ``f_dim`` float32 each, fit ``limit`` bytes together (at most a block's
+    ``SHARED_MEMORY_BYTES``). The coarsest LODs are the smallest and take the most samples
+    a row, so their atomics are the ones that contend in L2. A LOD whose float32 clip
+    bound res-1-1e-5 rounds up to res-1 (res above 256) could put a corner past its rows,
+    so it ends the prefix too (it would not fit anyway). A launch over fewer than 65,536
+    samples spreads each sample's LODs over several threads and privatizes none
+    (``csrc/hashgrid.cu``)."""
+    codebook_size = 2 ** int(codebook_bitwidth)
+    budget = min(int(limit), SHARED_MEMORY_BYTES)
+    total, count = 0, 0
+    for i in range(int(n_lods)):
+        r = int(resolutions[i])
+        rows = r ** dim
+        total += rows * f_dim * 4
+        if rows > codebook_size or total > budget or not np.float32(r - 1 - 1e-5) < r - 1:
+            break
+        count += 1
+    return count
 
 
 def stoch_u0(coords: torch.Tensor) -> torch.Tensor:
@@ -310,13 +342,15 @@ def _hashgrid_bwd(coords, grad_out, geometry, grad, stoch_mask=None, u0=None,
     for t, name in ((u0, "u0"), (u0_out, "u0_out")):
         if t is not None:
             kernels.check(t, name, torch.float32, (n,))
+    n_shared = shared_lods(arrays[0], codebook_size.bit_length() - 1, dim, f_dim, n_lods,
+                           SHARED_LOD_BYTES)
     if n > 0:
         kernels.launch("wisp_hashgrid_bwd",
                        "hashgrid_bwd" if flags is None else "hashgrid_bwd_stoch",
                        coords.data_ptr(), grad_out.data_ptr(), kernels.ptr(u0),
                        kernels.ptr(u0_out), n, dim, f_dim, n_lods, out_lods,
                        *(a.ctypes.data for a in arrays),
-                       None if flags is None else flags.ctypes.data, codebook_size,
+                       None if flags is None else flags.ctypes.data, n_shared, codebook_size,
                        grad.data_ptr())
     return grad
 

@@ -108,8 +108,8 @@ class PackedRFTracer(BaseTracer):
                 raise ValueError(f"seg_early_stop requires seg_count > 1, got {seg_count} "
                                  f"(one segment would not cull)")
         if early_stop and early_stop > 0.0:
-            raise NotImplementedError("early_stop > 0 is not ported yet (ROADMAP Queue 1, "
-                                      "item 9)")
+            raise NotImplementedError("early_stop > 0, the transmittance cull, is not ported "
+                                      "yet (ROADMAP Queue 1, item 5)")
         n = rays.origins.shape[0]
         if lod_idx is None:
             lod_idx = nef.grid.num_lods - 1
