@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the compaction kernels and the paths that call them, on one NVIDIA GPU.
+"""Time the compaction kernels and the paths that call the redesigned kernels, on one
+NVIDIA GPU.
 
 Run from the root of a checkout; it imports that checkout's ``chip_smoke.py`` and
 ``wisp_tpu_torch``, so the same file run from two checkouts compares them:
@@ -7,6 +8,7 @@ Run from the root of a checkout; it imports that checkout's ``chip_smoke.py`` an
     python3 chip_compaction_bench.py kernels
     python3 chip_compaction_bench.py paths [label]
     python3 chip_compaction_bench.py sdf [label]
+    python3 chip_compaction_bench.py sdfframe [label]
 
 ``kernels``: ``compact`` (K3, K6a) and ``compact_rays`` (K12, its mid pass) at the four
 shapes of ``PERF.md``'s compaction rows, on seeded inputs (march-like runs of valid steps;
@@ -20,6 +22,11 @@ carved field), 40 flagship training steps (the train phase's trainer; the first 
 out) and, after 300 NGLOD app steps, 10 each of the 512x512 SDF frame uncompacted, at
 compaction 0.55 and with the mid pass at 0.3 (the nglod app phase's settings), in turns.
 ``sdf``: the SDF frames of ``paths`` alone, in a process that runs nothing before them.
+``sdfframe``: the SDF render phase's frame (``chip_smoke.nglod_pipeline``, 512x512 through
+``OfflineRenderer.render_lookat``, the free-space field (K11) made once a chunk, as the
+tracer makes it when no field is held): 15 frames' wall ms after a warm-up, then one frame
+under torch.profiler (``chip_smoke.profile_frame``: device-busy ms, idle share, the kernels
+with the most device time).
 Each mode prints one JSON line; run ``paths`` from the parent's and the change's checkouts
 in turns (parent, change, change, parent, ...) to compare them: these paths are bound by
 the host, and their spread from process to process is wide.
@@ -56,19 +63,6 @@ K12_SHAPES = {                 # rays, live rays, budget
 }
 
 
-def ms_by_kernel(fn, iters: int = 20) -> list:
-    """Device ms a call of each kernel ``fn`` launches, under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    _, recorded = cs.device_kernels(prof, None)
-    return [(k["name"][:60], k["ms"] / iters) for k in recorded]
-
-
 def march_mask(gen, r: int, s: int, share: float, dev):
     """Each ray valid over a run of up to 2 * share * s steps from a random step, with 10%
     of the run's steps dropped."""
@@ -80,7 +74,7 @@ def march_mask(gen, r: int, s: int, share: float, dev):
 
 
 def kernels_mode(dev) -> dict:
-    started = cs.start_threepass_build()
+    started = cs.start_baseline_build(cs.THREEPASS_SRC, "libwisp_threepass.so")
     kernels.build()
     cs.THREEPASS = cs.ThreePass(started)
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -101,7 +95,7 @@ def kernels_mode(dev) -> dict:
                      "was_ms": cs.timed(lambda: cs.THREEPASS.compact(*args)),
                      "nonzero_ms": cs.timed(lambda: torch.nonzero(live.T)),
                      "launches_per_call": cs.launches_per_call(lambda: compact(*args)),
-                     "ms_by_kernel": ms_by_kernel(lambda: compact(*args))}
+                     "ms_by_kernel": cs.device_ms_by_kernel(lambda: compact(*args))}
     for name, (r, live, budget) in K12_SHAPES.items():
         mask = torch.zeros(r, dtype=torch.bool)
         mask[torch.randperm(r, generator=gen)[:live]] = True
@@ -117,7 +111,7 @@ def kernels_mode(dev) -> dict:
                      "was_ms": cs.timed(lambda: cs.THREEPASS.compact_rays(*args)),
                      "nonzero_ms": cs.timed(lambda: torch.nonzero(mask)),
                      "launches_per_call": cs.launches_per_call(lambda: compact_rays(*args)),
-                     "ms_by_kernel": ms_by_kernel(lambda: compact_rays(*args))}
+                     "ms_by_kernel": cs.device_ms_by_kernel(lambda: compact_rays(*args))}
     return out
 
 
@@ -180,8 +174,19 @@ def paths_mode(dev, flagship: bool) -> dict:
     return out
 
 
+def sdf_frame_mode(dev) -> dict:
+    from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
+    kernels.build()
+    pipeline, _ = cs.nglod_pipeline(dev)
+    renderer = OfflineRenderer(render_res=(cs.RES, cs.RES), device=dev)
+    clock(lambda: renderer.render_lookat(pipeline, f=cs.EYE))            # warm-up
+    frames = [clock(lambda: renderer.render_lookat(pipeline, f=cs.EYE)) for _ in range(15)]
+    profile = cs.profile_frame(renderer, pipeline)
+    return {"sdf_frame_ms": frames}, profile
+
+
 def main() -> int:
-    if len(sys.argv) < 2 or sys.argv[1] not in ("kernels", "paths", "sdf"):
+    if len(sys.argv) < 2 or sys.argv[1] not in ("kernels", "paths", "sdf", "sdfframe"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -189,10 +194,18 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     mode = sys.argv[1]
-    result = kernels_mode(dev) if mode == "kernels" else paths_mode(dev, mode == "paths")
+    profile = None
+    if mode == "kernels":
+        result = kernels_mode(dev)
+    elif mode == "sdfframe":
+        result, profile = sdf_frame_mode(dev)
+    else:
+        result = paths_mode(dev, mode == "paths")
     if mode != "kernels":
         result = {"median_ms": {k: statistics.median(v) for k, v in result.items()},
                   "all_ms": result}
+    if profile is not None:
+        result["profile_frame"] = profile
     print(json.dumps({"mode": mode, "label": sys.argv[2] if len(sys.argv) > 2
                       else None, "device": cs.nvidia_smi_line(), **result}), flush=True)
     return 0

@@ -26,7 +26,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    (``wisp_tpu_torch/csrc/baselines/compaction_threepass.cu``, built by this script beside
    the kernel library) on the same inputs, held exactly to the plain version first; the
    K1 forward row likewise, beside the earlier K1 design
-   (``wisp_tpu_torch/csrc/baselines/hashgrid_v1.cu``, also built beside the library);
+   (``wisp_tpu_torch/csrc/baselines/hashgrid_v1.cu``, also built beside the library); the
+   scatter-back row's library time is a zeroed [total + 1, C] and ``index_copy_``;
 6. training path: builds the flagship-width trainer (the same config, AMP, AdamW with the
    scheduler, adaptive rays and compaction, sample-fed pruning) on a ``make_dense`` level-7
    octree and a 4-view 512x512 lego-proxy dataset (the config has 100 views: a cut of
@@ -46,7 +47,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    free-space field, walk and step kernels must all have run); checks the frame (shapes,
    finite, unit normals, alpha = hit, and the sphere's geometry), one chunk against the
    plain versions, then holds each SDF kernel against its plain version at that chunk's
-   shapes, times it, profiles a frame on the card and one frame's host side (cProfile);
+   shapes, times it (K15's forward and K11 beside their earlier designs), profiles a
+   frame on the card and one frame's host side (cProfile);
 9. SDF training path: builds the trainer of nglod_octree.yaml at full width on the same
    octree (the config's seeded random init; OctreeSampledSDFDataset with 500,000 samples
    and 32 a voxel; batch 512, Adam, AMP), sets the counts to 0, runs 200
@@ -148,7 +150,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    1e-5 of the largest entry, the stochastic backward by ``stoch_parity`` (no flip outside
    tie rows, counts exact); times each beside the earlier design, then makes 200 calls
    back to back on one stream and holds each shape's last result to its first;
-18. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+18. octree grid step ("octree grid"): holds K15's forward (within 1e-6) and K11 (exactly),
+   and their earlier designs (``wisp_tpu_torch/csrc/baselines/octree_grid_v1.cu`` and
+   ``free_space_v1.cu``, built beside the library; the K15 and K11 rows' ``was_ms``), to
+   their plain versions on the calls the phases recorded (the SDF render chunk after the
+   walk and 4 iterations, an SDF train batch, the octree NeRF's F = 5 step, the trained
+   NGLOD field's frames uncompacted on permuted rays, compacted and with the mid pass, a
+   level-8 chunk; K11 at levels 7 and 8), times each beside the earlier design with its
+   launches and host time a call, then makes 200 calls back to back on one stream and
+   holds each shape's last result equal to its first;
+19. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels, from the SDF training run for its two, from the octree NeRF's 25
    steps for K7, from the stoch path's 25 steps for K1's stochastic backward, from the
@@ -158,8 +169,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    for K10, from the uniform path's steps and frame for K8 and from its one query for
    K14), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
    ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
-   ``uniform_path`` JSON lines, the ``compaction_shapes`` and ``hashgrid_shapes`` lines,
-   the ``phase_s`` line, the nvidia-smi line and, last,
+   ``uniform_path`` JSON lines, the ``compaction_shapes``, ``hashgrid_shapes`` and
+   ``octree_grid_shapes`` lines, the ``phase_s`` line, the nvidia-smi line and, last,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -331,6 +342,14 @@ HASHGRID_V1_SRC = "wisp_tpu_torch/csrc/baselines/hashgrid_v1.cu"
 HASHGRID_V1 = None             # a HashGridV1 once built (run())
 HASHGRID_V1_DESIGN = ("csrc/baselines/hashgrid_v1.cu (a thread a (sample, LOD); scalar "
                       "atomics)")
+OCTREE_GRID_V1_SRC = "wisp_tpu_torch/csrc/baselines/octree_grid_v1.cu"
+FREE_SPACE_V1_SRC = "wisp_tpu_torch/csrc/baselines/free_space_v1.cu"
+OCTREE_V1 = None               # an OctreeV1 once built (run())
+OCTREE_V1_DESIGN = {
+    "octree_interp": "csrc/baselines/octree_grid_v1.cu (a thread a (point, feature), the "
+                     "LODs' dependent loads one LOD after another)",
+    "free_space_distance": "csrc/baselines/free_space_v1.cu (three byte passes of a thread "
+                           "a cell)"}
 
 
 def start_baseline_build(src: str, lib: str):
@@ -467,6 +486,65 @@ class HashGridV1:
         geometry = k1_geometry(coords, rows, (resolutions, bitwidth, lod_idx, table_rows, first,
                                               sizes), out_lods)
         return self.bwd(coords, grad_out, geometry, table_rows, stoch_mask, u0)
+
+
+class OctreeV1:
+    """The earlier designs of K15's forward and of K11, called on the current stream with
+    their wrappers' arguments and the host work of the earlier K15 wrapper (its checks, and
+    its pointer and level arrays built at every call); their launches are not the port's
+    and are not counted."""
+
+    def __init__(self, started_interp, started_fsd):
+        import ctypes
+        import numpy as np
+        import torch
+        from wisp_tpu_torch import kernels
+        from wisp_tpu_torch.accelstructs.octree_as import free_space_cap
+        from wisp_tpu_torch.models.grids.octree_grid import _check_geometry
+        # resolved once, so that a call's host time is the earlier wrapper's own
+        self.np, self.torch, self.kernels, self.ctypes = np, torch, kernels, ctypes
+        self.free_space_cap, self.check_geometry = free_space_cap, _check_geometry
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self.interp_lib = finish_baseline_build(started_interp, OCTREE_GRID_V1_SRC)
+        self.interp_lib.wisp_octree_interp_v1.argtypes = [P, P, L, I, I, I, I, P, P, P, I, P,
+                                                          P]
+        self.fsd_lib = finish_baseline_build(started_fsd, FREE_SPACE_V1_SRC)
+        self.fsd_lib.wisp_free_space_distance_v1.argtypes = [P, I, I, P, P, P]
+
+    def _stream(self) -> int:
+        """The raw current stream, as ``kernels.launch`` reads it."""
+        return self.torch._C._cuda_getCurrentRawStream(self.torch._C._cuda_getDevice())
+
+    def interp(self, coords, pidx, col0, trinkets, features, levels, multiscale_type="sum"):
+        """``octree_interp``'s forward with this design."""
+        ctypes, np, torch, kernels = self.ctypes, self.np, self.torch, self.kernels
+        f_dim = features[0].shape[1]
+        n, n_lods = self.check_geometry(coords, pidx, col0, trinkets, levels, multiscale_type)
+        for i in range(n_lods):
+            kernels.check(features[i], f"features[{i}]", torch.float32, (None, f_dim))
+        out = torch.empty((n, f_dim if multiscale_type == "sum" else f_dim * n_lods),
+                          dtype=torch.float32, device=coords.device)
+        if n:
+            trk, fts = kernels.pointers(trinkets), kernels.pointers(features)
+            lvl = np.asarray(levels, dtype=np.int32)
+            status = self.interp_lib.wisp_octree_interp_v1(
+                coords.data_ptr(), pidx.data_ptr(), n, pidx.shape[1], int(col0), n_lods,
+                f_dim, ctypes.addressof(trk), ctypes.addressof(fts), lvl.ctypes.data,
+                int(multiscale_type == "sum"), out.data_ptr(), self._stream())
+            require(status == 0, f"wisp_octree_interp_v1 failed to launch ({status})")
+        return out
+
+    def free_space(self, occ, level, max_k=31):
+        """``free_space_distance`` with this design."""
+        torch, free_space_cap = self.torch, self.free_space_cap
+        res = 2 ** level
+        scratch = torch.empty((2, res ** 3), dtype=torch.uint8, device=occ.device)
+        out = torch.empty((res ** 3,), dtype=torch.int32, device=occ.device)
+        status = self.fsd_lib.wisp_free_space_distance_v1(
+            occ.data_ptr(), level, free_space_cap(max_k), scratch.data_ptr(), out.data_ptr(),
+            self._stream())
+        require(status == 0, f"wisp_free_space_distance_v1 failed to launch ({status})")
+        return out
 
 
 def k1_geometry(coords, table, args, out_lods):
@@ -670,11 +748,24 @@ def kernel_phase(pipeline, rays):
     v = out["rgb"].contiguous()
     sk = scatter_back(v, idx, r * s)
     sp = scatter_back_plain(v, idx, r * s)
+    idx_kept = idx[:kept]
+
+    def library_scatter():
+        """The same function in PyTorch: a zeroed [total + 1, C], then index_copy_."""
+        return torch.zeros((r * s + 1, v.shape[1]), dtype=v.dtype,
+                           device=v.device).index_copy_(0, idx_kept, v)
+
+    require(torch.equal(library_scatter()[:r * s], sp), "scatter_back's library call differs")
+    padded = torch.zeros((r * s + 1, v.shape[1]), dtype=v.dtype, device=v.device)
     row("scatter_back", "wisp_tpu_torch/csrc/compaction.cu",
         "wisp_tpu/tracers/packed_rf_tracer.py:210", float((sk - sp).abs().max()), 0.0,
         timed(lambda: scatter_back(v, idx, r * s)),
         timed(lambda: scatter_back_plain(v, idx, r * s)),
-        nbytes=kept * (12 + 8) + r * s * 12, ops=0.0)
+        nbytes=kept * (12 + 8) + r * s * 12, ops=0.0, library_ms=timed(library_scatter))
+    rows[-1]["library_call"] = ("torch.zeros([total + 1, C]).index_copy_(0, idx[:K], v): "
+                                "the zero fill and the copy")
+    rows[-1]["library_index_copy_only_ms"] = timed(
+        lambda: padded.index_copy_(0, idx_kept, v))
 
     # K4 integration
     density = scatter_back(out["density"].contiguous(), idx, r * s).reshape(r, s)
@@ -919,6 +1010,151 @@ def hashgrid_phase() -> dict:
         err = float((last[key] - ref).abs().max()) if ref.numel() else 0.0
         require(err <= tol, f"K1 at {key}, called back to back, differs from its first result "
                             f"by {err} (tolerance {tol})")
+    return out
+
+
+def device_ms_by_kernel(fn, iters: int = 20) -> list:
+    """(name, device ms a call) of each kernel that ``fn`` launches, from one torch.profiler
+    session; empty if the session recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    _, recorded = device_kernels(prof, None)
+    return [(k["name"][:60], k["ms"] / iters) for k in recorded]
+
+
+def host_ms_in_turns(fns, calls: int = 200, rounds: int = 3) -> list:
+    """Host ms a call of each function in ``fns``: the host clock around ``calls`` calls
+    with no synchronisation between them (the launches queue on the card, so this is the
+    host's time alone), the functions in turns, the median of ``rounds``."""
+    import torch
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[i].append((time.perf_counter() - t0) * 1e3 / calls)
+            torch.cuda.synchronize()
+    return [sorted(t)[len(t) // 2] for t in times]
+
+
+# the K15 forward and K11 calls that the paths made, for the "octree grid" step: key ->
+# {"kind": counter name, "args": the wrapper's arguments (cloned)}
+OCTREE_GRID_CALLS = {}
+
+
+def k15_record(key, coords, pidx, col0, trinkets, features, levels, multiscale_type):
+    """Keep one K15 forward call's inputs under ``key``."""
+    OCTREE_GRID_CALLS[key] = {"kind": "octree_interp", "args": (
+        coords.detach().clone(), pidx.clone(), int(col0), [t.clone() for t in trinkets],
+        [f.detach().clone() for f in features], [int(v) for v in levels], multiscale_type)}
+
+
+def k11_record(key, occ, level, max_k=31):
+    """Keep one K11 call's inputs under ``key``."""
+    OCTREE_GRID_CALLS[key] = {"kind": "free_space_distance",
+                              "args": (occ.clone(), int(level), int(max_k))}
+
+
+@contextmanager
+def recording_octree_grid(key: str):
+    """Keep the inputs of the last K15 forward and the last K11 launched inside, under
+    "<key>" and "<key>: K11", held and copied when the block ends (no input of either is
+    changed inside a block that uses this)."""
+    from wisp_tpu_torch.accelstructs import octree_as
+    from wisp_tpu_torch.models.grids import octree_grid
+    fwd, fsd = octree_grid._interp_fwd, octree_as.free_space_distance
+    held = {}
+
+    def rec_fwd(*args):
+        held["k15"] = args
+        return fwd(*args)
+
+    def rec_fsd(occ, level, max_k=31):
+        held["k11"] = (occ, level, max_k)
+        return fsd(occ, level, max_k)
+
+    with mock.patch.object(octree_grid, "_interp_fwd", rec_fwd), \
+            mock.patch.object(octree_as, "free_space_distance", rec_fsd):
+        yield
+    if "k15" in held:
+        k15_record(key, *held["k15"])
+    if "k11" in held:
+        k11_record(f"{key}: K11", *held["k11"])
+
+
+def octree_grid_phase() -> dict:
+    """K15's forward and K11 at every call the paths recorded (an SDF render chunk after the
+    walk and 4 iterations, an SDF train batch, the octree NeRF's F = 5 step, the trained
+    NGLOD field's frames uncompacted on permuted rays, compacted and with the mid pass; K11
+    at level 7 and at level 8): both designs held to the plain version (K15 within 1e-6,
+    K11 equal) and timed side by side, with their launches a call, the event ms less the
+    device ms a call (``host_ms``: the card's idle time a call when the calls come back to
+    back), the wrappers' own host time a call (``wrapper_host_ms``, ``host_ms_in_turns``;
+    K15's wrapper is ``_interp_fwd``) and the redesign's device ms by kernel. Then 200
+    calls of the redesign back to back on one stream with no synchronisation between them,
+    the shapes in turns, each shape's last result held equal to its first."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import (free_space_distance,
+                                                       free_space_distance_plain)
+    from wisp_tpu_torch.models.grids.octree_grid import (_interp_fwd, interp_vector_width,
+                                                         octree_interp_plain)
+    require(OCTREE_GRID_CALLS, "no phase recorded a K15 forward or K11 call")
+    out, checks = {}, []
+    for key, c in sorted(OCTREE_GRID_CALLS.items()):
+        args = c["args"]
+        if c["kind"] == "octree_interp":
+            coords, pidx, _, _, feats, levels, multiscale = args
+            # the wrapper itself, beside the earlier one: their host work a call compares
+            run_new = functools.partial(_interp_fwd, *args)
+            run_was = functools.partial(OCTREE_V1.interp, *args)
+            want = octree_interp_plain(*args)
+            errs = [float((f() - want).abs().max()) if want.numel() else 0.0
+                    for f in (run_new, run_was)]
+            require(all(e <= 1e-6 for e in errs), f"K15 forward at {key}: max abs err "
+                                                  f"(new, earlier) {errs}, tolerance 1e-6")
+            f_dim = feats[0].shape[1]
+            shape = {"points": coords.shape[0], "F": f_dim, "lods": len(levels),
+                     "multiscale": multiscale, "features_a_lane": interp_vector_width(
+                         f_dim, [f.data_ptr() for f in feats]),
+                     "max_abs_err": errs[0], "was_max_abs_err": errs[1], "tol": 1e-6}
+        else:
+            occ, level, max_k = args
+            run_new = functools.partial(free_space_distance, *args)
+            run_was = functools.partial(OCTREE_V1.free_space, *args)
+            want = free_space_distance_plain(*args)
+            require(torch.equal(run_new(), want) and torch.equal(run_was(), want),
+                    f"K11 at {key}: a design differs from the plain version")
+            shape = {"level": level, "max_k": max_k, "cells": occ.numel(),
+                     "occupied": int(occ.sum()), "max_abs_err": 0, "tol": 0}
+        with torch.no_grad():
+            new, was = timed(run_new), timed(run_was)
+            host = host_ms_in_turns((run_new, run_was))
+            out[key] = dict(shape, ms=new[0], event_ms=new[1], host_ms=new[1] - new[0],
+                            wrapper_host_ms=host[0], ms_by_kernel=device_ms_by_kernel(run_new),
+                            launches_per_call=launches_per_call(run_new), was_ms=was[0],
+                            was_event_ms=was[1], was_host_ms=was[1] - was[0],
+                            was_wrapper_host_ms=host[1],
+                            was_launches_per_call=launches_per_call(run_was),
+                            was_design=OCTREE_V1_DESIGN[c["kind"]])
+            checks.append((key, run_new, run_new()))
+    torch.cuda.synchronize()
+    last = {}
+    with torch.no_grad():
+        for i in range(200):
+            key, run_new, _ = checks[i % len(checks)]
+            last[key] = run_new()
+    torch.cuda.synchronize()
+    for key, _, ref in checks:
+        require(torch.equal(last[key], ref), f"{key}, called back to back, differs from its "
+                                             f"first result")
     return out
 
 
@@ -1369,6 +1605,11 @@ def sdf_kernel_phase(pipeline, rays):
         timed(lambda: free_space_distance(occ, level)),
         timed(lambda: free_space_distance_plain(occ, level), iters=5),
         nbytes=cells * (1 + 4), ops=cells * 3 * 2))
+    add_launches_and_was(rows[-1], lambda: free_space_distance(occ, level),
+                         OCTREE_V1 and (lambda: OCTREE_V1.free_space(occ, level)),
+                         lambda: torch.equal(OCTREE_V1.free_space(occ, level), fp),
+                         OCTREE_V1_DESIGN["free_space_distance"])
+    k11_record(f"sdf render: K11 at level {level}", occ, level)
 
     # K12 walk from the rays' entry
     t_near, t_far = aabb_intersect(o, d, rays.dist_min, rays.dist_max)
@@ -1459,6 +1700,11 @@ def sdf_kernel_phase(pipeline, rays):
         nbytes=n * 12 + n * lods * 4 + trinket_rows * 32 + feature_rows * f_dim * 4
         + n * f_dim * 4,
         ops=valid * (3 * 5 + 8 * (2 + 2 * f_dim))))
+    add_launches_and_was(rows[-1], lambda: octree_interp(*args),
+                         OCTREE_V1 and (lambda: OCTREE_V1.interp(*args)),
+                         lambda: float((OCTREE_V1.interp(*args) - ip).abs().max()) <= 1e-6,
+                         OCTREE_V1_DESIGN["octree_interp"])
+    k15_record("sdf render chunk (after the walk and 4 iterations)", *args)
     return rows, {"chunk_rays": n, "walk_steps_taken": taken, "walk_cells": walk_cells,
                   "live_rays_after_4_iterations": live, "interp_valid_lod_points": valid,
                   "interp_trinket_rows": trinket_rows, "interp_feature_rows": feature_rows,
@@ -1707,6 +1953,8 @@ def sdf_train_kernel_phase(trainer, coords):
     sizes = [f.shape[0] for f in grid.features]
     args = (coords, pidx, grid.base_lod, grid.trinkets, sizes, f_dim, grid.active_lods,
             grid.multiscale_type, cot)
+    k15_record("sdf train batch", coords, pidx, grid.base_lod, grid.trinkets,
+               list(grid.features), grid.active_lods, grid.multiscale_type)
     bk = octree_interp_bwd(*args)
     bp = octree_interp_bwd_plain(*args)
     scale = max(float(b.abs().max()) for b in bp)
@@ -2017,10 +2265,28 @@ def octree_kernel_phase(trainer, chunk):
     bwd_err = max(float((a - b).abs().max()) for a, b in zip(bk, bp))
     require(fwd_err <= 1e-6, f"octree_interp at F = 5: error {fwd_err}")
     require(bwd_err <= 1e-5 * scale, f"octree_interp_bwd at F = 5: error {bwd_err}")
+    k15_record("octree nerf step (F = 5)", *iargs)
+    # the bounds, counted as the SDF rows count them: each touched trinket and feature row
+    # read once (forward), each whole gradient table written once (backward)
+    f_dim, lods = grid.feature_dim, grid.num_lods
+    trinket_rows = feature_rows = valid = 0
+    for i in range(lods):
+        p = pidx[:, grid.base_lod + i]
+        p = p[p >= 0].long()
+        valid += int(p.numel())
+        trinket_rows += int(torch.unique(p).numel())
+        feature_rows += int(torch.unique(grid.trinkets[i][p].reshape(-1)).numel())
+    ops = valid * (3 * 5 + 8 * (2 + 2 * f_dim))
     k15 = {"points": kept, "fwd_err": fwd_err, "fwd_tol": 1e-6, "bwd_err": bwd_err,
            "bwd_tol": 1e-5 * scale,
            "fwd_ms": timed(lambda: octree_interp(*iargs)),
-           "bwd_ms": timed(lambda: octree_interp_bwd(*bargs))}
+           "bwd_ms": timed(lambda: octree_interp_bwd(*bargs)),
+           "fwd_bound_ms": bound(kept * 12 + kept * lods * 4 + trinket_rows * 32
+                                 + feature_rows * f_dim * 4 + kept * f_dim * 4, ops),
+           "bwd_bound_ms": bound(kept * 12 + kept * lods * 4 + kept * f_dim * 4
+                                 + trinket_rows * 32 + sum(bargs[4]) * f_dim * 4, ops),
+           "valid_lod_points": valid, "trinket_rows": trinket_rows,
+           "feature_rows": feature_rows}
     return rows, {"k7_checks": checks, "k15_f5": k15}
 
 
@@ -3014,9 +3280,12 @@ def nglod_frame(dev, pipeline, tracker):
             "budget": first[0]["args"][1], "mid_budget": mids[0]["args"][1]}
     # the checks: the frames as rendered (the decoders' AMP compute type), counted, and
     # the same traces with float32 decoders, held to the rules of compare_traces
+    f32 = {}
     with float32_decoders(pipeline):
-        f32 = {name: trace_chunks(nef, tracer, rays, NGLOD_CHUNK)
-               for name, tracer in tracers.items()}
+        for name, tracer in tracers.items():
+            label = "uncompacted, a chunk of permuted rays" if name == "uncompacted" else name
+            with recording_octree_grid(f"nglod frame: {label}"):
+                f32[name] = trace_chunks(nef, tracer, rays, NGLOD_CHUNK)
     base_outs = frames["uncompacted"]["outs"]
     for name, fr in frames.items():
         outs = fr["outs"]
@@ -3286,7 +3555,7 @@ def nglod_phase(dev):
         target = (torch.rand(NGLOD_CHUNK, 3, generator=g) * 1.6 - 0.8)
         d = torch.nn.functional.normalize(target - o, dim=-1)
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), recording_octree_grid("nglod level 8 chunk"):
             rb8 = tracer8(pipe8.nef, Rays(o.contiguous().to(dev), d.to(dev), 0.0, 10.0))
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
@@ -3783,10 +4052,14 @@ def run() -> dict:
     t0 = time.perf_counter()
     threepass_build = start_baseline_build(THREEPASS_SRC, "libwisp_threepass.so")
     hashgrid_v1_build = start_baseline_build(HASHGRID_V1_SRC, "libwisp_hashgrid_v1.so")
+    octree_grid_v1_build = start_baseline_build(OCTREE_GRID_V1_SRC,
+                                                "libwisp_octree_grid_v1.so")
+    free_space_v1_build = start_baseline_build(FREE_SPACE_V1_SRC, "libwisp_free_space_v1.so")
     kernels.build(verbose=True)
-    global THREEPASS, HASHGRID_V1
+    global THREEPASS, HASHGRID_V1, OCTREE_V1
     THREEPASS = ThreePass(threepass_build)
     HASHGRID_V1 = HashGridV1(hashgrid_v1_build)
+    OCTREE_V1 = OctreeV1(octree_grid_v1_build, free_space_v1_build)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in str(kernels.BUILD_INFO.get("log", "")).splitlines()
              if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
@@ -3802,11 +4075,15 @@ def run() -> dict:
     t0 = time.perf_counter()
     hashgrid_info = hashgrid_phase()
     phases["phase_s"]["hashgrid"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    octree_grid_info = octree_grid_phase()
+    phases["phase_s"]["octree grid"] = time.perf_counter() - t0
     print(json.dumps({"kernels": phases["kernels"]}), flush=True)
     for line in phases["lines"]:
         print(json.dumps(line), flush=True)
     print(json.dumps({"compaction_shapes": compaction_info}), flush=True)
     print(json.dumps({"hashgrid_shapes": hashgrid_info}), flush=True)
+    print(json.dumps({"octree_grid_shapes": octree_grid_info}), flush=True)
     print(json.dumps({"phase_s": phases["phase_s"], "profiler_shortfalls": PROFILER_SHORTFALLS,
                       "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi, flush=True)

@@ -1309,3 +1309,150 @@ def test_hashgrid_kernels_back_to_back(dev):
         scale = 1.0 if c[0] == 0 else max(want.abs().max().item(), 1e-30) if want.numel() \
             else 1.0
         assert a.numel() == 0 or (a - want).abs().max().item() <= 1e-5 * scale
+
+
+# -- K11 and K15's forward, redesigned: every case the kernels take -------------------------
+
+FSD_MAX_KS = (1, 5, 6, 31, 63, 127)
+
+
+def _fsd_cases(level):
+    """Occupancies at ``level``: empty, full, one cell at each corner, on a face and at the
+    centre, cells at the bit words' edges, seeded random ones and the sphere octree's."""
+    res = 2 ** level
+    rng = np.random.default_rng(40 + level)
+    out = {"empty": np.zeros(res ** 3, bool), "full": np.ones(res ** 3, bool)}
+    m = res - 1
+    spots = {"corners": [(x, y, z) for x in (0, m) for y in (0, m) for z in (0, m)],
+             "face": [(res // 2, res // 2, 0)], "centre": [(res // 2, res // 2, res // 2)],
+             "word edges": [(res // 3, (2 * res) // 3, z) for z in (31, 32, 63, 64, 95, 96)
+                            if z < res]}
+    for name, cells in spots.items():
+        occ = np.zeros((res, res, res), bool)
+        for c in cells:
+            occ[c] = True
+        out[name] = occ.reshape(-1)
+    for frac in (0.001, 0.01, 0.1, 0.5):
+        out[f"random {frac}"] = rng.random(res ** 3) < frac
+    return out
+
+
+@pytest.mark.parametrize("level", range(9))
+def test_free_space_distance_kernel_cases(dev, level):
+    """K11 equal to its plain version (JAX's integers) at every level the wrapper takes, on
+    every case of ``_fsd_cases`` and the sphere octree, at each max_k; one launch a call."""
+    from wisp_tpu_torch.accelstructs.octree_as import (free_space_distance,
+                                                       free_space_distance_plain)
+    cases = {k: torch.from_numpy(v).to(dev) for k, v in _fsd_cases(level).items()}
+    if level >= 2:
+        cases["sphere octree"] = _sphere_octree(level, dev).occ_grid
+    for name, occ in cases.items():
+        for max_k in FSD_MAX_KS:
+            before = kernels.LAUNCHES["free_space_distance"]
+            got = free_space_distance(occ, level, max_k)
+            want = free_space_distance_plain(occ, level, max_k)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["free_space_distance"] == before + 1
+            assert got.dtype == torch.int32 and torch.equal(got, want), (name, max_k)
+
+
+def test_free_space_distance_kernel_rejects_a_cap_above_255(dev):
+    from wisp_tpu_torch.accelstructs.octree_as import free_space_distance
+    occ = torch.zeros(8 ** 3, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="out of range"):
+        free_space_distance(occ, 3, 128)
+
+
+def _interp_inputs(n, f_dim, n_lods, col0, seed, dev, misaligned=False):
+    """Seeded K15 inputs that reach every branch: tables of random rows, a pidx with -1
+    (empty) cells, coordinates on cell boundaries, on the box's faces and outside it.
+    ``misaligned`` starts every table 4 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    levels = [int(v) for v in rng.integers(0, 13, n_lods)]
+    cells = [int(v) for v in rng.integers(1, 300, n_lods)]
+    rows = [int(v) for v in rng.integers(1, 500, n_lods)]
+
+    def table(a, dtype):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        if misaligned:
+            flat = torch.zeros(t.numel() + 1, dtype=dtype)
+            flat[1:] = t.reshape(-1)
+            return flat.to(dev)[1:].view(t.shape)
+        return t.to(dev)
+
+    trinkets = [table(rng.integers(0, rows[i], (cells[i], 8)), torch.int32)
+                for i in range(n_lods)]
+    feats = [table(0.1 * rng.normal(size=(rows[i], f_dim)), torch.float32)
+             for i in range(n_lods)]
+    pidx = np.stack([rng.integers(-1, max(cells[i - col0], 1), n) if col0 <= i < col0 + n_lods
+                     else rng.integers(-1, 5, n) for i in range(col0 + n_lods + 1)], axis=1)
+    pidx[rng.random(pidx.shape) < 0.1] = -1
+    coords = rng.uniform(-1.1, 1.1, (n, 3))
+    k = rng.integers(0, 2 ** 12 + 1, (n, 3))
+    edge = rng.random(n) < 0.3                       # on cell boundaries of every level
+    coords[edge] = k[edge] / 2.0 ** 11 - 1.0
+    coords[rng.random(n) < 0.05, 0] = 1.0            # on the box's faces
+    coords[rng.random(n) < 0.05, 1] = -1.0
+    return (torch.from_numpy(coords.astype(np.float32)).to(dev),
+            torch.from_numpy(pidx.astype(np.int32)).to(dev), col0, trinkets, feats, levels)
+
+
+@pytest.mark.parametrize("f_dim", [1, 2, 3, 4, 5, 8, 16, 32])
+@pytest.mark.parametrize("n_lods", [1, 6, 16])
+@pytest.mark.parametrize("multiscale", ["sum", "cat"])
+def test_octree_interp_kernel_cases(dev, f_dim, n_lods, multiscale):
+    """K15 forward within 1e-6 of its plain version at each F (both routes), LOD count and
+    blend, col0 > 0, at N = 1, 7 and 16,385; one launch a call."""
+    from wisp_tpu_torch.models.grids.octree_grid import octree_interp, octree_interp_plain
+    for n in (1, 7, 16_385):
+        args = _interp_inputs(n, f_dim, n_lods, 2, f_dim * 100 + n_lods + n, dev)
+        before = kernels.LAUNCHES["octree_interp"]
+        got = octree_interp(*args, multiscale)
+        want = octree_interp_plain(*args, multiscale)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["octree_interp"] == before + 1
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-6, n
+        assert bool((want != 0).any()) or n == 1
+        if multiscale == "cat":                      # an empty cell's slice is zeros
+            empty = args[1][:, 2:2 + n_lods] < 0
+            assert bool((got.view(n, n_lods, f_dim)[empty] == 0).all())
+
+
+@pytest.mark.parametrize("f_dim,n_lods", [(5, 4), (16, 6)])
+def test_octree_interp_kernel_large_and_misaligned(dev, f_dim, n_lods):
+    """K15 forward at the octree NeRF's 187,360 points, and with every table 4 bytes off a
+    16-byte boundary (the route of a lane a feature, scalar trinket loads)."""
+    from wisp_tpu_torch.models.grids.octree_grid import octree_interp, octree_interp_plain
+    for misaligned in (False, True):
+        args = _interp_inputs(187_360, f_dim, n_lods, 0, 77, dev, misaligned=misaligned)
+        if misaligned:
+            assert all(t.data_ptr() % 16 for t in args[3] + args[4])
+        for multiscale in ("sum", "cat"):
+            got = octree_interp(*args, multiscale)
+            want = octree_interp_plain(*args, multiscale)
+            torch.cuda.synchronize()
+            assert (got - want).abs().max().item() <= 1e-6, (misaligned, multiscale)
+
+
+def test_octree_interp_kernel_back_to_back(dev):
+    """K15 forward calls of both routes and both blends in turns on one stream with no
+    synchronisation between them: each equal to its shape's first result, one launch a
+    call."""
+    from wisp_tpu_torch.models.grids.octree_grid import octree_interp, octree_interp_plain
+    shapes = [(16_384, 16, 6, "sum"), (187_360, 5, 4, "sum"), (7, 3, 16, "cat"),
+              (4_000, 8, 2, "cat")]
+    inputs = [_interp_inputs(n, f, l, 1, 90 + i, dev) + (m,)
+              for i, (n, f, l, m) in enumerate(shapes)]
+    first = [octree_interp(*a) for a in inputs]
+    for a, f in zip(inputs, first):
+        assert (f - octree_interp_plain(*a)).abs().max().item() <= 1e-6
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["octree_interp"]
+    last = {}
+    for i in range(200):
+        last[i % len(inputs)] = octree_interp(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["octree_interp"] == before + 200
+    for i, f in enumerate(first):
+        assert torch.equal(last[i], f), shapes[i]

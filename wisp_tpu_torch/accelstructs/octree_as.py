@@ -534,6 +534,25 @@ def free_space_cap(max_k: int) -> int:
     return s + 1
 
 
+class FreeSpaceLayout(NamedTuple):
+    """K11's bit grids: a z line of ``2^level`` cells in ``line_words`` 32-bit words (bit b
+    of word w is cell z = 32w + b; a line shorter than a word uses its low bits), and
+    ``thresholds + 1`` such grids in ``scratch_words`` words of scratch (the occupancy, then
+    its dilations at the cumulative radii 1, 3, 7, ...)."""
+    line_words: int
+    thresholds: int
+    scratch_words: int
+
+
+def free_space_layout(level: int, max_k: int) -> FreeSpaceLayout:
+    """The bit layout of ``free_space_distance``'s kernel at ``level`` and ``max_k``: J
+    thresholds where ``free_space_cap(max_k)`` = 2^J."""
+    res = 2 ** level
+    line_words = max(1, res // 32)
+    thresholds = free_space_cap(max_k).bit_length() - 1
+    return FreeSpaceLayout(line_words, thresholds, (thresholds + 1) * res * res * line_words)
+
+
 def free_space_distance(occ_grid: torch.Tensor, level: int, max_k: int = 31) -> torch.Tensor:
     """Chebyshev distance from each max-level cell to occupied space, quantized as JAX
     quantizes it (K11): [res^3] bool -> [res^3] int32, 0 = occupied, else the largest power
@@ -547,7 +566,8 @@ def free_space_distance(occ_grid: torch.Tensor, level: int, max_k: int = 31) -> 
     cap = free_space_cap(max_k)
     if not 0 <= level <= 8 or cap > 255:
         raise ValueError(f"free_space_distance: level {level} or max_k {max_k} out of range")
-    scratch = torch.empty((2, res ** 3), dtype=torch.uint8, device=occ_grid.device)
+    scratch = torch.empty((free_space_layout(level, max_k).scratch_words,), dtype=torch.int32,
+                          device=occ_grid.device)
     out = torch.empty((res ** 3,), dtype=torch.int32, device=occ_grid.device)
     kernels.launch("wisp_free_space_distance", "free_space_distance", occ_grid.data_ptr(),
                    level, cap, scratch.data_ptr(), out.data_ptr())

@@ -33,18 +33,28 @@
 // Replaces wisp_tpu/accelstructs/octree_as.py OctreeAS.free_space_distance (:254): the
 // Chebyshev (L-inf) distance from each max-level cell to the nearest occupied cell, as JAX
 // quantizes it with its log-doubling max-dilations (radii 1, 2, 4, ... with zero padding,
-// cumulative radii 1, 3, 7, 15, 31): 0 on occupied cells, the largest power of two not above
-// the distance where a dilation reached the cell, and `cap` (one more than the last
-// cumulative radius; 32 at max_k 31) elsewhere. A cube dilation of half-width s reaches
-// exactly the cells at Chebyshev distance <= s inside the box, so computing the exact
-// distance (capped) and quantizing it gives JAX's integers.
+// cumulative radii s_j = 2^(j+1) - 1 = 1, 3, 7, 15, 31 for j < J, J the thresholds that
+// `cap` = 2^J implies): 0 on occupied cells, s_(j-1) + 1 = 2^j for the first threshold j
+// whose dilation reaches the cell, and `cap` elsewhere (32 at max_k 31). The dilation of
+// half-width s_j reaches exactly the cells at Chebyshev distance <= s_j inside the box.
 //
-// Bound on this card: bytes (2 MB of occupancy in, 8 MB out at level 7; the passes' scratch
-// stays in L2). Design: the exact transform in three separable passes, one thread a cell:
-// pass z takes the 1-D distance to the nearest occupied cell on the cell's z line; passes y
-// and x take min over the line of max(|offset|, previous pass), scanning outward and
-// stopping once the offset reaches the best value found. Values are capped at `cap`
-// (uint8 scratch); the x pass quantizes and writes int32. One entry point, three launches.
+// Bound on this card: bytes: the res^3 occupancy bytes in (2 MB at level 7) and the int32
+// field out (8 MB), written once; the earlier design (csrc/baselines/free_space_v1.cu)
+// scanned byte grids cell by cell in three launches. Design: the occupancy packed into
+// bits, a z line of res cells in max(1, res/32) words (bit b of word w is z = 32w + b), and
+// "distance <= s_j" as a separable OR-dilation of the bit grid by s_j along each axis, made
+// by JAX's doubling: a grid dilated by 2^j - 1 along an axis, ORed with itself shifted by
+// +2^j and -2^j along it, is dilated by 2^(j+1) - 1 = s_j. Two launches. fsd_zy_kernel, a
+// block an x plane: packs the plane's bytes (16-byte loads) in shared memory, dilates along
+// z (shifts within and across words) and y (ORs of lines), threshold after threshold, and
+// stores the plane's bits and its J z-y dilations (J + 1 bit grids of res^3/8 bytes of
+// scratch, which stay in L2). fsd_x_kernel, a block 4 words of every plane: loads those
+// columns of the J + 1 grids into shared memory, dilates grid j along x by the same
+// doubling (a warp a word), and writes each cell's value, 0 if occupied and else 2 to the
+// number of thresholds that miss it, as 16-byte stores of 4 cells. Bits beyond a line that
+// is shorter than a word may be set by a left shift: they belong to the dilation of the
+// unbounded grid, which equals the zero-padded one inside the box, so no cell reads them
+// wrongly. Integers only: the result equals JAX's and the plain version's exactly.
 //
 // K10 — the octree's DDA raytrace.
 //
@@ -108,47 +118,179 @@ __global__ void octree_query_kernel(const float* __restrict__ coords, long long 
   }
 }
 
-// 1-D distance along z to the nearest occupied cell, capped.
-__global__ void fsd_pass_z(const uint8_t* __restrict__ occ, int res, int cap,
-                           uint8_t* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)res * res * res;
-  if (i >= total) return;
-  const int z = (int)(i % res);
-  const uint8_t* line = occ + (i - z);
-  int best = cap;
-  for (int k = 0; k < cap; ++k) {
-    if ((z - k >= 0 && line[z - k]) || (z + k < res && line[z + k])) {
-      best = k;
-      break;
+// K11: bit grids of res <= 256 (level 8), J <= 7 thresholds (cap <= 128)
+constexpr int kFsdMaxRes = 256;
+constexpr int kFsdMaxThresholds = 7;
+constexpr int kFsdWords = 4;       // words of a plane a block of fsd_x_kernel takes
+constexpr int kFsdXThreads = 256;  // its threads: 8 warps, 2 on each word's cells
+
+// 16 bytes of 0/1 (any nonzero byte counts as 1) -> 16 bits, byte k to bit k
+__device__ __forceinline__ uint32_t pack16(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t b = w[k] | (w[k] >> 4);
+    b |= b >> 2;
+    b |= b >> 1;
+    b &= 0x01010101u;
+    bits |= ((b & 1u) | ((b >> 7) & 2u) | ((b >> 14) & 4u) | ((b >> 21) & 8u)) << (4 * k);
+  }
+  return bits;
+}
+
+// word w of a z line shifted by +r (bit z takes bit z - r) or -r (bit z takes bit z + r)
+__device__ __forceinline__ uint32_t shift_up(const uint32_t* line, int w, int W, int r) {
+  const int i = w - (r >> 5), s = r & 31;
+  const uint32_t hi = i >= 0 ? line[i] : 0u;
+  if (s == 0) return hi;
+  const uint32_t lo = i >= 1 ? line[i - 1] : 0u;
+  return (hi << s) | (lo >> (32 - s));
+}
+
+__device__ __forceinline__ uint32_t shift_down(const uint32_t* line, int w, int W, int r) {
+  const int i = w + (r >> 5), s = r & 31;
+  const uint32_t lo = i < W ? line[i] : 0u;
+  if (s == 0) return lo;
+  const uint32_t hi = i + 1 < W ? line[i + 1] : 0u;
+  return (lo >> s) | (hi << (32 - s));
+}
+
+// One block an x plane: its bits (grid 0) and their z-y dilations at the J thresholds
+// (grids 1..J) into `bits`, grid g of plane x at bits + (g * res + x) * res * W.
+__global__ void fsd_zy_kernel(const uint8_t* __restrict__ occ, int level, int J,
+                              uint32_t* __restrict__ bits) {
+  __shared__ uint32_t a[kFsdMaxRes * (kFsdMaxRes / 32)];
+  __shared__ uint32_t b[kFsdMaxRes * (kFsdMaxRes / 32)];
+  const int res = 1 << level;
+  const int lw = level > 5 ? level - 5 : 0;  // log2 of the words a line
+  const int W = 1 << lw, nw = res << lw;
+  const int x = blockIdx.x;
+  const size_t grid = (size_t)res * nw;
+  uint32_t* plane = bits + (size_t)x * nw;
+  const uint8_t* src = occ + (size_t)x * res * res;
+  const bool vec = res >= 32 && (reinterpret_cast<uintptr_t>(occ) & 15) == 0;
+  for (int e = threadIdx.x; e < nw; e += blockDim.x) {
+    const uint8_t* line = src + (size_t)(e >> lw) * res;
+    uint32_t word = 0;
+    if (vec) {
+      const uint4* p = reinterpret_cast<const uint4*>(line + 32 * (e & (W - 1)));
+      word = pack16(__ldg(p)) | (pack16(__ldg(p + 1)) << 16);
+    } else {
+      const int z0 = 32 * (e & (W - 1));
+      for (int z = 0; z < min(32, res); ++z) word |= (uint32_t)(line[z0 + z] != 0) << z;
+    }
+    a[e] = word;
+    plane[e] = word;
+  }
+  __syncthreads();
+  for (int j = 0; j < J; ++j) {
+    const int r = 1 << j;
+    for (int e = threadIdx.x; e < nw; e += blockDim.x) {
+      const int w = e & (W - 1);
+      const uint32_t* line = a + (e - w);
+      b[e] = a[e] | shift_up(line, w, W, r) | shift_down(line, w, W, r);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < nw; e += blockDim.x) {
+      const int y = e >> lw;
+      uint32_t v = b[e];
+      if (y >= r) v |= b[e - (r << lw)];
+      if (y + r < res) v |= b[e + (r << lw)];
+      a[e] = v;
+      plane[(j + 1) * grid + e] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// One block kFsdWords consecutive words of every plane: warp k dilates word k's column of
+// grids 1..J along x, then every warp writes cells of the columns, 0 where grid 0 holds the
+// cell and else 2 to the number of grids that miss it. Launched with kFsdXThreads threads.
+__global__ void fsd_x_kernel(const uint32_t* __restrict__ bits, int level, int J,
+                             int* __restrict__ dist) {
+  __shared__ uint32_t col[kFsdMaxThresholds + 1][kFsdWords][kFsdMaxRes];
+  const int res = 1 << level;
+  const int lw = level > 5 ? level - 5 : 0;
+  const int nw = res << lw;
+  const size_t grid = (size_t)res * nw;
+  const int g0 = blockIdx.x * kFsdWords;
+  for (int e = threadIdx.x; e < (J + 1) * res; e += blockDim.x) {
+    const int g = e >> level, x = e & (res - 1);
+    const uint32_t* src = bits + g * grid + (size_t)x * nw + g0;
+    if (g0 + kFsdWords <= nw) {  // nw is then a multiple of 4: 16-byte aligned
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+      col[g][0][x] = v.x;
+      col[g][1][x] = v.y;
+      col[g][2][x] = v.z;
+      col[g][3][x] = v.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kFsdWords; ++k) col[g][k][x] = g0 + k < nw ? src[k] : 0u;
     }
   }
-  out[i] = (uint8_t)best;
-}
-
-// min over the line of axis `stride` (res for y, res*res for x) of max(|k|, in): exact
-// Chebyshev distance over the axes seen so far. The last pass quantizes into `dist`.
-__global__ void fsd_pass_minmax(const uint8_t* __restrict__ in, int res, long long stride,
-                                int cap, uint8_t* __restrict__ out, int* __restrict__ dist) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)res * res * res;
-  if (i >= total) return;
-  const int c = (int)((i / stride) % res);
-  const uint8_t* line = in + (i - (long long)c * stride);
-  int best = line[(long long)c * stride];
-  for (int k = 1; k < best; ++k) {
-    if (c - k >= 0) best = min(best, max(k, (int)line[(long long)(c - k) * stride]));
-    if (c + k < res) best = min(best, max(k, (int)line[(long long)(c + k) * stride]));
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < kFsdWords) {
+    constexpr int kSlots = kFsdMaxRes / 32;
+    for (int g = 1; g <= J; ++g) {
+      uint32_t* c = col[g][warp];
+      for (int step = 0; step < g; ++step) {
+        const int r = 1 << step;
+        uint32_t v[kSlots];
+#pragma unroll
+        for (int i = 0; i < kSlots; ++i) {
+          const int x = 32 * i + lane;
+          if (x < res) {
+            v[i] = c[x];
+            if (x >= r) v[i] |= c[x - r];
+            if (x + r < res) v[i] |= c[x + r];
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < kSlots; ++i) {
+          if (32 * i + lane < res) c[32 * i + lane] = v[i];
+        }
+        __syncwarp();
+      }
+    }
   }
-  if (dist == nullptr) {
-    out[i] = (uint8_t)best;
+  __syncthreads();
+  constexpr int kPasses = kFsdXThreads / (32 * kFsdWords);  // warps on each word
+  const int k = warp % kFsdWords, word = g0 + k;
+  if (word >= nw) return;
+  const int y = word >> lw;
+  if (res >= 32) {
+    // the word's 32 cells of a plane x are 128 contiguous bytes: 8 lanes a plane, 4 cells a
+    // lane, 4 planes a warp at a time
+    const int sh = 4 * (lane & 7);
+    const int z0 = 32 * (word & ((1 << lw) - 1)) + sh;
+    for (int x = (lane >> 3) + 4 * (warp / kFsdWords); x < res; x += 4 * kPasses) {
+      int miss[4] = {0, 0, 0, 0};
+      for (int g = 1; g <= J; ++g) {
+        const uint32_t d = col[g][k][x] >> sh;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) miss[q] += (int)((~d >> q) & 1u);
+      }
+      const uint32_t o = col[0][k][x] >> sh;
+      int4 out;
+      out.x = (o & 1u) ? 0 : 1 << miss[0];
+      out.y = (o & 2u) ? 0 : 1 << miss[1];
+      out.z = (o & 4u) ? 0 : 1 << miss[2];
+      out.w = (o & 8u) ? 0 : 1 << miss[3];
+      *reinterpret_cast<int4*>(dist + ((size_t)x * res + y) * res + z0) = out;
+    }
   } else {
-    int q = best;
-    if (best > 0 && best < cap) q = 1 << (31 - __clz(best));
-    dist[i] = q;
+    // a line shorter than a word: the word is the line (y = word), a lane a cell
+    for (int e = lane + 32 * (warp / kFsdWords); e < res * res; e += 32 * kPasses) {
+      const int x = e >> level, z = e & (res - 1);
+      int miss = 0;
+      for (int g = 1; g <= J; ++g) miss += (int)((~col[g][k][x] >> z) & 1u);
+      dist[((size_t)x * res + y) * res + z] = ((col[0][k][x] >> z) & 1u) ? 0 : 1 << miss;
+    }
   }
 }
-
 
 // K10: fill the interval buffers with JAX's empty slot (pidx -1, depths 0, mask 0).
 __global__ void raytrace_fill_kernel(long long total, int* __restrict__ pidx,
@@ -252,19 +394,20 @@ WISP_EXPORT int wisp_octree_query(const float* coords, long long N, int level,
   return (int)cudaGetLastError();
 }
 
-// scratch: 2 * res^3 bytes.
+// cap = 2^J (J <= 7, the thresholds); bits: (J + 1) * res^2 * max(1, res/32) words of
+// scratch (octree_as.py free_space_layout).
 WISP_EXPORT int wisp_free_space_distance(const uint8_t* occ, int level, int cap,
-                                         uint8_t* scratch, int* dist, void* stream) {
+                                         uint32_t* bits, int* dist, void* stream) {
+  int J = 0;
+  while ((1 << J) < cap) ++J;
+  if (level < 0 || (1 << level) > kFsdMaxRes || cap < 1 || (1 << J) != cap ||
+      J > kFsdMaxThresholds)
+    return (int)cudaErrorInvalidValue;
   const int res = 1 << level;
-  const long long total = (long long)res * res * res;
-  const int threads = 256;
-  const int blocks = wisp::ceil_div(total, threads);
+  const int nw = res * (res >= 32 ? res / 32 : 1);
   cudaStream_t s = (cudaStream_t)stream;
-  uint8_t* a = scratch;
-  uint8_t* b = scratch + total;
-  fsd_pass_z<<<blocks, threads, 0, s>>>(occ, res, cap, a);
-  fsd_pass_minmax<<<blocks, threads, 0, s>>>(a, res, (long long)res, cap, b, nullptr);
-  fsd_pass_minmax<<<blocks, threads, 0, s>>>(b, res, (long long)res * res, cap, nullptr, dist);
+  fsd_zy_kernel<<<res, 256, 0, s>>>(occ, level, J, bits);
+  fsd_x_kernel<<<wisp::ceil_div(nw, kFsdWords), kFsdXThreads, 0, s>>>(bits, level, J, dist);
   return (int)cudaGetLastError();
 }
 

@@ -6,18 +6,25 @@
 // cell, zero features), the cell's 8 dual-vertex rows trinkets[p] (corner c at offset
 // (c>>2, (c>>1)&1, c&1), z fastest), the fraction frac = clip((x+1)*(res/2) - cell, 0, 1)
 // per axis, and sum_c feats[row_c] * w_c with w_c the product of frac or 1-frac over the
-// axes. 'sum' adds the LODs in order into [N, F]; 'cat' writes [N, F*L], LOD-major.
+// axes, the corners added in order c = 0..7. 'sum' adds the LODs in LOD order into [N, F];
+// 'cat' writes [N, F*L], LOD-major.
 //
-// Bound on this card: bytes, gathered. Per point and LOD it reads one 32-byte trinket row
-// and 8 feature rows of F floats (64 bytes at F = 16) at scattered addresses; at the NGLOD
-// width (6 LODs, 161,505 rows of 16 floats, 10.3 MB, and 2.5 MB of trinkets) all of it
-// stays in L2, so L2 sector traffic and the compulsory bytes (coords and pidx in, features
-// out) bound it. Design: F lanes a point, one lane a feature, so each 64-byte feature row is
-// read by 16 neighbouring lanes at once (coalesced) and the output row is written
-// contiguously; the lanes of a point read the same trinket row (one broadcast). LOD
-// pointers and levels travel in the kernel's argument block. The library is built without
-// fused multiply-add, so the fractions equal the plain version's and the blend differs only
-// by the order of its float sums.
+// Bound on this card: bytes, gathered, and the latency of the chain that reaches them. Per
+// point and LOD it reads one 32-byte trinket row and 8 feature rows of F floats (64 bytes
+// at F = 16) at scattered addresses; at the NGLOD width (6 LODs, 161,505 rows of 16 floats,
+// 10.3 MB, and 2.5 MB of trinkets) all of it stays in L2, and the compulsory bytes (coords
+// and pidx in, features out) are tiny, so an SDF chunk (16,384 points) is set by how many
+// dependent L2 round trips a thread waits on and how many load instructions the L1 issues.
+// Design: F/V lanes a point, V features a lane: V = 4 (16-byte loads and stores, 4 lanes a
+// point at F = 16, 8 points a warp) where F % 4 == 0 and every feature table starts on 16
+// bytes, else V = 1 (a lane a feature; the octree NeRF's F = 5); the wrapper picks V. The
+// LODs go in batches of kLodBatch = 4, unrolled with predication: a thread first issues the
+// batch's cell indices, then their 32-byte trinket rows (two 16-byte loads each), then the
+// feature gathers, so it waits on about three round trips a batch instead of three a LOD
+// (six instead of eighteen at the NGLOD width's 6 LODs).
+// The lanes of a point load the same index and trinket row (one broadcast). The library is
+// built without fused multiply-add, so the fractions equal the plain version's and the
+// blend differs only by the order of its float sums.
 //
 // K15 backward (octree_interp_bwd) replaces the feature gradient of the same JAX function:
 // octree_grid.py:87 _index_features -> ops/grid.py:37 gather_rows, whose custom VJP
@@ -29,7 +36,7 @@
 // and a point in an empty cell adds nothing (JAX gathers row 0 for it and masks the blend,
 // so its gradient there is zero too). Bound on this card: the atomics, which resolve in L2
 // (the gradient tables of the NGLOD width, 10.3 MB, stay resident); the compulsory bytes
-// are coords, pidx and g in and the touched rows written. Layout as the forward: F lanes a
+// are coords, pidx and g in and the touched rows written. Layout: a lane a feature, F lanes a
 // point, so the 16 atomics of one corner row go to 64 contiguous bytes at once.
 #include "common.cuh"
 
@@ -52,42 +59,121 @@ __device__ __forceinline__ void cell_frac(float c, int level, float& frac) {
   frac = fminf(fmaxf(x - (float)q, 0.0f), 1.0f);
 }
 
-__global__ void octree_interp_kernel(const float* __restrict__ coords,
-                                     const int* __restrict__ pidx, long long N, int P,
-                                     int col0, int n_lods, int F, Lods lods, int sum,
-                                     float* __restrict__ out) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= N * F) return;
-  const long long n = tid / F;
-  const int f = (int)(tid % F);
-  const float x = coords[3 * n], y = coords[3 * n + 1], z = coords[3 * n + 2];
-  float acc = 0.0f;
-  for (int i = 0; i < n_lods; ++i) {
-    const int p = __ldg(pidx + n * P + col0 + i);
-    float fs = 0.0f;
-    if (p >= 0) {
-      float fx, fy, fz;
-      cell_frac(x, lods.level[i], fx);
-      cell_frac(y, lods.level[i], fy);
-      cell_frac(z, lods.level[i], fz);
-      const int* tr = lods.trinkets[i] + 8LL * p;
-      const float* feats = lods.feats[i];
+// LODs whose index and trinket loads are issued together: 4 keeps the V = 1 route at 64
+// registers; 8 took it past 100, and the occupancy lost cost more than the round trips
+// saved (the octree NeRF's F = 5 call ran slower than the earlier design)
+constexpr int kLodBatch = 4;
+// the forward's block. The kernel is compiled for it with at least one block an SM
+// (__launch_bounds__(128, 1)); on an H100 the same code ran slower at the F = 5 call and at
+// the SDF chunk compiled without bounds or with the thread count alone
+constexpr int kInterpThreads = 128;
+
+template <int V>
+struct Feat;
+template <>
+struct Feat<1> {
+  using T = float;
+  __device__ static T zero() { return 0.0f; }
+  __device__ static T load(const float* p) { return __ldg(p); }
+  __device__ static void store(float* p, T v) { *p = v; }
+  __device__ static void axpy(T& acc, T v, float w) { acc += v * w; }
+  __device__ static void add(T& acc, T v) { acc += v; }
+};
+template <>
+struct Feat<4> {
+  using T = float4;
+  __device__ static T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ static T load(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+  __device__ static void store(float* p, T v) { *reinterpret_cast<float4*>(p) = v; }
+  __device__ static void axpy(T& acc, T v, float w) {
+    acc.x += v.x * w;
+    acc.y += v.y * w;
+    acc.z += v.z * w;
+    acc.w += v.w * w;
+  }
+  __device__ static void add(T& acc, T v) {
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+};
+
+// The 8 corner rows of cell p: two 16-byte loads where the table starts on 16 bytes (a row
+// is 32 bytes, so every row then does), else 8 scalar ones.
+__device__ __forceinline__ void trinket_row(const int* table, int p, int rows[8]) {
+  const int* row = table + 8LL * p;
+  if ((reinterpret_cast<uintptr_t>(table) & 15) == 0) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(row));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(row) + 1);
+    rows[0] = a.x; rows[1] = a.y; rows[2] = a.z; rows[3] = a.w;
+    rows[4] = b.x; rows[5] = b.y; rows[6] = b.z; rows[7] = b.w;
+  } else {
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float wx = (c & 4) ? fx : 1.0f - fx;
-        const float wy = (c & 2) ? fy : 1.0f - fy;
-        const float wz = (c & 1) ? fz : 1.0f - fz;
-        const float w = wx * wy * wz;
-        fs += __ldg(feats + (long long)__ldg(tr + c) * F + f) * w;
+    for (int c = 0; c < 8; ++c) rows[c] = __ldg(row + c);
+  }
+}
+
+template <int V>
+__global__ void __launch_bounds__(kInterpThreads, 1)
+    octree_interp_kernel(const float* __restrict__ coords, const int* __restrict__ pidx,
+                         long long N, int P, int col0, int n_lods, int F, Lods lods, int sum,
+                         float* __restrict__ out) {
+  using Fv = Feat<V>;
+  const int lanes = F / V;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= N * lanes) return;
+  const long long n = tid / lanes;
+  const int f = (int)(tid - n * lanes) * V;
+  const float x = __ldg(coords + 3 * n), y = __ldg(coords + 3 * n + 1),
+              z = __ldg(coords + 3 * n + 2);
+  const int* prow = pidx + n * P + col0;
+  typename Fv::T acc = Fv::zero();
+  // the batches unrolled, so that every LOD slot's index into `lods` is a constant
+#pragma unroll
+  for (int base = 0; base < kMaxLods; base += kLodBatch) {
+    if (base < n_lods) {
+      int p[kLodBatch];
+#pragma unroll
+      for (int j = 0; j < kLodBatch; ++j)
+        p[j] = base + j < n_lods ? __ldg(prow + base + j) : -1;
+      int rows[kLodBatch][8];
+#pragma unroll
+      for (int j = 0; j < kLodBatch; ++j) {
+        if (p[j] >= 0) trinket_row(lods.trinkets[base + j], p[j], rows[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kLodBatch; ++j) {
+        const int i = base + j;
+        if (i < n_lods) {
+          typename Fv::T fs = Fv::zero();
+          if (p[j] >= 0) {
+            float fx, fy, fz;
+            cell_frac(x, lods.level[i], fx);
+            cell_frac(y, lods.level[i], fy);
+            cell_frac(z, lods.level[i], fz);
+            const float* feats = lods.feats[i] + f;
+            typename Fv::T v[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) v[c] = Fv::load(feats + (long long)rows[j][c] * F);
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              const float wx = (c & 4) ? fx : 1.0f - fx;
+              const float wy = (c & 2) ? fy : 1.0f - fy;
+              const float wz = (c & 1) ? fz : 1.0f - fz;
+              Fv::axpy(fs, v[c], wx * wy * wz);
+            }
+          }
+          if (sum) {
+            Fv::add(acc, fs);
+          } else {
+            Fv::store(out + n * (long long)F * n_lods + (long long)i * F + f, fs);
+          }
+        }
       }
     }
-    if (sum) {
-      acc += fs;
-    } else {
-      out[n * (long long)F * n_lods + (long long)i * F + f] = fs;
-    }
   }
-  if (sum) out[n * F + f] = acc;
+  if (sum) Fv::store(out + n * F + f, acc);
 }
 
 struct LodGrads {
@@ -130,23 +216,33 @@ __global__ void octree_interp_bwd_kernel(const float* __restrict__ coords,
 }  // namespace
 
 // trinkets, feats: host arrays of n_lods device pointers; levels: host array of n_lods ints.
+// vec: features a lane, 4 (F % 4 == 0 and every feats[i] and out on 16 bytes) or 1.
 WISP_EXPORT int wisp_octree_interp(const float* coords, const int* pidx, long long N, int P,
                                    int col0, int n_lods, int F, const int* const* trinkets,
                                    const float* const* feats, const int* levels, int sum,
-                                   float* out, void* stream) {
-  if (n_lods < 1 || n_lods > kMaxLods || F < 1) return (int)cudaErrorInvalidValue;
+                                   int vec, float* out, void* stream) {
+  if (n_lods < 1 || n_lods > kMaxLods || F < 1 || (vec != 1 && vec != 4) || F % vec)
+    return (int)cudaErrorInvalidValue;
   Lods lods = {};
   for (int i = 0; i < n_lods; ++i) {
+    if (vec == 4 && (reinterpret_cast<uintptr_t>(feats[i]) & 15))
+      return (int)cudaErrorInvalidValue;
     lods.trinkets[i] = trinkets[i];
     lods.feats[i] = feats[i];
     lods.level[i] = levels[i];
   }
-  const long long total = N * (long long)F;
+  if (vec == 4 && (reinterpret_cast<uintptr_t>(out) & 15)) return (int)cudaErrorInvalidValue;
+  const long long total = N * (long long)(F / vec);
   if (total > 0) {
-    const int threads = 256;
-    octree_interp_kernel<<<wisp::ceil_div(total, threads), threads, 0,
-                           (cudaStream_t)stream>>>(coords, pidx, N, P, col0, n_lods, F, lods,
-                                                   sum, out);
+    const int blocks = wisp::ceil_div(total, kInterpThreads);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (vec == 4) {
+      octree_interp_kernel<4><<<blocks, kInterpThreads, 0, s>>>(coords, pidx, N, P, col0,
+                                                               n_lods, F, lods, sum, out);
+    } else {
+      octree_interp_kernel<1><<<blocks, kInterpThreads, 0, s>>>(coords, pidx, N, P, col0,
+                                                               n_lods, F, lods, sum, out);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -98,10 +98,10 @@ _SIGNATURES = {
                           _P, _P, _P, _P],
     # v idx K row_bytes P out stream
     "wisp_scatter_rows": [_P, _P, _L, _I, _L, _P, _P],
-    # occ level cap scratch dist stream
+    # occ level cap bits dist stream
     "wisp_free_space_distance": [_P, _I, _I, _P, _P, _P],
-    # coords pidx N P col0 n_lods F trinkets feats levels (host arrays) sum out stream
-    "wisp_octree_interp": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    # coords pidx N P col0 n_lods F trinkets feats levels (host arrays) sum vec out stream
+    "wisp_octree_interp": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
     # coords pidx N P col0 n_lods F trinkets grads levels (host arrays) sum grad_out stream
     "wisp_octree_interp_bwd": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     # points P tris T out stream

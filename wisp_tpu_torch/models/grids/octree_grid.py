@@ -8,11 +8,12 @@ every LOD in one ancestor-chain query (K9), then blends each LOD's 8 corner feat
 trilinearly and sums or concatenates the LODs; a point in an empty cell gets zeros.
 
 ``octree_interp`` is kernel K15 (``csrc/octree_grid.cu``): on a CUDA tensor it launches the
-kernel, on a CPU tensor it runs ``octree_interp_plain``. On the card, a call that needs the
-features' gradient goes through an ``autograd.Function`` whose backward launches K15's
-backward kernel (``octree_interp_bwd``); the gradient with respect to the coordinates is not
-ported, and asking for it on the card raises. On the CPU the plain version keeps its own
-autograd.
+kernel, on a CPU tensor it runs ``octree_interp_plain``; ``interp_vector_width`` picks the
+forward's route (features a lane) from F and the tables' alignment. On the card, a call
+that needs the features' gradient goes through an ``autograd.Function`` whose backward
+launches K15's backward kernel (``octree_interp_bwd``); the gradient with respect to the
+coordinates is not ported, and asking for it on the card raises. On the CPU the plain
+version keeps its own autograd.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from wisp_tpu_torch.ops.grid import grid_interpolate
 from wisp_tpu_torch.ops.spc.core import make_dual, quantize_points
 
 MAX_LODS = 16  # LOD slots in the kernel's argument block
+_LOD_ARRAYS_MAX = 64  # entries of the forward's cache of host pointer arrays
 
 
 def octree_interp_plain(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
@@ -71,6 +73,37 @@ def _check_geometry(coords, pidx, col0, trinkets, levels, multiscale_type):
     return n, n_lods
 
 
+def interp_vector_width(f_dim: int, feature_ptrs: Sequence[int]) -> int:
+    """K15 forward's route: 4 features a lane (F/4 lanes a point, 16-byte loads and stores)
+    where F % 4 == 0 and every feature table starts on 16 bytes, else 1 (a lane a
+    feature)."""
+    return 4 if f_dim % 4 == 0 and all(p % 16 == 0 for p in feature_ptrs) else 1
+
+
+# (trinket pointers, feature pointers, levels, F) -> the forward's host arrays and route
+_LOD_ARRAYS = {}
+
+
+def _lod_arrays(trinkets, features, levels, f_dim):
+    """The host arrays of the LODs' device pointers and levels that ``wisp_octree_interp``
+    copies into its kernel's parameters, and the route: built once for a set of tables and
+    kept, keyed on their device pointers."""
+    trk_ptrs = tuple(t.data_ptr() for t in trinkets)
+    fts_ptrs = tuple(f.data_ptr() for f in features)
+    key = (trk_ptrs, fts_ptrs, tuple(levels), f_dim)
+    found = _LOD_ARRAYS.get(key)
+    if found is None:
+        if len(_LOD_ARRAYS) >= _LOD_ARRAYS_MAX:
+            _LOD_ARRAYS.clear()
+        trk = (ctypes.c_void_p * len(trk_ptrs))(*trk_ptrs)
+        fts = (ctypes.c_void_p * len(fts_ptrs))(*fts_ptrs)
+        lvl = (ctypes.c_int * len(levels))(*levels)
+        found = _LOD_ARRAYS[key] = (ctypes.addressof(trk), ctypes.addressof(fts),
+                                    ctypes.addressof(lvl), interp_vector_width(f_dim, fts_ptrs),
+                                    (trk, fts, lvl))
+    return found[:4]
+
+
 def _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type):
     """Launch K15's forward kernel."""
     f_dim = features[0].shape[1]
@@ -80,12 +113,10 @@ def _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type)
     out = torch.empty((n, f_dim if multiscale_type == "sum" else f_dim * n_lods),
                       dtype=torch.float32, device=coords.device)
     if n:
-        trk, fts = kernels.pointers(trinkets), kernels.pointers(features)
-        lvl = np.asarray(levels, dtype=np.int32)
+        trk, fts, lvl, vec = _lod_arrays(trinkets, features, levels, f_dim)
         kernels.launch("wisp_octree_interp", "octree_interp", coords.data_ptr(),
-                       pidx.data_ptr(), n, pidx.shape[1], int(col0), n_lods, f_dim,
-                       ctypes.addressof(trk), ctypes.addressof(fts), lvl.ctypes.data,
-                       int(multiscale_type == "sum"), out.data_ptr())
+                       pidx.data_ptr(), n, pidx.shape[1], int(col0), n_lods, f_dim, trk, fts,
+                       lvl, int(multiscale_type == "sum"), vec, out.data_ptr())
     return out
 
 
