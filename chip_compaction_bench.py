@@ -9,6 +9,7 @@ Run from the root of a checkout; it imports that checkout's ``chip_smoke.py`` an
     python3 chip_compaction_bench.py paths [label]
     python3 chip_compaction_bench.py sdf [label]
     python3 chip_compaction_bench.py sdfframe [label]
+    python3 chip_compaction_bench.py octree [label]
 
 ``kernels``: ``compact`` (K3, K6a) and ``compact_rays`` (K12, its mid pass) at the four
 shapes of ``PERF.md``'s compaction rows, on seeded inputs (march-like runs of valid steps;
@@ -20,13 +21,19 @@ call and the launches a call.
 ``paths``: without profiler or recording, 15 flagship render frames (the render phase's
 carved field), 40 flagship training steps (the train phase's trainer; the first two left
 out) and, after 300 NGLOD app steps, 10 each of the 512x512 SDF frame uncompacted, at
-compaction 0.55 and with the mid pass at 0.3 (the nglod app phase's settings), in turns.
+compaction 0.55 and with the mid pass at 0.3 (the nglod app phase's settings), in turns;
+then one flagship frame under torch.profiler (``profile_frame``: device-busy ms, idle
+share, the kernels with the most device time; K2 runs once a chunk, 16 times).
 ``sdf``: the SDF frames of ``paths`` alone, in a process that runs nothing before them.
 ``sdfframe``: the SDF render phase's frame (``chip_smoke.nglod_pipeline``, 512x512 through
 ``OfflineRenderer.render_lookat``, the free-space field (K11) made once a chunk, as the
 tracer makes it when no field is held): 15 frames' wall ms after a warm-up, then one frame
 under torch.profiler (``chip_smoke.profile_frame``: device-busy ms, idle share, the kernels
 with the most device time).
+``octree``: the octree NeRF phase's trainer (``nerf_octree_lego_proxy.yaml`` through
+``main_nerf``, ``chip_smoke.octree_app``): 40 steps' wall ms (the first two left out of the
+median), then one step under torch.profiler (``chip_smoke.profile_step``: device-busy ms,
+idle share, top kernels; K15's backward runs once a step).
 Each mode prints one JSON line; run ``paths`` from the parent's and the change's checkouts
 in turns (parent, change, change, parent, ...) to compare them: these paths are bound by
 the host, and their spread from process to process is wide.
@@ -128,13 +135,14 @@ def paths_mode(dev, flagship: bool) -> dict:
     from wisp_tpu_torch.ops.raygen.raygen import generate_pinhole_rays
     from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
     kernels.build()
-    out = {}
+    out, profile = {}, None
     if flagship:
         pipeline, _ = cs.flagship_pipeline(dev)
         renderer = OfflineRenderer(render_res=(cs.RES, cs.RES), device=dev)
         clock(lambda: renderer.render_lookat(pipeline, f=cs.EYE))
         out["render_frame_ms"] = [clock(lambda: renderer.render_lookat(pipeline, f=cs.EYE))
                                   for _ in range(15)]
+        profile = cs.profile_frame(renderer, pipeline)
         del pipeline, renderer
         trainer = cs.flagship_trainer(dev)
         out["train_step_ms"] = [clock(trainer.iterate) for _ in range(40)][2:]
@@ -171,7 +179,7 @@ def paths_mode(dev, flagship: bool) -> dict:
         for name, tracer in tracers.items():
             out[f"sdf_{name}_frame_ms"].append(
                 clock(lambda: cs.trace_chunks(nef, tracer, rays, cs.NGLOD_CHUNK)))
-    return out
+    return out, profile
 
 
 def sdf_frame_mode(dev) -> dict:
@@ -185,8 +193,16 @@ def sdf_frame_mode(dev) -> dict:
     return {"sdf_frame_ms": frames}, profile
 
 
+def octree_mode(dev) -> tuple:
+    kernels.build()
+    _, (_, trainer, _) = cs.octree_app(dev)
+    steps = [clock(trainer.iterate) for _ in range(40)]
+    return {"octree_step_ms": steps[2:]}, cs.profile_step(trainer)
+
+
 def main() -> int:
-    if len(sys.argv) < 2 or sys.argv[1] not in ("kernels", "paths", "sdf", "sdfframe"):
+    if len(sys.argv) < 2 or sys.argv[1] not in ("kernels", "paths", "sdf", "sdfframe",
+                                                "octree"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -199,13 +215,15 @@ def main() -> int:
         result = kernels_mode(dev)
     elif mode == "sdfframe":
         result, profile = sdf_frame_mode(dev)
+    elif mode == "octree":
+        result, profile = octree_mode(dev)
     else:
-        result = paths_mode(dev, mode == "paths")
+        result, profile = paths_mode(dev, mode == "paths")
     if mode != "kernels":
         result = {"median_ms": {k: statistics.median(v) for k, v in result.items()},
                   "all_ms": result}
     if profile is not None:
-        result["profile_frame"] = profile
+        result["profile_step" if mode == "octree" else "profile_frame"] = profile
     print(json.dumps({"mode": mode, "label": sys.argv[2] if len(sys.argv) > 2
                       else None, "device": cs.nvidia_smi_line(), **result}), flush=True)
     return 0

@@ -159,7 +159,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    level-8 chunk; K11 at levels 7 and 8), times each beside the earlier design with its
    launches and host time a call, then makes 200 calls back to back on one stream and
    holds each shape's last result equal to its first;
-19. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+19. march and octree grad step ("march and octree grad"): holds K2/K8 (bit for bit) and
+   K15's backward (within 1e-5 of the largest entry), and their earlier designs
+   (``wisp_tpu_torch/csrc/baselines/raymarch_v1.cu`` and ``octree_grid_bwd_v1.cu``, built
+   beside the library; the K2, K8 and K15 backward rows' ``was_ms``), to their plain
+   versions on the calls the phases recorded (K2: the render chunk, train step 25 jittered,
+   the seg and stoch steps 25; K8: the uniform chunk and uniform step 20; K15's backward:
+   the octree NeRF's F = 5 call and its step 25, the SDF train batch, the last step of the
+   NGLOD app's epoch and of its level-8 run), times each beside the earlier design with its
+   launches and host time a call and, for K15's backward, each LOD's adds, distinct rows,
+   most adds to a row and route, then makes 200 calls back to back on one stream and holds
+   each shape's last result to its first;
+20. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels, from the SDF training run for its two, from the octree NeRF's 25
    steps for K7, from the stoch path's 25 steps for K1's stochastic backward, from the
@@ -169,9 +180,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    for K10, from the uniform path's steps and frame for K8 and from its one query for
    K14), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
    ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
-   ``uniform_path`` JSON lines, the ``compaction_shapes``, ``hashgrid_shapes`` and
-   ``octree_grid_shapes`` lines, the ``phase_s`` line, the nvidia-smi line and, last,
-   ``{"ok": true, "device": {...}}``.
+   ``uniform_path`` JSON lines, the ``compaction_shapes``, ``hashgrid_shapes``,
+   ``octree_grid_shapes`` and ``march_grad_shapes`` lines, the ``phase_s`` line, the
+   nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -350,6 +361,16 @@ OCTREE_V1_DESIGN = {
                      "LODs' dependent loads one LOD after another)",
     "free_space_distance": "csrc/baselines/free_space_v1.cu (three byte passes of a thread "
                            "a cell)"}
+
+
+RAYMARCH_V1_SRC = "wisp_tpu_torch/csrc/baselines/raymarch_v1.cu"
+OCTREE_GRID_BWD_V1_SRC = "wisp_tpu_torch/csrc/baselines/octree_grid_bwd_v1.cu"
+MARCH_GRAD_V1 = None           # a MarchGradV1 once built (run())
+MARCH_GRAD_V1_DESIGN = {
+    "march": "csrc/baselines/raymarch_v1.cu (a thread a (ray, strided sample), each with its "
+             "ray's slab test; scalar stores)",
+    "octree_interp_bwd": "csrc/baselines/octree_grid_bwd_v1.cu (a thread a (point, feature), "
+                         "the LODs in series, a scalar atomic an add; a zero fill a LOD)"}
 
 
 def start_baseline_build(src: str, lib: str):
@@ -547,6 +568,82 @@ class OctreeV1:
         return out
 
 
+class MarchGradV1:
+    """The earlier designs of K2/K8 (``wisp_raymarch_ray``) and of K15's backward, called on
+    the current stream with their wrappers' arguments (K2/K8: ``octree_as._march``'s after
+    its counter) and the earlier wrappers' host work (K15's backward: a zero fill a LOD);
+    their launches are not the port's and are not counted."""
+
+    def __init__(self, started_march, started_bwd):
+        import ctypes
+        import numpy as np
+        import torch
+        from wisp_tpu_torch import kernels
+        from wisp_tpu_torch.accelstructs.base_as import ASRaymarchResults
+        from wisp_tpu_torch.models.grids.octree_grid import _check_geometry
+        self.np, self.torch, self.kernels, self.ctypes = np, torch, kernels, ctypes
+        self.results, self.check_geometry = ASRaymarchResults, _check_geometry
+        self.march_lib = finish_baseline_build(started_march, RAYMARCH_V1_SRC)
+        self.march_lib.wisp_raymarch_ray_v1.argtypes = \
+            kernels._SIGNATURES["wisp_raymarch_ray"]
+        self.bwd_lib = finish_baseline_build(started_bwd, OCTREE_GRID_BWD_V1_SRC)
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self.bwd_lib.wisp_octree_interp_bwd_v1.argtypes = [P, P, L, I, I, I, I, P, P, P, I,
+                                                           P, P]
+
+    def _stream(self) -> int:
+        return self.torch._C._cuda_getCurrentRawStream(self.torch._C._cuda_getDevice())
+
+    def march(self, origins, dirs, dist_min, dist_max, num_samples, stride, cell_density,
+              level, jitter, ustep):
+        """``octree_as._march`` with this design."""
+        torch = self.torch
+        n, s, dev = origins.shape[0], int(num_samples), origins.device
+        samples = torch.empty((n, s, 3), dtype=torch.float32, device=dev)
+        depths = torch.empty((n, s), dtype=torch.float32, device=dev)
+        mask = torch.empty((n, s), dtype=torch.bool, device=dev)
+        dens = (torch.empty((n, s), dtype=torch.float32, device=dev)
+                if cell_density is not None else None)
+        deltas = torch.empty((n, 1), dtype=torch.float32, device=dev)
+        ptr = self.kernels.ptr
+        status = self.march_lib.wisp_raymarch_ray_v1(
+            origins.data_ptr(), dirs.data_ptr(), ptr(jitter), n, s, int(stride), float(ustep),
+            float(dist_min), float(dist_max), ptr(cell_density), int(level),
+            samples.data_ptr(), depths.data_ptr(), mask.data_ptr(), ptr(dens),
+            deltas.data_ptr(), self._stream())
+        require(status == 0, f"wisp_raymarch_ray_v1 failed to launch ({status})")
+        return self.results(samples=samples, depth_samples=depths, deltas=deltas, mask=mask,
+                            cell_density=dens)
+
+    def interp_bwd(self, coords, pidx, col0, trinkets, rows, f_dim, levels, multiscale_type,
+                   grad_out):
+        """``octree_interp_bwd`` with this design."""
+        ctypes, np, torch, kernels = self.ctypes, self.np, self.torch, self.kernels
+        n, n_lods = self.check_geometry(coords, pidx, col0, trinkets, levels, multiscale_type)
+        grads = [torch.zeros((v, f_dim), dtype=torch.float32, device=coords.device)
+                 for v in rows]
+        if n:
+            trk, gps = kernels.pointers(trinkets), kernels.pointers(grads)
+            lvl = np.asarray(levels, dtype=np.int32)
+            status = self.bwd_lib.wisp_octree_interp_bwd_v1(
+                coords.data_ptr(), pidx.data_ptr(), n, pidx.shape[1], int(col0), n_lods,
+                f_dim, ctypes.addressof(trk), ctypes.addressof(gps), lvl.ctypes.data,
+                int(multiscale_type == "sum"), grad_out.data_ptr(), self._stream())
+            require(status == 0, f"wisp_octree_interp_bwd_v1 failed to launch ({status})")
+        return grads
+
+
+def march_equal(got, want) -> bool:
+    """K2/K8's contract: points, depths, deltas, mask and densities bit for bit."""
+    import torch
+    same = all(torch.equal(getattr(got, k), getattr(want, k))
+               for k in ("samples", "depth_samples", "deltas", "mask"))
+    if (got.cell_density is None) != (want.cell_density is None):
+        return False
+    return same and (want.cell_density is None
+                     or torch.equal(got.cell_density, want.cell_density))
+
+
 def k1_geometry(coords, table, args, out_lods):
     """The K1 wrappers' geometry (``grid._lod_args``) of a call with ``args`` = (resolutions,
     bitwidth, lod_idx, table or its rows, first, sizes); ``table`` is any [rows, F] tensor
@@ -693,6 +790,11 @@ def kernel_phase(pipeline, rays):
         nbytes=r * 24 + field_cells_touched(mp.samples, stride, level) * 4
         + r * s * (12 + 4 + 1 + 4) + r * 4,
         ops=r * s * 12 + r * nc * 2 * 9)
+    march_args = (o, d, rays.dist_min, rays.dist_max, s, stride, field, level, None, 0.0)
+    add_launches_and_was(rows[-1], lambda: raymarch_ray(*march_args[:-1]),
+                         MARCH_GRAD_V1 and (lambda: MARCH_GRAD_V1.march(*march_args)),
+                         lambda: march_equal(MARCH_GRAD_V1.march(*march_args), mp),
+                         MARCH_GRAD_V1_DESIGN["march"])
 
     # K3 compaction
     budget = compaction_budget(r, s, tracer.compaction)
@@ -1158,6 +1260,147 @@ def octree_grid_phase() -> dict:
     return out
 
 
+# the K2/K8 and K15 backward calls that the paths made, for the "march and octree grad"
+# step: key -> {"kind": counter name, "args": the wrapper's arguments (cloned)}
+MARCH_GRAD_CALLS = {}
+
+
+def march_grad_record(key, kind, args):
+    """Keep one call's inputs under ``key``: K2/K8 (``kind`` its counter; ``args`` those of
+    ``octree_as._march`` after the counter) or K15's backward (``octree_interp_bwd``'s)."""
+    import torch
+
+    def copy(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().clone()
+        return [copy(x) for x in a] if isinstance(a, (list, tuple)) else a
+
+    MARCH_GRAD_CALLS[key] = {"kind": kind, "args": tuple(copy(a) for a in args)}
+
+
+@contextmanager
+def recording_march_grad(key: str):
+    """Keep the inputs of the last K2 or K8 march and the last K15 backward launched
+    inside, under "<key>: <counter>", held and copied when the block ends (no input of
+    either is changed inside a block that uses this; held, so that a loop of steps pays no
+    copies)."""
+    from wisp_tpu_torch.accelstructs import octree_as
+    from wisp_tpu_torch.models.grids import octree_grid
+    march, bwd = octree_as._march, octree_grid.octree_interp_bwd
+    held = {}
+
+    def rec_march(counter, *args):
+        held[counter] = args
+        return march(counter, *args)
+
+    def rec_bwd(*args):
+        held["octree_interp_bwd"] = args
+        return bwd(*args)
+
+    with mock.patch.object(octree_as, "_march", rec_march), \
+            mock.patch.object(octree_grid, "octree_interp_bwd", rec_bwd):
+        yield
+    for kind, args in held.items():
+        march_grad_record(f"{key}: {kind}", kind, args)
+
+
+def k15_bwd_counts(coords, pidx, col0, trinkets, rows, f_dim, levels) -> list:
+    """Per LOD of a K15 backward call: its row adds (8 a point in an occupied cell), the
+    distinct rows they touch, the most adds to one row, the table's rows and whether the
+    redesign sums the LOD in shared memory first (``bwd_shared_lods``)."""
+    import torch
+    from wisp_tpu_torch.models.grids.octree_grid import bwd_shared_lods
+    shared = bwd_shared_lods(rows, f_dim, coords.shape[0])
+    out = []
+    for i, level in enumerate(levels):
+        p = pidx[:, col0 + i]
+        valid = p >= 0
+        corner_rows = trinkets[i][p[valid].long()].reshape(-1).long()
+        counts = (torch.bincount(corner_rows) if corner_rows.numel()
+                  else torch.zeros(1, dtype=torch.long))
+        out.append({"level": int(level), "points": int(valid.sum()),
+                    "adds": int(corner_rows.numel()), "rows": int((counts > 0).sum()),
+                    "most_adds_to_a_row": int(counts.max()), "table_rows": int(rows[i]),
+                    "shared": bool(shared[i])})
+    return out
+
+
+def march_grad_phase() -> dict:
+    """K2/K8 and K15's backward at every call the paths recorded (K2: the render chunk,
+    train step 25 jittered, the seg and stoch steps; K8: the uniform chunk and uniform step
+    20 jittered; K15 backward: the octree NeRF's F = 5 call of its kernel phase and its step
+    25, the SDF train batch, an NGLOD app step and a level-8 step): both designs held to
+    the plain version (K2/K8 bit for bit; K15's backward within 1e-5 of the largest entry)
+    and timed side by side, with their launches a call, the event ms less the device ms a
+    call (``host_ms``), the wrappers' own host time a call (``wrapper_host_ms``) and the
+    redesign's device ms by kernel (the backward's zero fill and its kernel); for K15's
+    backward, each LOD's adds, distinct rows, most adds to a row and route. Then 200 calls of the redesign back to back on one stream with no
+    synchronisation between them, the shapes in turns, each shape's last result held to
+    its first (K2/K8 equal, K15's backward within its tolerance)."""
+    import torch
+    from wisp_tpu_torch.accelstructs import octree_as
+    from wisp_tpu_torch.models.grids import octree_grid
+    require(MARCH_GRAD_CALLS, "no phase recorded a K2/K8 or K15 backward call")
+    out, checks = {}, []
+    for key, c in sorted(MARCH_GRAD_CALLS.items()):
+        args = c["args"]
+        if c["kind"] == "octree_interp_bwd":
+            coords, pidx, col0, trinkets, rows, f_dim, levels, multiscale, g = args
+            run_new = functools.partial(octree_grid.octree_interp_bwd, *args)
+            run_was = functools.partial(MARCH_GRAD_V1.interp_bwd, *args)
+            want = octree_grid.octree_interp_bwd_plain(*args)
+            tol = 1e-5 * max(float(w.abs().max()) for w in want)
+            errs = [max(float((a - w).abs().max()) for a, w in zip(f(), want))
+                    for f in (run_new, run_was)]
+            require(all(e <= tol for e in errs), f"K15 backward at {key}: max abs err (new, "
+                                                 f"earlier) {errs}, tolerance {tol}")
+            shape = {"points": coords.shape[0], "F": f_dim, "lods": len(levels),
+                     "multiscale": multiscale, "table_rows": sum(rows),
+                     "max_abs_err": errs[0], "was_max_abs_err": errs[1], "tol": tol,
+                     "by_lod": k15_bwd_counts(coords, pidx, col0, trinkets, rows, f_dim,
+                                              levels)}
+
+            def same(a, b, tol=tol):
+                return max(float((x - y).abs().max()) for x, y in zip(a, b)) <= tol
+            design = MARCH_GRAD_V1_DESIGN["octree_interp_bwd"]
+        else:
+            o, d, lo, hi, s, stride, field, level, jitter, ustep = args
+            run_new = functools.partial(octree_as._march, c["kind"], *args)
+            run_was = functools.partial(MARCH_GRAD_V1.march, *args)
+            plain = (octree_as.raymarch_ray_plain if c["kind"] == "raymarch_ray"
+                     else octree_as.raymarch_uniform_plain)
+            want = plain(*args[:-1])
+            require(march_equal(run_new(), want) and march_equal(run_was(), want),
+                    f"{c['kind']} at {key}: a design differs from the plain version")
+            shape = {"rays": o.shape[0], "samples": s, "stride": stride,
+                     "jittered": jitter is not None, "field": field is not None,
+                     "valid": int(want.mask.sum()), "max_abs_err": 0, "tol": 0}
+            same = march_equal
+            design = MARCH_GRAD_V1_DESIGN["march"]
+        with torch.no_grad():
+            new, was = timed(run_new), timed(run_was)
+            host = host_ms_in_turns((run_new, run_was))
+            out[key] = dict(shape, ms=new[0], event_ms=new[1], host_ms=new[1] - new[0],
+                            wrapper_host_ms=host[0], ms_by_kernel=device_ms_by_kernel(run_new),
+                            launches_per_call=launches_per_call(run_new), was_ms=was[0],
+                            was_event_ms=was[1], was_host_ms=was[1] - was[0],
+                            was_wrapper_host_ms=host[1],
+                            was_launches_per_call=launches_per_call(run_was),
+                            was_design=design)
+            checks.append((key, run_new, run_new(), same))
+    torch.cuda.synchronize()
+    last = {}
+    with torch.no_grad():
+        for i in range(200):
+            key, run_new, _, _ = checks[i % len(checks)]
+            last[key] = run_new()
+    torch.cuda.synchronize()
+    for key, _, ref, same in checks:
+        require(same(last[key], ref), f"{key}, called back to back, differs from its first "
+                                      f"result")
+    return out
+
+
 def profile_call(fn, top: int = 12):
     """(wall ms, device busy ms, the ``top`` kernels by device time) of one call of ``fn``
     under torch.profiler. The busy time is the sum of the kernels' device time (kernels on
@@ -1422,7 +1665,7 @@ def train_phase(dev):
         else:
             t0 = time.perf_counter()
             if i == TRAIN_STEPS_BEFORE_PRUNE + TRAIN_STEPS_AFTER_PRUNE - 1:
-                with recording_k1("train step 25"):
+                with recording_k1("train step 25"), recording_march_grad("train step 25"):
                     trainer.iterate()
             else:
                 trainer.iterate()
@@ -1992,7 +2235,16 @@ def sdf_train_kernel_phase(trainer, coords):
         library_ms=timed(lambda: table.index_add_(0, idx, vals))))
     rows[-1]["library_call"] = ("index_add_ of precomputed w*g rows into one [V, F] table "
                                 "(over precomputed rows: not the same function)")
+    add_launches_and_was(
+        rows[-1], lambda: octree_interp_bwd(*args),
+        MARCH_GRAD_V1 and (lambda: MARCH_GRAD_V1.interp_bwd(*args)),
+        lambda: max(float((a - b).abs().max()) for a, b in
+                    zip(MARCH_GRAD_V1.interp_bwd(*args), bp)) <= 1e-5 * scale,
+        MARCH_GRAD_V1_DESIGN["octree_interp_bwd"])
+    rows[-1]["by_lod"] = k15_bwd_counts(coords, pidx, grid.base_lod, grid.trinkets, sizes,
+                                        f_dim, grid.active_lods)
     rows[-1]["check_s"] = time.perf_counter() - t0
+    march_grad_record("sdf train batch: octree_interp_bwd", "octree_interp_bwd", args)
 
     # K16 at the resample's points
     t0 = time.perf_counter()
@@ -2266,6 +2518,8 @@ def octree_kernel_phase(trainer, chunk):
     require(fwd_err <= 1e-6, f"octree_interp at F = 5: error {fwd_err}")
     require(bwd_err <= 1e-5 * scale, f"octree_interp_bwd at F = 5: error {bwd_err}")
     k15_record("octree nerf step (F = 5)", *iargs)
+    march_grad_record("octree nerf kernel phase (F = 5): octree_interp_bwd",
+                      "octree_interp_bwd", bargs)
     # the bounds, counted as the SDF rows count them: each touched trinket and feature row
     # read once (forward), each whole gradient table written once (backward)
     f_dim, lods = grid.feature_dim, grid.num_lods
@@ -2319,21 +2573,23 @@ def octree_phase(dev):
     # -- training: counts from 0, 25 steps, counts read right after ------------------------
     steps = []
     kernels.reset_launches()
-    for i in range(OCTREE_STEPS):
-        rays = trainer.train_dataset.transform.num_samples
-        budget = tracer.compaction
-        if i == OCTREE_PROFILED_STEP - 1:
-            profiled = profile_step(trainer)
-            ms = profiled["profile_step_ms"]
-        else:
-            t1 = time.perf_counter()
-            trainer.iterate()
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t1) * 1e3
-        steps.append({"step": i + 1, "ms": ms, "rays": rays, "budget": budget,
-                      "slots_per_ray": slots,
-                      "valid_share": trainer._prev_num_samples / (rays * slots),
-                      "num_overflow": trainer.last_num_overflow, "loss": trainer.last_loss})
+    with recording_march_grad("octree nerf step 25"):
+        for i in range(OCTREE_STEPS):
+            rays = trainer.train_dataset.transform.num_samples
+            budget = tracer.compaction
+            if i == OCTREE_PROFILED_STEP - 1:
+                profiled = profile_step(trainer)
+                ms = profiled["profile_step_ms"]
+            else:
+                t1 = time.perf_counter()
+                trainer.iterate()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3
+            steps.append({"step": i + 1, "ms": ms, "rays": rays, "budget": budget,
+                          "slots_per_ray": slots,
+                          "valid_share": trainer._prev_num_samples / (rays * slots),
+                          "num_overflow": trainer.last_num_overflow,
+                          "loss": trainer.last_loss})
     train_launches = dict(kernels.LAUNCHES)
     want = {k: v * OCTREE_STEPS for k, v in OCTREE_STEP_KERNELS.items()}
     got = {k: train_launches[k] for k in want}
@@ -2691,7 +2947,7 @@ def stoch_phase(dev):
         # -- training: counts from 0, 20 steps, prune, 5 steps, counts read right after --
         steps, masks, last = [], [], {}
         kernels.reset_launches()
-        with recording_stoch_bwd(masks, last):
+        with recording_stoch_bwd(masks, last), recording_march_grad("stoch step 25"):
             for i in range(STOCH_STEPS_BEFORE_PRUNE + STOCH_STEPS_AFTER_PRUNE):
                 if i == STOCH_STEPS_BEFORE_PRUNE:
                     t1 = time.perf_counter()
@@ -3075,7 +3331,8 @@ def seg_phase(dev):
         if i == SEG_STEPS_BEFORE_PRUNE - 1:
             profiled = profile_step(trainer)     # step 20 runs under the profiler
         elif last:
-            with recording_segments(calls), recording_k1("seg step 25"):
+            with recording_segments(calls), recording_k1("seg step 25"), \
+                    recording_march_grad("seg step 25"):
                 trainer.iterate()
         else:
             trainer.iterate()
@@ -3481,7 +3738,7 @@ def nglod_phase(dev):
         steps, resample = [], {}
         kernels.reset_launches()
         t_train = time.perf_counter()
-        with resample_timer(resample):
+        with resample_timer(resample), recording_march_grad("nglod app step"):
             while trainer.is_optimization_running:
                 t0 = time.perf_counter()
                 trainer.iterate()
@@ -3541,13 +3798,14 @@ def nglod_phase(dev):
               "dataset_size": len(tr8.train_dataset)}
         kernels.reset_launches()
         ms = []
-        for i in range(NGLOD_L8_STEPS):
-            if i == NGLOD_L8_STEPS - 1:
-                l8.update(profile_step(tr8))
-                continue
-            t0 = time.perf_counter()
-            tr8.iterate()
-            ms.append((time.perf_counter() - t0) * 1e3)
+        with recording_march_grad("nglod level 8 step"):
+            for i in range(NGLOD_L8_STEPS):
+                if i == NGLOD_L8_STEPS - 1:
+                    l8.update(profile_step(tr8))
+                    continue
+                t0 = time.perf_counter()
+                tr8.iterate()
+                ms.append((time.perf_counter() - t0) * 1e3)
         tracer8 = pipe8.tracer
         from wisp_tpu_torch.core.rays import Rays
         g = torch.Generator(device="cpu").manual_seed(31)
@@ -3853,7 +4111,8 @@ def uniform_rows(pipeline, rays, launches) -> list:
     """K8 against its plain version on a render chunk, unjittered and jittered, on the
     trained octree and on the render path's carved field (stride 2), and timed there."""
     import torch
-    from wisp_tpu_torch.accelstructs.octree_as import raymarch_uniform, raymarch_uniform_plain
+    from wisp_tpu_torch.accelstructs.octree_as import (raymarch_uniform,
+                                                       raymarch_uniform_plain, uniform_step)
     tracer, blas = pipeline.tracer, pipeline.nef.grid.blas
     o, d = rays.origins, rays.dirs
     r, s, stride, level = o.shape[0], tracer.num_steps, tracer.march_stride, blas.max_level
@@ -3884,6 +4143,11 @@ def uniform_rows(pipeline, rays, launches) -> list:
         ops=r * s * 12 + r * nc * 2 * 9)
     row["launches"] = launches["raymarch_uniform"]
     row["valid_share_carved"] = float(mp.mask.float().mean())
+    vargs = args + (None, uniform_step(s))
+    add_launches_and_was(row, lambda: raymarch_uniform(*args),
+                         MARCH_GRAD_V1 and (lambda: MARCH_GRAD_V1.march(*vargs)),
+                         lambda: march_equal(MARCH_GRAD_V1.march(*vargs), mp),
+                         MARCH_GRAD_V1_DESIGN["march"])
     return [row]
 
 
@@ -3960,15 +4224,16 @@ def uniform_phase(dev):
         # -- the path: counts from 0, 20 steps, one frame, counts read right after ---------
         steps = []
         kernels.reset_launches()
-        for i in range(UNIFORM_STEPS):
-            rays_n = trainer.train_dataset.transform.num_samples
-            t1 = time.perf_counter()
-            trainer.iterate()
-            torch.cuda.synchronize()
-            steps.append({"step": i + 1, "ms": (time.perf_counter() - t1) * 1e3,
-                          "rays": rays_n, "loss": trainer.last_loss,
-                          "valid_fraction": trainer._prev_num_samples
-                          / (rays_n * tracer.num_steps)})
+        with recording_march_grad("uniform step 20"):
+            for i in range(UNIFORM_STEPS):
+                rays_n = trainer.train_dataset.transform.num_samples
+                t1 = time.perf_counter()
+                trainer.iterate()
+                torch.cuda.synchronize()
+                steps.append({"step": i + 1, "ms": (time.perf_counter() - t1) * 1e3,
+                              "rays": rays_n, "loss": trainer.last_loss,
+                              "valid_fraction": trainer._prev_num_samples
+                              / (rays_n * tracer.num_steps)})
         t1 = time.perf_counter()
         rb = renderer.render_lookat(pipeline, f=EYE)
         torch.cuda.synchronize()
@@ -4005,7 +4270,7 @@ def uniform_phase(dev):
         chunk = Rays(all_rays.origins[sl].contiguous(), all_rays.dirs[sl].contiguous(),
                      all_rays.dist_min, all_rays.dist_max)
         with torch.no_grad():
-            with recording_k1("uniform chunk"):
+            with recording_k1("uniform chunk"), recording_march_grad("uniform chunk"):
                 a = pipeline(rays=chunk)
             with plain_versions():
                 b = pipeline(rays=chunk)
@@ -4055,11 +4320,15 @@ def run() -> dict:
     octree_grid_v1_build = start_baseline_build(OCTREE_GRID_V1_SRC,
                                                 "libwisp_octree_grid_v1.so")
     free_space_v1_build = start_baseline_build(FREE_SPACE_V1_SRC, "libwisp_free_space_v1.so")
+    raymarch_v1_build = start_baseline_build(RAYMARCH_V1_SRC, "libwisp_raymarch_v1.so")
+    octree_grid_bwd_v1_build = start_baseline_build(OCTREE_GRID_BWD_V1_SRC,
+                                                    "libwisp_octree_grid_bwd_v1.so")
     kernels.build(verbose=True)
-    global THREEPASS, HASHGRID_V1, OCTREE_V1
+    global THREEPASS, HASHGRID_V1, OCTREE_V1, MARCH_GRAD_V1
     THREEPASS = ThreePass(threepass_build)
     HASHGRID_V1 = HashGridV1(hashgrid_v1_build)
     OCTREE_V1 = OctreeV1(octree_grid_v1_build, free_space_v1_build)
+    MARCH_GRAD_V1 = MarchGradV1(raymarch_v1_build, octree_grid_bwd_v1_build)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in str(kernels.BUILD_INFO.get("log", "")).splitlines()
              if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
@@ -4078,12 +4347,16 @@ def run() -> dict:
     t0 = time.perf_counter()
     octree_grid_info = octree_grid_phase()
     phases["phase_s"]["octree grid"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    march_grad_info = march_grad_phase()
+    phases["phase_s"]["march and octree grad"] = time.perf_counter() - t0
     print(json.dumps({"kernels": phases["kernels"]}), flush=True)
     for line in phases["lines"]:
         print(json.dumps(line), flush=True)
     print(json.dumps({"compaction_shapes": compaction_info}), flush=True)
     print(json.dumps({"hashgrid_shapes": hashgrid_info}), flush=True)
     print(json.dumps({"octree_grid_shapes": octree_grid_info}), flush=True)
+    print(json.dumps({"march_grad_shapes": march_grad_info}), flush=True)
     print(json.dumps({"phase_s": phases["phase_s"], "profiler_shortfalls": PROFILER_SHORTFALLS,
                       "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi, flush=True)
@@ -4156,7 +4429,7 @@ def run_phases(dev, build_s: float) -> dict:
     chunk = Rays(all_rays.origins[sl].contiguous(), all_rays.dirs[sl].contiguous(),
                  all_rays.dist_min, all_rays.dist_max)
     with torch.no_grad():
-        with recording_k1("render chunk"):
+        with recording_k1("render chunk"), recording_march_grad("render chunk"):
             a = pipeline(rays=chunk)
         with plain_versions():
             b = pipeline(rays=chunk)

@@ -1456,3 +1456,273 @@ def test_octree_interp_kernel_back_to_back(dev):
     assert kernels.LAUNCHES["octree_interp"] == before + 200
     for i, f in enumerate(first):
         assert torch.equal(last[i], f), shapes[i]
+
+
+# -- K2/K8 and K15's backward, redesigned: every case the kernels take ----------------------
+
+# (rays, samples): R not a multiple of the tile, S from 1 to past the tile, the render chunk
+MARCH_CASES = [(1, 1), (37, 67), (5, 512), (1500, 1), (700, 3), (2, 1025), (16_385, 512)]
+
+
+def _march(mode):
+    from wisp_tpu_torch.accelstructs.octree_as import raymarch_uniform, raymarch_uniform_plain
+    if mode == "ray":
+        return raymarch_ray, raymarch_ray_plain, "raymarch_ray"
+    return raymarch_uniform, raymarch_uniform_plain, "raymarch_uniform"
+
+
+def _march_equal(got, want):
+    same = [torch.equal(got.samples, want.samples),
+            torch.equal(got.depth_samples, want.depth_samples),
+            torch.equal(got.deltas, want.deltas), torch.equal(got.mask, want.mask),
+            (got.cell_density is None) == (want.cell_density is None)]
+    if want.cell_density is not None:
+        same.append(torch.equal(got.cell_density, want.cell_density))
+    return all(same)
+
+
+@pytest.mark.parametrize("mode", ["ray", "uniform"])
+@pytest.mark.parametrize("stride", [1, 2, 3])
+def test_raymarch_tile_kernel_cases(dev, mode, stride):
+    """K2/K8 bit-equal to the plain version at every case of MARCH_CASES, midpoints and
+    jittered, with the field and without; one launch a call."""
+    fn, plain, counter = _march(mode)
+    field = torch.from_numpy(carved_field(4, 31)).to(dev)
+    for r, s in MARCH_CASES:
+        o, d = (torch.from_numpy(a).to(dev) for a in ray_arrays(r, seed=r + s))
+        g = torch.Generator(device="cpu").manual_seed(r * s)
+        for jitter in (None, torch.rand(r, s, generator=g).to(dev)):
+            for fld in (field, None):
+                before = kernels.LAUNCHES[counter]
+                got = fn(o, d, 0.0, 8.0, s, stride, fld, 4, jitter)
+                want = plain(o, d, 0.0, 8.0, s, stride, fld, 4, jitter)
+                torch.cuda.synchronize()
+                assert kernels.LAUNCHES[counter] == before + 1
+                assert _march_equal(got, want), (r, s, jitter is None, fld is None)
+                if fld is not None and r > 3:
+                    assert bool(want.mask.any()) and not bool(want.mask.all())
+
+
+@pytest.mark.parametrize("which", ["samples", "depths", "mask", "dens"])
+def test_raymarch_tile_kernel_refuses_unaligned_outputs(dev, which):
+    """The entry point refuses an output that does not start on 16 bytes (the tile's
+    16-byte stores); the wrapper's own outputs always do."""
+    r, s = 8, 40
+    o, d = (torch.from_numpy(a).to(dev) for a in ray_arrays(r, seed=5))
+    field = torch.from_numpy(carved_field(4, 32)).to(dev)
+    sizes = {"samples": (r * s * 3, torch.float32), "depths": (r * s, torch.float32),
+             "mask": (r * s, torch.bool), "dens": (r * s, torch.float32)}
+    outs = {}
+    for k, (n, dtype) in sizes.items():
+        buf = torch.empty(n + 16, dtype=dtype, device=dev)
+        outs[k] = buf[1:n + 1] if k == which else buf[:n]
+    deltas = torch.empty(r, device=dev)
+    before = kernels.LAUNCHES["raymarch_ray"]
+    with pytest.raises(RuntimeError, match="wisp_raymarch_ray"):
+        kernels.launch("wisp_raymarch_ray", "raymarch_ray", o.data_ptr(), d.data_ptr(), None,
+                       r, s, 2, 0.0, 0.0, 8.0, field.data_ptr(), 4,
+                       outs["samples"].data_ptr(), outs["depths"].data_ptr(),
+                       outs["mask"].data_ptr(), outs["dens"].data_ptr(), deltas.data_ptr())
+    assert kernels.LAUNCHES["raymarch_ray"] == before
+
+
+def test_raymarch_tile_kernel_back_to_back(dev):
+    """K2 and K8 calls at four shapes in turns on one stream with no synchronisation between
+    them: each equal to its shape's first result and to the plain version."""
+    field = torch.from_numpy(carved_field(4, 33)).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(34)
+    calls = []
+    for i, (mode, r, s, stride, jittered) in enumerate([
+            ("ray", 16_384, 512, 2, False), ("ray", 4_096, 512, 2, True),
+            ("uniform", 16_384, 512, 2, False), ("uniform", 37, 67, 3, True)]):
+        o, d = (torch.from_numpy(a).to(dev) for a in ray_arrays(r, seed=40 + i))
+        jitter = torch.rand(r, s, generator=g).to(dev) if jittered else None
+        fn, plain, _ = _march(mode)
+        args = (o, d, 0.0, 8.0, s, stride, field, 4, jitter)
+        calls.append((fn, args, plain(*args)))
+    first = [fn(*args) for fn, args, _ in calls]
+    torch.cuda.synchronize()
+    last = {}
+    for i in range(200):
+        fn, args, _ = calls[i % len(calls)]
+        last[i % len(calls)] = fn(*args)
+    torch.cuda.synchronize()
+    for i, (_, _, want) in enumerate(calls):
+        assert _march_equal(first[i], want) and _march_equal(last[i], first[i]), i
+
+
+def _bwd_inputs(n, f_dim, n_lods, seed, dev, layout):
+    """``_interp_inputs`` with the cells of each LOD laid out as 'random', in runs
+    ('rays': consecutive points on one cell, as the octree NeRF's points come ray by ray)
+    or all in one cell ('one cell'); a cotangent for 'sum' and one for 'cat'. The tables
+    have at least n / 4 rows, so that a row sums about as many adds as at the paths' shapes
+    (the plain version's own float32 sums part from exact by ~1e-5 of the largest entry
+    past ~10^5 adds to one row)."""
+    coords, pidx, col0, trinkets, feats, levels = _interp_inputs(n, f_dim, n_lods, 1, seed,
+                                                                 dev)
+    rng = np.random.default_rng(seed + 1)
+    p = pidx.cpu().numpy()
+    rows = []
+    for i in range(n_lods):
+        cells = trinkets[i].shape[0]
+        rows.append(max(feats[i].shape[0], n // 4 + 1))
+        trinkets[i] = torch.from_numpy(rng.integers(0, rows[i], (cells, 8)).astype(
+            np.int32)).to(dev)
+        if layout == "one cell":
+            p[:, col0 + i] = cells // 2
+        elif layout == "rays":
+            col = np.repeat(rng.integers(0, cells, n), rng.integers(1, 48, n))[:n]
+            col[rng.random(n) < 0.05] = -1
+            p[:, col0 + i] = col
+    pidx = torch.from_numpy(p).to(dev)
+    cots = {m: torch.from_numpy(rng.normal(size=(n, f_dim * (n_lods if m == "cat" else 1)))
+                                .astype(np.float32)).to(dev) for m in ("sum", "cat")}
+    return coords, pidx, col0, trinkets, rows, levels, cots
+
+
+def _bwd_check(args, multiscale, cot, got):
+    from wisp_tpu_torch.models.grids.octree_grid import octree_interp_bwd_plain
+    coords, pidx, col0, trinkets, rows, levels = args
+    want = octree_interp_bwd_plain(coords, pidx, col0, trinkets, rows, cot.shape[1] // (
+        len(levels) if multiscale == "cat" else 1), levels, multiscale, cot)
+    scale = max(float(w.abs().max()) for w in want)
+    assert [tuple(a.shape) for a in got] == [tuple(w.shape) for w in want]
+    return max(float((a - w).abs().max()) for a, w in zip(got, want)), scale
+
+
+@pytest.mark.parametrize("f_dim", [1, 2, 3, 4, 5, 8, 16, 32])
+@pytest.mark.parametrize("layout", ["random", "rays"])
+def test_octree_interp_bwd_kernel_cases(dev, f_dim, layout):
+    """K15 backward within 1e-5 of the plain version's largest entry at each F (chunks of
+    four features, the last one short), 1, 6 and 16 LODs, both blends, N under a warp, at
+    512 and past a block; one launch a call."""
+    from wisp_tpu_torch.models.grids.octree_grid import octree_interp_bwd
+    for n_lods in (1, 6, 16):
+        for n in (1, 7, 31, 512, 16_385):
+            *args, cots = _bwd_inputs(n, f_dim, n_lods, f_dim * 7 + n_lods + n, dev, layout)
+            for multiscale, cot in cots.items():
+                before = kernels.LAUNCHES["octree_interp_bwd"]
+                got = octree_interp_bwd(*args[:4], args[4], f_dim, args[5], multiscale, cot)
+                torch.cuda.synchronize()
+                assert kernels.LAUNCHES["octree_interp_bwd"] == before + 1
+                err, scale = _bwd_check(args, multiscale, cot, got)
+                assert err <= 1e-5 * scale, (n_lods, n, multiscale, err, scale)
+
+
+@pytest.mark.parametrize("f_dim,n_lods", [(5, 4), (16, 6)])
+@pytest.mark.parametrize("n", [31, 512, 16_385])
+def test_octree_interp_bwd_kernel_one_cell(dev, f_dim, n_lods, n):
+    """The worst case of the adds: every point in one cell of every LOD (a segment a warp,
+    every warp on the same 8 rows; 16,385 points keep a row's float32 sum within the
+    tolerance of the plain version's own order)."""
+    from wisp_tpu_torch.models.grids.octree_grid import octree_interp_bwd
+    *args, cots = _bwd_inputs(n, f_dim, n_lods, 61, dev, "one cell")
+    for multiscale, cot in cots.items():
+        got = octree_interp_bwd(*args[:4], args[4], f_dim, args[5], multiscale, cot)
+        torch.cuda.synchronize()
+        err, scale = _bwd_check(args, multiscale, cot, got)
+        assert scale > 0 and err <= 1e-5 * scale, (multiscale, err, scale)
+
+
+@pytest.mark.parametrize("f_dim", [4, 5, 16])
+def test_octree_interp_bwd_kernel_unaligned_tables(dev, f_dim):
+    """Gradient tables that start 4 bytes past a 16-byte boundary: the entry point refuses
+    float4 adds into them, and a lane a feature adds them within tolerance."""
+    import ctypes
+    import functools
+    from wisp_tpu_torch.models.grids.octree_grid import bwd_shared_lods
+    *args, cots = _bwd_inputs(5_000, f_dim, 6, 71, dev, "rays")
+    coords, pidx, col0, trinkets, rows, levels = args
+    cot = cots["sum"]
+    grads = []
+    for v in rows:
+        buf = torch.zeros(v * f_dim + 4, device=dev)
+        grads.append(buf[1:v * f_dim + 1].view(v, f_dim))
+    assert all(g.data_ptr() % 16 for g in grads)
+    trk, gps = kernels.pointers(trinkets), kernels.pointers(grads)
+    lvl = np.asarray(levels, dtype=np.int32)
+    shared = np.asarray(bwd_shared_lods(rows, f_dim, coords.shape[0]), dtype=np.int32)
+    launch = functools.partial(
+        kernels.launch, "wisp_octree_interp_bwd", "octree_interp_bwd", coords.data_ptr(),
+        pidx.data_ptr(), coords.shape[0], pidx.shape[1], col0, len(levels), f_dim,
+        ctypes.addressof(trk), ctypes.addressof(gps), lvl.ctypes.data, shared.ctypes.data, 1)
+    if f_dim % 4 == 0:                  # float4 atomics need 16 bytes: refused
+        with pytest.raises(RuntimeError, match="wisp_octree_interp_bwd"):
+            launch(4, cot.data_ptr())
+    launch(1, cot.data_ptr())
+    torch.cuda.synchronize()
+    err, scale = _bwd_check(args, "sum", cot, grads)
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("min_adds", [0, 10 ** 9])
+@pytest.mark.parametrize("f_dim,n", [(5, 2_000), (16, 512), (16, 16_385), (1, 16_385)])
+def test_octree_interp_bwd_kernel_both_routes(dev, monkeypatch, min_adds, f_dim, n):
+    """Every LOD whose table fits summed in shared memory first (min_adds 0), or none
+    (min_adds 10^9): both within tolerance of the plain version."""
+    from wisp_tpu_torch.models.grids import octree_grid
+    monkeypatch.setattr(octree_grid, "BWD_SHARED_MIN_ADDS", min_adds)
+    *args, cots = _bwd_inputs(n, f_dim, 6, 91, dev, "random")
+    routes = octree_grid.bwd_shared_lods(args[4], f_dim, n)
+    assert any(routes) == (min_adds == 0 and any(v * f_dim * 4 <= octree_grid.BWD_SHARED_BYTES
+                                                 for v in args[4]))
+    for multiscale, cot in cots.items():
+        got = octree_grid.octree_interp_bwd(*args[:4], args[4], f_dim, args[5], multiscale,
+                                            cot)
+        torch.cuda.synchronize()
+        err, scale = _bwd_check(args, multiscale, cot, got)
+        assert err <= 1e-5 * scale, (multiscale, routes, err, scale)
+
+
+def test_octree_interp_bwd_kernel_hot_rows(dev):
+    """The octree NeRF's F = 5 call's shape: 187,360 points in random order over 4 LODs
+    whose first two tables (1,300 and 5,500 rows, ~1,150 and ~270 adds a row) are summed in
+    shared memory and whose others take their adds straight; within tolerance, one
+    launch."""
+    from wisp_tpu_torch.models.grids import octree_grid
+    n, f_dim = 187_360, 5
+    rng = np.random.default_rng(95)
+    rows, cells = [1_300, 5_500, 30_000, 150_000], [150, 700, 4_000, 20_000]
+    assert octree_grid.bwd_shared_lods(rows, f_dim, n) == [1_300, 5_500, 0, 0]
+    trinkets = [torch.from_numpy(rng.integers(0, r, (c, 8)).astype(np.int32)).to(dev)
+                for r, c in zip(rows, cells)]
+    pidx = np.stack([rng.integers(0, c, n) for c in [1] + cells], axis=1).astype(np.int32)
+    pidx[rng.random(pidx.shape) < 0.03] = -1
+    coords = torch.from_numpy(rng.uniform(-1, 1, (n, 3)).astype(np.float32)).to(dev)
+    pidx = torch.from_numpy(pidx).to(dev)
+    cot = torch.from_numpy(rng.normal(size=(n, f_dim)).astype(np.float32)).to(dev)
+    args = (coords, pidx, 1, trinkets, rows, [4, 5, 6, 7])
+    before = kernels.LAUNCHES["octree_interp_bwd"]
+    got = octree_grid.octree_interp_bwd(*args[:5], f_dim, args[5], "sum", cot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["octree_interp_bwd"] == before + 1
+    err, scale = _bwd_check(args, "sum", cot, got)
+    assert err <= 1e-5 * scale, (err, scale)
+
+
+def test_octree_interp_bwd_kernel_back_to_back(dev):
+    """K15 backward calls at four shapes in turns on one stream with no synchronisation
+    between them: each within tolerance of its shape's first result."""
+    from wisp_tpu_torch.models.grids.octree_grid import octree_interp_bwd
+    calls = []
+    for i, (n, f_dim, n_lods, layout, multiscale) in enumerate([
+            (187_360, 5, 4, "rays", "sum"), (512, 16, 6, "random", "sum"),
+            (31, 3, 16, "rays", "cat"), (16_385, 16, 6, "one cell", "cat")]):
+        *args, cots = _bwd_inputs(n, f_dim, n_lods, 80 + i, dev, layout)
+        calls.append((args[:4] + [args[4], f_dim, args[5], multiscale, cots[multiscale]],
+                      args))
+    first = [octree_interp_bwd(*a) for a, _ in calls]
+    for (a, args), f in zip(calls, first):
+        err, scale = _bwd_check(args, a[7], a[8], f)
+        assert err <= 1e-5 * scale
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["octree_interp_bwd"]
+    last = {}
+    for i in range(200):
+        last[i % len(calls)] = octree_interp_bwd(*calls[i % len(calls)][0])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["octree_interp_bwd"] == before + 200
+    for i, f in enumerate(first):
+        scale = max(float(t.abs().max()) for t in f)
+        err = max(float((a - b).abs().max()) for a, b in zip(last[i], f))
+        assert err <= 1e-5 * scale, i

@@ -9,14 +9,6 @@
 // its own strided test or the next one hit (the JAX OR-broadcast); stride 1 tests every
 // sample alone. A dense blas (no field) tests only the box.
 //
-// Bound on this card: bytes. The march writes 16-17 bytes per sample (point, depth, mask,
-// density) and reads one field value per strided sample, from a field of 128^3 floats
-// (8 MB) that stays in L2. Design: one thread per (ray, strided sample); it computes the
-// two strided tests its samples need and writes its `stride` samples, so the gathers are
-// issued once per strided sample and every output is written exactly once. The order of
-// float operations is the plain version's, and the library is built without fused
-// multiply-add, so points, cells and masks agree bit for bit.
-//
 // K8 — occupancy ray march, 'uniform' mode, a mode of the same kernel (ustep > 0).
 //
 // Replaces wisp_tpu/accelstructs/octree_as.py OctreeAS._raymarch_uniform (:612) with the
@@ -24,8 +16,23 @@
 // instead of the ray's span: t_near + (i + u_i) * step, step = float32(2*sqrt(3) / S), in
 // JAX's order (u times step, then the sum); the deltas are that step; a sample is valid
 // where the strided occupancy test holds, it lies in the box and its depth is below the
-// ray's exit (JAX masks `depths < t_far` in place of K2's whole-ray hit). Bound and design
-// are K2's: the same bytes a sample, the same thread per strided sample.
+// ray's exit (JAX masks `depths < t_far` in place of K2's whole-ray hit).
+//
+// Bound on this card: bytes. The march writes 21 bytes a sample (point 12, depth 4, mask 1,
+// density 4) and reads one field value a strided sample, from a field of 128^3 floats
+// (8 MB) that stays in L2. Design: a block takes a tile of kMarchTile consecutive flat
+// samples (whole rays and pieces of rays, in any place of a ray). (1) The tile's ray
+// constants (loads, slab test, t_near, span, hit) are computed once a ray into shared memory;
+// the block that holds a ray's first sample writes its delta. (2) The strided tests of the
+// tile's samples, and the next test of its last sample (which may lie in the next tile; it
+// is computed here, not read from there), are made once each into shared memory. (3) Each
+// thread takes 4 consecutive samples: depths and densities go out as one 16-byte store a
+// thread (a warp writes 512 contiguous bytes), points and masks into shared memory, from
+// which the block copies the tile's points as one flat float run and its masks 16 to a
+// store, both in 16-byte stores. The outputs must start on 16 bytes (the entry point
+// refuses others; the wrapper allocates them so). The order of float operations is the
+// plain version's, and the library is built without fused multiply-add, so points, depths,
+// masks and densities agree bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -87,70 +94,186 @@ __device__ __forceinline__ float field_at(const Ray& ray, int j, int S, float us
   return __ldg(cell_density + flat);
 }
 
-__global__ void raymarch_ray_kernel(const float* __restrict__ origins,
-                                    const float* __restrict__ dirs,
-                                    const float* __restrict__ jitter, int R, int S,
-                                    int stride, float ustep, float dist_min, float dist_max,
-                                    const float* __restrict__ cell_density, int level,
-                                    float* __restrict__ samples, float* __restrict__ depths,
-                                    uint8_t* __restrict__ mask, float* __restrict__ dens,
-                                    float* __restrict__ deltas) {
-  const int nc = (S + stride - 1) / stride;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (long long)R * nc) return;
-  const int r = (int)(tid / nc);
-  const int g = (int)(tid % nc);
-  const Ray ray = load_ray(origins, dirs, r, dist_min, dist_max);
-  if (g == 0) deltas[r] = ustep > 0.0f ? ustep : ray.span / (float)S;
-  const float* u_row = jitter != nullptr ? jitter + (long long)r * S : nullptr;
+// K2/K8's block: 256 threads of 4 consecutive samples each, compiled for 8 blocks an SM (32
+// registers, against 40 unbounded: the render chunk ran slower with 6 blocks). A tile needs
+// the shared memory of march_smem_bytes: its points (12 KB), masks (1 KB), strided tests
+// (4 KB) and ray constants (40 bytes a ray: 3 rays at S = 512, at most 1,025 at S = 1).
+constexpr int kMarchThreads = 256;
+constexpr int kMarchTile = 4 * kMarchThreads;
 
-  const int res = 1 << level;
-  const float half_res = (float)res / 2.0f;
-  bool occ = true;
-  float val = 0.0f;
-  if (cell_density != nullptr) {
-    val = field_at(ray, g * stride, S, ustep, u_row, cell_density, res, half_res);
-    occ = val >= 0.0f;
-    if (stride > 1 && g + 1 < nc) {
-      occ = occ || field_at(ray, (g + 1) * stride, S, ustep, u_row, cell_density, res,
-                            half_res) >= 0.0f;
+__host__ __device__ constexpr int march_val_bytes() {
+  return ((kMarchTile + 1) * 4 + 15) / 16 * 16;
+}
+
+__host__ __device__ constexpr int march_smem_bytes(int max_rays) {
+  return kMarchTile * 12 + kMarchTile + march_val_bytes() + max_rays * (int)sizeof(Ray);
+}
+
+// a / b for a >= 0, in 32 bits where a fits
+__device__ __forceinline__ long long div_nonneg(long long a, int b) {
+  return a < 0x7fffffffLL ? (long long)((unsigned)a / (unsigned)b) : a / b;
+}
+
+__global__ void __launch_bounds__(kMarchThreads, 8)
+    raymarch_tile_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
+                         const float* __restrict__ jitter, int R, int S, int stride,
+                         float ustep, float dist_min, float dist_max,
+                         const float* __restrict__ cell_density, int level,
+                         float* __restrict__ samples, float* __restrict__ depths,
+                         uint8_t* __restrict__ mask, float* __restrict__ dens,
+                         float* __restrict__ deltas) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  float* xyz_s = reinterpret_cast<float*>(tile_smem);
+  uint8_t* mask_s = tile_smem + kMarchTile * 12;
+  float* val_s = reinterpret_cast<float*>(tile_smem + kMarchTile * 13);
+  Ray* rays_s = reinterpret_cast<Ray*>(tile_smem + kMarchTile * 13 + march_val_bytes());
+
+  const long long total = (long long)R * S;
+  const long long o0 = (long long)blockIdx.x * kMarchTile;
+  const int n = (int)min((long long)kMarchTile, total - o0);
+  const int r0 = (int)div_nonneg(o0, S);
+  const int j0 = (int)(o0 - (long long)r0 * S);    // the tile's first sample in ray r0
+  const int nr = (j0 + n - 1) / S + 1;
+  const int nc = (S + stride - 1) / stride;
+  const bool field = cell_density != nullptr;
+
+  // (1) ray constants, once a ray
+  for (int i = threadIdx.x; i < nr; i += kMarchThreads) {
+    const Ray ray = load_ray(origins, dirs, r0 + i, dist_min, dist_max);
+    rays_s[i] = ray;
+    if (i > 0 || j0 == 0) deltas[r0 + i] = ustep > 0.0f ? ustep : ray.span / (float)S;
+  }
+  __syncthreads();
+
+  // (2) the strided tests: local index (r - r0) * nc + g - qb
+  const int qb = j0 / stride;
+  if (field) {
+    const int jl = j0 + n - 1 - (nr - 1) * S;      // the last sample, in ray r0 + nr - 1
+    const int gl = jl / stride;
+    const int nq = (nr - 1) * nc + gl - qb + 1 + ((stride > 1 && gl + 1 < nc) ? 1 : 0);
+    const int res = 1 << level;
+    const float half_res = (float)res / 2.0f;
+    for (int i = threadIdx.x; i < nq; i += kMarchThreads) {
+      const int qi = qb + i;
+      const int ri = qi / nc;
+      const int g = qi - ri * nc;
+      const float* u_row = jitter != nullptr ? jitter + (long long)(r0 + ri) * S : nullptr;
+      val_s[i] = field_at(rays_s[ri], g * stride, S, ustep, u_row, cell_density, res,
+                          half_res);
     }
   }
-  const float dval = fmaxf(val, 0.0f);
-  for (int k = 0; k < stride; ++k) {
-    const int j = g * stride + k;
-    if (j >= S) break;
-    float t, x, y, z;
-    sample_at(ray, j, S, ustep, u_row, t, x, y, z);
-    const long long o = (long long)r * S + j;
-    samples[3 * o] = x;
-    samples[3 * o + 1] = y;
-    samples[3 * o + 2] = z;
-    depths[o] = t;
-    // 'ray' masks a ray that misses the box, 'uniform' a sample past the exit
-    mask[o] = (uint8_t)(occ && inside_box(x, y, z) && (ustep > 0.0f ? t < ray.t_far
-                                                                     : ray.hit));
-    if (dens != nullptr) dens[o] = dval;
+  __syncthreads();
+
+  // (3) four consecutive samples a thread. One quad a thread fills the tile; written as a
+  // loop, it compiles with fewer spills under the 8-block bound and ran faster on the card
+  for (int l0 = 4 * threadIdx.x; l0 < n; l0 += 4 * kMarchThreads) {
+    int ri = (j0 + l0) / S;                          // the ray, from r0
+    int j = j0 + l0 - ri * S;
+    int g = j / stride;
+    int k = j - g * stride;
+    float xyz[12], t4[4], d4[4];
+    uint32_t m4 = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      xyz[3 * e] = xyz[3 * e + 1] = xyz[3 * e + 2] = t4[e] = d4[e] = 0.0f;
+      if (l0 + e < n) {
+        const Ray& ray = rays_s[ri];
+        const float* u_row =
+            jitter != nullptr ? jitter + (long long)(r0 + ri) * S : nullptr;
+        float t, x, y, z;
+        sample_at(ray, j, S, ustep, u_row, t, x, y, z);
+        bool occ = true;
+        float val = 0.0f;
+        if (field) {
+          const int qi = ri * nc + g - qb;
+          val = val_s[qi];
+          occ = val >= 0.0f;
+          if (stride > 1 && g + 1 < nc) occ = occ || val_s[qi + 1] >= 0.0f;
+        }
+        xyz[3 * e] = x;
+        xyz[3 * e + 1] = y;
+        xyz[3 * e + 2] = z;
+        t4[e] = t;
+        d4[e] = fmaxf(val, 0.0f);
+        // 'ray' masks a ray that misses the box, 'uniform' a sample past the exit
+        const bool m = occ && inside_box(x, y, z) && (ustep > 0.0f ? t < ray.t_far : ray.hit);
+        m4 |= (uint32_t)m << (8 * e);
+      }
+      if (++j == S) {
+        j = g = k = 0;
+        ++ri;
+      } else if (++k == stride) {
+        k = 0;
+        ++g;
+      }
+    }
+    const long long o = o0 + l0;
+    if (l0 + 4 <= n) {
+      float4* xs = reinterpret_cast<float4*>(xyz_s + 3 * l0);
+      xs[0] = make_float4(xyz[0], xyz[1], xyz[2], xyz[3]);
+      xs[1] = make_float4(xyz[4], xyz[5], xyz[6], xyz[7]);
+      xs[2] = make_float4(xyz[8], xyz[9], xyz[10], xyz[11]);
+      *reinterpret_cast<float4*>(depths + o) = make_float4(t4[0], t4[1], t4[2], t4[3]);
+      if (dens != nullptr)
+        *reinterpret_cast<float4*>(dens + o) = make_float4(d4[0], d4[1], d4[2], d4[3]);
+    } else {                                         // the last quad of the last tile
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (l0 + e < n) {
+          xyz_s[3 * (l0 + e)] = xyz[3 * e];
+          xyz_s[3 * (l0 + e) + 1] = xyz[3 * e + 1];
+          xyz_s[3 * (l0 + e) + 2] = xyz[3 * e + 2];
+          depths[o + e] = t4[e];
+          if (dens != nullptr) dens[o + e] = d4[e];
+        }
+      }
+    }
+    *reinterpret_cast<uint32_t*>(mask_s + l0) = m4;
   }
+  __syncthreads();
+
+  // (4) the tile's points as one flat float run and its masks, in 16-byte stores
+  const int nf = 3 * n;
+  float* gx = samples + 3 * o0;
+  for (int i = threadIdx.x; i < nf / 4; i += kMarchThreads)
+    reinterpret_cast<float4*>(gx)[i] = reinterpret_cast<const float4*>(xyz_s)[i];
+  for (int i = nf / 4 * 4 + threadIdx.x; i < nf; i += kMarchThreads) gx[i] = xyz_s[i];
+  uint8_t* gm = mask + o0;
+  for (int i = threadIdx.x; i < n / 16; i += kMarchThreads)
+    reinterpret_cast<uint4*>(gm)[i] = reinterpret_cast<const uint4*>(mask_s)[i];
+  for (int i = n / 16 * 16 + threadIdx.x; i < n; i += kMarchThreads) gm[i] = mask_s[i];
 }
+
+bool misaligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; }
 
 }  // namespace
 
 // jitter: [R, S] uniforms in [0, 1), or null for midpoint samples; ustep: 0 for the 'ray'
-// march (K2), float32(2*sqrt(3)/S) for the 'uniform' march (K8).
+// march (K2), float32(2*sqrt(3)/S) for the 'uniform' march (K8). samples, depths, mask and
+// dens must start on 16 bytes.
 WISP_EXPORT int wisp_raymarch_ray(const float* origins, const float* dirs,
                                   const float* jitter, int R, int S,
                                   int stride, float ustep, float dist_min, float dist_max,
                                   const float* cell_density, int level, float* samples,
                                   float* depths, uint8_t* mask, float* dens, float* deltas,
                                   void* stream) {
-  const int nc = (S + stride - 1) / stride;
-  const long long n = (long long)R * nc;
-  if (n > 0) {
-    const int threads = 256;
-    raymarch_ray_kernel<<<wisp::ceil_div(n, threads), threads, 0, (cudaStream_t)stream>>>(
-        origins, dirs, jitter, R, S, stride, ustep, dist_min, dist_max, cell_density, level,
-        samples, depths, mask, dens, deltas);
+  if (R < 0 || S < 1 || stride < 1 || misaligned(samples) || misaligned(depths)
+      || misaligned(mask) || (dens != nullptr && misaligned(dens)))
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)R * S;
+  if (total > 0) {
+    // a tile of kMarchTile samples spans at most (kMarchTile - 1) / S + 2 rays
+    const int max_rays = (int)min((long long)R, (long long)((kMarchTile - 1) / S + 2));
+    const int smem = march_smem_bytes(max_rays);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          raymarch_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    raymarch_tile_kernel<<<wisp::ceil_div(total, kMarchTile), kMarchThreads, smem,
+                           (cudaStream_t)stream>>>(origins, dirs, jitter, R, S, stride, ustep,
+                                                   dist_min, dist_max, cell_density, level,
+                                                   samples, depths, mask, dens, deltas);
   }
   return (int)cudaGetLastError();
 }

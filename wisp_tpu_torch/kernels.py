@@ -102,8 +102,9 @@ _SIGNATURES = {
     "wisp_free_space_distance": [_P, _I, _I, _P, _P, _P],
     # coords pidx N P col0 n_lods F trinkets feats levels (host arrays) sum vec out stream
     "wisp_octree_interp": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
-    # coords pidx N P col0 n_lods F trinkets grads levels (host arrays) sum grad_out stream
-    "wisp_octree_interp_bwd": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    # coords pidx N P col0 n_lods F trinkets grads levels shared_rows (host arrays) sum vec
+    # grad_out stream
+    "wisp_octree_interp_bwd": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     # points P tris T out stream
     "wisp_mesh_sdf": [_P, _L, _P, _I, _P, _P],
     # points P tris T dist nearest tidx stream

@@ -9,7 +9,8 @@ trilinearly and sums or concatenates the LODs; a point in an empty cell gets zer
 
 ``octree_interp`` is kernel K15 (``csrc/octree_grid.cu``): on a CUDA tensor it launches the
 kernel, on a CPU tensor it runs ``octree_interp_plain``; ``interp_vector_width`` picks the
-forward's route (features a lane) from F and the tables' alignment. On the card, a call
+forward's route (features a lane) from F and the tables' alignment, and the backward's
+too (with ``bwd_shared_lods``, the LODs it sums in shared memory first). On the card, a call
 that needs the features' gradient goes through an ``autograd.Function`` whose backward
 launches K15's backward kernel (``octree_interp_bwd``); the gradient with respect to the
 coordinates is not ported, and asking for it on the card raises. On the CPU the plain
@@ -33,6 +34,12 @@ from wisp_tpu_torch.ops.spc.core import make_dual, quantize_points
 
 MAX_LODS = 16  # LOD slots in the kernel's argument block
 _LOD_ARRAYS_MAX = 64  # entries of the forward's cache of host pointer arrays
+# K15 backward: the shared memory one LOD's table may take (csrc/octree_grid.cu
+# kBwdSharedBytes), and the corner adds a row, on average, from which a LOD that fits is
+# summed there first (a shared float add costs about a quarter of a scattered L2 one, so a
+# block's copy pays where many adds meet on a row)
+BWD_SHARED_BYTES = 112 * 1024
+BWD_SHARED_MIN_ADDS = 64
 
 
 def octree_interp_plain(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
@@ -74,9 +81,9 @@ def _check_geometry(coords, pidx, col0, trinkets, levels, multiscale_type):
 
 
 def interp_vector_width(f_dim: int, feature_ptrs: Sequence[int]) -> int:
-    """K15 forward's route: 4 features a lane (F/4 lanes a point, 16-byte loads and stores)
-    where F % 4 == 0 and every feature table starts on 16 bytes, else 1 (a lane a
-    feature)."""
+    """K15's route, forward and backward: 4 features a lane (F/4 lanes a point, 16-byte
+    loads and stores, float4 atomics) where F % 4 == 0 and every table (and the backward's
+    cotangent) starts on 16 bytes, else 1 (a lane a feature)."""
     return 4 if f_dim % 4 == 0 and all(p % 16 == 0 for p in feature_ptrs) else 1
 
 
@@ -134,6 +141,23 @@ def octree_interp_bwd_plain(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
         return list(torch.autograd.grad(out, feats, grad_out))
 
 
+def bwd_shared_lods(rows: Sequence[int], f_dim: int, n: int) -> List[int]:
+    """K15 backward's route a LOD: its rows where its table (rows x F floats) fits in
+    ``BWD_SHARED_BYTES`` and its 8 N corner adds average at least ``BWD_SHARED_MIN_ADDS`` a
+    row, so that each block first sums its own adds in shared memory (adds to one row
+    serialise in L2); else 0, atomics straight to the table."""
+    return [int(v) if v * f_dim * 4 <= BWD_SHARED_BYTES and 8 * n >= BWD_SHARED_MIN_ADDS * v
+            else 0 for v in rows]
+
+
+def grad_tables(rows: Sequence[int], f_dim: int, device) -> List[torch.Tensor]:
+    """The backward's zeroed [rows[i], F] float32 tables: views, in LOD order, of one buffer
+    that one fill zeroes (a fill a table cost a launch each)."""
+    flat = torch.zeros((sum(rows) * f_dim,), dtype=torch.float32, device=device)
+    return [t.view(v, f_dim) for t, v in zip(torch.split(flat, [v * f_dim for v in rows]),
+                                               rows)]
+
+
 def octree_interp_bwd(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
                       trinkets: Sequence[torch.Tensor], rows: Sequence[int], f_dim: int,
                       levels: Sequence[int], multiscale_type: str,
@@ -141,22 +165,24 @@ def octree_interp_bwd(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
     """The feature gradient of ``octree_interp`` (K15 backward): for the cotangent
     ``grad_out`` ([N, F] for 'sum', [N, F * LODs] for 'cat'), one [rows[i], F] float32 table a
     LOD holding the sum over points and corners of w_c * g. Points in empty cells add
-    nothing."""
+    nothing. On the card the tables are views of one buffer (``grad_tables``)."""
     if not coords.is_cuda:
         return octree_interp_bwd_plain(coords, pidx, col0, trinkets, rows, f_dim, levels,
                                        multiscale_type, grad_out)
     n, n_lods = _check_geometry(coords, pidx, col0, trinkets, levels, multiscale_type)
     width = f_dim if multiscale_type == "sum" else f_dim * n_lods
     kernels.check(grad_out, "grad_out", torch.float32, (n, width))
-    grads = [torch.zeros((v, f_dim), dtype=torch.float32, device=coords.device)
-             for v in rows]
+    grads = grad_tables(rows, f_dim, coords.device)
     if n:
         trk, gps = kernels.pointers(trinkets), kernels.pointers(grads)
         lvl = np.asarray(levels, dtype=np.int32)
+        shared = np.asarray(bwd_shared_lods(rows, f_dim, n), dtype=np.int32)
+        vec = interp_vector_width(f_dim, [g.data_ptr() for g in grads] + [grad_out.data_ptr()])
         kernels.launch("wisp_octree_interp_bwd", "octree_interp_bwd", coords.data_ptr(),
                        pidx.data_ptr(), n, pidx.shape[1], int(col0), n_lods, f_dim,
                        ctypes.addressof(trk), ctypes.addressof(gps), lvl.ctypes.data,
-                       int(multiscale_type == "sum"), grad_out.data_ptr())
+                       shared.ctypes.data, int(multiscale_type == "sum"), vec,
+                       grad_out.data_ptr())
     return grads
 
 
