@@ -170,7 +170,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    launches and host time a call and, for K15's backward, each LOD's adds, distinct rows,
    most adds to a row and route, then makes 200 calls back to back on one stream and holds
    each shape's last result to its first;
-20. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+20. mesh step ("mesh"): holds K16 and K17, and their earlier designs
+   (``wisp_tpu_torch/csrc/baselines/mesh_sdf_v1.cu``, built beside the library; the K16 and
+   K17 rows' ``was_ms``), to their plain versions on the calls the phases recorded (the
+   SDF train phase's resample of 2.2 M points and its ``validate()``, the NGLOD texture
+   dataset's resample: K16 and K17) and on the hard meshes (a cube, a thin slab, an
+   L-prism and a 16-sided bipyramid whose apexes take K16's overflow path): K16's distance
+   within 1e-5, a sign flip only where |d| < 1e-5 and the signs the winding number's where
+   |d| >= 1e-5; K17's distance and point within 1e-6, its triangle equal but for ties
+   within 2 ulp; whether each equals the plain version bit for bit; times each beside the
+   earlier design with its bound and share, K16's band pairs and the points whose band
+   holds more than its candidate list (from the plain arithmetic in torch), then makes 50
+   calls back to back on one stream and holds each shape's last result to its first;
+21. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels, from the SDF training run for its two, from the octree NeRF's 25
    steps for K7, from the stoch path's 25 steps for K1's stochastic backward, from the
@@ -181,8 +193,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    K14), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
    ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
    ``uniform_path`` JSON lines, the ``compaction_shapes``, ``hashgrid_shapes``,
-   ``octree_grid_shapes`` and ``march_grad_shapes`` lines, the ``phase_s`` line, the
-   nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
+   ``octree_grid_shapes``, ``march_grad_shapes`` and ``mesh_shapes`` lines, the ``phase_s``
+   line, the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -372,6 +384,10 @@ MARCH_GRAD_V1_DESIGN = {
     "octree_interp_bwd": "csrc/baselines/octree_grid_bwd_v1.cu (a thread a (point, feature), "
                          "the LODs in series, a scalar atomic an add; a zero fill a LOD)"}
 
+MESH_V1_SRC = "wisp_tpu_torch/csrc/baselines/mesh_sdf_v1.cu"
+MESH_V1 = None                 # a MeshV1 once built (run())
+MESH_V1_DESIGN = ("csrc/baselines/mesh_sdf_v1.cu (a thread a point; K16 in two passes; "
+                  "the triangle's terms and six IEEE divisions made for every pair)")
 
 def start_baseline_build(src: str, lib: str):
     """Start nvcc on an earlier design's source (built beside, not into, the kernel
@@ -632,6 +648,45 @@ class MarchGradV1:
             require(status == 0, f"wisp_octree_interp_bwd_v1 failed to launch ({status})")
         return grads
 
+
+class MeshV1:
+    """The earlier design of K16 (``mesh_sdf``) and K17 (``closest_point``), called on the
+    current stream with their wrappers' arguments; its launches are not the port's and are
+    not counted."""
+
+    def __init__(self, started):
+        import torch
+        from wisp_tpu_torch import kernels
+        self.torch = torch
+        self.lib = finish_baseline_build(started, MESH_V1_SRC)
+        self.lib.wisp_mesh_sdf_v1.argtypes = kernels._SIGNATURES["wisp_mesh_sdf"]
+        self.lib.wisp_closest_point_v1.argtypes = kernels._SIGNATURES["wisp_closest_point"]
+
+    def _stream(self) -> int:
+        return self.torch._C._cuda_getCurrentRawStream(self.torch._C._cuda_getDevice())
+
+    def mesh_sdf(self, points, tris):
+        """``mesh_sdf`` with this design."""
+        n = points.shape[0]
+        out = self.torch.empty((n,), dtype=self.torch.float32, device=points.device)
+        if n:
+            status = self.lib.wisp_mesh_sdf_v1(points.data_ptr(), n, tris.data_ptr(),
+                                               tris.shape[0], out.data_ptr(), self._stream())
+            require(status == 0, f"wisp_mesh_sdf_v1 failed to launch ({status})")
+        return out
+
+    def closest_point(self, points, tris):
+        """``closest_point`` with this design."""
+        torch, n, dev = self.torch, points.shape[0], points.device
+        dist = torch.empty((n,), dtype=torch.float32, device=dev)
+        nearest = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        tidx = torch.empty((n,), dtype=torch.int64, device=dev)
+        if n:
+            status = self.lib.wisp_closest_point_v1(
+                points.data_ptr(), n, tris.data_ptr(), tris.shape[0], dist.data_ptr(),
+                nearest.data_ptr(), tidx.data_ptr(), self._stream())
+            require(status == 0, f"wisp_closest_point_v1 failed to launch ({status})")
+        return dist, nearest, tidx
 
 def march_equal(got, want) -> bool:
     """K2/K8's contract: points, depths, deltas, mask and densities bit for bit."""
@@ -1398,8 +1453,231 @@ def march_grad_phase() -> dict:
     for key, _, ref, same in checks:
         require(same(last[key], ref), f"{key}, called back to back, differs from its first "
                                       f"result")
+    out["ptxas"] = mesh_ptxas()
     return out
 
+
+# the K16 and K17 calls that the paths made, for the "mesh" step: key -> {"kind": counter
+# name, "points", "tris"}
+MESH_CALLS = {}
+
+
+@contextmanager
+def recording_mesh(key: str):
+    """Keep the inputs of the last K16 and the last K17 call launched inside, under
+    "<key>: <counter>", copied when the block ends (neither input is changed inside)."""
+    from wisp_tpu_torch.ops.mesh import closest_tex, compute_sdf
+    sdf, closest = compute_sdf.mesh_sdf, closest_tex.closest_point
+    held = {}
+
+    def rec_sdf(points, tris):
+        held["mesh_sdf"] = (points, tris)
+        return sdf(points, tris)
+
+    def rec_closest(points, tris):
+        held["closest_point"] = (points, tris)
+        return closest(points, tris)
+
+    with mock.patch.object(compute_sdf, "mesh_sdf", rec_sdf), \
+            mock.patch.object(closest_tex, "closest_point", rec_closest):
+        yield
+    for kind, (points, tris) in held.items():
+        MESH_CALLS[f"{key}: {kind}"] = {"kind": kind, "points": points.detach().clone(),
+                                        "tris": tris.detach().clone()}
+
+
+def l_prism_mesh():
+    """Watertight non-convex L-shaped prism with a concave edge along z (the mesh of
+    tests/core/test_compute_sdf.py)."""
+    import numpy as np
+    outline = np.array([[0, 0], [2, 0], [2, 1], [1, 1], [1, 2], [0, 2]], np.float32)
+    n = len(outline)
+    bot = np.concatenate([outline, np.full((n, 1), -0.5, np.float32)], -1)
+    top = np.concatenate([outline, np.full((n, 1), 0.5, np.float32)], -1)
+    cap = np.array([[0, 1, 2], [0, 2, 3], [0, 3, 4], [0, 4, 5]], np.int32)
+    sides = []
+    for i in range(n):
+        j = (i + 1) % n
+        sides += [[i, j, j + n], [i, j + n, i + n]]
+    return (np.concatenate([bot, top], 0),
+            np.concatenate([cap[:, ::-1], cap + n, np.asarray(sides, np.int32)], 0))
+
+
+def bipyramid_mesh(sides: int = 16, radius: float = 0.6, height: float = 0.5):
+    """A closed bipyramid: a regular ``sides``-gon of ``radius`` in z = 0 and two apexes at
+    z = +-``height``, each of valence ``sides``; 2 * ``sides`` outward triangles."""
+    import numpy as np
+    ang = 2.0 * np.pi * np.arange(sides) / sides
+    ring = np.stack([radius * np.cos(ang), radius * np.sin(ang), np.zeros(sides)], -1)
+    v = np.concatenate([ring, [[0.0, 0.0, height], [0.0, 0.0, -height]]]).astype(np.float32)
+    f = []
+    for k in range(sides):
+        j = (k + 1) % sides
+        f += [[k, j, sides], [j, k, sides + 1]]
+    return v, np.asarray(f, np.int32)
+
+
+MESH_HARD_POINTS = 2000
+
+
+def mesh_hard_cases(dev) -> dict:
+    """The hard meshes of the "mesh" step, name -> (points [N, 3], triangle table): a cube's
+    corners and edges, a thin slab's midplane and an L-prism's concave edge (the queries of
+    tests/core/test_compute_sdf.py), and a closed 16-sided bipyramid whose apexes have
+    valence 16 (points near each apex, on its axis and at the centre take K16's overflow
+    path); each with MESH_HARD_POINTS seeded points around it."""
+    import numpy as np
+    import torch
+    from wisp_tpu_torch.ops.mesh.compute_sdf import triangle_table
+    from wisp_tpu_torch.ops.mesh.io import make_box_mesh
+    rng = np.random.default_rng(14)
+    apexes = np.asarray([[0.0, 0.0, 0.5], [0.0, 0.0, -0.5]])
+    bipyramid_pts = np.concatenate([
+        [[0.0, 0.0, 0.0], [0.0, 0.0, 0.55], [0.0, 0.0, -0.52], [0.0, 0.0, 0.3]],
+        apexes[rng.integers(0, 2, 300)] + rng.normal(scale=0.02, size=(300, 3))])
+    cases = {}
+    for name, mesh, pts, lo, hi in (
+            ("cube", make_box_mesh((0.5, 0.5, 0.5)),
+             [[0.6, 0.6, 0.6], [0.55, 0.55, 0.0], [0.49, 0.49, 0.0], [0.0, 0.0, 0.0]],
+             -0.8, 0.8),
+            ("slab", make_box_mesh((1.0, 1.0, 0.02)),
+             [[0.0, 0.0, 0.0], [0.5, -0.3, 0.0], [1.001, 0.0, 0.0], [0.999, 0.999, 0.0]],
+             -1.2, 1.2),
+            ("l_prism", l_prism_mesh(),
+             [[1.05, 1.05, 0.0], [0.95, 0.95, 0.0], [1.05, 1.05, 0.49]], -0.3, 2.3),
+            ("bipyramid", bipyramid_mesh(), bipyramid_pts, -0.8, 0.8)):
+        pts = np.concatenate([pts, rng.uniform(lo, hi, (MESH_HARD_POINTS - len(pts), 3))])
+        cases[name] = (torch.from_numpy(pts.astype(np.float32)).to(dev),
+                       triangle_table(*mesh, dev))
+    return cases
+
+
+def mesh_ptxas() -> list:
+    """Each kernel of csrc/mesh_sdf.cu as ptxas built it (``build.log`` beside the library):
+    registers, spills, static shared memory and the blocks of 128 threads an SM that
+    registers and shared memory allow (65,536 registers, 228 KB, 16 blocks at most)."""
+    import re
+    from pathlib import Path
+    from wisp_tpu_torch import kernels
+    kernels_, section = [], False
+    log = Path(kernels.BUILD_INFO["path"]).parent / "build.log"
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        if line.startswith("=="):
+            section = line.strip() == "== mesh_sdf.cu"
+        elif section and "Compiling entry function" in line:
+            name = re.search(r"(mesh_sdf_kernel|closest_point_kernel)ILi(\d)E", line)
+            kernels_.append({"kernel": f"{name.group(1)}<{name.group(2)}>" if name else line})
+        elif section and kernels_ and "spill" in line:
+            kernels_[-1]["spill"] = line.strip()
+        elif section and kernels_ and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            smem = int(smem.group(1)) if smem else 0
+            kernels_[-1].update(registers=regs, smem=smem, blocks_per_sm=min(
+                65536 // (-(-regs // 8) * 8 * 128), 228 * 1024 // (smem + 1024), 16))
+    return kernels_
+
+
+MESH_BACK_TO_BACK = 50
+
+
+def mesh_phase(dev) -> dict:
+    """K16 and K17 at every call the paths recorded (the SDF train phase's resample and
+    validate(), the NGLOD texture dataset's resample) and on the hard meshes: both designs
+    held to the plain version (K16: the distance within 1e-5, a sign flip only where
+    |d| < 1e-5, the signs the winding number's where |d| >= 1e-5; K17: distance and point
+    within 1e-6, the triangle equal but for ties within 2 ulp of d^2), with whether each
+    result equals the plain version's bit for bit (K16: its absolute value, since PyTorch
+    sums the votes in its own order); timed side by side with its launches a call, its
+    bound and share of it and, for K16, the band's pairs and the points whose band holds
+    more than MESH_SDF_CANDIDATES triangles (they take the overflow path; counted from the
+    plain arithmetic in torch, not by the kernel). Then MESH_BACK_TO_BACK calls of the
+    redesign back to back on one stream, the shapes in turns, each shape's last result held
+    equal to its first."""
+    import torch
+    from wisp_tpu_torch.ops.mesh.compute_sdf import (MESH_SDF_CANDIDATES, closest_point,
+                                                     closest_point_plain, mesh_sdf,
+                                                     mesh_sdf_plain)
+    kinds = {c["kind"] for c in MESH_CALLS.values()}
+    require(kinds == {"mesh_sdf", "closest_point"},
+            f"the phases recorded K16 and K17 calls of kinds {kinds}")
+    calls = dict(MESH_CALLS)
+    for name, (points, tris) in mesh_hard_cases(dev).items():
+        for kind in ("mesh_sdf", "closest_point"):
+            calls[f"{name}: {kind}"] = {"kind": kind, "points": points, "tris": tris}
+    out, checks = {}, []
+    for key, c in calls.items():
+        points, tris = c["points"], c["tris"]
+        n, t = points.shape[0], tris.shape[0]
+        if c["kind"] == "mesh_sdf":
+            run_new = functools.partial(mesh_sdf, points, tris)
+            run_was = functools.partial(MESH_V1.mesh_sdf, points, tris)
+            want = mesh_sdf_plain(points, tris)
+            inside = winding_inside(points, tris)
+            far = want.abs() >= 1e-5
+            results = {}
+            for design, got in (("new", run_new()), ("was", run_was())):
+                err, flips, far_flips = sdf_mismatch(got, want)
+                wrong = int(((got[far] < 0) != inside[far]).sum())
+                require(err <= 1e-5 and far_flips == 0 and wrong == 0,
+                        f"K16 ({design}) at {key}: max abs err {err}, {far_flips} sign flips "
+                        f"where |d| >= 1e-5, {wrong} signs against the winding number")
+                results[design] = (err, flips, bool(torch.equal(got.abs(), want.abs())))
+            sizes = mesh_band_sizes(points, tris)
+            over = int((sizes > MESH_SDF_CANDIDATES).sum())
+            require(over > 0 or not key.startswith("bipyramid"),
+                    "no point of the bipyramid has a band above the candidate list")
+            nbytes = n * 16 + t * 15 * 4
+            ops = mesh_sdf_ops(n, t, int(sizes.sum()))
+            shape = {"max_abs_err": results["new"][0], "was_max_abs_err": results["was"][0],
+                     "sign_flips": results["new"][1], "tol": 1e-5,
+                     "abs_bit_equal_plain": results["new"][2],
+                     "was_abs_bit_equal_plain": results["was"][2],
+                     "band_pairs": int(sizes.sum()), "band_max": int(sizes.max()),
+                     "band_over_candidates": over, "inside": int(inside.sum()),
+                     "bound_ms_earlier_basis": bound(nbytes, n * t * MESH_SDF_PAIR_OPS)[0]}
+            same = torch.equal
+        else:
+            run_new = functools.partial(closest_point, points, tris)
+            run_was = functools.partial(MESH_V1.closest_point, points, tris)
+            want = closest_point_plain(points, tris)
+            got = run_new()
+            err, ties = closest_mismatch(got, want, points, tris)
+            was_err, was_ties = closest_mismatch(run_was(), want, points, tris)
+            require(err <= 1e-6 and was_err <= 1e-6,
+                    f"K17 at {key}: max abs err (new, earlier) {err}, {was_err}")
+            nbytes = n * 12 + t * 9 * 4 + n * (4 + 12 + 8)
+            ops = n * t * CLOSEST_PAIR_OPS + t * MESH_TRIANGLE_OPS
+            shape = {"max_abs_err": err, "was_max_abs_err": was_err, "ties": ties,
+                     "was_ties": was_ties, "tol": 1e-6,
+                     "bit_equal_plain": all(bool(torch.equal(a, b))
+                                            for a, b in zip(got, want))}
+
+            def same(a, b):
+                return all(torch.equal(x, y) for x, y in zip(a, b))
+        iters = (5, 1) if n * t > 1e9 else (20, 3)
+        with torch.no_grad():
+            new, was = timed(run_new, *iters), timed(run_was, *iters)
+        bms, by = bound(nbytes, ops)
+        out[key] = dict(points=n, triangles=t, **shape, ms=new[0], event_ms=new[1],
+                        was_ms=was[0], was_event_ms=was[1], bound_ms=bms, bound_by=by,
+                        bound_share=bms / new[0], was_bound_share=bms / was[0],
+                        launches_per_call=launches_per_call(run_new),
+                        was_launches_per_call=launches_per_call(run_was),
+                        was_design=MESH_V1_DESIGN)
+        checks.append((key, run_new, run_new(), same))
+    torch.cuda.synchronize()
+    last = {}
+    with torch.no_grad():
+        for i in range(MESH_BACK_TO_BACK):
+            key, run_new, _, _ = checks[i % len(checks)]
+            last[key] = run_new()
+    torch.cuda.synchronize()
+    for key, _, ref, same in checks:
+        require(same(last[key], ref), f"{key}, called back to back, differs from its first "
+                                      f"result")
+    out["ptxas"] = mesh_ptxas()
+    return out
 
 def profile_call(fn, top: int = 12):
     """(wall ms, device busy ms, the ``top`` kernels by device time) of one call of ``fn``
@@ -2118,6 +2396,85 @@ SDF_CHECK_POINTS = 65_536         # K16 against its plain version ([P, T] buffer
 # squared distances 32), pass 1 129 with its distance and minimum, pass 2 158 with the
 # vote's barycentrics and dot product
 MESH_SDF_PAIR_OPS = 287
+# K16's work as the function needs it, the basis of its bound (the one above counts both
+# passes for every pair): one closest point and its d^2 a point-triangle pair
+# (CLOSEST_PAIR_OPS), the vote only for the pairs in the band (the barycentrics of cp 23,
+# three compares, p - cp, its dot product with the normal, the weight and the sum 10), and
+# the triangle's own terms once a triangle (three edges 9, their clamped squared lengths 18,
+# the normal and nn 15, d00, d01 and d11 15, denom 4)
+MESH_VOTE_OPS = 36
+MESH_TRIANGLE_OPS = 61
+
+
+def mesh_sdf_ops(points: int, triangles: int, band_pairs: int) -> int:
+    """K16's float32 operations on the basis above."""
+    return (points * triangles * CLOSEST_PAIR_OPS + band_pairs * MESH_VOTE_OPS
+            + triangles * MESH_TRIANGLE_OPS)
+
+
+def mesh_band_sizes(points, tris, chunk: int = 16384):
+    """[P] int64: the triangles in each point's band (d^2 <= d2min + (1e-8 + 1e-4 *
+    d2min)), from the plain version's arithmetic in torch, not from the kernel."""
+    import torch
+    from wisp_tpu_torch.ops.mesh.ops import closest_point_on_triangle, dot3
+    va, vb, vc = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
+    out = torch.empty((points.shape[0],), dtype=torch.int64, device=points.device)
+    for i in range(0, points.shape[0], chunk):
+        p = points[i:i + chunk]
+        e = p[:, None] - closest_point_on_triangle(p[:, None], va[None], vb[None], vc[None])
+        d2 = dot3(e, e)
+        d2min = d2.amin(dim=-1)
+        out[i:i + chunk] = (d2 <= (d2min + (1e-8 + 1e-4 * d2min))[:, None]).sum(dim=-1)
+    return out
+
+
+def winding_inside(points, tris, chunk: int = 8192):
+    """[P] bool: the generalized winding number of the closed mesh at each point (Van
+    Oosterom-Strackee solid angles, float64) is above 0.5: the point is inside."""
+    import math
+    import torch
+    a, b, c = (tris[:, k:k + 3].double()[None] for k in (0, 3, 6))
+    out = torch.empty((points.shape[0],), dtype=torch.bool, device=points.device)
+    for i in range(0, points.shape[0], chunk):
+        x = points[i:i + chunk].double()[:, None]
+        ra, rb, rc = a - x, b - x, c - x
+        la, lb, lc = ra.norm(dim=-1), rb.norm(dim=-1), rc.norm(dim=-1)
+        num = (ra * torch.linalg.cross(rb, rc, dim=-1)).sum(-1)
+        den = (la * lb * lc + (ra * rb).sum(-1) * lc + (ra * rc).sum(-1) * lb
+               + (rb * rc).sum(-1) * la)
+        out[i:i + chunk] = (2.0 * torch.atan2(num, den)).sum(-1) / (4.0 * math.pi) > 0.5
+    return out
+
+
+def sdf_mismatch(got, want):
+    """(max abs err, sign flips, flips where |d| >= 1e-5) of a K16 result against the plain
+    version's: the distance is held to 1e-5, and a sign may flip only where |d| < 1e-5."""
+    flip = (got < 0) != (want < 0)
+    err = float((got.abs() - want.abs()).abs().max())
+    if bool((~flip).any()):
+        err = max(err, float((got - want)[~flip].abs().max()))
+    return err, int(flip.sum()), int((flip & (want.abs() >= 1e-5)).sum())
+
+
+def closest_mismatch(got, want, points, tris):
+    """(max abs err of the distance and the point, ties) of a K17 result against the plain
+    version's; fails unless every triangle that differs ties within 2 ulp of d^2."""
+    import torch
+    from wisp_tpu_torch.ops.mesh.ops import closest_point_on_triangle, dot3
+    err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+    differ = got[2] != want[2]
+    ties = int(differ.sum())
+    if ties:
+        p = points[differ]
+
+        def d2_to(t):
+            cp = closest_point_on_triangle(p, tris[t, 0:3], tris[t, 3:6], tris[t, 6:9])
+            return dot3(p - cp, p - cp)
+
+        a, b = d2_to(got[2][differ]), d2_to(want[2][differ])
+        require(bool(((a - b).abs() <= 2 * torch.finfo(torch.float32).eps * b).all()),
+                "closest_point: a triangle differs from the plain version's off a tie")
+    return err, ties
 
 
 def nglod_trainer(device):
@@ -2185,7 +2542,8 @@ def sdf_train_kernel_phase(trainer, coords):
     import torch
     from wisp_tpu_torch.models.grids.octree_grid import (octree_interp_bwd,
                                                          octree_interp_bwd_plain)
-    from wisp_tpu_torch.ops.mesh.compute_sdf import mesh_sdf, mesh_sdf_plain, triangle_table
+    from wisp_tpu_torch.ops.mesh.compute_sdf import (MESH_SDF_CANDIDATES, mesh_sdf,
+                                                     mesh_sdf_plain, triangle_table)
     grid = trainer.pipeline.nef.grid
     blas = grid.blas
     rows = []
@@ -2253,24 +2611,36 @@ def sdf_train_kernel_phase(trainer, coords):
     tris = triangle_table(extent.vertices, extent.faces, points.device)
     sub = points[torch.randperm(points.shape[0], generator=g, device=points.device)
                  [:SDF_CHECK_POINTS]].contiguous()
-    mk, mp = mesh_sdf(sub, tris), mesh_sdf_plain(sub, tris)
-    flip = (mk < 0) != (mp < 0)
-    require(bool((mp[flip].abs() < 1e-5).all()),
-            f"mesh_sdf: {int(flip.sum())} signs differ from the plain version off the surface")
-    err = max(float((mk.abs() - mp.abs()).abs().max()),
-              float((mk - mp)[~flip].abs().max()))
+    mp = mesh_sdf_plain(sub, tris)
+    err, flips, far_flips = sdf_mismatch(mesh_sdf(sub, tris), mp)
+    require(far_flips == 0, f"mesh_sdf: {far_flips} signs differ from the plain version off "
+                            f"the surface")
     p_all, t_all = points.shape[0], tris.shape[0]
+    sizes = mesh_band_sizes(points, tris)
+    band_pairs = int(sizes.sum())
+    nbytes = p_all * 12 + t_all * 15 * 4 + p_all * 4
     rows.append(kernel_row(
         "mesh_sdf", "wisp_tpu_torch/csrc/mesh_sdf.cu",
         "wisp_tpu/ops/mesh/compute_sdf.py:48", err, 1e-5,
         timed(lambda: mesh_sdf(points, tris), iters=5, warmup=1),
         events_only(lambda: mesh_sdf_plain(points, tris), iters=1, warmup=0),
-        nbytes=p_all * 12 + t_all * 15 * 4 + p_all * 4,
-        ops=p_all * t_all * MESH_SDF_PAIR_OPS))
-    rows[-1]["check_s"] = time.perf_counter() - t0
-    rows[-1]["plain_timed_by"] = "CUDA events only (torch.profiler's host cost is ~30 s)"
-    rows[-1]["checked_points"] = int(sub.shape[0])
-    rows[-1]["sign_flips_within_1e-5"] = int(flip.sum())
+        nbytes=nbytes, ops=mesh_sdf_ops(p_all, t_all, band_pairs)))
+
+    def was_ok():
+        was_err, _, was_far = sdf_mismatch(MESH_V1.mesh_sdf(sub, tris), mp)
+        return was_err <= 1e-5 and was_far == 0
+
+    add_launches_and_was(rows[-1], lambda: mesh_sdf(points, tris),
+                         MESH_V1 and (lambda: MESH_V1.mesh_sdf(points, tris)), was_ok,
+                         MESH_V1_DESIGN)
+    rows[-1].update(
+        check_s=time.perf_counter() - t0,
+        plain_timed_by="CUDA events only (torch.profiler's host cost is ~30 s)",
+        checked_points=int(sub.shape[0]), **{"sign_flips_within_1e-5": flips},
+        bound_basis="a closest point a pair, the vote for the band's pairs, the triangle's "
+                    "terms once a triangle",
+        band_pairs=band_pairs, band_over_candidates=int((sizes > MESH_SDF_CANDIDATES).sum()),
+        bound_ms_earlier_basis=bound(nbytes, p_all * t_all * MESH_SDF_PAIR_OPS)[0])
     return rows, {"k15_bwd_points": n, "k15_bwd_valid_lod_points": valid,
                   "k15_bwd_trinket_rows": trinket_rows, "k15_bwd_feature_rows": feature_rows,
                   "k16_points": p_all, "k16_triangles": t_all}
@@ -2299,7 +2669,7 @@ def sdf_train_phase(dev):
     for i in range(total):
         if i == SDF_TRAIN_STEPS_BEFORE_RESAMPLE:
             t0 = time.perf_counter()
-            with resample_timer(resample):
+            with resample_timer(resample), recording_mesh("sdf train resample"):
                 trainer.post_epoch()             # the epoch's end: log, then resample
             resample["total_s"] = time.perf_counter() - t0
         if i == SDF_TRAIN_STEPS_BEFORE_RESAMPLE - 1:
@@ -2313,7 +2683,8 @@ def sdf_train_phase(dev):
         steps.append({"step": i + 1, "ms": ms, "loss": trainer.last_loss})
     steps_s = time.perf_counter() - t_steps
     t0 = time.perf_counter()
-    metrics = trainer.validate()
+    with recording_mesh("sdf train validate"):
+        metrics = trainer.validate()
     torch.cuda.synchronize()
     validate_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -3675,28 +4046,14 @@ def search_row(coords, blas, launches):
 def closest_point_row(points, vertices, faces, launches):
     """K17 against its plain version on NGLOD_K17_POINTS of the texture dataset's points:
     the triangle equal except where two triangles lie within 2 ulp of the least squared
-    distance, distance and point within 1e-6; timed on all the dataset's points."""
-    import torch
+    distance, distance and point within 1e-6; timed on all the dataset's points, beside the
+    earlier design."""
     from wisp_tpu_torch.ops.mesh.compute_sdf import (closest_point, closest_point_plain,
                                                      triangle_table)
-    from wisp_tpu_torch.ops.mesh.ops import closest_point_on_triangle, dot3
     tris = triangle_table(vertices, faces, points.device)
     sub = points[:NGLOD_K17_POINTS].contiguous()
-    dk, nk, tk = closest_point(sub, tris)
-    dp, np_, tp = closest_point_plain(sub, tris)
-    err = max(float((dk - dp).abs().max()), float((nk - np_).abs().max()))
-    differ = tk != tp
-    ties = int(differ.sum())
-    if ties:
-        p = sub[differ]
-
-        def d2_to(t):
-            cp = closest_point_on_triangle(p, tris[t, 0:3], tris[t, 3:6], tris[t, 6:9])
-            return dot3(p - cp, p - cp)
-
-        a, b = d2_to(tk[differ]), d2_to(tp[differ])
-        require(bool(((a - b).abs() <= 2 * torch.finfo(torch.float32).eps * b).all()),
-                "closest_point: a triangle differs from the plain version's off a tie")
+    want = closest_point_plain(sub, tris)
+    err, ties = closest_mismatch(closest_point(sub, tris), want, sub, tris)
     p_all, t_all = points.shape[0], tris.shape[0]
     row = kernel_row(
         "closest_point", "wisp_tpu_torch/csrc/mesh_sdf.cu",
@@ -3704,7 +4061,14 @@ def closest_point_row(points, vertices, faces, launches):
         timed(lambda: closest_point(points, tris), iters=5, warmup=1),
         events_only(lambda: closest_point_plain(points, tris), iters=1, warmup=1),
         nbytes=p_all * 12 + t_all * 9 * 4 + p_all * (4 + 12 + 8),
-        ops=p_all * t_all * CLOSEST_PAIR_OPS)
+        ops=p_all * t_all * CLOSEST_PAIR_OPS + t_all * MESH_TRIANGLE_OPS)
+
+    def was_ok():
+        return closest_mismatch(MESH_V1.closest_point(sub, tris), want, sub, tris)[0] <= 1e-6
+
+    add_launches_and_was(row, lambda: closest_point(points, tris),
+                         MESH_V1 and (lambda: MESH_V1.closest_point(points, tris)), was_ok,
+                         MESH_V1_DESIGN)
     row["launches"] = launches["closest_point"]
     row["plain_timed_by"] = "CUDA events only"
     row["checked_points"] = int(sub.shape[0])
@@ -3844,7 +4208,8 @@ def nglod_phase(dev):
                "dataset": type(trt.train_dataset).__name__}
         kernels.reset_launches()
         t0 = time.perf_counter()
-        trt.train_dataset.resample()
+        with recording_mesh("nglod texture resample"):
+            trt.train_dataset.resample()
         torch.cuda.synchronize()
         tex["resample_s"] = time.perf_counter() - t0
         losses = []
@@ -3866,8 +4231,9 @@ def nglod_phase(dev):
         rows.append(row)
         tris = triangle_table(data.vertices, data.faces, dev)
         tex["k16_ms"] = timed(lambda: mesh_sdf(data.coordinates, tris), iters=5, warmup=1)
+        band_pairs = int(mesh_band_sizes(data.coordinates, tris).sum())
         tex["k16_bound_ms"] = bound(len(data) * 16 + tris.shape[0] * 60,
-                                    len(data) * tris.shape[0] * MESH_SDF_PAIR_OPS)
+                                    mesh_sdf_ops(len(data), tris.shape[0], band_pairs))
         tex["k17_ms"], tex["k17_bound_ms"] = (row["ms"], row["event_ms"]), (row["bound_ms"],
                                                                             row["bound_by"])
         info["texture"] = tex
@@ -4323,12 +4689,14 @@ def run() -> dict:
     raymarch_v1_build = start_baseline_build(RAYMARCH_V1_SRC, "libwisp_raymarch_v1.so")
     octree_grid_bwd_v1_build = start_baseline_build(OCTREE_GRID_BWD_V1_SRC,
                                                     "libwisp_octree_grid_bwd_v1.so")
+    mesh_v1_build = start_baseline_build(MESH_V1_SRC, "libwisp_mesh_sdf_v1.so")
     kernels.build(verbose=True)
-    global THREEPASS, HASHGRID_V1, OCTREE_V1, MARCH_GRAD_V1
+    global THREEPASS, HASHGRID_V1, OCTREE_V1, MARCH_GRAD_V1, MESH_V1
     THREEPASS = ThreePass(threepass_build)
     HASHGRID_V1 = HashGridV1(hashgrid_v1_build)
     OCTREE_V1 = OctreeV1(octree_grid_v1_build, free_space_v1_build)
     MARCH_GRAD_V1 = MarchGradV1(raymarch_v1_build, octree_grid_bwd_v1_build)
+    MESH_V1 = MeshV1(mesh_v1_build)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in str(kernels.BUILD_INFO.get("log", "")).splitlines()
              if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
@@ -4350,6 +4718,9 @@ def run() -> dict:
     t0 = time.perf_counter()
     march_grad_info = march_grad_phase()
     phases["phase_s"]["march and octree grad"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_info = mesh_phase(dev)
+    phases["phase_s"]["mesh"] = time.perf_counter() - t0
     print(json.dumps({"kernels": phases["kernels"]}), flush=True)
     for line in phases["lines"]:
         print(json.dumps(line), flush=True)
@@ -4357,6 +4728,7 @@ def run() -> dict:
     print(json.dumps({"hashgrid_shapes": hashgrid_info}), flush=True)
     print(json.dumps({"octree_grid_shapes": octree_grid_info}), flush=True)
     print(json.dumps({"march_grad_shapes": march_grad_info}), flush=True)
+    print(json.dumps({"mesh_shapes": mesh_info}), flush=True)
     print(json.dumps({"phase_s": phases["phase_s"], "profiler_shortfalls": PROFILER_SHORTFALLS,
                       "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi, flush=True)

@@ -508,10 +508,24 @@ def _l_prism():
             np.concatenate([cap[:, ::-1], cap + n, np.asarray(sides, np.int32)], 0))
 
 
+def _bipyramid(sides=16, radius=0.6, height=0.5):
+    """A closed bipyramid: a regular ``sides``-gon in z = 0 and two apexes at z = +-height
+    of valence ``sides``, where K16's candidate list overflows; 2 * sides triangles."""
+    ang = 2.0 * np.pi * np.arange(sides) / sides
+    ring = np.stack([radius * np.cos(ang), radius * np.sin(ang), np.zeros(sides)], -1)
+    v = np.concatenate([ring, [[0.0, 0.0, height], [0.0, 0.0, -height]]]).astype(np.float32)
+    f = []
+    for k in range(sides):
+        j = (k + 1) % sides
+        f += [[k, j, sides], [j, k, sides + 1]]
+    return v, np.asarray(f, np.int32)
+
+
 def _mesh_cases():
     """(mesh, points): the icosphere of the SDF path with points near and far, and the
     hard meshes (a cube's corners and edges, a thin slab's midplane, an L-prism's concave
-    edge) with their queries and points around them."""
+    edge, a bipyramid's apexes of valence 16 and its axis) with their queries and points
+    around them."""
     from wisp_tpu_torch.ops.mesh.io import make_box_mesh, make_sphere_mesh
     from wisp_tpu_torch.ops.mesh.ops import normalize
     rng = np.random.default_rng(20)
@@ -528,32 +542,58 @@ def _mesh_cases():
              [[0.0, 0.0, 0.0], [0.5, -0.3, 0.0], [1.001, 0.0, 0.0], [0.999, 0.999, 0.0]],
              -1.2, 1.2),
             ("l_prism", _l_prism(),
-             [[1.05, 1.05, 0.0], [0.95, 0.95, 0.0], [1.05, 1.05, 0.49]], -0.3, 2.3)):
+             [[1.05, 1.05, 0.0], [0.95, 0.95, 0.0], [1.05, 1.05, 0.49]], -0.3, 2.3),
+            ("bipyramid", _bipyramid(),
+             np.concatenate([[[0.0, 0.0, 0.0], [0.0, 0.0, 0.55], [0.0, 0.0, -0.52]],
+                             [0.0, 0.0, 0.5] + rng.normal(scale=0.02, size=(200, 3)),
+                             [0.0, 0.0, -0.5] + rng.normal(scale=0.02, size=(200, 3))]),
+             -0.8, 0.8)):
         cases.append((name, mesh, np.concatenate([pts, rng.uniform(lo, hi, (2000, 3))])))
     return [(name, mesh, p.astype(np.float32)) for name, mesh, p in cases]
+
+
+def _assert_sdf_kernel(got, want):
+    """K16's contract: the distance to 1e-5, a sign flip only where |d| < 1e-5."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    flip = (got < 0) != (want < 0)
+    assert (np.abs(want[flip]) < 1e-5).all()
+    assert np.abs(np.abs(got) - np.abs(want)).max() <= 1e-5
+    assert np.abs(got[~flip] - want[~flip]).max() <= 1e-5
+
+
+def _band_sizes(x, tris):
+    """The triangles in each point's band, from the plain arithmetic."""
+    from wisp_tpu_torch.ops.mesh.ops import closest_point_on_triangle, dot3
+    e = x[:, None] - closest_point_on_triangle(x[:, None], tris[None, :, 0:3],
+                                               tris[None, :, 3:6], tris[None, :, 6:9])
+    d2 = dot3(e, e)
+    d2min = d2.amin(dim=1)
+    return (d2 <= (d2min + (1e-8 + 1e-4 * d2min))[:, None]).sum(dim=1)
 
 
 @pytest.mark.parametrize("case", _mesh_cases(), ids=lambda c: c[0])
 def test_mesh_sdf_kernel(dev, case):
     """K16 against its plain version: the distance to 1e-5, a sign flip only where
-    |d| < 1e-5; and the signs against the winding-number oracle where |d| >= 1e-5."""
-    from wisp_tpu_torch.ops.mesh.compute_sdf import compute_sdf, compute_sdf_plain
-    _, (v, f), pts = case
+    |d| < 1e-5; and the signs against the winding-number oracle where |d| >= 1e-5. The
+    bipyramid's bands overflow the kernel's candidate list."""
+    from wisp_tpu_torch.ops.mesh.compute_sdf import (MESH_SDF_CANDIDATES, compute_sdf,
+                                                     compute_sdf_plain, triangle_table)
+    name, (v, f), pts = case
     x = torch.from_numpy(pts).to(dev)
     before = kernels.LAUNCHES["mesh_sdf"]
     got = compute_sdf(v, f, x)
     want = compute_sdf_plain(v, f, x)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["mesh_sdf"] == before + 1
-    got, want = got.cpu().numpy(), want.cpu().numpy()
-    flip = (got < 0) != (want < 0)
-    assert (np.abs(want[flip]) < 1e-5).all()
-    assert np.abs(np.abs(got) - np.abs(want)).max() <= 1e-5
-    assert np.abs(got[~flip] - want[~flip]).max() <= 1e-5
+    _assert_sdf_kernel(got, want)
+    got = got.cpu().numpy()
     far = np.abs(got) >= 1e-5
     inside = winding_number(v, f, pts[far]) > 0.5
     np.testing.assert_array_equal(got[far] < 0, inside)
     assert inside.any() and not inside.all()
+    if name == "bipyramid":
+        sizes = _band_sizes(x, triangle_table(v, f, dev))
+        assert int((sizes > MESH_SDF_CANDIDATES).sum()) > 0
 
 
 @pytest.mark.parametrize("rays", [300, 5000])
@@ -826,6 +866,26 @@ def test_scatter_rows_kernel(dev, dtype, width):
     assert torch.equal(got, want) and not torch.equal(got, base)
 
 
+def _assert_closest_kernel(x, tris, got, want):
+    """K17's contract: the triangle equal except where two triangles tie within 2 ulp of
+    d2, distance and point within 1e-6."""
+    from wisp_tpu_torch.ops.mesh.ops import closest_point_on_triangle, dot3
+    (dk, nk, tk), (dp, np_, tp) = got, want
+    assert tk.dtype == torch.int64 and nk.shape == (x.shape[0], 3)
+    assert float((dk - dp).abs().max()) <= 1e-6
+    assert float((nk - np_).abs().max()) <= 1e-6
+    differ = tk != tp
+    if differ.any():
+        p = x[differ]
+
+        def d2_to(t):
+            cp = closest_point_on_triangle(p, tris[t, 0:3], tris[t, 3:6], tris[t, 6:9])
+            return dot3(p - cp, p - cp)
+
+        a, b = d2_to(tk[differ]), d2_to(tp[differ])
+        assert bool(((a - b).abs() <= 2 * torch.finfo(torch.float32).eps * b).all())
+
+
 @pytest.mark.parametrize("case", _mesh_cases(), ids=lambda c: c[0])
 def test_closest_point_kernel(dev, case):
     """K17 against its plain version: the triangle equal except where two triangles tie
@@ -836,24 +896,11 @@ def test_closest_point_kernel(dev, case):
     x = torch.from_numpy(pts).to(dev)
     tris = triangle_table(v, f, dev)
     before = kernels.LAUNCHES["closest_point"]
-    dk, nk, tk = closest_point(x, tris)
-    dp, np_, tp = closest_point_plain(x, tris)
+    got = closest_point(x, tris)
+    want = closest_point_plain(x, tris)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["closest_point"] == before + 1
-    assert tk.dtype == torch.int64 and nk.shape == (x.shape[0], 3)
-    assert float((dk - dp).abs().max()) <= 1e-6
-    assert float((nk - np_).abs().max()) <= 1e-6
-    differ = tk != tp
-    if differ.any():
-        from wisp_tpu_torch.ops.mesh.ops import closest_point_on_triangle, dot3
-        p = x[differ]
-
-        def d2_to(t):
-            cp = closest_point_on_triangle(p, tris[t, 0:3], tris[t, 3:6], tris[t, 6:9])
-            return dot3(p - cp, p - cp)
-
-        a, b = d2_to(tk[differ]), d2_to(tp[differ])
-        assert bool(((a - b).abs() <= 2 * torch.finfo(torch.float32).eps * b).all())
+    _assert_closest_kernel(x, tris, got, want)
 
 
 @pytest.mark.parametrize("carved,stride,jittered", [(False, 1, False), (True, 1, False),
@@ -1726,3 +1773,62 @@ def test_octree_interp_bwd_kernel_back_to_back(dev):
         scale = max(float(t.abs().max()) for t in f)
         err = max(float((a - b).abs().max()) for a, b in zip(last[i], f))
         assert err <= 1e-5 * scale, i
+
+
+def _mesh_points(mesh, n, seed):
+    """A mesh's triangle table inputs and ``n`` seeded points: the NGLOD app's icosphere
+    (half the points within 0.02 of a vertex, half anywhere in the box) or the bipyramid
+    (half near its apexes)."""
+    from wisp_tpu_torch.ops.mesh.io import make_sphere_mesh
+    from wisp_tpu_torch.ops.mesh.ops import normalize
+    rng = np.random.default_rng(seed)
+    if mesh == "icosphere":
+        v, f = normalize(*make_sphere_mesh(1.0, subdivisions=3), "sphere")
+        near = v[rng.integers(0, len(v), n // 2)]
+    else:
+        v, f = _bipyramid()
+        near = np.asarray([[0.0, 0.0, 0.5], [0.0, 0.0, -0.5]])[rng.integers(0, 2, n // 2)]
+    near = near + rng.normal(scale=0.02, size=near.shape)
+    pts = np.concatenate([near, rng.uniform(-1.0, 1.0, (n - n // 2, 3))])
+    return v, f, pts.astype(np.float32)
+
+
+@pytest.mark.parametrize("mesh,n", [("icosphere", 1), ("icosphere", 1000),
+                                    ("icosphere", 100_000), ("bipyramid", 70_000)])
+def test_mesh_kernels_point_counts(dev, mesh, n):
+    """K16 and K17 at 1 point, at a count that is no multiple of a block, at 100,000
+    points and at 70,000 around the bipyramid (two points a thread, overflowing bands):
+    each held to its plain version, one launch a call."""
+    from wisp_tpu_torch.ops.mesh.compute_sdf import (closest_point, closest_point_plain,
+                                                     mesh_sdf, mesh_sdf_plain, triangle_table)
+    v, f, pts = _mesh_points(mesh, n, seed=n)
+    x = torch.from_numpy(pts).to(dev)
+    tris = triangle_table(v, f, dev)
+    before = dict(kernels.LAUNCHES)
+    got_sdf, got_cp = mesh_sdf(x, tris), closest_point(x, tris)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mesh_sdf"] == before["mesh_sdf"] + 1
+    assert kernels.LAUNCHES["closest_point"] == before["closest_point"] + 1
+    _assert_sdf_kernel(got_sdf, mesh_sdf_plain(x, tris))
+    _assert_closest_kernel(x, tris, got_cp, closest_point_plain(x, tris))
+
+
+def test_mesh_kernels_back_to_back(dev):
+    """200 calls of K16 and K17 on one stream with no synchronisation between them, two
+    shapes of each in turns: each shape's last result equals its first."""
+    from wisp_tpu_torch.ops.mesh.compute_sdf import closest_point, mesh_sdf, triangle_table
+    calls = []
+    for mesh, n in (("icosphere", 5000), ("bipyramid", 70_000)):
+        v, f, pts = _mesh_points(mesh, n, seed=7)
+        x = torch.from_numpy(pts).to(dev)
+        tris = triangle_table(v, f, dev)
+        calls += [lambda x=x, t=tris: (mesh_sdf(x, t),),
+                  lambda x=x, t=tris: closest_point(x, t)]
+    first = [fn() for fn in calls]
+    torch.cuda.synchronize()
+    last = {}
+    for i in range(200):
+        last[i % len(calls)] = calls[i % len(calls)]()
+    torch.cuda.synchronize()
+    for i, ref in enumerate(first):
+        assert all(torch.equal(a, b) for a, b in zip(last[i], ref))

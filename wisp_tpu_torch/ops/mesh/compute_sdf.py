@@ -11,7 +11,9 @@ A mesh enters the kernel as a triangle table [T, 15] float32 (``triangle_table``
 corners a, b, c, the unit face normal and the interior angles at a, b and c, computed on
 the host as JAX computes them). ``mesh_sdf`` launches K16 on a CUDA tensor and runs
 ``mesh_sdf_plain`` on a CPU tensor; the plain version repeats JAX's two passes over chunks
-of points and triangles.
+of points and triangles. The kernel makes one pass: each point keeps its running minimum
+and up to ``MESH_SDF_CANDIDATES`` triangles of the band, and a point whose band holds more
+takes a second pass (``csrc/mesh_sdf.cu``).
 
 ``closest_point`` (K17, counterpart of compute_sdf.py:144 ``closest_point``) is the first
 pass with its argument kept: each point's nearest surface point, its distance and the
@@ -27,6 +29,7 @@ from wisp_tpu_torch import kernels
 from wisp_tpu_torch.ops.mesh.ops import closest_point_on_triangle, dot3, per_face_normals
 
 TRI_FLOATS = 15
+MESH_SDF_CANDIDATES = 8       # K16's candidate list a point (csrc/mesh_sdf.cu kCandidates)
 
 
 def face_vertex_angles(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
