@@ -10,6 +10,7 @@ Run from the root of a checkout; it imports that checkout's ``chip_smoke.py`` an
     python3 chip_compaction_bench.py sdf [label]
     python3 chip_compaction_bench.py sdfframe [label]
     python3 chip_compaction_bench.py octree [label]
+    python3 chip_compaction_bench.py l8 [label]
 
 ``kernels``: ``compact`` (K3, K6a) and ``compact_rays`` (K12, its mid pass) at the four
 shapes of ``PERF.md``'s compaction rows, on seeded inputs (march-like runs of valid steps;
@@ -29,11 +30,17 @@ share, the kernels with the most device time; K2 runs once a chunk, 16 times).
 ``OfflineRenderer.render_lookat``, the free-space field (K11) made once a chunk, as the
 tracer makes it when no field is held): 15 frames' wall ms after a warm-up, then one frame
 under torch.profiler (``chip_smoke.profile_frame``: device-busy ms, idle share, the kernels
-with the most device time).
+with the most device time), then one frame's launches, by ``kernels.LAUNCHES`` and by
+torch.profiler (every device kernel).
 ``octree``: the octree NeRF phase's trainer (``nerf_octree_lego_proxy.yaml`` through
 ``main_nerf``, ``chip_smoke.octree_app``): 40 steps' wall ms (the first two left out of the
 median), then one step under torch.profiler (``chip_smoke.profile_step``: device-busy ms,
 idle share, top kernels; K15's backward runs once a step).
+``l8``: the NGLOD app's trainer on a level-8 octree (``chip_smoke.nglod_app`` with
+``--blas-level 8``, as the nglod phase's level-8 step: its max level above the pidx maps,
+so each step's octree query binary-searches its code table): 40 steps' wall ms (the first
+two left out of the median), then one step under torch.profiler
+(``chip_smoke.profile_step``) and one step's launches (``kernels.LAUNCHES``).
 Each mode prints one JSON line; run ``paths`` from the parent's and the change's checkouts
 in turns (parent, change, change, parent, ...) to compare them: these paths are bound by
 the host, and their spread from process to process is wide.
@@ -183,14 +190,28 @@ def paths_mode(dev, flagship: bool) -> dict:
 
 
 def sdf_frame_mode(dev) -> dict:
+    from torch.profiler import ProfilerActivity, profile
     from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
     kernels.build()
     pipeline, _ = cs.nglod_pipeline(dev)
     renderer = OfflineRenderer(render_res=(cs.RES, cs.RES), device=dev)
-    clock(lambda: renderer.render_lookat(pipeline, f=cs.EYE))            # warm-up
-    frames = [clock(lambda: renderer.render_lookat(pipeline, f=cs.EYE)) for _ in range(15)]
-    profile = cs.profile_frame(renderer, pipeline)
-    return {"sdf_frame_ms": frames}, profile
+
+    def frame():
+        return clock(lambda: renderer.render_lookat(pipeline, f=cs.EYE))
+
+    frame()                                                              # warm-up
+    frames = [frame() for _ in range(15)]
+    frame_profile = cs.profile_frame(renderer, pipeline)
+    # one frame's launches: the hand-written kernels' (kernels.LAUNCHES) and every device
+    # kernel's (torch.profiler, PyTorch's own included)
+    kernels.reset_launches()
+    frame()
+    frame_profile["hand_written_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        frame()
+    frame_profile["device_kernels_launched"] = sum(
+        k["count"] for k in cs.device_kernels(prof, None)[1])
+    return {"sdf_frame_ms": frames}, frame_profile
 
 
 def octree_mode(dev) -> tuple:
@@ -200,9 +221,22 @@ def octree_mode(dev) -> tuple:
     return {"octree_step_ms": steps[2:]}, cs.profile_step(trainer)
 
 
+def level8_mode(dev) -> tuple:
+    kernels.build()
+    _, _, trainer = cs.nglod_app("--tracker.log-dir", tempfile.mkdtemp(prefix="wisp_bench_"),
+                                 "--tracker.run-name", "l8", "--blas-level",
+                                 str(cs.NGLOD_L8_LEVEL))
+    steps = [clock(trainer.iterate) for _ in range(40)]
+    profile = cs.profile_step(trainer)
+    kernels.reset_launches()
+    clock(trainer.iterate)
+    profile["step_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    return {"level8_step_ms": steps[2:]}, profile
+
+
 def main() -> int:
     if len(sys.argv) < 2 or sys.argv[1] not in ("kernels", "paths", "sdf", "sdfframe",
-                                                "octree"):
+                                                "octree", "l8"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -217,13 +251,15 @@ def main() -> int:
         result, profile = sdf_frame_mode(dev)
     elif mode == "octree":
         result, profile = octree_mode(dev)
+    elif mode == "l8":
+        result, profile = level8_mode(dev)
     else:
         result, profile = paths_mode(dev, mode == "paths")
     if mode != "kernels":
         result = {"median_ms": {k: statistics.median(v) for k, v in result.items()},
                   "all_ms": result}
     if profile is not None:
-        result["profile_step" if mode == "octree" else "profile_frame"] = profile
+        result["profile_step" if mode in ("octree", "l8") else "profile_frame"] = profile
     print(json.dumps({"mode": mode, "label": sys.argv[2] if len(sys.argv) > 2
                       else None, "device": cs.nvidia_smi_line(), **result}), flush=True)
     return 0

@@ -43,12 +43,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    width on main_nglod.py's procedural icosphere (octree level 7; OctreeGrid 16 features
    x 6 LODs, 'sum'; NeuralSDF hidden 128; PackedSDFTracer 32 steps, step 0.8) with the
    sphere decoder of ``interop.sphere_sdf_decoder``, renders a warm-up frame, sets the
-   counts to 0, renders one 512x512 frame and reads the counts (the query, interpolation,
-   free-space field, walk and step kernels must all have run); checks the frame (shapes,
-   finite, unit normals, alpha = hit, and the sphere's geometry), one chunk against the
-   plain versions, then holds each SDF kernel against its plain version at that chunk's
-   shapes, times it (K15's forward and K11 beside their earlier designs), profiles a
-   frame on the card and one frame's host side (cProfile);
+   counts to 0, renders one 512x512 frame and reads the counts (exactly, a chunk: K11, the
+   walk, 32 sphere iterations ``sphere_iter``, the first without its step, one closing
+   ``sphere_step``, the normals' 6 taps through the fused query ``octree_query_interp``;
+   no K9, no K15 forward, no other kernel); checks the frame (shapes, finite, unit normals,
+   alpha = hit, and the sphere's geometry), one chunk against the plain versions, then
+   holds each SDF kernel against its plain version at that chunk's shapes, times it (K15's
+   forward and K11 beside their earlier designs, the fused query and the sphere iteration
+   beside the unfused sequences they replace), profiles a frame on the card (device-busy
+   ms, idle share, the device kernels it launched) and one frame's host side (cProfile);
 9. SDF training path: builds the trainer of nglod_octree.yaml at full width on the same
    octree (the config's seeded random init; OctreeSampledSDFDataset with 500,000 samples
    and 32 a voxel; batch 512, Adam, AMP), sets the counts to 0, runs 200
@@ -56,9 +59,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    resample), 20 more steps and ``validate()``, reads the counts (each kernel's launches
    as predicted: a query, an interpolation and its backward a step, K16 once a resample
    and once a validation), requires the loss to fall and the IoUs in [0, 1], and holds K15
-   backward and K16 against their plain versions (depth cut: 220 steps of a 10-epoch run
-   of ~4,400 steps an epoch, one resample); K16's plain version is timed by CUDA events
-   alone (under torch.profiler its host cost is ~30 s);
+   backward, K16 and K9 (on validate()'s uniform points, the call that still reaches it)
+   against their plain versions (depth cut: 220 steps of a 10-epoch run of ~4,400 steps an
+   epoch, one resample); K16's plain version is timed by CUDA events alone (under
+   torch.profiler its host cost is ~30 s);
 10. octree NeRF path: parses app/nerf/configs/nerf_octree_lego_proxy.yaml through the
    port's own front end (``main_nerf.parse_args``: 4 views, checkpoints, snapshots and the
    epoch validation off) and builds it with ``main_nerf.build()`` at full width (the level-7
@@ -67,8 +71,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    runs 25 ``MultiviewTrainer.iterate()`` steps (the 20th profiled) and reads the counts
    (exactly as predicted, and no other kernel); requires the loss to fall and no ray to
    overflow; runs ``validate()`` on 2 views of 256x256; renders a warm-up frame, sets the
-   counts to 0, renders one 512x512 voxel frame and reads the counts (the field's two
-   kernels once a chunk that keeps a sample); checks the frame and one chunk against the
+   counts to 0, renders one 512x512 voxel frame and reads the counts (the field's fused
+   query once a chunk that keeps a sample); checks the frame and one chunk against the
    plain versions; holds K7 against its plain version at the step's and a render chunk's
    shapes, with a density field and early_stop 0.01 and at an overflowing budget, and K15
    and its backward at F = 5; times K7 and profiles the frame;
@@ -107,11 +111,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    --valid-only`` (the same IoUs on the same samples); renders the trained field's 512x512
    frame (the tracker's snapshot camera, rays shuffled by ``default_rng(0)``, chunks of
    65,536) uncompacted, at compaction 0.55 and with mid-loop compaction 0.3 at mid_at 0.5
-   (counts from 0 before the three timed frames), holds the compacted traces to the
-   uncompacted one with float32 decoders (the same hits except within SDF_HIT_MARGIN of
+   (counts from 0 before the three timed frames, read exactly: 32 sphere iterations and a
+   closing step a loop, two loops with the mid pass, no K9), holds the compacted traces to
+   the uncompacted one with float32 decoders (the same hits except within SDF_HIT_MARGIN of
    min_dis, depth and normals within their tolerances; no invented hit where a chunk drops
    rays), and profiles a compacted chunk; builds ``--blas-level 8`` and runs 50 steps (the
-   last profiled) and one render chunk (counts from 0: K9's search launched); builds the
+   last profiled) and one render chunk (counts from 0 before the build: K9's search in the
+   dataset's narrowband filter, the fused query's search on every step); builds the
    texture flags on the yaml, resamples and runs 50 steps (counts from 0: K17 launched);
    holds K12's compaction (both passes), its scatter-back, K9's search (with and without
    the ancestor chain) and K17 against their plain versions and times them;
@@ -182,19 +188,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    earlier design with its bound and share, K16's band pairs and the points whose band
    holds more than its candidate list (from the plain arithmetic in torch), then makes 50
    calls back to back on one stream and holds each shape's last result to its first;
-21. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+21. query and step folded ("query and step folded"): holds the fused query
+   (``octree_query_interp``: K9 folded into K15's forward) and the sphere iteration
+   (``sphere_iter``: K12's step folded in front of it) to their plain versions on the calls
+   the phases recorded (the SDF render chunk, the SDF train batch with its cells, the
+   octree NeRF's F = 5 step, the trained NGLOD field's frames, a level-8 chunk): features
+   and rows within 1e-6, cells equal to K9's columns, t, alive and hit bit for bit; times
+   each beside the unfused sequence it replaces (K9 then K15; sphere_step, the point, K9,
+   K15 and the concatenation) with their launches and host time a call, then makes 200
+   fused queries back to back on one stream and holds each shape's last result to its
+   first;
+22. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
-   for the SDF kernels, from the SDF training run for its two, from the octree NeRF's 25
-   steps for K7, from the stoch path's 25 steps for K1's stochastic backward, from the
-   segmented path's 25 steps for K6a, K6b, K6c and K5 accumulated, from the nglod app
-   path's frames for K12's compaction, its level-8 steps and chunk for K9's search and its
-   texture resample and steps for K17, from the SPC frame for K13 and the SPC raytrace
+   for the SDF kernels (K15's forward: 0, no path launches it), from the SDF training run
+   for K9, K15's backward and K16, from the octree NeRF's 25 steps for K7, from the stoch
+   path's 25 steps for K1's stochastic backward, from the segmented path's 25 steps for
+   K6a, K6b, K6c and K5 accumulated, from the nglod app path's frames for K12's
+   compaction, its level-8 build, steps and chunk for K9's search and its texture
+   resample and steps for K17, from the SPC frame for K13 and the SPC raytrace
    for K10, from the uniform path's steps and frame for K8 and from its one query for
    K14), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
    ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
    ``uniform_path`` JSON lines, the ``compaction_shapes``, ``hashgrid_shapes``,
-   ``octree_grid_shapes``, ``march_grad_shapes`` and ``mesh_shapes`` lines, the ``phase_s``
-   line, the nvidia-smi line and, last, ``{"ok": true, "device": {...}}``.
+   ``octree_grid_shapes``, ``march_grad_shapes``, ``mesh_shapes`` and ``query_step_shapes``
+   lines, the ``phase_s`` line, the nvidia-smi line and, last, ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
@@ -770,14 +788,19 @@ def plain_versions():
 
     with mock.patch.object(octree_as, "raymarch_ray", octree_as.raymarch_ray_plain), \
             mock.patch.object(octree_as, "raymarch_voxel", octree_as.raymarch_voxel_plain), \
-            mock.patch.object(octree_as, "octree_query", octree_as.octree_query_plain), \
-            mock.patch.object(octree_grid, "octree_interp", octree_grid.octree_interp_plain), \
+            mock.patch.object(octree_grid, "octree_query_interp", query_interp_plain), \
             mock.patch.object(grid, "hashgrid", hashgrid_plain), \
             mock.patch.object(packed_rf_tracer, "compact", compaction.compact_plain), \
             mock.patch.object(packed_rf_tracer, "scatter_back",
                               compaction.scatter_back_plain), \
             mock.patch.object(packed_rf_tracer, "integrate", integration.integrate_plain):
         yield
+
+
+def query_interp_plain(*args):
+    """``octree_query_interp``'s plain version with its signature (features alone)."""
+    from wisp_tpu_torch.models.grids.octree_grid import octree_query_interp_plain
+    return octree_query_interp_plain(*args)[0]
 
 
 def hash_rows_touched(coords, grid, n_lods: int) -> int:
@@ -1222,12 +1245,18 @@ def k11_record(key, occ, level, max_k=31):
 
 @contextmanager
 def recording_octree_grid(key: str):
-    """Keep the inputs of the last K15 forward and the last K11 launched inside, under
-    "<key>" and "<key>: K11", held and copied when the block ends (no input of either is
-    changed inside a block that uses this)."""
+    """Keep the inputs of the last K15 forward, the last K11, the last fused query and
+    interpolation and the last sphere iteration with its step called inside, under "<key>"
+    (K15's, and the fused query's, whose K15 call is the same blend at K9's columns),
+    "<key>: K11" and "<key>: sphere_iter" for the "octree grid" and "query and step folded"
+    steps. K15's, K11's and the fused query's inputs are held and copied when the block
+    ends (no input of theirs is changed inside a block that uses this); the sphere
+    iteration's state, which it changes, is copied before each call."""
     from wisp_tpu_torch.accelstructs import octree_as
     from wisp_tpu_torch.models.grids import octree_grid
+    from wisp_tpu_torch.tracers import packed_sdf_tracer
     fwd, fsd = octree_grid._interp_fwd, octree_as.free_space_distance
+    fused, step = octree_grid.octree_query_interp, packed_sdf_tracer.sphere_iter
     held = {}
 
     def rec_fwd(*args):
@@ -1238,13 +1267,70 @@ def recording_octree_grid(key: str):
         held["k11"] = (occ, level, max_k)
         return fsd(occ, level, max_k)
 
+    def rec_fused(*args):
+        held["fused"] = args
+        return fused(*args)
+
+    def rec_step(o, d, t, alive, hit, t_far, field, *args, out=None):
+        if field is not None:
+            held["step"] = (o, d, t.clone(), alive.clone(), hit.clone(), t_far, field, *args)
+        return step(o, d, t, alive, hit, t_far, field, *args, out=out)
+
     with mock.patch.object(octree_grid, "_interp_fwd", rec_fwd), \
-            mock.patch.object(octree_as, "free_space_distance", rec_fsd):
+            mock.patch.object(octree_as, "free_space_distance", rec_fsd), \
+            mock.patch.object(octree_grid, "octree_query_interp", rec_fused), \
+            mock.patch.object(packed_sdf_tracer, "sphere_iter", rec_step):
         yield
+    if "fused" in held:
+        query_interp_record(key, *held["fused"])
     if "k15" in held:
         k15_record(key, *held["k15"])
+    elif "fused" in held:
+        k15_record(key, *unfused_args(*held["fused"]))
     if "k11" in held:
         k11_record(f"{key}: K11", *held["k11"])
+    if "step" in held:
+        sphere_iter_record(f"{key}: sphere_iter", *held["step"])
+
+
+# the fused query's and the sphere iteration's calls that the paths made, for the "query
+# and step folded" step: key -> {"kind": counter name, "args": the wrapper's arguments}
+QUERY_STEP_CALLS = {}
+
+
+def query_interp_record(key, coords, routes, trinkets, features, levels, multiscale_type,
+                        with_cells=False):
+    """Keep one ``octree_query_interp`` call's inputs (``_query_interp_fwd``'s) under
+    ``key``; the routes' tables are the octree's own and are not copied."""
+    QUERY_STEP_CALLS[key] = {"kind": "octree_query_interp", "args": (
+        coords.detach().clone(), routes, [t.clone() for t in trinkets],
+        [f.detach().clone() for f in features], [int(v) for v in levels], multiscale_type,
+        bool(with_cells))}
+
+
+def sphere_iter_record(key, o, d, t, alive, hit, t_far, field, free_dist, level, step_size,
+                       min_dis, routes, trinkets, features, levels, multiscale_type,
+                       with_xyz):
+    """Keep one ``sphere_iter`` call with its step (its state before the call) under
+    ``key``."""
+    QUERY_STEP_CALLS[key] = {"kind": "sphere_iter", "args": (
+        o.clone(), d.clone(), t.clone(), alive.clone(), hit.clone(), t_far.clone(),
+        field.detach().clone(), free_dist.clone(), int(level), float(step_size),
+        float(min_dis), routes, [x.clone() for x in trinkets],
+        [f.detach().clone() for f in features], [int(v) for v in levels], multiscale_type,
+        bool(with_xyz))}
+
+
+def unfused_args(coords, routes, trinkets, features, levels, multiscale_type):
+    """K15 forward's arguments for the blend that ``octree_query_interp`` makes: K9's pidx
+    (with parents at the last LOD's level where there are several LODs), by the plain
+    query."""
+    from wisp_tpu_torch.accelstructs.octree_as import octree_query_plain
+    if len(levels) == 1:
+        pidx, col0 = octree_query_plain(coords, routes, levels[0])[:, None].contiguous(), 0
+    else:
+        pidx, col0 = octree_query_plain(coords, routes, levels[-1], True), levels[0]
+    return coords, pidx, col0, trinkets, features, levels, multiscale_type
 
 
 def octree_grid_phase() -> dict:
@@ -1308,6 +1394,149 @@ def octree_grid_phase() -> dict:
         for i in range(200):
             key, run_new, _ = checks[i % len(checks)]
             last[key] = run_new()
+    torch.cuda.synchronize()
+    for key, _, ref in checks:
+        require(torch.equal(last[key], ref), f"{key}, called back to back, differs from its "
+                                             f"first result")
+    return out
+
+
+def query_step_phase() -> dict:
+    """The fused query and interpolation (``octree_query_interp``) and the sphere iteration
+    with its step (``sphere_iter``) at every call the paths recorded (the SDF render chunk
+    after the walk and 4 iterations, the SDF train batch with its cells, the octree NeRF's
+    F = 5 step, the trained NGLOD field's frames, a level-8 chunk): each held to its plain
+    version (features and rows within 1e-6; cells, t, alive and hit exactly) and timed
+    beside the unfused sequence it replaces (``UNFUSED_DESIGN``, held to the plain version
+    first), with their launches a call, host time a call (``host_ms_in_turns``) and the
+    fused kernel's device ms by kernel. Then 200 fused queries back to back on one stream
+    with no synchronisation between them, the shapes in turns, each shape's last result
+    held equal to its first."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import octree_query
+    from wisp_tpu_torch.models.grids.octree_grid import (_query_interp_fwd,
+                                                         interp_vector_width, octree_interp,
+                                                         octree_query_interp_plain, ray_lanes)
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import (sphere_iter, sphere_iter_plain,
+                                                          sphere_step)
+    require(any(c["kind"] == "octree_query_interp" for c in QUERY_STEP_CALLS.values())
+            and any(c["kind"] == "sphere_iter" for c in QUERY_STEP_CALLS.values()),
+            "no phase recorded a fused query or a sphere iteration")
+    out, checks = {}, []
+
+    def unfused_query(coords, routes, trinkets, feats, levels, ms):
+        top = levels[-1]
+        if len(levels) == 1:
+            pidx, col0 = octree_query(coords, routes, top)[:, None], 0
+        else:
+            pidx, col0 = octree_query(coords, routes, top, True), levels[0]
+        return octree_interp(coords, pidx, col0, trinkets, feats, levels, ms)
+
+    for key, c in sorted(QUERY_STEP_CALLS.items()):
+        args = c["args"]
+        with torch.no_grad():
+            if c["kind"] == "octree_query_interp":
+                coords, routes, trinkets, feats, levels, ms, with_cells = args
+                want, want_cells = octree_query_interp_plain(*args[:6])
+                got, cells = _query_interp_fwd(*args)
+                err = float((got - want).abs().max()) if want.numel() else 0.0
+                was_err = (float((unfused_query(*args[:6]) - want).abs().max())
+                           if want.numel() else 0.0)
+                require(err <= 1e-6 and was_err <= 1e-6,
+                        f"octree_query_interp at {key}: max abs err (fused, unfused) "
+                        f"{(err, was_err)}, tolerance 1e-6")
+                require(not with_cells or torch.equal(cells, want_cells),
+                        f"octree_query_interp at {key}: the cells differ from K9's columns")
+                run_new = functools.partial(_query_interp_fwd, *args)
+                run_was = functools.partial(unfused_query, *args[:6])
+                f_dim = feats[0].shape[1]
+                shape = {"kind": c["kind"], "points": coords.shape[0], "F": f_dim,
+                         "lods": len(levels), "multiscale": ms, "with_cells": with_cells,
+                         "routes": [routes[l].kind for l in levels],
+                         "features_a_lane": interp_vector_width(
+                             f_dim, [f.data_ptr() for f in feats]),
+                         "max_abs_err": err, "was_max_abs_err": was_err, "tol": 1e-6}
+                checks.append((key, run_new, run_new()[0]))
+            else:
+                (o, d, t, alive, hit, t_far, field, fd, level, step, min_dis, routes,
+                 trinkets, feats, levels, ms, with_xyz) = args
+                rest = (t_far, field, fd, level, step, min_dis, routes, trinkets, feats,
+                        levels, ms, with_xyz)
+                sk = [t.clone(), alive.clone(), hit.clone()]
+                sp = [t.clone(), alive.clone(), hit.clone()]
+                got = sphere_iter(o, d, *sk, *rest)
+                want = sphere_iter_plain(o, d, *sp, *rest)
+                require(all(torch.equal(a, b) for a, b in zip(sk, sp)),
+                        f"sphere_iter at {key}: t, alive or hit differs from sphere_step's")
+                err = float((got - want).abs().max()) if want.numel() else 0.0
+
+                def unfused_iter(t_, alive_, hit_, o=o, d=d, rest=rest):
+                    (t_far_, field_, fd_, level_, step_, min_dis_, routes_, trk_, fts_,
+                     levels_, ms_, with_xyz_) = rest
+                    sphere_step(o, d, t_, alive_, hit_, t_far_, field_[:, 0].contiguous(),
+                                fd_, level_, step_, min_dis_)
+                    pos = o + t_[:, None] * d
+                    feats_ = unfused_query(pos, routes_, trk_, fts_, levels_, ms_)
+                    return torch.cat([feats_, pos], dim=-1) if with_xyz_ else feats_
+
+                wk = [t.clone(), alive.clone(), hit.clone()]
+                was_rows = unfused_iter(*wk)
+                live = sp[1]
+                was_err = (float((was_rows[live] - want[live]).abs().max())
+                           if bool(live.any()) else 0.0)
+                require(err <= 1e-6 and was_err <= 1e-6
+                        and all(torch.equal(a, b) for a, b in zip(wk, sp)),
+                        f"sphere_iter at {key}: max abs err (fused, unfused) "
+                        f"{(err, was_err)}, tolerance 1e-6, or the unfused step differs")
+                # a fresh state for every call (the step changes it): a pool of copies,
+                # refilled from the recorded state before each measurement
+                pool = [tuple(x.clone() for x in (t, alive, hit)) for _ in range(130)]
+                turn = [0]
+
+                def state(pool=pool, turn=turn):
+                    turn[0] += 1
+                    return pool[turn[0] % len(pool)]
+
+                def refresh(pool=pool, t=t, alive=alive, hit=hit):
+                    for copy in pool:
+                        for x, y in zip(copy, (t, alive, hit)):
+                            x.copy_(y)
+
+                run_new = (lambda o=o, d=d, rest=rest, state=state:
+                           sphere_iter(o, d, *state(), *rest))
+                run_was = (lambda f=unfused_iter, state=state: f(*state()))
+                f_dim = feats[0].shape[1]
+                shape = {"kind": c["kind"], "rays": o.shape[0],
+                         "alive_before": int(alive.sum()), "alive_after": int(live.sum()),
+                         "hits_made": int((sp[2] & ~hit).sum()), "F": f_dim,
+                         "lods": len(levels), "multiscale": ms, "with_xyz": with_xyz,
+                         "routes": [routes[l].kind for l in levels],
+                         "lanes_a_ray": ray_lanes(feats)[1],
+                         "max_abs_err": err, "was_max_abs_err": was_err, "tol": 1e-6,
+                         "state_exact": True}
+            if c["kind"] == "octree_query_interp":
+                def refresh():
+                    return None
+            refresh()
+            new = timed(run_new)
+            refresh()
+            was = timed(run_was)
+            refresh()
+            by_kernel = device_ms_by_kernel(run_new)
+            host = host_ms_in_turns((run_new, run_was))
+            out[key] = dict(shape, ms=new[0], event_ms=new[1], host_ms=new[1] - new[0],
+                            wrapper_host_ms=host[0], ms_by_kernel=by_kernel,
+                            launches_per_call=launches_per_call(run_new), was_ms=was[0],
+                            was_event_ms=was[1], was_host_ms=was[1] - was[0],
+                            was_wrapper_host_ms=host[1],
+                            was_launches_per_call=launches_per_call(run_was),
+                            was_design=UNFUSED_DESIGN[c["kind"]])
+    torch.cuda.synchronize()
+    last = {}
+    with torch.no_grad():
+        for i in range(200):
+            key, run_new, _ = checks[i % len(checks)]
+            last[key] = run_new()[0]
     torch.cuda.synchronize()
     for key, _, ref in checks:
         require(torch.equal(last[key], ref), f"{key}, called back to back, differs from its "
@@ -1680,10 +1909,11 @@ def mesh_phase(dev) -> dict:
     return out
 
 def profile_call(fn, top: int = 12):
-    """(wall ms, device busy ms, the ``top`` kernels by device time) of one call of ``fn``
-    under torch.profiler. The busy time is the sum of the kernels' device time (kernels on
-    one stream do not overlap), so 1 - busy / wall is the device's idle share. It is None
-    when the session recorded no kernel (``PROFILER_FALLBACKS`` then names the call)."""
+    """(wall ms, device busy ms, the ``top`` kernels by device time, the device kernels
+    launched) of one call of ``fn`` under torch.profiler. The busy time is the sum of the
+    kernels' device time (kernels on one stream do not overlap), so 1 - busy / wall is the
+    device's idle share. Busy time and launches are None when the session recorded no
+    kernel (``PROFILER_FALLBACKS`` then names the call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1692,12 +1922,13 @@ def profile_call(fn, top: int = 12):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top_kernels = device_kernels(prof, top)
+    launches = sum(k["count"] for k in device_kernels(prof, None)[1])
     if not top_kernels:
         PROFILER_FALLBACKS.append({"profile": f"chip_smoke.py line "
                                               f"{fn.__code__.co_firstlineno}",
                                    "device_busy_ms": "not measured"})
-        busy_ms = None
-    return wall_ms, busy_ms, top_kernels
+        busy_ms = launches = None
+    return wall_ms, busy_ms, top_kernels, launches
 
 
 def idle_share(busy_ms, wall_ms):
@@ -1706,13 +1937,14 @@ def idle_share(busy_ms, wall_ms):
 
 
 def profile_frame(renderer, pipeline, top: int = 12) -> dict:
-    """One frame under torch.profiler: device time by kernel name and the share of the
-    frame's wall time in which no kernel ran."""
-    wall_ms, busy_ms, top_kernels = profile_call(
+    """One frame under torch.profiler: device time by kernel name, the device kernels it
+    launched (the hand-written ones and PyTorch's) and the share of the frame's wall time in
+    which no kernel ran."""
+    wall_ms, busy_ms, top_kernels, launches = profile_call(
         lambda: renderer.render_lookat(pipeline, f=EYE), top)
     return {"profile_frame_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": idle_share(busy_ms, wall_ms),
-            "top_device_kernels": top_kernels}
+            "device_launches": launches, "top_device_kernels": top_kernels}
 
 
 def device_kernels(prof, top: int):
@@ -1903,7 +2135,7 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
 
 def profile_step(trainer, top: int = 12) -> dict:
     """One training step under torch.profiler: device time by kernel and the idle share."""
-    wall_ms, busy_ms, top_kernels = profile_call(trainer.iterate, top)
+    wall_ms, busy_ms, top_kernels, _ = profile_call(trainer.iterate, top)
     return {"profile_step_ms": wall_ms, "step_device_busy_ms": busy_ms,
             "step_device_idle_share": idle_share(busy_ms, wall_ms),
             "step_top_device_kernels": top_kernels}
@@ -1986,7 +2218,7 @@ def train_phase(dev):
 SDF_LEVEL = 7
 SDF_NUM_LODS = 6
 SDF_SAMPLES = 2_000_000
-SDF_KERNELS = ("octree_query", "octree_interp", "free_space_distance", "sdf_walk",
+SDF_KERNELS = ("octree_query_interp", "sphere_iter", "free_space_distance", "sdf_walk",
                "sphere_step")
 # the icosphere's facets lie between radius 0.897 (face centres) and 0.9 (vertices): a
 # zero set off that band leaves the one-voxel shell of occupied cells, and rays that miss
@@ -2058,12 +2290,12 @@ def plain_sdf_versions():
     from wisp_tpu_torch.accelstructs import octree_as
     from wisp_tpu_torch.models.grids import octree_grid
     from wisp_tpu_torch.tracers import packed_sdf_tracer as sdf
-    with mock.patch.object(octree_as, "octree_query", octree_as.octree_query_plain), \
-            mock.patch.object(octree_as, "free_space_distance",
+    with mock.patch.object(octree_as, "free_space_distance",
                               octree_as.free_space_distance_plain), \
-            mock.patch.object(octree_grid, "octree_interp", octree_grid.octree_interp_plain), \
+            mock.patch.object(octree_grid, "octree_query_interp", query_interp_plain), \
             mock.patch.object(sdf, "sdf_walk", sdf.sdf_walk_plain), \
-            mock.patch.object(sdf, "sphere_step", sdf.sphere_step_plain):
+            mock.patch.object(sdf, "sphere_step", sdf.sphere_step_plain), \
+            mock.patch.object(sdf, "sphere_iter", sdf.sphere_iter_plain):
         yield
 
 
@@ -2089,16 +2321,22 @@ def walk_work(o, d, t, alive, t_far, free_dist, level: int, num_steps: int):
 
 def sdf_kernel_phase(pipeline, rays):
     """Each SDF kernel against its plain version and timed, at the shapes one chunk of the
-    main path gives it: the walk from the rays' entry, a sphere step and the field's query
-    and interpolation at the rays' points after the walk and 4 sphere iterations."""
+    main path gives it: K11, the walk from the rays' entry, then at the rays' state after
+    the walk and 4 sphere iterations a closing sphere step, K15's forward (the blend of the
+    unfused sequence), the fused query and interpolation, and the sphere iteration with
+    its step, the last two beside the unfused sequences they replace."""
     import torch
     from wisp_tpu_torch.accelstructs.octree_as import (aabb_intersect, free_space_distance,
                                                        free_space_distance_plain,
                                                        octree_query, octree_query_plain)
-    from wisp_tpu_torch.models.grids.octree_grid import octree_interp, octree_interp_plain
-    from wisp_tpu_torch.ops.spc.core import quantize_points
-    from wisp_tpu_torch.tracers.packed_sdf_tracer import (sdf_walk, sdf_walk_plain,
-                                                          sphere_step, sphere_step_plain)
+    from wisp_tpu_torch.models.grids.octree_grid import (_query_interp_fwd, octree_interp,
+                                                         octree_interp_plain,
+                                                         octree_query_interp,
+                                                         octree_query_interp_plain)
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import (fused_field, sdf_walk,
+                                                          sdf_walk_plain, sphere_iter,
+                                                          sphere_iter_plain, sphere_step,
+                                                          sphere_step_plain)
     nef, tracer = pipeline.nef, pipeline.tracer
     grid, blas = nef.grid, nef.grid.blas
     level, steps = blas.max_level, tracer.num_steps
@@ -2180,56 +2418,182 @@ def sdf_kernel_phase(pipeline, rays):
         nbytes=n * (1 + 1) + live * (24 + 4 + 4 + 4 + 4) + live * (4 + 1 + 1),
         ops=live * 60))
 
-    # K9 with parents, as OctreeGrid.interpolate asks, at the last LOD
+    # K9 with parents, as OctreeGrid.interpolate asked before the fused query: K15's input
+    # here (K9's row is held on the call that still reaches it, in the SDF train phase)
     routes = blas.query_routes
     qk = octree_query(coords, routes, level, True)
-    qp = octree_query_plain(coords, routes, level, True)
-    require(torch.equal(qk, qp), "octree_query differs from the plain version")
-    q = quantize_points(coords, level)
-    inside = ((coords >= -1.0) & (coords <= 1.0)).all(-1)
-    map_entries = 0
-    for l in range(level + 1):
-        ql = q[inside] >> (level - l)
-        map_entries += int(torch.unique((ql[:, 0] * 2 ** l + ql[:, 1]) * 2 ** l
-                                        + ql[:, 2]).numel())
-    rows.append(kernel_row(
-        "octree_query", "wisp_tpu_torch/csrc/octree.cu",
-        "wisp_tpu/accelstructs/octree_as.py:199", 0.0, 0.0,
-        timed(lambda: octree_query(coords, routes, level, True)),
-        timed(lambda: octree_query_plain(coords, routes, level, True)),
-        nbytes=n * 12 + n * (level + 1) * 4 + map_entries * 4,
-        ops=n * (3 * 4 + (level + 1) * 6)))
+    require(torch.equal(qk, octree_query_plain(coords, routes, level, True)),
+            "octree_query differs from the plain version")
 
-    # K15 over the 6 LODs, 'sum'
+    # K15 over the 6 LODs, 'sum' (no path launches it now: the fused query is its forward
+    # with K9's lookups as the first loads; it is the unfused sequence's blend)
     lods = grid.num_lods
     args = (coords, qk, grid.base_lod, grid.trinkets, [f.detach() for f in grid.features],
             grid.active_lods, grid.multiscale_type)
     ik = octree_interp(*args)
     ip = octree_interp_plain(*args)
     f_dim = grid.feature_dim
-    trinket_rows = feature_rows = valid = 0
-    for i in range(lods):
-        p = qk[:, grid.base_lod + i]
-        p = p[p >= 0].long()
-        valid += int(p.numel())
-        trinket_rows += int(torch.unique(p).numel())
-        feature_rows += int(torch.unique(grid.trinkets[i][p].reshape(-1)).numel())
+    touched = interp_touched(grid, coords)
+    interp_bytes = (touched["lod_cells_read"] * 4 + touched["trinket_rows"] * 32
+                    + touched["feature_rows"] * f_dim * 4)
+    interp_ops = touched["valid"] * (3 * 5 + 8 * (2 + 2 * f_dim))
     rows.append(kernel_row(
         "octree_interp", "wisp_tpu_torch/csrc/octree_grid.cu",
         "wisp_tpu/models/grids/octree_grid.py:115", float((ik - ip).abs().max()), 1e-6,
         timed(lambda: octree_interp(*args)), timed(lambda: octree_interp_plain(*args)),
-        nbytes=n * 12 + n * lods * 4 + trinket_rows * 32 + feature_rows * f_dim * 4
-        + n * f_dim * 4,
-        ops=valid * (3 * 5 + 8 * (2 + 2 * f_dim))))
+        nbytes=n * 12 + n * lods * 4 + touched["trinket_rows"] * 32
+        + touched["feature_rows"] * f_dim * 4 + n * f_dim * 4, ops=interp_ops))
     add_launches_and_was(rows[-1], lambda: octree_interp(*args),
                          OCTREE_V1 and (lambda: OCTREE_V1.interp(*args)),
                          lambda: float((OCTREE_V1.interp(*args) - ip).abs().max()) <= 1e-6,
                          OCTREE_V1_DESIGN["octree_interp"])
     k15_record("sdf render chunk (after the walk and 4 iterations)", *args)
+
+    # the fused query and interpolation at the same points: the cells equal K9's columns
+    qargs = (coords,) + fused_tables(grid)
+    fused_k, cells_k = _query_interp_fwd(*qargs, with_cells=True)
+    fused_p, cells_p = octree_query_interp_plain(*qargs)
+    require(torch.equal(cells_k, cells_p) and torch.equal(cells_p, qk[:, grid.base_lod:]),
+            "octree_query_interp's cells differ from K9's columns")
+
+    def unfused_query_interp():
+        pidx = octree_query(coords, routes, level, True)
+        return octree_interp(coords, pidx, grid.base_lod, *args[3:])
+
+    rows.append(kernel_row(
+        "octree_query_interp", "wisp_tpu_torch/csrc/octree_grid.cu",
+        "wisp_tpu/models/grids/octree_grid.py:115", float((fused_k - fused_p).abs().max()),
+        1e-6, timed(lambda: octree_query_interp(*qargs)),
+        timed(lambda: octree_query_interp_plain(*qargs)),
+        nbytes=n * 12 + interp_bytes + n * f_dim * 4,
+        ops=n * (3 * 4 + lods * 6) + interp_ops))
+    add_launches_and_was(rows[-1], lambda: octree_query_interp(*qargs), unfused_query_interp,
+                         lambda: float((unfused_query_interp() - fused_p).abs().max())
+                         <= 1e-6,
+                         UNFUSED_DESIGN["octree_query_interp"])
+    rows[-1]["also_replaces"] = "wisp_tpu/accelstructs/octree_as.py:199"
+    query_interp_record("sdf render chunk (after the walk and 4 iterations)", *qargs)
+
+    # the sphere iteration with its step, from the state after 4 iterations and the field at
+    # its points: t, alive and hit bit-equal to sphere_step's, the rows within 1e-6
+    fused = fused_field(nef, lods - 1)
+    require(fused is not None, "the SDF phase's field does not take the fused iteration")
+    field = nef(channels="sdf", coords=coords)               # [N, 1]: the decoder's outputs
+    sk, sp = (t.clone(), alive.clone(), hit.clone()), (t.clone(), alive.clone(), hit.clone())
+    xk = sphere_iter(o, d, *sk, t_far, field, fk, level, tracer.step_size,
+                     tracer.min_dis, *fused)
+    xp = sphere_iter_plain(o, d, *sp, t_far, field, fk, level, tracer.step_size,
+                           tracer.min_dis, *fused)
+    require(all(torch.equal(a, b) for a, b in zip(sk, sp)),
+            "sphere_iter's t, alive or hit differs from sphere_step's")
+    iter_err = float((xk - xp).abs().max())
+    live_after = sp[1]
+    points_after = (o + sp[0][:, None] * d)[live_after].contiguous()
+    touched_after = interp_touched(grid, points_after)
+    steps_cells = int(torch.unique(fsd_cells(o[alive], d[alive], t[alive], level)).numel())
+    state, plain_state = copies(t, alive, hit), copies(t, alive, hit, iters=20)
+    unfused_state = copies(t, alive, hit, iters=30)
+
+    def unfused_iter(t_, alive_, hit_):
+        sphere_step(o, d, t_, alive_, hit_, t_far, field[:, 0].contiguous(), fk, level,
+                    tracer.step_size, tracer.min_dis)
+        pos = o + t_[:, None] * d
+        pidx = octree_query(pos, routes, level, True)
+        feats = octree_interp(pos, pidx, grid.base_lod, *args[3:])
+        return torch.cat([feats, pos], dim=-1)
+
+    cols = f_dim + 3
+    rows.append(kernel_row(
+        "sphere_iter", "wisp_tpu_torch/csrc/octree_grid.cu",
+        "wisp_tpu/tracers/packed_sdf_tracer.py:136", iter_err, 1e-6,
+        timed(lambda: sphere_iter(o, d, *state(), t_far, field, fk, level,
+                                  tracer.step_size, tracer.min_dis, *fused)),
+        timed(lambda: sphere_iter_plain(o, d, *plain_state(), t_far, field, fk, level,
+                                        tracer.step_size, tracer.min_dis, *fused)),
+        nbytes=n * (1 + 1) + live * (24 + 4 + 4 + 4 + 4) + live * (4 + 1 + 1)
+        + steps_cells * 4 + touched_after["lod_cells_read"] * 4
+        + touched_after["trinket_rows"] * 32 + touched_after["feature_rows"] * f_dim * 4
+        + n * cols * 4,
+        ops=live * 60 + int(live_after.sum()) * (3 * 4 + lods * 6)
+        + touched_after["valid"] * (3 * 5 + 8 * (2 + 2 * f_dim))))
+    pool = copies(t, alive, hit, iters=40)
+    add_launches_and_was(
+        rows[-1], lambda: sphere_iter(o, d, *pool(), t_far, field, fk, level,
+                                      tracer.step_size, tracer.min_dis, *fused),
+        lambda: unfused_iter(*unfused_state()),
+        lambda: unfused_matches(unfused_iter, (t, alive, hit), sp, xp),
+        UNFUSED_DESIGN["sphere_iter"])
+    sphere_iter_record("sdf render chunk (after the walk and 4 iterations): sphere_iter", o,
+                       d, t, alive, hit, t_far, field, fk, level, tracer.step_size,
+                       tracer.min_dis, *fused)
     return rows, {"chunk_rays": n, "walk_steps_taken": taken, "walk_cells": walk_cells,
-                  "live_rays_after_4_iterations": live, "interp_valid_lod_points": valid,
-                  "interp_trinket_rows": trinket_rows, "interp_feature_rows": feature_rows,
-                  "query_map_entries": map_entries}
+                  "live_rays_after_4_iterations": live, "interp_valid_lod_points":
+                  touched["valid"], "interp_trinket_rows": touched["trinket_rows"],
+                  "interp_feature_rows": touched["feature_rows"],
+                  "fused_lod_cells_read": touched["lod_cells_read"],
+                  "sphere_iter_live_after_step": int(live_after.sum()),
+                  "sphere_iter_free_space_cells": steps_cells}
+
+
+# the unfused sequences that the fused kernels replace: the "was" of their rows
+UNFUSED_DESIGN = {
+    "octree_query_interp": "K9 (octree_query, with parents) then K15 (octree_interp): two "
+                           "launches, pidx through memory",
+    "sphere_iter": "sphere_step, the point o + t*d, K9 with parents, K15 and the "
+                   "concatenation [features | xyz], as the unfused loop makes them"}
+
+
+def fused_tables(grid):
+    """``octree_query_interp``'s arguments after the coordinates for all of ``grid``'s LODs,
+    the features detached."""
+    routes, trinkets, features, levels, multiscale = grid.query_interp_args(grid.num_lods - 1)
+    return routes, trinkets, [f.detach() for f in features], levels, multiscale
+
+
+def interp_touched(grid, coords) -> dict:
+    """The blend's data-dependent reads at ``coords`` over all of ``grid``'s LODs: the
+    (point, LOD) pairs in occupied cells, the distinct trinket and feature rows, and the
+    distinct cells the fused query looks up at the LODs' levels (by the plain query)."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import octree_query_plain
+    from wisp_tpu_torch.ops.spc.core import quantize_points
+    pidx = octree_query_plain(coords, grid.blas.query_routes, grid.active_lods[-1], True)
+    top = grid.active_lods[-1]
+    q = quantize_points(coords, top)
+    inside = ((coords >= -1.0) & (coords <= 1.0)).all(-1)
+    out = {"valid": 0, "trinket_rows": 0, "feature_rows": 0, "lod_cells_read": 0}
+    for i, l in enumerate(grid.active_lods):
+        p = pidx[:, l]
+        p = p[p >= 0].long()
+        out["valid"] += int(p.numel())
+        out["trinket_rows"] += int(torch.unique(p).numel())
+        out["feature_rows"] += int(torch.unique(grid.trinkets[i][p].reshape(-1)).numel())
+        ql = q[inside] >> (top - l)
+        out["lod_cells_read"] += int(torch.unique((ql[:, 0] * 2 ** l + ql[:, 1]) * 2 ** l
+                                                  + ql[:, 2]).numel())
+    return out
+
+
+def fsd_cells(o, d, t, level: int):
+    """The free-space field's cells that a sphere step at depth t reads (flat index; a
+    point outside [-1, 1)^3 reads none)."""
+    from wisp_tpu_torch.ops.spc.core import quantize_points
+    res = 2 ** level
+    p = o + t[:, None] * d
+    q = quantize_points(p[((p >= -1.0) & (p < 1.0)).all(-1)], level)
+    return (q[:, 0] * res + q[:, 1]) * res + q[:, 2]
+
+
+def unfused_matches(unfused, state, want_state, want_rows) -> bool:
+    """The unfused iteration from ``state`` gives the fused one's t, alive and hit exactly
+    and its rows within 1e-6 where the ray is alive (the fused rows of the others are
+    zeros)."""
+    import torch
+    st = tuple(x.clone() for x in state)
+    rows_ = unfused(*st)
+    live = want_state[1]
+    return (all(torch.equal(a, b) for a, b in zip(st, want_state))
+            and float((rows_[live] - want_rows[live]).abs().max()) <= 1e-6)
 
 
 def host_top(renderer, pipeline, top: int = 12) -> dict:
@@ -2281,13 +2645,17 @@ def sdf_phase(dev):
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.LAUNCHES)
-    missing = [k for k in SDF_KERNELS if launches[k] <= 0]
-    require(not missing, f"kernels not launched on the SDF path: {missing}")
+    # a chunk: K11, the walk, num_steps sphere iterations (the first without the step) and
+    # one closing sphere_step, the normals' 6 taps through the fused query; no K9, no K15
     chunks = -(-RES * RES // renderer.render_batch)
-    queries = chunks * (tracer.num_steps + SDF_FD_TAPS)
-    expected = {"octree_query": queries, "octree_interp": queries,
-                "free_space_distance": chunks, "sdf_walk": chunks,
-                "sphere_step": chunks * tracer.num_steps}
+    expected = {"octree_query_interp": chunks * SDF_FD_TAPS,
+                "sphere_iter": chunks * tracer.num_steps, "free_space_distance": chunks,
+                "sdf_walk": chunks, "sphere_step": chunks, "octree_query": 0,
+                "octree_interp": 0}
+    got = {k: launches[k] for k in expected}
+    require(got == expected, f"SDF frame launches {got}, expected {expected}")
+    others = {k: v for k, v in launches.items() if k not in expected and v}
+    require(not others, f"the SDF frame launched other kernels: {others}")
 
     # -- the frame ----------------------------------------------------------------------
     for key, c in (("depth", 1), ("normal", 3), ("xyz", 3), ("rgb", 3), ("alpha", 1),
@@ -2364,8 +2732,7 @@ def sdf_phase(dev):
         "sdf_path": f"OfflineRenderer.render_lookat {RES}x{RES}, nglod_octree.yaml width",
         "setup_s": setup_s, "octree": stats, "frame_ms": frame_ms, "more_frame_ms": more_ms,
         "rays_per_s": RES * RES / (frame_ms / 1e3), "hit_fraction": hit_frac,
-        "launches": {k: launches[k] for k in SDF_KERNELS}, "expected_launches": expected,
-        "other_launches": {k: v for k, v in launches.items() if k not in SDF_KERNELS},
+        "launches": got, "expected_launches": expected,
         "centre_depth": centre_depth, "centre_depth_expected": want_depth,
         "centre_normal_dot_minus_dir": centre_dot, "hits_beyond_0_95": far_hits,
         "normal_norm_err": norm_err, "finite": finite,
@@ -2388,7 +2755,7 @@ SDF_TRAIN_MODES = ("rand", "near", "near", "trace", "trace")
 SDF_TRAIN_BATCH = 512
 SDF_TRAIN_STEPS_BEFORE_RESAMPLE = 200   # a 10-epoch run has ~4,400 steps an epoch
 SDF_TRAIN_STEPS_AFTER_RESAMPLE = 20
-SDF_TRAIN_KERNELS = ("octree_query", "octree_interp", "octree_interp_bwd", "mesh_sdf")
+SDF_TRAIN_KERNELS = ("octree_query", "octree_query_interp", "octree_interp_bwd", "mesh_sdf")
 SDF_CHECK_POINTS = 65_536         # K16 against its plain version ([P, T] buffers)
 # float32 arithmetic (add, subtract, multiply, divide, min, max) of one point-triangle
 # pair in the plain version, terms of the triangle alone left out: the closest point 120
@@ -2538,7 +2905,8 @@ def resample_timer(times: dict):
 def sdf_train_kernel_phase(trainer, coords):
     """K15 backward at the step's shapes (``coords``: a batch of the dataset, a seeded
     cotangent) and K16 at the resample's points, each against its plain version and timed;
-    K16 is compared on SDF_CHECK_POINTS of them."""
+    K16 is compared on SDF_CHECK_POINTS of them; K9 on validate()'s uniform points."""
+    import numpy as np
     import torch
     from wisp_tpu_torch.models.grids.octree_grid import (octree_interp_bwd,
                                                          octree_interp_bwd_plain)
@@ -2556,6 +2924,9 @@ def sdf_train_kernel_phase(trainer, coords):
             grid.multiscale_type, cot)
     k15_record("sdf train batch", coords, pidx, grid.base_lod, grid.trinkets,
                list(grid.features), grid.active_lods, grid.multiscale_type)
+    # the step's fused query, with its cells for K15's backward
+    query_interp_record("sdf train batch (cells for the backward)", coords,
+                        *fused_tables(grid), with_cells=True)
     bk = octree_interp_bwd(*args)
     bp = octree_interp_bwd_plain(*args)
     scale = max(float(b.abs().max()) for b in bp)
@@ -2603,6 +2974,34 @@ def sdf_train_kernel_phase(trainer, coords):
                                         f_dim, grid.active_lods)
     rows[-1]["check_s"] = time.perf_counter() - t0
     march_grad_record("sdf train batch: octree_interp_bwd", "octree_interp_bwd", args)
+
+    # K9 where the path still launches it: validate()'s narrowband filter of its uniform
+    # points (no parents, the max level)
+    from wisp_tpu_torch.accelstructs.octree_as import octree_query, octree_query_plain
+    from wisp_tpu_torch.ops.mesh.ops import sample_uniform
+    from wisp_tpu_torch.ops.spc.core import quantize_points
+    from wisp_tpu_torch.trainers import sdf_trainer
+    pts = torch.from_numpy(sample_uniform(sdf_trainer.VALID_UNIFORM_POINTS, rng=np.random.
+                                          default_rng(sdf_trainer.VALID_SEED)))
+    pts = pts.to(coords.device).contiguous()
+    routes, level = blas.query_routes, blas.max_level
+    require(torch.equal(octree_query(pts, routes, level), octree_query_plain(pts, routes,
+                                                                            level)),
+            "octree_query differs from the plain version")
+    q = quantize_points(pts, level)
+    inside = ((pts >= -1.0) & (pts <= 1.0)).all(-1)
+    q = q[inside]
+    map_entries = int(torch.unique((q[:, 0] * 2 ** level + q[:, 1]) * 2 ** level
+                                   + q[:, 2]).numel())
+    m = pts.shape[0]
+    rows.append(kernel_row(
+        "octree_query", "wisp_tpu_torch/csrc/octree.cu",
+        "wisp_tpu/accelstructs/octree_as.py:199", 0.0, 0.0,
+        timed(lambda: octree_query(pts, routes, level)),
+        timed(lambda: octree_query_plain(pts, routes, level)),
+        nbytes=m * 12 + m * 4 + map_entries * 4, ops=m * (3 * 4 + 6)))
+    rows[-1]["shape"] = (f"validate()'s narrowband filter: {m} uniform points, level {level}, "
+                         f"no parents")
 
     # K16 at the resample's points
     t0 = time.perf_counter()
@@ -2690,7 +3089,10 @@ def sdf_train_phase(dev):
     launches = dict(kernels.LAUNCHES)
     size = len(dataset)
     chunks = -(-size // 65536)
-    expected = {"octree_query": total + 1 + chunks + 2, "octree_interp": total + chunks + 1,
+    # the fused query and K15's backward once a step; the fused query once a validate chunk
+    # and once at its uniform points; K9 (no parents) in the resample's narrowband filter
+    # and in validate()'s; K16 once a resample and once a validation
+    expected = {"octree_query": 2, "octree_query_interp": total + chunks + 1,
                 "octree_interp_bwd": total, "mesh_sdf": 2}
     got = {k: launches[k] for k in SDF_TRAIN_KERNELS}
     require(got == expected, f"SDF training launches {got}, expected {expected}")
@@ -2736,11 +3138,12 @@ OCTREE_OVERRIDES = ("--dataset.num-views", "4", "--trainer.save-every", "-1",
 OCTREE_STEPS = 25
 OCTREE_PROFILED_STEP = 20
 OCTREE_VALID_VIEWS, OCTREE_VALID_RES = 2, 256
-OCTREE_STEP_KERNELS = {"raymarch_voxel": 1, "compact": 1, "octree_query": 1,
-                       "octree_interp": 1, "octree_interp_bwd": 1, "scatter_back": 2,
-                       "scatter_back_bwd": 2, "integrate_fwd": 1, "integrate_bwd": 1}
-OCTREE_FRAME_KERNELS = {"raymarch_voxel": 1, "compact": 1, "octree_query": 1,
-                        "octree_interp": 1, "scatter_back": 2, "integrate_fwd": 1}
+# launches a step and a chunk: the field's query and blend are one fused launch (no K9)
+OCTREE_STEP_KERNELS = {"raymarch_voxel": 1, "compact": 1, "octree_query_interp": 1,
+                       "octree_interp_bwd": 1, "scatter_back": 2, "scatter_back_bwd": 2,
+                       "integrate_fwd": 1, "integrate_bwd": 1}
+OCTREE_FRAME_KERNELS = {"raymarch_voxel": 1, "compact": 1, "octree_query_interp": 1,
+                        "scatter_back": 2, "integrate_fwd": 1}
 
 
 def octree_app(dev):
@@ -2889,6 +3292,7 @@ def octree_kernel_phase(trainer, chunk):
     require(fwd_err <= 1e-6, f"octree_interp at F = 5: error {fwd_err}")
     require(bwd_err <= 1e-5 * scale, f"octree_interp_bwd at F = 5: error {bwd_err}")
     k15_record("octree nerf step (F = 5)", *iargs)
+    query_interp_record("octree nerf step (F = 5)", coords, *fused_tables(grid))
     march_grad_record("octree nerf kernel phase (F = 5): octree_interp_bwd",
                       "octree_interp_bwd", bargs)
     # the bounds, counted as the SDF rows count them: each touched trinket and feature row
@@ -3006,7 +3410,7 @@ def octree_phase(dev):
     chunks = len(chunk_valid)
     # a chunk whose rays keep no sample asks the field for nothing: no query, no blend
     field_chunks = sum(1 for v in chunk_valid if v > 0)
-    want = {k: v * (field_chunks if k in ("octree_query", "octree_interp") else chunks)
+    want = {k: v * (field_chunks if k == "octree_query_interp" else chunks)
             for k, v in OCTREE_FRAME_KERNELS.items()}
     got = {k: frame_launches[k] for k in want}
     require(got == want, f"octree frame launches {got}, expected {want}")
@@ -3751,13 +4155,14 @@ NGLOD_L8_LEVEL = 8             # above the pidx maps (PIDX_MAP_MAX_LEVEL 7): the
 NGLOD_L8_STEPS = 50
 NGLOD_TEX_STEPS = 50
 NGLOD_K17_POINTS = 65_536
-NGLOD_TRAIN_KERNELS = ("octree_query", "octree_interp", "octree_interp_bwd", "mesh_sdf")
-NGLOD_FRAME_KERNELS = ("octree_query", "octree_interp", "sdf_walk", "sphere_step",
+NGLOD_TRAIN_KERNELS = ("octree_query", "octree_query_interp", "octree_interp_bwd",
+                       "mesh_sdf")
+NGLOD_FRAME_KERNELS = ("octree_query_interp", "sphere_iter", "sdf_walk", "sphere_step",
                        "compact_rays", "compact_rays_mid", "scatter_rays", "scatter_rays_mid")
-NGLOD_L8_KERNELS = ("octree_query_search", "octree_interp", "octree_interp_bwd",
-                    "free_space_distance", "sdf_walk", "sphere_step")
-NGLOD_TEX_KERNELS = ("mesh_sdf", "closest_point", "octree_query", "octree_interp",
-                     "octree_interp_bwd")
+# level 8, counted from the app's build: K9's search in the dataset's narrowband filter
+NGLOD_L8_KERNELS = ("octree_query_search", "octree_query_interp", "octree_interp_bwd",
+                    "free_space_distance", "sdf_walk", "sphere_iter", "sphere_step")
+NGLOD_TEX_KERNELS = ("mesh_sdf", "closest_point", "octree_query_interp", "octree_interp_bwd")
 # float32 operations of one point-triangle pair in K17 (the plain version's arithmetic):
 # the closest point 120, its squared distance 8 and the compare 1 (MESH_SDF_PAIR_OPS's pass
 # 1, terms of the triangle alone left out)
@@ -3897,6 +4302,15 @@ def nglod_frame(dev, pipeline, tracker):
     launches = dict(kernels.LAUNCHES)
     missing = [k for k in NGLOD_FRAME_KERNELS if launches[k] <= 0]
     require(not missing, f"kernels not launched on the trained-field frame: {missing}")
+    # a chunk: num_steps sphere iterations and a closing sphere_step a loop (two loops
+    # with the mid pass), the normals' 6 taps through the fused query; no K9, no K15
+    chunks = -(-n // NGLOD_CHUNK)
+    loops = sum(1 if t.mid_compaction is None else 2 for t in tracers.values())
+    want = {"sphere_iter": chunks * base.num_steps * len(tracers),
+            "sphere_step": chunks * loops, "octree_query_interp":
+            chunks * SDF_FD_TAPS * len(tracers), "octree_query": 0, "octree_interp": 0}
+    got = {k: launches[k] for k in want}
+    require(got == want, f"trained-field frame launches {got}, expected {want}")
     calls = []
     with recording_ray_compaction(calls):
         trace_chunks(nef, tracers["mid"], rays, NGLOD_CHUNK)
@@ -3933,6 +4347,7 @@ def nglod_frame(dev, pipeline, tracker):
     require(info["uncompacted"]["hit_share"] > 0.2,
             f"the trained field's frame hits {info['uncompacted']['hit_share']} of its rays")
     info["launches"] = {k: launches[k] for k in NGLOD_FRAME_KERNELS}
+    info["expected_launches"] = want
     # one compacted chunk under the profiler
     chunk = Rays(rays.origins[:NGLOD_CHUNK], rays.dirs[:NGLOD_CHUNK], rays.dist_min,
                  rays.dist_max)
@@ -3941,7 +4356,7 @@ def nglod_frame(dev, pipeline, tracker):
         with torch.no_grad():
             tracers["mid"](nef, chunk)
 
-    wall_ms, busy_ms, top_kernels = profile_call(trace_chunk)
+    wall_ms, busy_ms, top_kernels, _ = profile_call(trace_chunk)
     info["profile_chunk"] = {"ms": wall_ms, "device_busy_ms": busy_ms,
                              "device_idle_share": idle_share(busy_ms, wall_ms),
                              "top_device_kernels": top_kernels}
@@ -4152,7 +4567,9 @@ def nglod_phase(dev):
         del pipeline, trainer, reloaded, again, calls
         torch.cuda.empty_cache()
 
-        # -- 4. a level-8 octree -----------------------------------------------------------
+        # -- 4. a level-8 octree (counts from 0 before the build: its dataset's narrowband
+        # filter is the path's K9 search) ---------------------------------------------------
+        kernels.reset_launches()
         t0 = time.perf_counter()
         _, pipe8, tr8 = nglod_app("--tracker.log-dir", log_dir, "--tracker.run-name", "l8",
                                   "--blas-level", str(NGLOD_L8_LEVEL))
@@ -4160,7 +4577,8 @@ def nglod_phase(dev):
         l8 = {"setup_s": time.perf_counter() - t0,
               "level_counts": list(pipe8.nef.grid.blas.level_counts),
               "dataset_size": len(tr8.train_dataset)}
-        kernels.reset_launches()
+        require(pipe8.nef.grid.blas.query_routes[NGLOD_L8_LEVEL].kind == "search",
+                "the level-8 octree's max level is not binary-searched")
         ms = []
         with recording_march_grad("nglod level 8 step"):
             for i in range(NGLOD_L8_STEPS):
@@ -4415,7 +4833,7 @@ def spc_phase(dev):
         frames.append((time.perf_counter() - t0) * 1e3)
     info["frame_ms"] = frames
     info["rays_per_s"] = n / (sorted(frames)[len(frames) // 2] / 1e3)
-    wall, busy, top = profile_call(lambda: renderer.render(pipeline, rays))
+    wall, busy, top, _ = profile_call(lambda: renderer.render(pipeline, rays))
     info.update(profile_frame_ms=wall, device_busy_ms=busy,
                 device_idle_share=idle_share(busy, wall), top_device_kernels=top)
 
@@ -4721,6 +5139,9 @@ def run() -> dict:
     t0 = time.perf_counter()
     mesh_info = mesh_phase(dev)
     phases["phase_s"]["mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    query_step_info = query_step_phase()
+    phases["phase_s"]["query and step folded"] = time.perf_counter() - t0
     print(json.dumps({"kernels": phases["kernels"]}), flush=True)
     for line in phases["lines"]:
         print(json.dumps(line), flush=True)
@@ -4729,6 +5150,7 @@ def run() -> dict:
     print(json.dumps({"octree_grid_shapes": octree_grid_info}), flush=True)
     print(json.dumps({"march_grad_shapes": march_grad_info}), flush=True)
     print(json.dumps({"mesh_shapes": mesh_info}), flush=True)
+    print(json.dumps({"query_step_shapes": query_step_info}), flush=True)
     print(json.dumps({"phase_s": phases["phase_s"], "profiler_shortfalls": PROFILER_SHORTFALLS,
                       "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi, flush=True)
@@ -4853,6 +5275,11 @@ def run_phases(dev, build_s: float) -> dict:
     sdf_train_rows, sdf_train_info = sdf_train_phase(dev)
     torch.cuda.empty_cache()
     phase_s["sdf train"] = time.perf_counter() - t0
+    # K15's forward runs on no path (the fused query is its forward)
+    for row_ in sdf_rows:
+        if row_["name"] == "octree_interp":
+            row_["launches_from"] = ("none: OctreeGrid.interpolate takes octree_query_interp "
+                                     "on every path")
     COMPACTION_PHASE[0] = "octree nerf"
     t0 = time.perf_counter()
     octree_rows, octree_info = octree_phase(dev)

@@ -468,10 +468,12 @@ def test_octree_interp_bwd_kernel(dev, multiscale, lod_idx):
     for a, b in zip(got, want):
         scale = float(b.abs().max())
         assert scale > 0 and float((a - b).abs().max()) <= 1e-5 * scale
-    # and through OctreeGrid.interpolate's autograd route: one forward, one backward launch
+    # and through OctreeGrid.interpolate's autograd route: one forward (the query folded
+    # in: no K9 launch), one backward launch
     before = dict(kernels.LAUNCHES)
     grid.interpolate(coords, lod_idx).backward(cot)
-    assert kernels.LAUNCHES["octree_interp"] == before["octree_interp"] + 1
+    assert kernels.LAUNCHES["octree_query_interp"] == before["octree_query_interp"] + 1
+    assert kernels.LAUNCHES["octree_query"] == before["octree_query"]
     assert kernels.LAUNCHES["octree_interp_bwd"] == before["octree_interp_bwd"] + 1
     for f, b in zip(grid.features, want):
         assert float((f.grad - b).abs().max()) <= 1e-5 * float(b.abs().max())
@@ -1832,3 +1834,268 @@ def test_mesh_kernels_back_to_back(dev):
     torch.cuda.synchronize()
     for i, ref in enumerate(first):
         assert all(torch.equal(a, b) for a, b in zip(last[i], ref))
+
+
+# -- K9 folded into K15's forward (octree_query_interp), K12's step before it (sphere_iter) --
+
+def _fused_grid(kind, f_dim, num_lods, dev, seed):
+    """An OctreeGrid (features of std 0.5) and the query routes to read it by: the sphere
+    shell's octree at level 5 ('map') or 8 ('search': level 8 above the pidx maps), or,
+    with the tables of the octree of every level-4 cell, a make_dense level-4 octree
+    ('dense') or a carved one ('bitfield': its max level alone, one LOD)."""
+    from wisp_tpu_torch.accelstructs.octree_as import OctreeAS
+    from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+    gen = torch.Generator().manual_seed(seed)
+    if kind in ("map", "search"):
+        blas = _sphere_octree(5 if kind == "map" else 8, dev)
+        grid = OctreeGrid(blas=blas, feature_dim=f_dim, num_lods=num_lods, feature_std=0.5,
+                          generator=gen, device=dev)
+        return grid, blas.query_routes
+    g = np.arange(16, dtype=np.int32)
+    full = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    grid = OctreeGrid(blas=OctreeAS.from_quantized_points(full, 4, device=dev),
+                      feature_dim=f_dim, num_lods=num_lods, feature_std=0.5, generator=gen,
+                      device=dev)
+    dense = OctreeAS.make_dense(4, device=dev)
+    if kind == "dense":
+        return grid, dense.query_routes
+    occ = torch.rand(8 ** 4, generator=gen) < 0.3
+    return grid, dense.update_occupancy(occ.to(dev)).query_routes
+
+
+def _fused_coords(n, dev, seed):
+    """Points on the shell of radius 0.6, anywhere in and around the box, and on its
+    faces (inside: the box test is inclusive)."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(n // 2, 3))
+    near = 0.6 * u / np.linalg.norm(u, axis=-1, keepdims=True)
+    pts = np.concatenate([near, rng.uniform(-1.1, 1.1, (n - n // 2, 3))]).astype(np.float32)
+    pts[:n // 20, 0] = 1.0
+    return torch.from_numpy(pts).to(dev)
+
+
+@pytest.mark.parametrize("kind,f_dim,num_lods,multiscale,n", [
+    ("map", 16, 3, "sum", 16_384), ("map", 16, 3, "cat", 4000), ("map", 5, 3, "sum", 4000),
+    ("map", 4, 1, "cat", 7), ("search", 16, 6, "sum", 512), ("search", 5, 4, "cat", 3000),
+    ("dense", 16, 3, "sum", 3000), ("dense", 5, 2, "cat", 3000),
+    ("bitfield", 16, 1, "sum", 3000), ("bitfield", 5, 1, "cat", 3000)])
+def test_octree_query_interp_kernel(dev, kind, f_dim, num_lods, multiscale, n):
+    """The fused query and K15 forward on every route (map, level-8 search, dense,
+    bitfield), both vector widths and blends: features within K15's 1e-6 of the plain
+    version (octree_query_plain, then octree_interp_plain), the cells equal to K9's
+    columns, one launch, no K9 launch."""
+    from wisp_tpu_torch.models.grids.octree_grid import (_query_interp_fwd,
+                                                         octree_query_interp_plain)
+    grid, routes = _fused_grid(kind, f_dim, num_lods, dev, seed=40 + f_dim)
+    lods = num_lods if kind != "bitfield" else 1
+    levels = list(grid.active_lods) if kind != "bitfield" else [4]
+    trinkets = grid.trinkets[-lods:]
+    feats = [f.detach() for f in grid.features][-lods:]
+    coords = _fused_coords(n, dev, seed=n + f_dim)
+    if kind == "search":
+        assert routes[8].kind == "search"
+    want, want_cells = octree_query_interp_plain(coords, routes, trinkets, feats, levels,
+                                                 multiscale)
+    for with_cells in (False, True):
+        before = dict(kernels.LAUNCHES)
+        got, cells = _query_interp_fwd(coords, routes, trinkets, feats, levels, multiscale,
+                                       with_cells)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["octree_query_interp"] == before["octree_query_interp"] + 1
+        assert kernels.LAUNCHES["octree_query"] == before["octree_query"]
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-6
+        assert (cells is None) != with_cells
+        if with_cells:
+            assert cells.dtype == torch.int32 and torch.equal(cells, want_cells)
+    assert bool((want_cells >= 0).any()) and bool((want_cells < 0).any())
+
+
+def test_octree_query_interp_kernel_f5_call(dev):
+    """The fused query at the octree NeRF's F = 5 call: 187,360 points, 4 LODs, 'sum'."""
+    from wisp_tpu_torch.models.grids.octree_grid import (OctreeGrid, octree_query_interp,
+                                                         octree_query_interp_plain)
+    blas = _sphere_octree(7, dev)
+    grid = OctreeGrid(blas=blas, feature_dim=5, num_lods=4, feature_std=0.5,
+                      generator=torch.Generator().manual_seed(41), device=dev)
+    coords = _fused_coords(187_360, dev, seed=42)
+    args = (blas.query_routes, grid.trinkets, [f.detach() for f in grid.features],
+            grid.active_lods, "sum")
+    got = octree_query_interp(coords, *args)
+    want, _ = octree_query_interp_plain(coords, *args)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-6 and bool((want != 0).any())
+
+
+@pytest.mark.parametrize("kind,multiscale", [("map", "sum"), ("search", "cat")])
+def test_octree_query_interp_gradient_through_cells(dev, kind, multiscale):
+    """A training batch (512 points, 6 LODs of 16) through OctreeGrid.interpolate's autograd
+    route: the fused forward saves its cells, K15's backward takes them; the features'
+    gradient within 1e-5 of the largest entry of the unfused one (the atomics add in no
+    fixed order); one launch of each, no K9 launch."""
+    from wisp_tpu_torch.models.grids.octree_grid import octree_interp_plain
+    grid, routes = _fused_grid(kind, 16, 6 if kind == "search" else 3, dev, seed=43)
+    coords = _fused_coords(512, dev, seed=44)
+    lod_idx = grid.num_lods - 1
+    width = 16 * grid.num_lods if multiscale == "cat" else 16
+    grid.multiscale_type = multiscale
+    cot = torch.randn(512, width, generator=torch.Generator().manual_seed(45)).to(dev)
+    leaves = [f.detach().clone().requires_grad_(True) for f in grid.features]
+    pidx = grid.blas.query(coords, grid.active_lods[-1], with_parents=True).pidx
+    want = torch.autograd.grad(octree_interp_plain(coords, pidx, grid.base_lod, grid.trinkets,
+                                                   leaves, grid.active_lods, multiscale),
+                               leaves, cot)
+    before = dict(kernels.LAUNCHES)
+    grid.interpolate(coords, lod_idx).backward(cot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["octree_query_interp"] == before["octree_query_interp"] + 1
+    assert kernels.LAUNCHES["octree_interp_bwd"] == before["octree_interp_bwd"] + 1
+    assert kernels.LAUNCHES["octree_query"] == before["octree_query"]
+    for f, b in zip(grid.features, want):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((f.grad - b).abs().max()) <= 1e-5 * scale
+
+
+def test_octree_query_interp_new_table_at_a_known_address(dev):
+    """A level-8 code table replaced by one of another length at the same address (as a
+    freed octree's may come back), in turns: full, a prefix, full. Each fused query reads
+    the table it is given: its cells equal K9's plain columns on those routes (past the
+    prefix, -1), its features within 1e-6 of the plain version."""
+    from wisp_tpu_torch.accelstructs.octree_as import QueryRoute, octree_query_plain
+    from wisp_tpu_torch.models.grids.octree_grid import (_query_interp_fwd,
+                                                         octree_query_interp_plain)
+    grid, routes = _fused_grid("search", 16, 3, dev, seed=52)
+    codes = routes[8].table
+    trinkets = grid.trinkets
+    feats = [f.detach() for f in grid.features]
+    levels = list(grid.active_lods)
+    coords = _fused_coords(4000, dev, seed=53)
+    for length in (codes.shape[0], codes.shape[0] // 3, codes.shape[0]):
+        now = list(routes)
+        now[8] = QueryRoute("search", codes[:length])
+        assert now[8].table.data_ptr() == codes.data_ptr()
+        got, cells = _query_interp_fwd(coords, now, trinkets, feats, levels, "sum", True)
+        want, want_cells = octree_query_interp_plain(coords, now, trinkets, feats, levels)
+        torch.cuda.synchronize()
+        k9 = octree_query_plain(coords, now, 8, with_parents=True)[:, levels[0]:]
+        assert torch.equal(cells, want_cells) and torch.equal(cells, k9), length
+        assert (got - want).abs().max().item() <= 1e-6, length
+        assert bool((cells[:, -1] >= 0).any())
+
+
+def _iter_state(dev, n, level, seed):
+    """Rays after the walk on the level-`level` shell octree: (blas, o, d, t, alive, t_far,
+    free-space field)."""
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import sdf_walk
+    blas, o, d, t, alive, t_far = _trace_inputs(level, dev, n)
+    fd = blas.free_space_distance()
+    sdf_walk(o, d, t, alive, t_far, fd, level, 32)
+    return blas, o, d, t, alive, t_far, fd
+
+
+@pytest.mark.parametrize("f_dim,num_lods,multiscale,with_xyz,n", [
+    (16, 6, "sum", True, 16_384), (16, 3, "cat", True, 3000), (5, 3, "sum", True, 3000),
+    (4, 2, "cat", False, 3000), (3, 2, "sum", True, 1)])
+def test_sphere_iter_kernel(dev, f_dim, num_lods, multiscale, with_xyz, n):
+    """sphere_iter against its plain version over 8 iterations (the first without the step)
+    on the level-6 shell octree, the field read in column 0 of [N, 4] rows: t, alive and hit
+    bit-equal to sphere_step_plain's, the decoder-input rows within K15's 1e-6 (the rows of
+    rays that are not alive zeros in both), one launch an iteration."""
+    from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import sphere_iter, sphere_iter_plain
+    blas, o, d, t, alive, t_far, fd = _iter_state(dev, n, 6, seed=46)
+    grid = OctreeGrid(blas=blas, feature_dim=f_dim, num_lods=num_lods, feature_std=0.5,
+                      multiscale_type=multiscale,
+                      generator=torch.Generator().manual_seed(47), device=dev)
+    fused = grid.query_interp_args(num_lods - 1) + (with_xyz,)
+    g = torch.Generator(device="cpu").manual_seed(48)
+    state_k = [t.clone(), alive.clone(), torch.zeros_like(alive)]
+    state_p = [t.clone(), alive.clone(), torch.zeros_like(alive)]
+    out = None
+    with torch.no_grad():
+        for i in range(8):
+            field = None
+            if i:
+                field = ((torch.rand(n, 4, generator=g) - 0.1) * 0.02).to(dev)
+            before = kernels.LAUNCHES["sphere_iter"]
+            out = sphere_iter(o, d, *state_k, t_far, field, fd, 6, 0.8, 3e-4, *fused, out=out)
+            want = sphere_iter_plain(o, d, *state_p, t_far, field, fd, 6, 0.8, 3e-4, *fused)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["sphere_iter"] == before + 1
+            for a, b in zip(state_k, state_p):
+                assert torch.equal(a, b), i
+            assert out.shape == want.shape and out.stride(0) % 4 == 0
+            assert (out - want).abs().max().item() <= 1e-6, i
+            assert bool((out[~state_k[1]] == 0).all())
+    if n > 1:
+        assert bool(state_k[2].any()) and bool(state_k[1].any())
+
+
+def test_sphere_iter_rejects_bad_inputs(dev):
+    """A group of more than a warp's lanes, and rows of another shape, are refused."""
+    from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import sphere_iter
+    blas, o, d, t, alive, t_far, fd = _iter_state(dev, 100, 5, seed=49)
+    wide = OctreeGrid(blas=blas, feature_dim=33, num_lods=1, feature_std=0.5, device=dev)
+    with pytest.raises(ValueError, match="lanes"):
+        sphere_iter(o, d, t, alive, torch.zeros_like(alive), t_far, None, fd, 5, 0.8, 3e-4,
+                    *wide.query_interp_args(0), True)
+    grid = OctreeGrid(blas=blas, feature_dim=16, num_lods=1, feature_std=0.5, device=dev)
+    with pytest.raises(ValueError, match="out"):
+        sphere_iter(o, d, t, alive, torch.zeros_like(alive), t_far, None, fd, 5, 0.8, 3e-4,
+                    *grid.query_interp_args(0), True,
+                    out=torch.empty(100, 16, device=dev))
+
+
+@pytest.mark.parametrize("compaction,mid_compaction", [(None, None), (0.9, 0.6)])
+def test_fused_sphere_loop_on_the_card(dev, compaction, mid_compaction):
+    """The tracer's fused loop on a NeuralSDF (the sphere decoder, level 5, 3 LODs of 16):
+    sphere_iter once an iteration, sphere_step once a loop, no K9 and no K15 forward launch;
+    the trace held to the unfused loop's by the SDF rule (the same hits except where the
+    field lies within 1e-5 of min_dis; depth within 1e-4 and normals within 1e-4 on common
+    hits: the decoder's GEMM may round its padded input rows otherwise)."""
+    from wisp_tpu_torch import interop
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+    from wisp_tpu_torch.models.nefs.neural_sdf import NeuralSDF
+    from wisp_tpu_torch.tracers import packed_sdf_tracer
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import PackedSDFTracer
+    blas = _sphere_octree(5, dev)
+    gen = torch.Generator().manual_seed(50)
+    grid = OctreeGrid(blas=blas, feature_dim=16, num_lods=3, feature_std=0.01, generator=gen,
+                      device=dev, multiscale_type="sum")
+    nef = NeuralSDF(grid=grid, position_input=True, hidden_dim=32, generator=gen, device=dev)
+    with torch.no_grad():
+        for name, value in interop.sphere_sdf_decoder(16, 32, seed=0, radius=0.6).items():
+            nef.get_parameter(name).copy_(torch.from_numpy(value))
+    rng = np.random.default_rng(51)
+    o = np.float32([0.05, -0.03, -3.0]) + rng.normal(scale=0.05, size=(4096, 3))
+    target = np.concatenate([rng.uniform(-0.7, 0.7, (4096, 2)), np.zeros((4096, 1))], -1)
+    dirs = (target - o) / np.linalg.norm(target - o, axis=-1, keepdims=True)
+    rays = Rays(torch.from_numpy(o.astype(np.float32)).to(dev),
+                torch.from_numpy(dirs.astype(np.float32)).to(dev), 0.0, 10.0)
+    tracer = PackedSDFTracer(num_steps=32, step_size=0.8, compaction=compaction,
+                             mid_compaction=mid_compaction)
+    with torch.no_grad():
+        before = dict(kernels.LAUNCHES)
+        got = tracer(nef, rays)
+        torch.cuda.synchronize()
+        loops = 1 if mid_compaction is None else 2
+        assert kernels.LAUNCHES["sphere_iter"] == before["sphere_iter"] + 32
+        assert kernels.LAUNCHES["sphere_step"] == before["sphere_step"] + loops
+        assert kernels.LAUNCHES["octree_query"] == before["octree_query"]
+        assert kernels.LAUNCHES["octree_interp"] == before["octree_interp"]
+        unfused_field = packed_sdf_tracer.fused_field
+        packed_sdf_tracer.fused_field = lambda nef_, lod_idx: None
+        try:
+            want = tracer(nef, rays)
+        finally:
+            packed_sdf_tracer.fused_field = unfused_field
+        sdf_at = nef(channels="sdf", coords=got.xyz)[:, 0]
+    ha, hb = got.hit[:, 0], want.hit[:, 0]
+    differ = ha != hb
+    assert not bool((differ & ((sdf_at.abs() - 3e-4).abs() > 1e-5)).any())
+    both = ha & hb
+    assert float(both.float().mean()) > 0.2
+    assert float((got.depth - want.depth)[both].abs().max()) <= 1e-4
+    assert float((got.normal - want.normal)[both].abs().max()) <= 1e-4

@@ -1,20 +1,19 @@
 """The host-side rules of K15's forward and K11 (no JAX, no card).
 
 K15: ``interp_vector_width`` picks the forward's route from F and the tables' alignment, and
-``_lod_arrays`` keeps the host pointer arrays that the C entry point reads. K11:
+``lod_tables`` keeps the argument block of the tables that the forward entry points read. K11:
 ``free_space_layout`` gives the kernel's bit grids; ``bit_free_space`` below repeats the
 kernel's steps on those words with numpy (pack, z shifts within and across words, y and x
 ORs by doubling, the count of missed thresholds) and is held to the plain version, which
 keeps JAX's integers.
 """
 
-import ctypes
-
 import numpy as np
 import pytest
 import torch
 
-from wisp_tpu_torch.accelstructs.octree_as import (free_space_cap, free_space_distance_plain,
+from wisp_tpu_torch.accelstructs.octree_as import (QueryRoute, free_space_cap,
+                                                   free_space_distance_plain,
                                                    free_space_layout)
 from wisp_tpu_torch.models.grids import octree_grid
 
@@ -28,25 +27,46 @@ def test_interp_vector_width_follows_f(f_dim):
 
 
 def test_lod_arrays_are_built_once_a_set_of_tables(monkeypatch):
-    monkeypatch.setattr(octree_grid, "_LOD_ARRAYS", {})
+    """``lod_tables`` builds the forward kernels' argument block once a set of tables, and
+    builds it anew for anything its checks or the block read: another table, level, width,
+    route, or a table of another length or dtype at the same address (a freed table's
+    address may come back). The checks' CUDA rule is lifted: the tables are on the CPU."""
+    monkeypatch.setattr(octree_grid, "_LOD_TABLES", {})
+    monkeypatch.setattr(octree_grid.kernels, "check", lambda *args, **kwargs: None)
     trinkets = [torch.zeros((3, 8), dtype=torch.int32) for _ in range(2)]
     feats = [torch.zeros((5, 16)), torch.zeros((7, 16))]
-    first = octree_grid._lod_arrays(trinkets, feats, [4, 5], 16)
-    trk, fts, lvl, vec = first
-    assert vec == octree_grid.interp_vector_width(16, [f.data_ptr() for f in feats])
-    assert list((ctypes.c_void_p * 2).from_address(trk)) == [t.data_ptr() for t in trinkets]
-    assert list((ctypes.c_void_p * 2).from_address(fts)) == [f.data_ptr() for f in feats]
-    assert list((ctypes.c_int * 2).from_address(lvl)) == [4, 5]
-    assert octree_grid._lod_arrays(trinkets, feats, [4, 5], 16) == first
-    assert len(octree_grid._LOD_ARRAYS) == 1
-    # another table, level or width is another entry; the cache stays bounded
-    assert octree_grid._lod_arrays(trinkets, feats[::-1], [4, 5], 16) != first
-    assert octree_grid._lod_arrays(trinkets, feats, [4, 6], 16)[2] != lvl
-    assert octree_grid._lod_arrays(trinkets, feats, [4, 5], 8)[3] in (1, 4)
-    assert len(octree_grid._LOD_ARRAYS) == 4
-    for k in range(2 * octree_grid._LOD_ARRAYS_MAX):
-        octree_grid._lod_arrays(trinkets, feats, [k, 5], 16)
-    assert len(octree_grid._LOD_ARRAYS) <= octree_grid._LOD_ARRAYS_MAX
+    first = octree_grid.lod_tables(trinkets, feats, [4, 5])
+    assert first.vec == octree_grid.interp_vector_width(16, [f.data_ptr() for f in feats])
+    assert first.group == (4 if first.vec == 4 else 16)
+    block = octree_grid._LodTables.from_address(first.address)
+    assert list(block.trinkets[:2]) == [t.data_ptr() for t in trinkets]
+    assert list(block.feats[:2]) == [f.data_ptr() for f in feats]
+    assert list(block.level[:2]) == [4, 5]
+    assert octree_grid.lod_tables(trinkets, feats, [4, 5]) is first
+    assert len(octree_grid._LOD_TABLES) == 1
+    # another table, level or width is another entry
+    assert octree_grid.lod_tables(trinkets, feats[::-1], [4, 5]) is not first
+    assert octree_grid.lod_tables(trinkets, feats, [4, 6]).address != first.address
+    narrow = [f[:, :8].contiguous() for f in feats]
+    assert octree_grid.lod_tables(trinkets, narrow, [4, 5]).vec in (1, 4)
+    assert len(octree_grid._LOD_TABLES) == 4
+    # the same addresses with another length or dtype: a new block, its length the new one
+    codes = torch.arange(100, dtype=torch.int32)
+    routes = [None] * 4 + [QueryRoute("search", codes[:60]),
+                           QueryRoute("search", codes)]
+    full = octree_grid.lod_tables(trinkets, feats, [4, 5], routes)
+    routes[5] = QueryRoute("search", codes[:40])
+    short = octree_grid.lod_tables(trinkets, feats, [4, 5], routes)
+    assert short is not full and routes[5].table.data_ptr() == codes.data_ptr()
+    assert list(octree_grid._LodTables.from_address(full.address).len[:2]) == [60, 100]
+    assert list(octree_grid._LodTables.from_address(short.address).len[:2]) == [60, 40]
+    assert list(octree_grid._LodTables.from_address(short.address).route[:2]) == [1, 1]
+    as_float = [trinkets[0].view(torch.float32), trinkets[1]]
+    assert octree_grid.lod_tables(as_float, feats, [4, 5]) is not first
+    # the cache stays bounded
+    for k in range(2 * octree_grid.LOD_TABLES_MAX):
+        octree_grid.lod_tables(trinkets, feats, [k, 5])
+    assert len(octree_grid._LOD_TABLES) <= octree_grid.LOD_TABLES_MAX
 
 
 @pytest.mark.parametrize("level", range(9))

@@ -88,23 +88,15 @@ struct LevelIndex {
   long long len[kMaxLevels];
 };
 
-__device__ __forceinline__ int quantize(float v, float half_res, int res) {
-  int q = (int)floorf((v + 1.0f) * half_res);
-  return min(max(q, 0), res - 1);
-}
-
 __global__ void octree_query_kernel(const float* __restrict__ coords, long long N, int level,
                                     LevelIndex index, int with_parents,
                                     int* __restrict__ out) {
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const float x = coords[3 * n], y = coords[3 * n + 1], z = coords[3 * n + 2];
-  const bool inside = x >= -1.0f && x <= 1.0f && y >= -1.0f && y <= 1.0f && z >= -1.0f &&
-                      z <= 1.0f;
-  const int res = 1 << level;
-  const float half_res = (float)res / 2.0f;
-  const int qx = quantize(x, half_res, res), qy = quantize(y, half_res, res),
-            qz = quantize(z, half_res, res);
+  const bool inside = wisp::in_query_box(x, y, z);
+  const int qx = wisp::quantize(x, level), qy = wisp::quantize(y, level),
+            qz = wisp::quantize(z, level);
   const int first = with_parents ? 0 : level;
   int* row = out + n * (long long)(level - first + 1);
   for (int l = first; l <= level; ++l) {

@@ -26,6 +26,41 @@
 // built without fused multiply-add, so the fractions equal the plain version's and the
 // blend differs only by the order of its float sums.
 //
+// The octree query folded into K15's forward (octree_query_interp).
+//
+// Replaces the same interpolate with its query: wisp_tpu/accelstructs/octree_as.py
+// OctreeAS.query (:199, K9) with parents, whose pidx [N, level + 1] goes to K15 and nowhere
+// else. The batch's first load becomes each LOD's cell lookup (octree_lookup.cuh
+// lookup_cell, every route: map, binary search, dense, bitfield) of the point's parent cell
+// q >> (query_level - level) at the LOD's level, q the point quantized at the query level,
+// and -1 at every LOD outside [-1, 1]^3 (bounds included): exactly K9's with_parents
+// column. The lanes of a point make the same lookup (broadcast loads, as they load the same
+// trinket row). Where the features need a gradient the cells [N, LODs] are written (by the
+// point's first lane) for K15's backward, which takes them as its pidx.
+//
+// Bound on this card: as K15's forward, less K9's pidx round trip through memory (4 bytes a
+// LOD written and read again) and its launch. Design: K15's, the lookups issued together
+// for a batch of 4 LODs in place of its pidx loads; one launch instead of two.
+//
+// K12's step folded in front of it (sphere_iter).
+//
+// Replaces one iteration of wisp_tpu/tracers/packed_sdf_tracer.py sphere_loop (:136-150) up
+// to the decoder: the step on the previous iteration's field (sphere_walker.cuh, the code of
+// sphere_step), the point o + t*d (product, then sum, as the plain version), then the fused
+// query and interpolation there, into the decoder's input row: the features, then the
+// point where the field takes the raw position (NeuralSDF's position_input with no
+// embedder); the row stride is the caller's (padded to 16 bytes for V = 4). A flag skips
+// the step (the loop's first iteration). A point's lanes form a group of a power of two
+// lanes (F/V rounded up) inside one warp: its first lane steps the ray and makes the point,
+// and the group takes them by shuffle, so no lane reads t after another wrote it. A ray
+// that is not alive after the step gets a row of zeros and no gathers: nothing reads that
+// row, since its t, alive and hit stay frozen (JAX's loop masks them). t, alive and hit
+// equal sphere_step's bit for bit.
+//
+// Bound on this card: as octree_query_interp at the live rays' points, plus 24 bytes of
+// ray, 10 of state and the field's 4 a ray, and one gather of the free-space field (8 MB at
+// level 7, in L2).
+//
 // K15 backward (octree_interp_bwd) replaces the feature gradient of the same JAX function:
 // octree_grid.py:87 _index_features -> ops/grid.py:37 gather_rows, whose custom VJP
 // (:55 _gather_rows_bwd) scatter-adds the corner cotangents into each LOD's table, one
@@ -56,15 +91,23 @@
 // table and flushed with one global add a touched entry a block, so a hot row takes one add
 // a block instead of one a point. Sums differ from the plain version's only in their order.
 #include "common.cuh"
+#include "octree_lookup.cuh"
+#include "sphere_walker.cuh"
 
 namespace {
 
 constexpr int kMaxLods = 16;
 
+// The LODs' tables. The fused query (kQuery, kRays) also reads each LOD's cell lookup at
+// its level: route (wisp::Route), table and length. Every forward entry point takes this
+// struct whole from the host (octree_grid.py's _LodTables, built once a set of tables)
 struct Lods {
   const int* trinkets[kMaxLods];
   const float* feats[kMaxLods];
+  const void* table[kMaxLods];
+  long long len[kMaxLods];
   int level[kMaxLods];
+  int route[kMaxLods];
 };
 
 __device__ __forceinline__ void cell_frac(float c, int level, float& frac) {
@@ -150,29 +193,133 @@ __device__ __forceinline__ void trinket_row(const int* table, int p, int rows[8]
   }
 }
 
-template <int V>
+// Where the forward finds a point's cells: the given pidx columns (K15), the point's own
+// query (kQuery: K9 folded in) or a ray's point after its sphere step (kRays)
+enum Mode { kGivenCells = 0, kQuery = 1, kRays = 2 };
+
+struct FwdArgs {
+  const float* coords;        // kGivenCells, kQuery: [N, 3]
+  const int* pidx;            // kGivenCells: [N, P], LOD i in column col0 + i
+  int P, col0;
+  long long N;
+  int F, n_lods, sum;
+  int query_level;            // kQuery, kRays: the level the point is quantized at
+  int group;                  // kRays: lanes a point (a power of two that divides 32)
+  float* out;                 // row n at out + n * out_stride: F ('sum') or F * n_lods floats
+  long long out_stride;
+  int xyz_col;                // kRays: the point's column in the row, or -1
+  int* cells;                 // kQuery: the looked-up cells [N, n_lods], or null
+  // kRays: the rays, their state (t, alive, hit: updated by the step) and the previous
+  // iteration's field, read in column 0 of d (row stride d_stride)
+  const float* origins;
+  const float* dirs;
+  float* t;
+  uint8_t* alive;
+  uint8_t* hit;
+  const float* t_far;
+  const float* d;
+  long long d_stride;
+  const int* free_dist;
+  int level, do_step;
+  float step_size, min_dis;
+};
+
+// kRays: ray r's sphere step (where do_step) and its point; false where the ray is not alive
+// after it (its t, alive and hit as sphere_step leaves them)
+__device__ __forceinline__ bool ray_point(const FwdArgs& a, long long r, float& px, float& py,
+                                          float& pz) {
+  if (!a.alive[r]) return false;
+  wisp::Walker w;
+  w.init(a.origins, a.dirs, r, a.level);
+  float t = a.t[r];
+  if (a.do_step) {
+    if (w.step(a.free_dist, t, __ldg(a.d + r * a.d_stride), a.step_size, a.min_dis)) {
+      a.hit[r] = 1;
+      a.alive[r] = 0;
+      return false;
+    }
+    a.t[r] = t;
+    if (!(t <= a.t_far[r])) {
+      a.alive[r] = 0;
+      return false;
+    }
+  }
+  w.point(t, px, py, pz);
+  return true;
+}
+
+template <int V, int MODE>
 __global__ void __launch_bounds__(kInterpThreads, 1)
-    octree_interp_kernel(const float* __restrict__ coords, const int* __restrict__ pidx,
-                         long long N, int P, int col0, int n_lods, int F, Lods lods, int sum,
-                         float* __restrict__ out) {
+    octree_interp_kernel(const FwdArgs a, const Lods lods) {
   using Fv = Feat<V>;
-  const int lanes = F / V;
+  const int F = a.F, n_lods = a.n_lods;
+  const int group = MODE == kRays ? a.group : F / V;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= N * lanes) return;
-  const long long n = tid / lanes;
-  const int f = (int)(tid - n * lanes) * V;
-  const float x = __ldg(coords + 3 * n), y = __ldg(coords + 3 * n + 1),
-              z = __ldg(coords + 3 * n + 2);
-  const int* prow = pidx + n * P + col0;
+  const long long n = tid / group;
+  const int f = (int)(tid - n * group) * V;
+  float* orow = a.out + n * a.out_stride;
+  float x, y, z;
+  if (MODE == kRays) {
+    // the first lane of a point's group steps its ray and makes the point; the group lies in
+    // one warp and takes them by shuffle (every lane of the warp reaches the shuffles)
+    float px = 0.0f, py = 0.0f, pz = 0.0f;
+    int live = 0;
+    if (f == 0 && n < a.N) live = ray_point(a, n, px, py, pz);
+    const int src = (threadIdx.x & 31) & ~(group - 1);
+    x = __shfl_sync(wisp::kFullMask, px, src);
+    y = __shfl_sync(wisp::kFullMask, py, src);
+    z = __shfl_sync(wisp::kFullMask, pz, src);
+    live = __shfl_sync(wisp::kFullMask, live, src);
+    if (n >= a.N || f >= F) return;
+    if (!live) {
+      // nothing reads the row of a ray that is not alive (its t, alive and hit stay frozen):
+      // zeros, no gathers
+      const int slots = a.sum ? 1 : n_lods;
+      for (int i = 0; i < slots; ++i) Fv::store(orow + (long long)i * F + f, Fv::zero());
+      if (a.xyz_col >= 0 && f == 0) {
+        orow[a.xyz_col] = 0.0f;
+        orow[a.xyz_col + 1] = 0.0f;
+        orow[a.xyz_col + 2] = 0.0f;
+      }
+      return;
+    }
+  } else {
+    if (n >= a.N) return;
+    x = __ldg(a.coords + 3 * n);
+    y = __ldg(a.coords + 3 * n + 1);
+    z = __ldg(a.coords + 3 * n + 2);
+  }
+  bool inside = true;
+  int qx = 0, qy = 0, qz = 0;
+  if (MODE != kGivenCells) {
+    inside = wisp::in_query_box(x, y, z);
+    qx = wisp::quantize(x, a.query_level);
+    qy = wisp::quantize(y, a.query_level);
+    qz = wisp::quantize(z, a.query_level);
+  }
   typename Fv::T acc = Fv::zero();
   // the batches unrolled, so that every LOD slot's index into `lods` is a constant
 #pragma unroll
   for (int base = 0; base < kMaxLods; base += kLodBatch) {
     if (base < n_lods) {
+      // the batch's first load: each LOD's cell, from pidx or by the lookup of K9's
+      // with_parents column (the parent cell q >> (query_level - level) at its level)
       int p[kLodBatch];
 #pragma unroll
-      for (int j = 0; j < kLodBatch; ++j)
-        p[j] = base + j < n_lods ? __ldg(prow + base + j) : -1;
+      for (int j = 0; j < kLodBatch; ++j) {
+        const int i = base + j;
+        if (i >= n_lods) {
+          p[j] = -1;
+        } else if (MODE == kGivenCells) {
+          p[j] = __ldg(a.pidx + n * a.P + a.col0 + i);
+        } else {
+          const int s = a.query_level - lods.level[i];
+          p[j] = inside ? wisp::lookup_cell(lods.route[i], lods.table[i], lods.len[i],
+                                            lods.level[i], qx >> s, qy >> s, qz >> s)
+                        : -1;
+          if (MODE == kQuery && a.cells != nullptr && f == 0) a.cells[n * n_lods + i] = p[j];
+        }
+      }
       int rows[kLodBatch][8];
 #pragma unroll
       for (int j = 0; j < kLodBatch; ++j) {
@@ -200,16 +347,62 @@ __global__ void __launch_bounds__(kInterpThreads, 1)
               Fv::axpy(fs, v[c], wx * wy * wz);
             }
           }
-          if (sum) {
+          if (a.sum) {
             Fv::add(acc, fs);
           } else {
-            Fv::store(out + n * (long long)F * n_lods + (long long)i * F + f, fs);
+            Fv::store(orow + (long long)i * F + f, fs);
           }
         }
       }
     }
   }
-  if (sum) Fv::store(out + n * F + f, acc);
+  if (a.sum) Fv::store(orow + f, acc);
+  if (MODE == kRays && a.xyz_col >= 0 && f == 0) {
+    orow[a.xyz_col] = x;
+    orow[a.xyz_col + 1] = y;
+    orow[a.xyz_col + 2] = z;
+  }
+}
+
+template <int MODE>
+cudaError_t launch_fwd(const FwdArgs& a, const Lods& lods, int vec, cudaStream_t stream) {
+  const long long threads = a.N * (MODE == kRays ? a.group : a.F / vec);
+  if (threads > 0) {
+    const int blocks = wisp::ceil_div(threads, kInterpThreads);
+    if (vec == 4) {
+      octree_interp_kernel<4, MODE><<<blocks, kInterpThreads, 0, stream>>>(a, lods);
+    } else {
+      octree_interp_kernel<1, MODE><<<blocks, kInterpThreads, 0, stream>>>(a, lods);
+    }
+  }
+  return cudaGetLastError();
+}
+
+// The forward's checks of the LODs and the output: n_lods LODs, F features, vec 4 only where
+// F % 4 == 0 and every table, the output and its row stride are on 16 bytes
+bool fwd_ok(const Lods& lods, int n_lods, int F, int vec, const float* out,
+            long long out_stride) {
+  if (n_lods < 1 || n_lods > kMaxLods || F < 1 || (vec != 1 && vec != 4) || F % vec)
+    return false;
+  if (vec == 4) {
+    if ((reinterpret_cast<uintptr_t>(out) & 15) || out_stride % 4) return false;
+    for (int i = 0; i < n_lods; ++i)
+      if (reinterpret_cast<uintptr_t>(lods.feats[i]) & 15) return false;
+  }
+  return true;
+}
+
+// The fused query's checks of each LOD's lookup and level: a route, a search table that is
+// not empty, levels at most the query level
+bool query_ok(const Lods& lods, int n_lods, int query_level) {
+  if (query_level < 0 || query_level >= wisp::kMaxLevels) return false;
+  for (int i = 0; i < n_lods; ++i) {
+    const int r = lods.route[i];
+    if (r < wisp::kMap || r > wisp::kBitfield || (r == wisp::kSearch && lods.len[i] < 1) ||
+        lods.level[i] < 0 || lods.level[i] > query_level)
+      return false;
+  }
+  return true;
 }
 
 struct LodGrads {
@@ -301,36 +494,99 @@ cudaError_t launch_bwd(const float* coords, const int* pidx, long long N, int P,
 
 }  // namespace
 
-// trinkets, feats: host arrays of n_lods device pointers; levels: host array of n_lods ints.
-// vec: features a lane, 4 (F % 4 == 0 and every feats[i] and out on 16 bytes) or 1.
+// K15 at given cells. lods_host: the host's Lods (the LODs' tables and levels; its lookups
+// are not read). vec: features a lane, 4 (F % 4 == 0 and every feats[i] and out on 16 bytes)
+// or 1.
 WISP_EXPORT int wisp_octree_interp(const float* coords, const int* pidx, long long N, int P,
-                                   int col0, int n_lods, int F, const int* const* trinkets,
-                                   const float* const* feats, const int* levels, int sum,
+                                   int col0, int n_lods, int F, const void* lods_host, int sum,
                                    int vec, float* out, void* stream) {
-  if (n_lods < 1 || n_lods > kMaxLods || F < 1 || (vec != 1 && vec != 4) || F % vec)
+  const Lods& lods = *static_cast<const Lods*>(lods_host);
+  FwdArgs a = {};
+  a.coords = coords;
+  a.pidx = pidx;
+  a.P = P;
+  a.col0 = col0;
+  a.N = N;
+  a.F = F;
+  a.n_lods = n_lods;
+  a.sum = sum;
+  a.out = out;
+  a.out_stride = sum ? F : (long long)F * n_lods;
+  if (!fwd_ok(lods, n_lods, F, vec, out, a.out_stride)) return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd<kGivenCells>(a, lods, vec, (cudaStream_t)stream);
+}
+
+// The octree query folded into K15 (octree_query_interp). lods_host: the host's Lods (the
+// LODs' tables, levels and lookups); the point is quantized at query_level, and LOD i's
+// cell is K9's with_parents column lods.level[i]. out: [N, F] ('sum') or [N, F * n_lods]; cells:
+// [N, n_lods] int32, or null.
+WISP_EXPORT int wisp_octree_query_interp(const float* coords, long long N, int query_level,
+                                         int n_lods, int F, const void* lods_host, int sum,
+                                         int vec, float* out, int* cells, void* stream) {
+  const Lods& lods = *static_cast<const Lods*>(lods_host);
+  FwdArgs a = {};
+  a.coords = coords;
+  a.N = N;
+  a.F = F;
+  a.n_lods = n_lods;
+  a.sum = sum;
+  a.query_level = query_level;
+  a.out = out;
+  a.out_stride = sum ? F : (long long)F * n_lods;
+  a.cells = cells;
+  if (!fwd_ok(lods, n_lods, F, vec, out, a.out_stride) || !query_ok(lods, n_lods, query_level))
     return (int)cudaErrorInvalidValue;
-  Lods lods = {};
-  for (int i = 0; i < n_lods; ++i) {
-    if (vec == 4 && (reinterpret_cast<uintptr_t>(feats[i]) & 15))
-      return (int)cudaErrorInvalidValue;
-    lods.trinkets[i] = trinkets[i];
-    lods.feats[i] = feats[i];
-    lods.level[i] = levels[i];
-  }
-  if (vec == 4 && (reinterpret_cast<uintptr_t>(out) & 15)) return (int)cudaErrorInvalidValue;
-  const long long total = N * (long long)(F / vec);
-  if (total > 0) {
-    const int blocks = wisp::ceil_div(total, kInterpThreads);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (vec == 4) {
-      octree_interp_kernel<4><<<blocks, kInterpThreads, 0, s>>>(coords, pidx, N, P, col0,
-                                                               n_lods, F, lods, sum, out);
-    } else {
-      octree_interp_kernel<1><<<blocks, kInterpThreads, 0, s>>>(coords, pidx, N, P, col0,
-                                                               n_lods, F, lods, sum, out);
-    }
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_fwd<kQuery>(a, lods, vec, (cudaStream_t)stream);
+}
+
+// K12's step folded in front of the query and interpolation (sphere_iter): per ray, where
+// do_step, one sphere_step on t, alive and hit given column 0 of d (row stride d_stride);
+// then, for a ray still alive, the features at o + t*d into row r of out (row stride
+// out_stride) and, where xyz_col >= 0, the point at columns xyz_col..xyz_col + 2; a ray that
+// is not alive gets a row of zeros. free_dist and level: the max level's free-space field.
+// group: a ray's lanes, the host's (octree_grid.py ray_lanes): a power of two of at most 32
+// with group * vec >= F.
+WISP_EXPORT int wisp_sphere_iter(const float* origins, const float* dirs, float* t,
+                                 uint8_t* alive, uint8_t* hit, const float* t_far,
+                                 const float* d, long long d_stride, const int* free_dist,
+                                 long long N, int level, float step_size, float min_dis,
+                                 int do_step, int query_level, int n_lods, int F,
+                                 const void* lods_host, int sum, int vec, int group,
+                                 float* out, long long out_stride, int xyz_col,
+                                 void* stream) {
+  const Lods& lods = *static_cast<const Lods*>(lods_host);
+  FwdArgs a = {};
+  a.N = N;
+  a.F = F;
+  a.n_lods = n_lods;
+  a.sum = sum;
+  a.query_level = query_level;
+  a.out = out;
+  a.out_stride = out_stride;
+  a.xyz_col = xyz_col;
+  a.origins = origins;
+  a.dirs = dirs;
+  a.t = t;
+  a.alive = alive;
+  a.hit = hit;
+  a.t_far = t_far;
+  a.d = d;
+  a.d_stride = d_stride;
+  a.free_dist = free_dist;
+  a.level = level;
+  a.do_step = do_step;
+  a.step_size = step_size;
+  a.min_dis = min_dis;
+  a.group = group;
+  const long long width = sum ? F : (long long)F * n_lods;
+  if (!fwd_ok(lods, n_lods, F, vec, out, out_stride) || !query_ok(lods, n_lods, query_level)
+      || group < 1 || group > 32 || (group & (group - 1)) || (long long)group * vec < F
+      || level < 0 || level >= wisp::kMaxLevels
+      || (do_step && (d == nullptr || d_stride < 1))
+      || out_stride < width + (xyz_col >= 0 ? 3 : 0)
+      || (xyz_col >= 0 && xyz_col != width))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd<kRays>(a, lods, vec, (cudaStream_t)stream);
 }
 
 // trinkets, grads: host arrays of n_lods device pointers (grads zero-filled by the caller);

@@ -1,7 +1,8 @@
-// The octree's cell lookup by route, shared by K9 (octree.cu), K10 (octree.cu) and K13
-// (sphere_trace.cu): one level's cell index from the cell's integer coordinates, by the
-// route the wrapper chose for the level (OctreeAS.query_routes; the routes of
-// wisp_tpu/accelstructs/octree_as.py query :199-240 and raytrace's occupied() :349-369).
+// The octree's cell lookup by route, shared by K9 (octree.cu), K10 (octree.cu), K13
+// (sphere_trace.cu) and the fused query of octree_grid.cu: one level's cell index from the
+// cell's integer coordinates, by the route the wrapper chose for the level
+// (OctreeAS.query_routes; the routes of wisp_tpu/accelstructs/octree_as.py query :199-240
+// and raytrace's occupied() :349-369), and K9's quantization and box test.
 #pragma once
 
 #include "common.cuh"
@@ -42,6 +43,20 @@ __device__ __forceinline__ int search_code(const int* __restrict__ table, long l
   }
   const long long i = min(lo, n - 1);
   return __ldg(table + i) == c ? (int)i : -1;
+}
+
+// K9's quantization of a coordinate at `level`: floor((v + 1) * res / 2) clipped to
+// [0, res) (ops/spc/core.py quantize_points)
+__device__ __forceinline__ int quantize(float v, int level) {
+  const int res = 1 << level;
+  const float half_res = (float)res / 2.0f;
+  return min(max((int)floorf((v + 1.0f) * half_res), 0), res - 1);
+}
+
+// K9's box test, [-1, 1] on every axis, bounds included: a point outside gets -1 at every
+// level
+__device__ __forceinline__ bool in_query_box(float x, float y, float z) {
+  return x >= -1.0f && x <= 1.0f && y >= -1.0f && y <= 1.0f && z >= -1.0f && z <= 1.0f;
 }
 
 // The index of cell (x, y, z), each in [0, 2^l), at level l by `route`; -1 = not occupied.

@@ -37,54 +37,11 @@
 // count takes one atomic per overflowing ray.
 #include "common.cuh"
 #include "octree_lookup.cuh"
+#include "sphere_walker.cuh"
 
 namespace {
 
-constexpr int kOutside = 1 << 30;
-
-struct Walker {
-  float ox, oy, oz, dx, dy, dz;
-  int level, res;
-  float half_res, voxel, eps_step;
-
-  __device__ void init(const float* origins, const float* dirs, long long r, int lvl) {
-    ox = origins[3 * r]; oy = origins[3 * r + 1]; oz = origins[3 * r + 2];
-    dx = dirs[3 * r]; dy = dirs[3 * r + 1]; dz = dirs[3 * r + 2];
-    level = lvl;
-    res = 1 << lvl;
-    half_res = (float)res / 2.0f;
-    voxel = 2.0f / (float)res;
-    eps_step = (float)(1e-3 * (double)voxel);
-  }
-
-  // free-space distance at depth t; writes the point
-  __device__ int fsd(const int* __restrict__ free_dist, float t, float& px, float& py,
-                     float& pz) const {
-    px = ox + t * dx;
-    py = oy + t * dy;
-    pz = oz + t * dz;
-    const bool inside = px >= -1.0f && px < 1.0f && py >= -1.0f && py < 1.0f &&
-                        pz >= -1.0f && pz < 1.0f;
-    if (!inside) return kOutside;
-    const int qx = min(max((int)floorf((px + 1.0f) * half_res), 0), res - 1);
-    const int qy = min(max((int)floorf((py + 1.0f) * half_res), 0), res - 1);
-    const int qz = min(max((int)floorf((pz + 1.0f) * half_res), 0), res - 1);
-    return __ldg(free_dist + ((long long)qx * res + qy) * res + qz);
-  }
-
-  __device__ float plane_dt(float p, float d) const {
-    const float q = floorf((p + 1.0f) / voxel);
-    const float next_plane = -1.0f + (q + (d > 0.0f ? 1.0f : 0.0f)) * voxel;
-    const float dt = fabsf(d) > 1e-12f ? (next_plane - p) / d : INFINITY;
-    return fmaxf(dt, 0.0f);
-  }
-
-  __device__ float free_step(int k, float px, float py, float pz) const {
-    const float skip = ((float)k - 1.0f) * voxel;
-    const float dt = fminf(fminf(plane_dt(px, dx), plane_dt(py, dy)), plane_dt(pz, dz));
-    return fmaxf(skip, dt + eps_step);
-  }
-};
+using wisp::Walker;
 
 __global__ void sdf_walk_kernel(const float* __restrict__ origins,
                                 const float* __restrict__ dirs, float* __restrict__ t_io,
@@ -126,26 +83,14 @@ __global__ void sphere_step_kernel(const float* __restrict__ origins,
   if (!alive_io[r]) return;
   Walker w;
   w.init(origins, dirs, r, level);
-  const float t = t_io[r];
-  const float d = d_in[r];
-  float px, py, pz;
-  const int k = w.fsd(free_dist, t, px, py, pz);
-  const bool in_occ = k == 0;
-  if (in_occ && fabsf(d) < min_dis) {
+  float t = t_io[r];
+  if (w.step(free_dist, t, d_in[r], step_size, min_dis)) {
     hit_io[r] = 1;
     alive_io[r] = 0;
     return;
   }
-  float step;
-  if (in_occ) {
-    const float v = d * step_size;
-    step = v < 0.0f ? 0.0f : v;   // max(v, 0), NaN kept as JAX's maximum keeps it
-  } else {
-    step = w.free_step(k, px, py, pz);
-  }
-  const float t_new = t + step;
-  t_io[r] = t_new;
-  alive_io[r] = (uint8_t)(t_new <= t_far_in[r]);
+  t_io[r] = t;
+  alive_io[r] = (uint8_t)(t <= t_far_in[r]);
 }
 
 
@@ -178,9 +123,7 @@ __global__ void spc_trace_kernel(const float* __restrict__ origins,
       }
     }
   }
-  px = w.ox + t * w.dx;
-  py = w.oy + t * w.dy;
-  pz = w.oz + t * w.dz;
+  w.point(t, px, py, pz);
   const bool inside = px >= -1.0f && px < 1.0f && py >= -1.0f && py < 1.0f && pz >= -1.0f &&
                       pz < 1.0f;
   int qx = 0, qy = 0, qz = 0;

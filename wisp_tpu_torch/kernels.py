@@ -44,7 +44,8 @@ LAUNCHES: Dict[str, int] = {"raymarch_ray": 0, "compact": 0, "scatter_back": 0,
                             "scatter_max_acc": 0, "octree_query_search": 0,
                             "compact_rays": 0, "compact_rays_mid": 0, "scatter_rays": 0,
                             "scatter_rays_mid": 0, "closest_point": 0, "raymarch_uniform": 0,
-                            "raytrace": 0, "spc_trace": 0, "hashgrid_query": 0}
+                            "raytrace": 0, "spc_trace": 0, "hashgrid_query": 0,
+                            "octree_query_interp": 0, "sphere_iter": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,8 +101,14 @@ _SIGNATURES = {
     "wisp_scatter_rows": [_P, _P, _L, _I, _L, _P, _P],
     # occ level cap bits dist stream
     "wisp_free_space_distance": [_P, _I, _I, _P, _P, _P],
-    # coords pidx N P col0 n_lods F trinkets feats levels (host arrays) sum vec out stream
-    "wisp_octree_interp": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+    # coords pidx N P col0 n_lods F lods (host struct) sum vec out stream
+    "wisp_octree_interp": [_P, _P, _L, _I, _I, _I, _I, _P, _I, _I, _P, _P],
+    # coords N query_level n_lods F lods (host struct) sum vec out cells stream
+    "wisp_octree_query_interp": [_P, _L, _I, _I, _I, _P, _I, _I, _P, _P, _P],
+    # origins dirs t alive hit t_far d d_stride free_dist N level step_size min_dis do_step
+    # query_level n_lods F lods (host struct) sum vec group out out_stride xyz_col stream
+    "wisp_sphere_iter": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _I, _F, _F, _I, _I, _I, _I,
+                         _P, _I, _I, _I, _P, _L, _I, _P],
     # coords pidx N P col0 n_lods F trinkets grads levels shared_rows (host arrays) sum vec
     # grad_out stream
     "wisp_octree_interp_bwd": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],

@@ -3,37 +3,46 @@ wisp_tpu/models/grids/octree_grid.py).
 
 Features live on the dual octree's vertices (cell corners) of each active LOD
 (base_lod = max_level - num_lods + 1 .. max_level), one ``nn.Parameter`` [V_l, F] per LOD;
-the trinkets [N_l, 8] give each cell's 8 corner rows. ``interpolate`` queries the cells of
-every LOD in one ancestor-chain query (K9), then blends each LOD's 8 corner features
-trilinearly and sums or concatenates the LODs; a point in an empty cell gets zeros.
+the trinkets [N_l, 8] give each cell's 8 corner rows. ``interpolate`` finds each point's
+cell at every LOD (the ancestor-chain query, K9), blends each LOD's 8 corner features
+trilinearly and sums or concatenates the LODs; a point in an empty cell gets zeros. With
+'linear' interpolation both run in one kernel, ``octree_query_interp``; 'closest' queries,
+then gathers.
 
-``octree_interp`` is kernel K15 (``csrc/octree_grid.cu``): on a CUDA tensor it launches the
-kernel, on a CPU tensor it runs ``octree_interp_plain``; ``interp_vector_width`` picks the
-forward's route (features a lane) from F and the tables' alignment, and the backward's
-too (with ``bwd_shared_lods``, the LODs it sums in shared memory first). On the card, a call
-that needs the features' gradient goes through an ``autograd.Function`` whose backward
-launches K15's backward kernel (``octree_interp_bwd``); the gradient with respect to the
-coordinates is not ported, and asking for it on the card raises. On the CPU the plain
-version keeps its own autograd.
+``octree_interp`` is kernel K15 (``csrc/octree_grid.cu``) at given cells: on a CUDA tensor it
+launches the kernel's forward, on a CPU tensor it runs ``octree_interp_plain``. No path of
+the package calls it any more: it is the unfused design that the fused one is timed
+against. ``interp_vector_width`` picks the forward's route (features a lane) from F and the
+tables' alignment, and the backward's too (with ``bwd_shared_lods``, the LODs it sums in
+shared memory first). ``lod_tables`` builds and keeps the tables' argument block that every
+forward entry point reads.
+``octree_query_interp`` is the query folded into K15's forward (the same source): each LOD's
+first load is the cell's lookup by its level's route (``OctreeAS.query_routes``), so K9's
+pidx never goes through memory. On the card, a call that needs the features' gradient goes
+through an ``autograd.Function`` whose backward launches K15's backward kernel
+(``octree_interp_bwd``) on the cells the forward looked up (its side output); the gradient
+with respect to the coordinates is not ported, and asking for it on the card raises. On the
+CPU the plain versions keep their own autograd.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from wisp_tpu_torch import kernels
+from wisp_tpu_torch.accelstructs.octree_as import octree_query_plain, route_args
 from wisp_tpu_torch.device import DeviceLike, resolve_device
 from wisp_tpu_torch.models.grids.blas_grid import BLASGrid
 from wisp_tpu_torch.ops.grid import grid_interpolate
 from wisp_tpu_torch.ops.spc.core import make_dual, quantize_points
 
 MAX_LODS = 16  # LOD slots in the kernel's argument block
-_LOD_ARRAYS_MAX = 64  # entries of the forward's cache of host pointer arrays
+LOD_TABLES_MAX = 64  # entries of the forward kernels' cache of LOD tables (lod_tables)
 # K15 backward: the shared memory one LOD's table may take (csrc/octree_grid.cu
 # kBwdSharedBytes), and the corner adds a row, on average, from which a LOD that fits is
 # summed there first (a shared float add costs about a quarter of a scattered L2 one, so a
@@ -87,43 +96,17 @@ def interp_vector_width(f_dim: int, feature_ptrs: Sequence[int]) -> int:
     return 4 if f_dim % 4 == 0 and all(p % 16 == 0 for p in feature_ptrs) else 1
 
 
-# (trinket pointers, feature pointers, levels, F) -> the forward's host arrays and route
-_LOD_ARRAYS = {}
-
-
-def _lod_arrays(trinkets, features, levels, f_dim):
-    """The host arrays of the LODs' device pointers and levels that ``wisp_octree_interp``
-    copies into its kernel's parameters, and the route: built once for a set of tables and
-    kept, keyed on their device pointers."""
-    trk_ptrs = tuple(t.data_ptr() for t in trinkets)
-    fts_ptrs = tuple(f.data_ptr() for f in features)
-    key = (trk_ptrs, fts_ptrs, tuple(levels), f_dim)
-    found = _LOD_ARRAYS.get(key)
-    if found is None:
-        if len(_LOD_ARRAYS) >= _LOD_ARRAYS_MAX:
-            _LOD_ARRAYS.clear()
-        trk = (ctypes.c_void_p * len(trk_ptrs))(*trk_ptrs)
-        fts = (ctypes.c_void_p * len(fts_ptrs))(*fts_ptrs)
-        lvl = (ctypes.c_int * len(levels))(*levels)
-        found = _LOD_ARRAYS[key] = (ctypes.addressof(trk), ctypes.addressof(fts),
-                                    ctypes.addressof(lvl), interp_vector_width(f_dim, fts_ptrs),
-                                    (trk, fts, lvl))
-    return found[:4]
-
-
 def _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type):
     """Launch K15's forward kernel."""
     f_dim = features[0].shape[1]
     n, n_lods = _check_geometry(coords, pidx, col0, trinkets, levels, multiscale_type)
-    for i in range(n_lods):
-        kernels.check(features[i], f"features[{i}]", torch.float32, (None, f_dim))
+    tabs = lod_tables(trinkets, features, levels)
     out = torch.empty((n, f_dim if multiscale_type == "sum" else f_dim * n_lods),
                       dtype=torch.float32, device=coords.device)
     if n:
-        trk, fts, lvl, vec = _lod_arrays(trinkets, features, levels, f_dim)
         kernels.launch("wisp_octree_interp", "octree_interp", coords.data_ptr(),
-                       pidx.data_ptr(), n, pidx.shape[1], int(col0), n_lods, f_dim, trk, fts,
-                       lvl, int(multiscale_type == "sum"), vec, out.data_ptr())
+                       pidx.data_ptr(), n, pidx.shape[1], int(col0), n_lods, f_dim,
+                       tabs.address, int(multiscale_type == "sum"), tabs.vec, out.data_ptr())
     return out
 
 
@@ -186,27 +169,6 @@ def octree_interp_bwd(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
     return grads
 
 
-class _OctreeInterpFn(torch.autograd.Function):
-    """K15 on the card with its backward kernel. Saves coords and pidx; the weights are
-    recomputed in the backward."""
-
-    @staticmethod
-    def forward(ctx, coords, pidx, col0, trinkets, levels, multiscale_type, *features):
-        ctx.save_for_backward(coords, pidx)
-        ctx.geometry = (col0, trinkets, levels, multiscale_type,
-                        [f.shape[0] for f in features], features[0].shape[1])
-        return _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        coords, pidx = ctx.saved_tensors
-        col0, trinkets, levels, multiscale_type, rows, f_dim = ctx.geometry
-        grads = octree_interp_bwd(coords, pidx, col0, trinkets, rows, f_dim, levels,
-                                  multiscale_type, grad_out.float().contiguous())
-        return (None,) * 6 + tuple(g if need else None
-                                   for g, need in zip(grads, ctx.needs_input_grad[6:]))
-
-
 def octree_interp(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
                   trinkets: Sequence[torch.Tensor], features: Sequence[torch.Tensor],
                   levels: Sequence[int], multiscale_type: str = "sum") -> torch.Tensor:
@@ -217,19 +179,182 @@ def octree_interp(coords: torch.Tensor, pidx: torch.Tensor, col0: int,
     ``features[i]`` [V_i, F] float32 and its octree level. Corner c of a cell sits at offset
     (c>>2, (c>>1)&1, c&1), z fastest; the fraction inside the cell is
     clip((c+1)*(res/2) - cell, 0, 1). Returns [N, F] ('sum', LODs added in order) or
-    [N, F * LODs] ('cat'), differentiable in the features."""
+    [N, F * LODs] ('cat'). On the CPU (the plain version) it is differentiable; on the card it
+    is the forward alone (the features' gradient goes through ``octree_query_interp``), and
+    asking for a gradient raises."""
     if not coords.is_cuda:
         return octree_interp_plain(coords, pidx, col0, trinkets, features, levels,
                                    multiscale_type)
-    if not torch.is_grad_enabled():
-        return _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type)
-    if coords.requires_grad:
-        raise NotImplementedError("octree_interp: the gradient with respect to the "
-                                  "coordinates is not ported; detach them")
-    if any(f.requires_grad for f in features):
-        return _OctreeInterpFn.apply(coords, pidx, col0, list(trinkets), list(levels),
-                                     multiscale_type, *features)
+    if torch.is_grad_enabled() and (coords.requires_grad
+                                    or any(f.requires_grad for f in features)):
+        raise NotImplementedError("octree_interp: no gradient on the card; "
+                                  "octree_query_interp carries the features' gradient")
     return _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type)
+
+
+class _LodTables(ctypes.Structure):
+    """The LODs' tables, levels and cell lookups as ``csrc/octree_grid.cu``'s ``Lods``
+    (every forward entry point copies it into its kernel's parameters)."""
+    _fields_ = [("trinkets", ctypes.c_void_p * MAX_LODS),
+                ("feats", ctypes.c_void_p * MAX_LODS),
+                ("table", ctypes.c_void_p * MAX_LODS), ("len", ctypes.c_longlong * MAX_LODS),
+                ("level", ctypes.c_int * MAX_LODS), ("route", ctypes.c_int * MAX_LODS)]
+
+
+class LodTables(NamedTuple):
+    """A set of LOD tables as the forward kernels read them: the address of their
+    ``_LodTables``, the features a lane and a ray's lanes in ``sphere_iter`` (``ray_lanes``),
+    and the struct itself, kept alive."""
+    address: int
+    vec: int
+    group: int
+    struct: _LodTables
+
+
+def ray_lanes(features: Sequence[torch.Tensor]) -> Tuple[int, int]:
+    """(features a lane, lanes a ray) of the forward kernels on these feature tables [V_i,
+    F]: ``interp_vector_width`` of their addresses, and ``sphere_iter``'s group, F / vec
+    rounded up to a power of two (a group lies in one warp: more than 32 lanes cannot take
+    the fused iteration)."""
+    f_dim = features[0].shape[1]
+    vec = interp_vector_width(f_dim, [f.data_ptr() for f in features])
+    group = 1
+    while group * vec < f_dim:
+        group *= 2
+    return vec, group
+
+
+def _table_key(t: Optional[torch.Tensor]):
+    """What the checks and the struct read of a table: its address, dtype, shape and
+    layout (an address alone may come back for another table once the first is freed)."""
+    return None if t is None else (t.data_ptr(), t.dtype, t.shape, t.is_contiguous())
+
+
+# the tables' keys (trinkets, features, levels, routes) -> their LodTables
+_LOD_TABLES = {}
+
+
+def lod_tables(trinkets, features, levels, routes=None) -> LodTables:
+    """The ``LodTables`` of the LODs' trinkets [N_i, 8] int32 and features [V_i, F] float32
+    at ``levels`` and, where ``routes`` is given (the fused query), each level's cell lookup
+    ``routes[level]``: checked and built once and kept, keyed on everything that the checks
+    and the struct read of each table, so that a new table at a freed one's address is
+    checked and read anew."""
+    key = (tuple(_table_key(t) for t in trinkets), tuple(_table_key(f) for f in features),
+           tuple(levels), None if routes is None else
+           tuple(None if routes[l] is None else (routes[l].kind, _table_key(routes[l].table))
+                 for l in levels))
+    found = _LOD_TABLES.get(key)
+    if found is None:
+        n_lods, f_dim = len(levels), features[0].shape[1]
+        if not 1 <= n_lods <= MAX_LODS or len(trinkets) != n_lods or len(features) != n_lods:
+            raise ValueError(f"octree_interp: {n_lods} LODs")
+        tables = _LodTables()
+        for i, level in enumerate(levels):
+            kernels.check(trinkets[i], f"trinkets[{i}]", torch.int32, (None, 8))
+            kernels.check(features[i], f"features[{i}]", torch.float32, (None, f_dim))
+            tables.trinkets[i] = trinkets[i].data_ptr()
+            tables.feats[i] = features[i].data_ptr()
+            tables.level[i] = level
+        if routes is not None:
+            if list(levels) != list(range(levels[0], levels[0] + n_lods)) or levels[-1] > 10:
+                raise ValueError(f"octree_query_interp: LOD levels {list(levels)} are not "
+                                 f"consecutive levels of an octree of at most 10")
+            for i, level in enumerate(levels):
+                if routes[level] is None:
+                    raise ValueError(f"octree_query_interp: level {level} has no query route")
+                code, table, length = route_args(routes[level], level, f"routes[{level}]")
+                tables.table[i], tables.len[i], tables.route[i] = table, length, code
+        if len(_LOD_TABLES) >= LOD_TABLES_MAX:
+            _LOD_TABLES.clear()
+        found = _LOD_TABLES[key] = LodTables(ctypes.addressof(tables), *ray_lanes(features),
+                                             tables)
+    return found
+
+
+def octree_query_interp_plain(coords: torch.Tensor, routes: Sequence, trinkets, features,
+                              levels: Sequence[int], multiscale_type: str = "sum"):
+    """Plain PyTorch version of ``octree_query_interp``: the query (``octree_query_plain``,
+    without parents for one LOD, else with them at the last LOD's level), then
+    ``octree_interp_plain``; (features, the looked-up cells [N, LODs] int32)."""
+    n_lods = len(levels)
+    if n_lods == 1:
+        pidx, col0 = octree_query_plain(coords, routes, levels[0])[:, None], 0
+    else:
+        pidx = octree_query_plain(coords, routes, levels[-1], with_parents=True)
+        col0 = levels[0]
+    feats = octree_interp_plain(coords, pidx, col0, trinkets, features, levels,
+                                multiscale_type)
+    return feats, pidx[:, col0:col0 + n_lods].contiguous()
+
+
+def _query_interp_fwd(coords, routes, trinkets, features, levels, multiscale_type,
+                      with_cells: bool):
+    """Launch the fused query and K15 forward (on the CPU: its plain version); (features,
+    the cells [N, LODs] or None)."""
+    if not coords.is_cuda:
+        feats, cells = octree_query_interp_plain(coords, routes, trinkets, features, levels,
+                                                 multiscale_type)
+        return feats, cells if with_cells else None
+    n, n_lods, f_dim = coords.shape[0], len(levels), features[0].shape[1]
+    if multiscale_type not in ("sum", "cat"):
+        raise ValueError(f"octree_query_interp: {multiscale_type!r}")
+    kernels.check(coords, "coords", torch.float32, (n, 3))
+    tabs = lod_tables(trinkets, features, levels, routes)
+    out = torch.empty((n, f_dim if multiscale_type == "sum" else f_dim * n_lods),
+                      dtype=torch.float32, device=coords.device)
+    cells = (torch.empty((n, n_lods), dtype=torch.int32, device=coords.device)
+             if with_cells else None)
+    if n:
+        kernels.launch("wisp_octree_query_interp", "octree_query_interp", coords.data_ptr(),
+                       n, levels[-1], n_lods, f_dim, tabs.address, int(multiscale_type == "sum"),
+                       tabs.vec, out.data_ptr(), kernels.ptr(cells))
+    return out, cells
+
+
+class _OctreeQueryInterpFn(torch.autograd.Function):
+    """The fused query and K15 forward with K15's backward kernel. Saves coords and the
+    cells the forward looked up; the weights are recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, coords, routes, trinkets, levels, multiscale_type, *features):
+        out, cells = _query_interp_fwd(coords, routes, trinkets, features, levels,
+                                       multiscale_type, with_cells=True)
+        ctx.save_for_backward(coords, cells)
+        ctx.geometry = (trinkets, levels, multiscale_type, [f.shape[0] for f in features],
+                        features[0].shape[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        coords, cells = ctx.saved_tensors
+        trinkets, levels, multiscale_type, rows, f_dim = ctx.geometry
+        grads = octree_interp_bwd(coords, cells, 0, trinkets, rows, f_dim, levels,
+                                  multiscale_type, grad_out.float().contiguous())
+        return (None,) * 5 + tuple(g if need else None
+                                   for g, need in zip(grads, ctx.needs_input_grad[5:]))
+
+
+def octree_query_interp(coords: torch.Tensor, routes: Sequence,
+                        trinkets: Sequence[torch.Tensor], features: Sequence[torch.Tensor],
+                        levels: Sequence[int], multiscale_type: str = "sum") -> torch.Tensor:
+    """``octree_interp`` at the cells that the octree query finds, in one kernel: LOD i
+    reads the cell of K9's with_parents column ``levels[i]`` at the last LOD's level (the
+    point's parent cell at level ``levels[i]``, looked up by ``routes[levels[i]]``, a
+    ``QueryRoute``; -1 everywhere outside [-1, 1]^3). ``levels`` are consecutive. Returns
+    [N, F] ('sum') or [N, F * LODs] ('cat'), differentiable in the features."""
+    if not coords.is_cuda:
+        return octree_query_interp_plain(coords, routes, trinkets, features, levels,
+                                         multiscale_type)[0]
+    if torch.is_grad_enabled():
+        if coords.requires_grad:
+            raise NotImplementedError("octree_query_interp: the gradient with respect to the "
+                                      "coordinates is not ported; detach them")
+        if any(f.requires_grad for f in features):
+            return _OctreeQueryInterpFn.apply(coords, routes, list(trinkets), list(levels),
+                                              multiscale_type, *features)
+    return _query_interp_fwd(coords, routes, trinkets, features, levels, multiscale_type,
+                             with_cells=False)[0]
 
 
 class OctreeGrid(BLASGrid):
@@ -292,19 +417,26 @@ class OctreeGrid(BLASGrid):
         output_shape = coords.shape[:-1]
         flat = coords.reshape(-1, 3).contiguous()
         n = lod_idx + 1
-        if lod_idx == 0:
-            pidx = self.blas.query(flat, self.active_lods[0]).pidx[:, None]
-            col0 = 0
-        else:
-            pidx = self.blas.query(flat, self.active_lods[lod_idx], with_parents=True).pidx
-            col0 = self.base_lod
         if self.interpolation_type == "linear":
-            # list() first: slicing the ParameterList would build a new module each call
-            feats = octree_interp(flat, pidx, col0, self.trinkets[:n], list(self.features)[:n],
-                                  self.active_lods[:n], self.multiscale_type)
+            feats = octree_query_interp(flat, *self.query_interp_args(lod_idx))
         else:
+            if lod_idx == 0:
+                pidx = self.blas.query(flat, self.active_lods[0]).pidx[:, None]
+                col0 = 0
+            else:
+                pidx = self.blas.query(flat, self.active_lods[lod_idx],
+                                       with_parents=True).pidx
+                col0 = self.base_lod
             feats = self._closest(pidx, col0, n)
         return feats.reshape(*output_shape, feats.shape[-1])
+
+    def query_interp_args(self, lod_idx: int):
+        """``octree_query_interp``'s arguments after the coordinates for LODs 0..lod_idx:
+        (routes, trinkets, features, levels, multiscale_type)."""
+        n = lod_idx + 1
+        # list() first: slicing the ParameterList would build a new module each call
+        return (self.blas.query_routes, self.trinkets[:n], list(self.features)[:n],
+                self.active_lods[:n], self.multiscale_type)
 
     def _closest(self, pidx: torch.Tensor, col0: int, n: int) -> torch.Tensor:
         """'closest': each LOD's feature row of the cell itself (a plain gather)."""

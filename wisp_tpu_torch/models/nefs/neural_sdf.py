@@ -3,7 +3,9 @@ wisp_tpu/models/nefs/neural_sdf.py ``NeuralSDF`` and ``NeuralSDFTex``): grid fea
 the optional position embedding, into a BasicDecoder. ``position_input`` with the 'none'
 embedder appends the raw xyz after the features. NeuralSDF's decoder has one output, the
 distance; NeuralSDFTex's has four, the distance and the logits of the surface colour
-(``rgbsdf``: rgb = sigmoid of outputs 1-3)."""
+(``rgbsdf``: rgb = sigmoid of outputs 1-3). ``decode_from`` decodes a decoder-input row that
+a caller already holds (the sphere tracer's fused iteration writes [features | xyz] itself;
+``decoder_input_xyz`` says whether that row ends with the raw position)."""
 
 from __future__ import annotations
 
@@ -63,6 +65,14 @@ class NeuralSDF(BaseNeuralField):
     def register_forward_functions(self):
         self._register_forward_function(self.sdf, ["sdf"])
 
+    def decoder_input_xyz(self) -> Optional[bool]:
+        """How the decoder's input row follows from the grid's features at a point: True,
+        the features then the raw xyz (the 'none' embedder with position_input, or
+        'identity'); False, the features alone; None, through another embedding."""
+        if self.pos_embedder is None:
+            return False
+        return True if isinstance(self.pos_embedder, _Identity) else None
+
     def decode(self, coords: torch.Tensor, lod_idx: Optional[int] = None) -> torch.Tensor:
         """The decoder's outputs at [N, 3] points: [N, OUTPUT_DIM]."""
         if lod_idx is None:
@@ -73,7 +83,12 @@ class NeuralSDF(BaseNeuralField):
             feats = torch.cat([feats, self.pos_embedder(coords).reshape(batch,
                                                                         self.pos_embed_dim)],
                               dim=-1)
-        return self.decoder(feats)
+        return self.decode_from(feats)
+
+    def decode_from(self, x: torch.Tensor) -> torch.Tensor:
+        """The decoder's outputs [N, OUTPUT_DIM] for decoder-input rows x [N, width] (the
+        part of ``decode`` after the features and the embedding)."""
+        return self.decoder(x)
 
     def sdf(self, coords: torch.Tensor, lod_idx: Optional[int] = None) -> torch.Tensor:
         """[N, 3] -> signed distance [N, 1]."""

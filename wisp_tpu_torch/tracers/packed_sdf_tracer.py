@@ -13,6 +13,14 @@ holds one (``with_free_dist``), then:
    space advances as the walk does; a ray past its exit dies;
 3. normals from 6 finite-difference taps of the field at the final points.
 
+Where the field is a NeuralSDF on a 'linear' OctreeGrid whose decoder reads the features
+(and the raw xyz) alone, step 2 runs as ``sphere_iter`` then the decoder, ``num_steps``
+times: ``sphere_iter`` (one kernel, ``csrc/octree_grid.cu``) takes the step on the previous
+iteration's field (not on the first iteration), then writes the decoder's input row at
+the new point (the fused query and interpolation); one closing ``sphere_step`` takes the
+last step. The steps, points and fields are the same as the loop above, which every other
+field takes.
+
 With ``compaction`` (K12's compaction, ``ops/compaction.py compact_rays``) only the rays
 that are still alive after the walk go through steps 2 and 3, packed into
 ``max(round(R * compaction), 1)`` slots; with ``mid_compaction`` too, after
@@ -38,6 +46,8 @@ import torch
 from wisp_tpu_torch import kernels
 from wisp_tpu_torch.accelstructs.octree_as import aabb_intersect
 from wisp_tpu_torch.core.render_buffer import RenderBuffer
+from wisp_tpu_torch.models.grids.octree_grid import (OctreeGrid, lod_tables,
+                                                     octree_query_interp_plain, ray_lanes)
 from wisp_tpu_torch.ops.compaction import compact_rays, ray_budget, scatter_rows
 from wisp_tpu_torch.ops.differential import finitediff_gradient
 from wisp_tpu_torch.ops.geometric import voxel_boundary_step
@@ -126,6 +136,95 @@ def sphere_step(origins: torch.Tensor, dirs: torch.Tensor, t: torch.Tensor,
                        float(step_size), float(min_dis))
 
 
+def sphere_iter_plain(origins, dirs, t, alive, hit, t_far, field, free_dist, level: int,
+                      step_size: float, min_dis: float, routes, trinkets, features, levels,
+                      multiscale_type: str, with_xyz: bool, out=None) -> torch.Tensor:
+    """Plain PyTorch version of ``sphere_iter``: ``sphere_step_plain`` on column 0 of
+    ``field`` (where given), the point o + t*d, ``octree_query_interp_plain`` there and the
+    decoder's input row [features | xyz] (xyz where ``with_xyz``); a ray that is not alive
+    gets zeros."""
+    if field is not None:
+        sphere_step_plain(origins, dirs, t, alive, hit, t_far, field[:, 0], free_dist, level,
+                          step_size, min_dis)
+    pos = origins + t[:, None] * dirs
+    feats, _ = octree_query_interp_plain(pos, routes, trinkets, features, levels,
+                                         multiscale_type)
+    x = torch.cat([feats, pos], dim=-1) if with_xyz else feats
+    x = torch.where(alive[:, None], x, torch.zeros_like(x))
+    return x if out is None else out.copy_(x)
+
+
+def sphere_iter(origins: torch.Tensor, dirs: torch.Tensor, t: torch.Tensor,
+                alive: torch.Tensor, hit: torch.Tensor, t_far: torch.Tensor,
+                field: Optional[torch.Tensor], free_dist: torch.Tensor, level: int,
+                step_size: float, min_dis: float, routes, trinkets, features, levels,
+                multiscale_type: str, with_xyz: bool,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One sphere iteration up to the decoder, in one kernel: where ``field`` (the last
+    decoder outputs [N, K], the distance in column 0) is given, ``sphere_step`` on ``t``,
+    ``alive`` and ``hit`` in place; then the decoder's input rows [N, width (+ 3)] at each
+    ray's point: ``octree_query_interp``'s features (``routes`` .. ``multiscale_type``, as
+    ``OctreeGrid.query_interp_args`` gives them) and, where ``with_xyz``, the point. A ray
+    that is not alive gets a row of zeros. ``out``: rows to write (on the card, where the
+    tables take 4 features a lane, each row starting on 16 bytes: a view of rows padded to 16
+    bytes, as this call makes them), else new ones. A ray's lanes are the tables' (``lod_tables``). No gradient: the tracer calls
+    it under ``torch.no_grad``."""
+    if not origins.is_cuda:
+        return sphere_iter_plain(origins, dirs, t, alive, hit, t_far, field, free_dist, level,
+                                 step_size, min_dis, routes, trinkets, features, levels,
+                                 multiscale_type, with_xyz, out)
+    n, n_lods, f_dim = origins.shape[0], len(levels), features[0].shape[1]
+    _check_rays(origins, dirs, t, alive, t_far, free_dist, level)
+    kernels.check(hit, "hit", torch.bool, (n,))
+    if multiscale_type not in ("sum", "cat"):
+        raise ValueError(f"sphere_iter: {multiscale_type!r}")
+    tabs = lod_tables(trinkets, features, levels, routes)
+    if tabs.group > 32:
+        raise ValueError(f"sphere_iter: {f_dim} features take more than a warp's lanes")
+    width = f_dim if multiscale_type == "sum" else f_dim * n_lods
+    cols = width + 3 * bool(with_xyz)
+    if out is None:
+        out = torch.empty((n, -(-cols // 4) * 4), dtype=torch.float32,
+                          device=origins.device)[:, :cols]
+    elif (not out.is_cuda or out.dtype != torch.float32 or tuple(out.shape) != (n, cols)
+          or out.stride(1) != 1
+          or (tabs.vec == 4 and (out.data_ptr() % 16 or out.stride(0) % 4))):
+        raise ValueError(f"sphere_iter: out must be float32 CUDA rows [{n}, {cols}] (where "
+                         "the tables take 4 features a lane, each starting on 16 bytes)")
+    d_ptr, d_stride = None, 1
+    if field is not None:
+        if (not field.is_cuda or field.dtype != torch.float32 or field.ndim != 2
+                or field.shape[0] != n):
+            raise ValueError("sphere_iter: field must be the decoder's float32 CUDA outputs "
+                             f"[{n}, K]")
+        d_ptr, d_stride = field.data_ptr(), field.stride(0)
+    if n:
+        kernels.launch("wisp_sphere_iter", "sphere_iter", origins.data_ptr(), dirs.data_ptr(),
+                       t.data_ptr(), alive.data_ptr(), hit.data_ptr(), t_far.data_ptr(),
+                       d_ptr, d_stride, free_dist.data_ptr(), n, level, float(step_size),
+                       float(min_dis), int(field is not None), levels[-1], n_lods, f_dim,
+                       tabs.address, int(multiscale_type == "sum"), tabs.vec, tabs.group,
+                       out.data_ptr(), out.stride(0), width if with_xyz else -1)
+    return out
+
+
+def fused_field(nef, lod_idx: int):
+    """``sphere_iter``'s field arguments (routes .. multiscale_type, with_xyz) where the nef
+    is a NeuralSDF on a 'linear' OctreeGrid whose decoder input is [features] or [features |
+    xyz] and a ray's lanes fit a warp (``ray_lanes``, the rule by which ``lod_tables`` gives
+    ``sphere_iter`` its lanes); else None (the loop decodes through the nef)."""
+    grid = getattr(nef, "grid", None)
+    input_xyz = getattr(nef, "decoder_input_xyz", None)
+    if (input_xyz is None or not isinstance(grid, OctreeGrid)
+            or grid.interpolation_type != "linear"):
+        return None
+    args = grid.query_interp_args(lod_idx)
+    if ray_lanes(args[2])[1] > 32:
+        return None
+    with_xyz = input_xyz()
+    return None if with_xyz is None else args + (with_xyz,)
+
+
 def _check_rays(origins, dirs, t, alive, t_far, free_dist, level):
     n = origins.shape[0]
     kernels.check(origins, "origins", torch.float32, (n, 3))
@@ -181,10 +280,27 @@ class PackedSDFTracer(BaseTracer):
         t_far = t_far.contiguous()
         sdf_walk(o, d, t, alive, t_far, free_dist, level, num_steps)
 
+        fused = fused_field(nef, lod_idx)
+
         def sphere_loop(o, d, t, alive, hit, t_far, n):
-            for _ in range(n):
-                pos = o + t[:, None] * d
-                dist = nef(channels="sdf", coords=pos, lod_idx=lod_idx)[:, 0].contiguous()
+            if fused is None:
+                for _ in range(n):
+                    pos = o + t[:, None] * d
+                    dist = nef(channels="sdf", coords=pos, lod_idx=lod_idx)[:, 0].contiguous()
+                    sphere_step(o, d, t, alive, hit, t_far, dist, free_dist, level, step_size,
+                                min_dis)
+                return
+            if n == 0:
+                return
+            # n fields and n steps, as above: the first sphere_iter takes no step, the
+            # others take the step on the last field, and one sphere_step closes the loop
+            with torch.no_grad():
+                x = sphere_iter(o, d, t, alive, hit, t_far, None, free_dist, level, step_size,
+                                min_dis, *fused)
+                for _ in range(n - 1):
+                    x = sphere_iter(o, d, t, alive, hit, t_far, nef.decode_from(x), free_dist,
+                                    level, step_size, min_dis, *fused, out=x)
+                dist = nef.decode_from(x)[:, 0].contiguous()
                 sphere_step(o, d, t, alive, hit, t_far, dist, free_dist, level, step_size,
                             min_dis)
 
