@@ -11,6 +11,7 @@ Run from the root of a checkout; it imports that checkout's ``chip_smoke.py`` an
     python3 chip_compaction_bench.py sdfframe [label]
     python3 chip_compaction_bench.py octree [label]
     python3 chip_compaction_bench.py l8 [label]
+    python3 chip_compaction_bench.py spc [label]
 
 ``kernels``: ``compact`` (K3, K6a) and ``compact_rays`` (K12, its mid pass) at the four
 shapes of ``PERF.md``'s compaction rows, on seeded inputs (march-like runs of valid steps;
@@ -41,6 +42,13 @@ idle share, top kernels; K15's backward runs once a step).
 so each step's octree query binary-searches its code table): 40 steps' wall ms (the first
 two left out of the median), then one step under torch.profiler
 (``chip_smoke.profile_step``) and one step's launches (``kernels.LAUNCHES``).
+``spc``: the SPC browser scene's frame (the "spc browser" phase's: ``chip_smoke``'s level-7
+SPC of 1,000,000 sphere samples, its free-space field held by the tracer, 512x512
+orthographic rays through ``OfflineRenderer.render`` in chunks of 65,536, 64 walk steps):
+15 frames' wall ms after a warm-up, then 5 frames under torch.profiler
+(``chip_smoke.profile_call``: wall, device-busy ms and idle share each; the kernels with the
+most device time of the first) and one frame's launches (``kernels.LAUNCHES`` and every
+device kernel).
 Each mode prints one JSON line; run ``paths`` from the parent's and the change's checkouts
 in turns (parent, change, change, parent, ...) to compare them: these paths are bound by
 the host, and their spread from process to process is wide.
@@ -234,9 +242,47 @@ def level8_mode(dev) -> tuple:
     return {"level8_step_ms": steps[2:]}, profile
 
 
+def spc_frame_mode(dev) -> tuple:
+    from wisp_tpu_torch.accelstructs.octree_as import OctreeAS
+    from wisp_tpu_torch.models.nefs.spc_field import SPCField
+    from wisp_tpu_torch.models.pipeline import Pipeline
+    from wisp_tpu_torch.ops.mesh.io import make_sphere_mesh
+    from wisp_tpu_torch.ops.mesh.ops import sample_surface
+    from wisp_tpu_torch.ops.spc.conversions import pointcloud_to_octree
+    from wisp_tpu_torch.tracers.packed_spc_tracer import PackedSPCTracer
+    from wisp_tpu_torch.trainers.tracker.offline_renderer import OfflineRenderer
+    kernels.build()
+    v, f = make_sphere_mesh(radius=cs.SPC_RADIUS, subdivisions=cs.SPC_SUBDIV)
+    samples = sample_surface(v, f, cs.SPC_SAMPLES)
+    codes, colors = pointcloud_to_octree(samples, cs.SPC_LEVEL,
+                                         attributes=(samples + 1.0) / 2.0)
+    blas = OctreeAS.from_codes(codes, device=dev)
+    nef = SPCField(blas=blas, colors=colors, device=dev)
+    pipeline = Pipeline(nef=nef, tracer=PackedSPCTracer(num_steps=cs.SPC_STEPS)
+                        .with_free_dist(blas))
+    renderer = OfflineRenderer(render_batch=cs.SPC_CHUNK, device=dev)
+    rays = cs.spc_rays(dev)
+
+    def render():
+        renderer.render(pipeline, rays)
+
+    clock(render)                                                        # warm-up
+    frames = [clock(render) for _ in range(15)]
+    profiles = [cs.profile_call(render) for _ in range(5)]
+    frame_profile = {"wall_ms": [p[0] for p in profiles],
+                     "device_busy_ms": [p[1] for p in profiles],
+                     "device_idle_share": [cs.idle_share(p[1], p[0]) for p in profiles],
+                     "top_device_kernels": profiles[0][2],
+                     "device_kernels_launched": profiles[0][3]}
+    kernels.reset_launches()
+    clock(render)
+    frame_profile["hand_written_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    return {"spc_frame_ms": frames}, frame_profile
+
+
 def main() -> int:
     if len(sys.argv) < 2 or sys.argv[1] not in ("kernels", "paths", "sdf", "sdfframe",
-                                                "octree", "l8"):
+                                                "octree", "l8", "spc"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -253,6 +299,8 @@ def main() -> int:
         result, profile = octree_mode(dev)
     elif mode == "l8":
         result, profile = level8_mode(dev)
+    elif mode == "spc":
+        result, profile = spc_frame_mode(dev)
     else:
         result, profile = paths_mode(dev, mode == "paths")
     if mode != "kernels":

@@ -198,7 +198,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    K15 and the concatenation) with their launches and host time a call, then makes 200
    fused queries back to back on one stream and holds each shape's last result to its
    first;
-22. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+22. walks ("walks"): holds K12's walk and K13, and their earlier design
+   (``wisp_tpu_torch/csrc/baselines/sphere_trace_v1.cu``, built beside the library; the K12
+   walk and K13 rows' ``was_ms``), bit for bit to their plain versions (t, alive; t, hit,
+   pidx, the overflow count) on the calls the phases recorded (the SDF render chunk, the
+   trained NGLOD frame's four 65,536-ray chunks, a level-8 chunk, the SPC frame's four
+   chunks and one of them with a budget that runs out) and on hard rays (axis-aligned
+   directions, a component of +0, -0 and +-1e-13, lengths 0.25 and 4, origins on cell
+   planes, no moving axis) on the octree's field, an all-free and an all-occupied one, at
+   the budget and at 0 and 1 steps; holds ``sphere_step`` and ``sphere_iter`` again on the
+   sphere iterations of step 21 and ``sphere_step`` on the hard rays; times three of the
+   recorded calls (the SDF render chunk and the SPC chunk are timed in their phases' rows)
+   beside the earlier design with their launches, host time a call, floor (the same call at
+   num_steps = 0), longest walk and time a chain step; splits a chain
+   step between the field's load and the rest at the SDF and SPC chunks (the walk beside a
+   probe built from an edited copy of the source whose field read hits one fixed cell, on
+   uniform fields of k = 1 and k = 4, where both take the same steps); then makes 200 calls
+   back to back on one stream and holds each shape's last result equal to its first;
+23. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels (K15's forward: 0, no path launches it), from the SDF training run
    for K9, K15's backward and K16, from the octree NeRF's 25 steps for K7, from the stoch
@@ -210,9 +227,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    K14), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
    ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
    ``uniform_path`` JSON lines, the ``compaction_shapes``, ``hashgrid_shapes``,
-   ``octree_grid_shapes``, ``march_grad_shapes``, ``mesh_shapes`` and ``query_step_shapes``
-   lines, the ``phase_s`` line, the nvidia-smi line and, last, ``{"ok": true, "device":
-   {...}}``.
+   ``octree_grid_shapes``, ``march_grad_shapes``, ``mesh_shapes``, ``query_step_shapes`` and
+   ``walk_shapes`` lines, the ``phase_s`` line, the nvidia-smi line and, last, ``{"ok":
+   true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -407,6 +424,38 @@ MESH_V1 = None                 # a MeshV1 once built (run())
 MESH_V1_DESIGN = ("csrc/baselines/mesh_sdf_v1.cu (a thread a point; K16 in two passes; "
                   "the triangle's terms and six IEEE divisions made for every pair)")
 
+SPHERE_TRACE_V1_SRC = "wisp_tpu_torch/csrc/baselines/sphere_trace_v1.cu"
+SPHERE_TRACE_V1 = None         # a WalkDesign once built (run())
+SPHERE_TRACE_V1_DESIGN = ("csrc/baselines/sphere_trace_v1.cu (a thread a ray; six IEEE "
+                          "divisions and four floors a step whatever k is; K13: a float "
+                          "atomic an overflowing ray)")
+# the walk variant of the "walks" step: the library's sphere_trace.cu with its walker's
+# field read pointed at one fixed cell (an opaque zero ANDed into the cell's index keeps
+# the address on the chain), built from an edited copy into its own library
+WALK_PROBE_READ = "    return __ldg(free_dist + cell(qx, qy, qz));"
+WALK_PROBE_EDIT = ("    unsigned zero;\n"
+                   "    asm volatile(\"mov.u32 %0, 0;\" : \"=r\"(zero));\n"
+                   "    return __ldg(free_dist + (cell(qx, qy, qz) & zero));")
+WALK_PROBE = None              # a WalkDesign once built (run())
+
+
+def start_walk_probe_build():
+    """Start nvcc on the walk probe: edited copies of ``csrc/sphere_trace.cu`` and
+    ``csrc/sphere_walker.cuh`` side by side (the copy's include finds the edited header
+    first); (library path, process)."""
+    from wisp_tpu_torch import kernels
+    walker = (kernels.CSRC / "sphere_walker.cuh").read_text()
+    require(walker.count(WALK_PROBE_READ) == 1,
+            "the walk probe's edit no longer matches csrc/sphere_walker.cuh")
+    out_dir = kernels.BUILD_ROOT / "walk_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "sphere_walker.cuh").write_text(walker.replace(WALK_PROBE_READ,
+                                                              WALK_PROBE_EDIT))
+    src = out_dir / "sphere_trace.cu"
+    src.write_text((kernels.CSRC / "sphere_trace.cu").read_text())
+    return start_baseline_build(str(src), "libwisp_walk_probe.so")
+
+
 def start_baseline_build(src: str, lib: str):
     """Start nvcc on an earlier design's source (built beside, not into, the kernel
     library); (library path, process)."""
@@ -600,6 +649,53 @@ class OctreeV1:
             self._stream())
         require(status == 0, f"wisp_free_space_distance_v1 failed to launch ({status})")
         return out
+
+
+class WalkDesign:
+    """K12's walk and K13 from another library than the port's (the earlier design,
+    ``baselines/sphere_trace_v1.cu``, entry points ending in "_v1"; or the walk probe, the
+    library's names), called on the current stream with their wrappers' arguments; their
+    launches are not the port's and are not counted."""
+
+    def __init__(self, lib, suffix: str):
+        import ctypes
+        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        self.walk = getattr(lib, f"wisp_sdf_walk{suffix}")
+        self.walk.argtypes = [P, P, P, P, P, P, L, I, I, P]
+        self.trace = getattr(lib, f"wisp_spc_trace{suffix}")
+        self.trace.argtypes = [P, P, L, F, F, P, P, I, I, I, P, L, P, P, P, P, P]
+
+    @staticmethod
+    def _stream() -> int:
+        import torch
+        return torch.cuda.current_stream().cuda_stream
+
+    def sdf_walk(self, o, d, t, alive, t_far, free_dist, level, num_steps):
+        """``sdf_walk`` with this library, in place."""
+        status = self.walk(o.data_ptr(), d.data_ptr(), t.data_ptr(), alive.data_ptr(),
+                           t_far.data_ptr(), free_dist.data_ptr(), o.shape[0], int(level),
+                           int(num_steps), self._stream())
+        require(status == 0, f"sdf_walk ({self.walk.__name__}) failed to launch ({status})")
+
+    def spc_trace(self, o, d, dist_min, dist_max, free_dist, occ_grid, route, level,
+                  num_steps):
+        """``spc_trace`` with this library: (t, hit, pidx, num_overflow)."""
+        import torch
+        from wisp_tpu_torch.accelstructs.octree_as import route_args
+        n, dev = o.shape[0], o.device
+        code, table, length = route_args(route, level, "route")
+        t = torch.empty((n,), dtype=torch.float32, device=dev)
+        hit = torch.empty((n,), dtype=torch.bool, device=dev)
+        pidx = torch.empty((n,), dtype=torch.int32, device=dev)
+        over = torch.zeros((), dtype=torch.float32, device=dev)
+        status = self.trace(o.data_ptr(), d.data_ptr(), n, float(dist_min), float(dist_max),
+                            free_dist.data_ptr(),
+                            None if occ_grid is None else occ_grid.data_ptr(), int(level),
+                            int(num_steps), code, table, length, t.data_ptr(),
+                            hit.data_ptr(), pidx.data_ptr(), over.data_ptr(), self._stream())
+        require(status == 0,
+                f"spc_trace ({self.trace.__name__}) failed to launch ({status})")
+        return t, hit, pidx, over
 
 
 class MarchGradV1:
@@ -1544,6 +1640,376 @@ def query_step_phase() -> dict:
     return out
 
 
+# the K12 walk and K13 calls that the paths made, for the "walks" step: key -> {"kind":
+# counter name, "args": the wrapper's arguments (rays and state cloned; the free-space field,
+# the occupancy and the route held, as the paths hold them)}
+WALK_CALLS = {}
+WALK_POOL = 130                # fresh states of an in-place walk for one measurement
+WALK_SPLIT_FIELDS = (1, 4)     # uniform fields of the split: every step full; every step far
+WALK_OVERFLOW_STEPS = 8        # the SPC chunk again, with a budget that runs out
+# timed here; the SDF render chunk and the SPC chunk are timed in their phases' rows
+WALK_TIMED = ("nglod frame: chunk 0", "nglod level 8 chunk: chunk 0", "spc frame: overflow")
+WALK_BACK_TO_BACK = 200
+
+
+def walk_record(key, kind, args):
+    """Keep one ``sdf_walk`` (its state before the call) or ``spc_trace`` call under
+    ``key``."""
+    if kind == "sdf_walk":
+        o, d, t, alive, t_far, fd, level, steps = args
+        args = (o.clone(), d.clone(), t.clone(), alive.clone(), t_far.clone(), fd,
+                int(level), int(steps))
+    else:
+        o, d, dmin, dmax, fd, occ, route, level, steps = args
+        args = (o.clone(), d.clone(), float(dmin), float(dmax), fd, occ, route, int(level),
+                int(steps))
+    WALK_CALLS[key] = {"kind": kind, "args": args}
+
+
+@contextmanager
+def recording_walks(key: Optional[str]):
+    """Keep every ``sdf_walk`` and ``spc_trace`` call made inside, as "<key>: chunk <i>"
+    (none where ``key`` is None)."""
+    from wisp_tpu_torch.tracers import packed_sdf_tracer, packed_spc_tracer
+    if key is None:
+        yield
+        return
+    walk, trace = packed_sdf_tracer.sdf_walk, packed_spc_tracer.spc_trace
+    count = [0]
+
+    def rec(kind, fn):
+        def call(*args):
+            walk_record(f"{key}: chunk {count[0]}", kind, args)
+            count[0] += 1
+            return fn(*args)
+        return call
+
+    with mock.patch.object(packed_sdf_tracer, "sdf_walk", rec("sdf_walk", walk)), \
+            mock.patch.object(packed_spc_tracer, "spc_trace", rec("spc_trace", trace)):
+        yield
+
+
+def walk_with(args, **changes):
+    """A walk call's arguments with some replaced (free_dist, occ, num_steps)."""
+    names = (("o", "d", "t", "alive", "t_far", "free_dist", "level", "num_steps")
+             if len(args) == 8 else
+             ("o", "d", "dist_min", "dist_max", "free_dist", "occ", "route", "level",
+              "num_steps"))
+    return tuple(changes.get(n, a) for n, a in zip(names, args))
+
+
+def walk_start(kind, args):
+    """``walk_work``'s arguments for a call: the ray state the walk starts from (K13's: its
+    slab test)."""
+    from wisp_tpu_torch.accelstructs.octree_as import aabb_intersect
+    if kind == "sdf_walk":
+        return args
+    o, d, dmin, dmax, fd, _, _, level, steps = args
+    t_near, t_far = aabb_intersect(o, d, dmin, dmax)
+    t0 = t_near.clamp(min=0.0) + 1e-6
+    return o, d, t0, t_far > t0, t_far, fd, level, steps
+
+
+def walk_caller(fn, kind, args):
+    """(call, refresh): ``call()`` runs ``fn`` (``sdf_walk`` or ``spc_trace``, or another
+    design's) on ``args`` and returns its outputs; an in-place walk takes its state from a
+    pool of ``WALK_POOL`` copies, which ``refresh()`` restores before each measurement
+    (``timed`` makes at most 123 calls)."""
+    if kind == "spc_trace":
+        return (lambda: fn(*args)), (lambda: None)
+    o, d, t, alive, t_far, fd, level, steps = args
+    pool = [(t.clone(), alive.clone()) for _ in range(WALK_POOL)]
+    turn = [0]
+
+    def call():
+        tt, aa = pool[turn[0] % WALK_POOL]
+        turn[0] += 1
+        fn(o, d, tt, aa, t_far, fd, level, steps)
+        return tt, aa
+
+    def refresh():
+        for tt, aa in pool:
+            tt.copy_(t)
+            aa.copy_(alive)
+        turn[0] = 0
+
+    return call, refresh
+
+
+def walk_designs(kind):
+    """{design: the entry point}: the port's wrapper, its plain version, the earlier design
+    and the probe."""
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import sdf_walk, sdf_walk_plain
+    from wisp_tpu_torch.tracers.packed_spc_tracer import spc_trace, spc_trace_plain
+    if kind == "sdf_walk":
+        return {"new": sdf_walk, "plain": sdf_walk_plain, "was": SPHERE_TRACE_V1.sdf_walk,
+                "probe": WALK_PROBE.sdf_walk}
+    return {"new": spc_trace, "plain": spc_trace_plain, "was": SPHERE_TRACE_V1.spc_trace,
+            "probe": WALK_PROBE.spc_trace}
+
+
+def walk_once(fn, kind, args):
+    """One call on fresh state: the outputs (t, alive; or t, hit, pidx, num_overflow)."""
+    if kind == "spc_trace":
+        return fn(*args)
+    o, d, t, alive, t_far, fd, level, steps = args
+    t, alive = t.clone(), alive.clone()
+    fn(o, d, t, alive, t_far, fd, level, steps)
+    return t, alive
+
+
+def walk_equal(got, want) -> bool:
+    import torch
+    return all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+
+
+def walk_timed(fn, kind, args):
+    """``timed`` of ``fn`` on ``args`` (fresh state every call)."""
+    call, refresh = walk_caller(fn, kind, args)
+    refresh()
+    return timed(call)
+
+
+def walk_row_extras(row, kind, args, work: dict) -> dict:
+    """A K12 walk or K13 row's launches a call, the earlier design's time on the same inputs
+    (``was_ms``, held bit for bit to the plain version first), the same call's time with
+    num_steps = 0 (``floor_ms``), its longest walk and the time a chain step
+    (``ns_per_chain_step``: (ms - floor) / longest walk); ``work`` is ``walk_work``'s."""
+    longest = work["longest_walk"]
+    designs = walk_designs(kind)
+    want = walk_once(designs["plain"], kind, args)
+    require(walk_equal(walk_once(designs["was"], kind, args), want),
+            f"{row['name']}: the earlier design ({SPHERE_TRACE_V1_DESIGN}) differs from the "
+            f"plain version")
+    new_call, _ = walk_caller(designs["new"], kind, args)
+    was = walk_timed(designs["was"], kind, args)
+    floor = walk_timed(designs["new"], kind, walk_with(args, num_steps=0))
+    row.update(launches_per_call=launches_per_call(new_call), was_ms=was[0],
+               was_event_ms=was[1], was_design=SPHERE_TRACE_V1_DESIGN, floor_ms=floor[0],
+               floor_event_ms=floor[1], longest_walk=longest,
+               ns_per_chain_step=((row["ms"] - floor[0]) / longest * 1e6 if longest
+                                  else None),
+               far_steps=work["far_steps"], steps_taken=work["steps_taken"],
+               mixed_warp_steps=work["mixed_warp_steps"], warp_steps=work["warp_steps"])
+    return row
+
+
+def walk_hard_rays(dev, level: int, seed: int = 23):
+    """Rays that stress the step's rules: axis-aligned directions; a component of +0, -0
+    and +-1e-13 on each axis; directions of length 0.25 and 4; origins exactly on cell
+    planes inside the box; directions with no moving axis."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    voxel = 2.0 / 2 ** level
+    os_, ds = [], []
+
+    def unit(m):
+        d = rng.normal(size=(m, 3))
+        return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            o = rng.uniform(-0.95, 0.95, (64, 3))
+            o[:, axis] = -2.0 * sign
+            d = np.zeros((64, 3))
+            d[:, axis] = sign
+            os_.append(o)
+            ds.append(d)
+        for v in (0.0, -0.0, 1e-13, -1e-13):
+            d = unit(32)
+            d[:, axis] = v
+            os_.append(rng.uniform(-0.4, 0.4, (32, 3)) - 2.2 * d)
+            ds.append(d)
+    for length in (0.25, 4.0):
+        d = unit(64)
+        os_.append(rng.uniform(-0.4, 0.4, (64, 3)) - 2.2 * d)
+        ds.append(d * length)
+    planes = -1.0 + voxel * rng.integers(1, 2 ** level, (128, 3))
+    os_.append(planes)
+    ds.append(unit(128))
+    os_.append(rng.uniform(-0.9, 0.9, (16, 3)))
+    ds.append(np.tile([[1e-13, -1e-13, 0.0]], (16, 1)))
+    o = torch.from_numpy(np.concatenate(os_).astype(np.float32)).to(dev)
+    d = torch.from_numpy(np.concatenate(ds).astype(np.float32)).to(dev)
+    return o, d
+
+
+def walk_hard_cases(spc_args) -> dict:
+    """The hard rays' calls, at the SPC chunk's level, route and occupancy: K12's walk and
+    K13, each on the octree's field, an all-free field (k = 32 everywhere) and an
+    all-occupied one, at the budget and at 0 and 1 steps."""
+    import torch
+    from wisp_tpu_torch.accelstructs.octree_as import aabb_intersect
+    _, _, dmin, dmax, fd, occ, route, level, steps = spc_args
+    o, d = walk_hard_rays(fd.device, level)
+    t_near, t_far = aabb_intersect(o, d, dmin, dmax)
+    t0 = t_near.clamp(min=0.0) + 1e-6
+    occ = occ if occ is not None else torch.ones_like(fd, dtype=torch.bool)
+    fields = {"octree": (fd, occ),
+              "all free": (torch.full_like(fd, 32), torch.zeros_like(occ)),
+              "all occupied": (torch.zeros_like(fd), torch.ones_like(occ))}
+    cases = {}
+    for name, (f, oc) in fields.items():
+        for n in (steps, 0, 1):
+            cases[f"hard rays, {name}, {n} steps: sdf_walk"] = (
+                "sdf_walk", (o, d, t0, t_far > t0, t_far, f, level, n))
+            cases[f"hard rays, {name}, {n} steps: spc_trace"] = (
+                "spc_trace", (o, d, dmin, dmax, f, oc, route, level, n))
+    return cases
+
+
+def walk_split(kind, args) -> dict:
+    """Tentpole step 2's split of a chain step between the field's load and the rest: on a
+    uniform field of each k in ``WALK_SPLIT_FIELDS`` (k = 1: every step the full step, with
+    its divisions; k = 4: every step the far step), the library's walk and the probe (its
+    field read pointed at one fixed cell, which holds the same k: the same steps, bit for
+    bit) at this call's rays, each as ns a chain step ((ms - floor) / longest walk), and
+    the earlier design's beside them."""
+    import torch
+    designs = walk_designs(kind)
+    out = {}
+    for k in WALK_SPLIT_FIELDS:
+        field = args[5 if kind == "sdf_walk" else 4]
+        a = walk_with(args, free_dist=torch.full_like(field, k))
+        got = {n: walk_once(fn, kind, a) for n, fn in designs.items()}
+        require(all(walk_equal(got[n], got["plain"]) for n in ("new", "was", "probe")),
+                f"walk split ({kind}, k = {k}): a design differs from the plain version")
+        longest = walk_work(*walk_start(kind, a))["longest_walk"]
+        floor = walk_timed(designs["new"], kind, walk_with(a, num_steps=0))[0]
+        ms = {n: walk_timed(designs[n], kind, a)[0] for n in ("new", "probe", "was")}
+        per = {n: (v - floor) / longest * 1e6 if longest else None for n, v in ms.items()}
+        out[f"k = {k}"] = {
+            "longest_walk": longest, "floor_ms": floor, "ms": ms, "ns_per_chain_step": per,
+            "load_share_of_a_step": (1.0 - per["probe"] / per["new"]
+                                     if longest and per["new"] else None)}
+    return out
+
+
+def walk_phase(dev) -> dict:
+    """K12's walk and K13 at every call the paths recorded (the SDF render chunk, the
+    trained NGLOD frame's chunks, a level-8 chunk, the SPC frame's chunks and one with a
+    budget that runs out) and on the hard rays: the library's walk and the earlier design
+    held bit for bit to the plain version (t, alive; t, hit, pidx, the overflow count);
+    ``sphere_step`` and ``sphere_iter`` held again on the sphere iterations that the "query
+    and step folded" step holds (t, alive and hit exactly, rows within 1e-6) and
+    ``sphere_step`` on the hard rays. The calls of ``WALK_TIMED`` timed beside the earlier
+    design with their launches, host time a call, floor (num_steps = 0), longest walk and
+    time a chain step; the split of a chain step (``walk_split``) at the SDF chunk and the
+    SPC chunk; then ``WALK_BACK_TO_BACK`` calls back to back on one stream, the recorded
+    shapes in turns, each shape's last result held equal to its first."""
+    import torch
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import (sphere_iter, sphere_iter_plain,
+                                                          sphere_step, sphere_step_plain)
+    spc_key = "spc frame: chunk 1"
+    require("sdf render chunk" in WALK_CALLS and spc_key in WALK_CALLS,
+            f"the walks recorded are {sorted(WALK_CALLS)}")
+    spc = WALK_CALLS[spc_key]["args"]
+    calls = {k: (c["kind"], c["args"]) for k, c in WALK_CALLS.items()}
+    calls["spc frame: overflow"] = ("spc_trace",
+                                    walk_with(spc, num_steps=WALK_OVERFLOW_STEPS))
+    calls.update(walk_hard_cases(spc))
+    out, held = {}, []
+    with torch.no_grad():
+        for key, (kind, args) in sorted(calls.items()):
+            designs = walk_designs(kind)
+            want = walk_once(designs["plain"], kind, args)
+            got = walk_once(designs["new"], kind, args)
+            was = walk_once(designs["was"], kind, args)
+            require(walk_equal(got, want) and walk_equal(was, want),
+                    f"{kind} at {key}: (new, earlier design) bit-equal to the plain "
+                    f"version: {(walk_equal(got, want), walk_equal(was, want))}")
+            shape = {"kind": kind, "rays": args[0].shape[0], "level": args[-2],
+                     "num_steps": args[-1], "exact": True}
+            if kind == "spc_trace":
+                shape.update(hits=int(want[1].sum()), num_overflow=float(want[3]),
+                             route=args[6].kind)
+            else:
+                shape.update(alive_after=int(want[1].sum()))
+            if key == "spc frame: overflow":
+                require(float(want[3]) > 0, "the overflow chunk did not overflow")
+            if key in WALK_TIMED:
+                work = walk_work(*walk_start(kind, args))
+                longest = work["longest_walk"]
+                new_call, new_refresh = walk_caller(designs["new"], kind, args)
+                was_call, was_refresh = walk_caller(designs["was"], kind, args)
+                new_refresh()
+                new = timed(new_call)
+                was_refresh()
+                was_t = timed(was_call)
+                floor = walk_timed(designs["new"], kind, walk_with(args, num_steps=0))
+                new_refresh()
+                was_refresh()
+                host = host_ms_in_turns((new_call, was_call), calls=100)
+                shape.update(
+                    ms=new[0], event_ms=new[1], was_ms=was_t[0], was_event_ms=was_t[1],
+                    floor_ms=floor[0], **work,
+                    ns_per_chain_step=((new[0] - floor[0]) / longest * 1e6 if longest
+                                       else None),
+                    was_ns_per_chain_step=((was_t[0] - floor[0]) / longest * 1e6 if longest
+                                           else None),
+                    wrapper_host_ms=host[0], was_host_ms=host[1],
+                    launches_per_call=launches_per_call(new_call))
+            if not key.startswith("hard rays"):
+                held.append((key, kind, args, got))
+            out[key] = shape
+        out["was_design"] = SPHERE_TRACE_V1_DESIGN
+        out["split"] = {"sdf render chunk": walk_split("sdf_walk",
+                                                       calls["sdf render chunk"][1]),
+                        spc_key: walk_split("spc_trace", spc)}
+        # sphere_step and sphere_iter on the sphere iterations step 21 holds, and
+        # sphere_step on the hard rays with a field of both signs and some under min_dis
+        steps_held = 0
+        for key, c in sorted(QUERY_STEP_CALLS.items()):
+            if c["kind"] != "sphere_iter":
+                continue
+            (o, d, t, alive, hit, t_far, field, fd, level, step, min_dis, *rest) = c["args"]
+            sk = [t.clone(), alive.clone(), hit.clone()]
+            sp = [t.clone(), alive.clone(), hit.clone()]
+            sphere_step(o, d, *sk, t_far, field[:, 0].contiguous(), fd, level, step, min_dis)
+            sphere_step_plain(o, d, *sp, t_far, field[:, 0].contiguous(), fd, level, step,
+                              min_dis)
+            ik = [t.clone(), alive.clone(), hit.clone()]
+            ip = [t.clone(), alive.clone(), hit.clone()]
+            rows_k = sphere_iter(o, d, *ik, t_far, field, fd, level, step, min_dis, *rest)
+            rows_p = sphere_iter_plain(o, d, *ip, t_far, field, fd, level, step, min_dis,
+                                       *rest)
+            err = float((rows_k - rows_p).abs().max()) if rows_p.numel() else 0.0
+            require(walk_equal(sk, sp) and walk_equal(ik, ip) and walk_equal(ik, sp)
+                    and err <= 1e-6,
+                    f"sphere_step / sphere_iter at {key}: t, alive or hit differs, or rows "
+                    f"off by {err}")
+            steps_held += 1
+        g = torch.Generator(device="cpu").manual_seed(29)
+        for key, (kind, args) in sorted(calls.items()):
+            if not key.startswith("hard rays") or kind != "sdf_walk" or args[-1] == 0:
+                continue
+            o, d, t, alive, t_far, fd, level, _ = args
+            dist = ((torch.rand(o.shape[0], generator=g) - 0.2) * 0.05).to(dev)
+            sk = [t.clone(), alive.clone(), torch.zeros_like(alive)]
+            sp = [t.clone(), alive.clone(), torch.zeros_like(alive)]
+            for _ in range(4):
+                sphere_step(o, d, *sk, t_far, dist, fd, level, 0.8, 3e-3)
+                sphere_step_plain(o, d, *sp, t_far, dist, fd, level, 0.8, 3e-3)
+                require(walk_equal(sk, sp), f"sphere_step at {key} differs from the plain "
+                                            f"version")
+            steps_held += 1
+        require(steps_held > 0, "no sphere iteration was recorded to hold sphere_step on")
+        out["sphere_step_and_iter_held"] = steps_held
+        torch.cuda.synchronize()
+        callers = [(key, walk_caller(walk_designs(kind)["new"], kind, args)[0], ref)
+                   for key, kind, args, ref in held]
+        last = {}
+        for i in range(WALK_BACK_TO_BACK):
+            key, call, _ = callers[i % len(callers)]
+            last[key] = call()
+        torch.cuda.synchronize()
+        for key, _, ref in callers:
+            require(walk_equal(last[key], ref), f"{key}, called back to back, differs from "
+                                                f"its first result")
+    return out
+
+
 # the K2/K8 and K15 backward calls that the paths made, for the "march and octree grad"
 # step: key -> {"kind": counter name, "args": the wrapper's arguments (cloned)}
 MARCH_GRAD_CALLS = {}
@@ -2299,24 +2765,44 @@ def plain_sdf_versions():
         yield
 
 
-def walk_work(o, d, t, alive, t_far, free_dist, level: int, num_steps: int):
-    """(steps that the walk takes over all rays, distinct cells of the free-space field
-    that it reads): the walk's data-dependent work, counted with its plain operations."""
+def walk_work(o, d, t, alive, t_far, free_dist, level: int, num_steps: int) -> dict:
+    """The walk's data-dependent work, counted with its plain operations: the steps taken
+    over all rays, the distinct cells of the free-space field read, the most steps one ray
+    takes (``longest_walk``), the steps that take the walker's far step (rule (b) of
+    ``csrc/sphere_walker.cuh``: the skip, no division), and the warp-steps (32 consecutive
+    rays, one step, some lane advancing) whose advancing lanes mix far and full steps (the
+    warp then runs both)."""
     import torch
-    from wisp_tpu_torch.tracers.packed_sdf_tracer import _fsd_at, _free_step
+    import torch.nn.functional as F
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import OUTSIDE, _fsd_at, _free_step
     res, voxel = 2 ** level, 2.0 / 2 ** level
     t, alive = t.clone(), alive.clone()
-    steps, cells = 0, []
+    taken = torch.zeros_like(t, dtype=torch.int32)
+    m = torch.where(d.abs() > 1e-12, d.abs(), torch.zeros_like(d)).amax(dim=-1)
+    cells = [torch.zeros((0,), dtype=torch.int64, device=t.device)]
+    far_steps = warp_steps = mixed = 0
+    pad = (-t.numel()) % 32
     for _ in range(num_steps):
         k, pos = _fsd_at(o, d, t, free_dist, level)
         inside = ((pos >= -1.0) & (pos < 1.0)).all(-1)
         q = ((pos + 1.0) * (res / 2.0)).floor().long().clamp(0, res - 1)
         cells.append(((q[:, 0] * res + q[:, 1]) * res + q[:, 2])[alive & inside])
         adv = alive & (k > 0)
-        steps += int(adv.sum())
+        skip = (k.to(torch.float32) - 1.0) * voxel
+        far = adv & (k != OUTSIDE) & ((skip - 1e-3 * voxel) * m
+                                      >= voxel * (1.0 + 2.0 ** -10))
+        far_steps += int(far.sum())
+        warp_far = F.pad(far, (0, pad)).reshape(-1, 32).any(dim=1)
+        warp_full = F.pad(adv & ~far, (0, pad)).reshape(-1, 32).any(dim=1)
+        warp_steps += int((warp_far | warp_full).sum())
+        mixed += int((warp_far & warp_full).sum())
+        taken += adv.to(torch.int32)
         t = torch.where(adv, t + _free_step(k, pos, d, voxel), t)
         alive = alive & (t <= t_far)
-    return steps, int(torch.unique(torch.cat(cells)).numel())
+    return {"steps_taken": int(taken.sum()),
+            "cells_read": int(torch.unique(torch.cat(cells)).numel()),
+            "longest_walk": int(taken.max()) if taken.numel() else 0,
+            "far_steps": far_steps, "warp_steps": warp_steps, "mixed_warp_steps": mixed}
 
 
 def sdf_kernel_phase(pipeline, rays):
@@ -2381,7 +2867,8 @@ def sdf_kernel_phase(pipeline, rays):
     sdf_walk_plain(o, d, tp, ap, t_far, fk, level, steps)
     require(torch.equal(tk, tp) and torch.equal(ak, ap),
             "sdf_walk differs from the plain version")
-    taken, walk_cells = walk_work(o, d, t0, a0, t_far, fk, level, steps)
+    work = walk_work(o, d, t0, a0, t_far, fk, level, steps)
+    taken, walk_cells = work["steps_taken"], work["cells_read"]
     state, plain_state = copies(t0, a0), copies(t0, a0, iters=5)
     rows.append(kernel_row(
         "sdf_walk", "wisp_tpu_torch/csrc/sphere_trace.cu",
@@ -2390,6 +2877,10 @@ def sdf_kernel_phase(pipeline, rays):
         timed(lambda: sdf_walk_plain(o, d, *plain_state(), t_far, fk, level, steps),
               iters=5),
         nbytes=n * (24 + 4 + 1 + 4) + n * (4 + 1) + walk_cells * 4, ops=taken * 50))
+    walk_args = (o, d, t0, a0, t_far, fk, level, steps)
+    if SPHERE_TRACE_V1 is not None:
+        walk_row_extras(rows[-1], "sdf_walk", walk_args, work)
+    walk_record("sdf render chunk", "sdf_walk", walk_args)
 
     # 4 sphere iterations with the kernels, then the field at the rays' points
     t, alive, hit = tk, ak, torch.zeros_like(ak)
@@ -4326,7 +4817,8 @@ def nglod_frame(dev, pipeline, tracker):
     with float32_decoders(pipeline):
         for name, tracer in tracers.items():
             label = "uncompacted, a chunk of permuted rays" if name == "uncompacted" else name
-            with recording_octree_grid(f"nglod frame: {label}"):
+            with recording_octree_grid(f"nglod frame: {label}"), \
+                    recording_walks("nglod frame" if name == "uncompacted" else None):
                 f32[name] = trace_chunks(nef, tracer, rays, NGLOD_CHUNK)
     base_outs = frames["uncompacted"]["outs"]
     for name, fr in frames.items():
@@ -4595,7 +5087,8 @@ def nglod_phase(dev):
         target = (torch.rand(NGLOD_CHUNK, 3, generator=g) * 1.6 - 0.8)
         d = torch.nn.functional.normalize(target - o, dim=-1)
         t0 = time.perf_counter()
-        with torch.no_grad(), recording_octree_grid("nglod level 8 chunk"):
+        with torch.no_grad(), recording_octree_grid("nglod level 8 chunk"), \
+                recording_walks("nglod level 8 chunk"):
             rb8 = tracer8(pipe8.nef, Rays(o.contiguous().to(dev), d.to(dev), 0.0, 10.0))
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
@@ -4731,8 +5224,8 @@ def spc_kernel_rows(blas, tracer, rays, launches) -> list:
             "spc_trace differs from the plain version")
     t_near, t_far = aabb_intersect(o, d, rays.dist_min, rays.dist_max)
     t0 = t_near.clamp(min=0.0) + 1e-6
-    taken, walk_cells = walk_work(o, d, t0, t_far > t0, t_far, tracer.free_dist, level,
-                                  SPC_STEPS)
+    work = walk_work(o, d, t0, t_far > t0, t_far, tracer.free_dist, level, SPC_STEPS)
+    taken, walk_cells = work["steps_taken"], work["cells_read"]
     hits = int(got[1].sum())
     rows = [kernel_row(
         "spc_trace", "wisp_tpu_torch/csrc/sphere_trace.cu",
@@ -4741,6 +5234,8 @@ def spc_kernel_rows(blas, tracer, rays, launches) -> list:
         nbytes=n * 24 + walk_cells * 4 + n * (4 + 1 + 4) + hits * (1 + 4),
         ops=taken * 50 + n * 30)]
     rows[-1]["launches"] = launches["spc_trace"]
+    if SPHERE_TRACE_V1 is not None:
+        walk_row_extras(rows[-1], "spc_trace", args, work)
     capacity, steps = min(3 * 2 ** level + 2, 512), 3 * 2 ** level + 2
     rargs = (o, d, rays.dist_min, rays.dist_max, route, level, capacity, steps)
     rk, rp = raytrace(*rargs), raytrace_plain(*rargs)
@@ -4836,6 +5331,8 @@ def spc_phase(dev):
     wall, busy, top, _ = profile_call(lambda: renderer.render(pipeline, rays))
     info.update(profile_frame_ms=wall, device_busy_ms=busy,
                 device_idle_share=idle_share(busy, wall), top_device_kernels=top)
+    with recording_walks("spc frame"):
+        renderer.render(pipeline, rays)
 
     # -- SPCField's raytrace of one chunk (K10): counts from 0, held to the first hit ------
     sl = slice(SPC_CHECK_CHUNK * SPC_CHUNK, (SPC_CHECK_CHUNK + 1) * SPC_CHUNK)
@@ -5108,13 +5605,20 @@ def run() -> dict:
     octree_grid_bwd_v1_build = start_baseline_build(OCTREE_GRID_BWD_V1_SRC,
                                                     "libwisp_octree_grid_bwd_v1.so")
     mesh_v1_build = start_baseline_build(MESH_V1_SRC, "libwisp_mesh_sdf_v1.so")
+    sphere_trace_v1_build = start_baseline_build(SPHERE_TRACE_V1_SRC,
+                                                 "libwisp_sphere_trace_v1.so")
+    walk_probe_build = start_walk_probe_build()
     kernels.build(verbose=True)
-    global THREEPASS, HASHGRID_V1, OCTREE_V1, MARCH_GRAD_V1, MESH_V1
+    global THREEPASS, HASHGRID_V1, OCTREE_V1, MARCH_GRAD_V1, MESH_V1, SPHERE_TRACE_V1, \
+        WALK_PROBE
     THREEPASS = ThreePass(threepass_build)
     HASHGRID_V1 = HashGridV1(hashgrid_v1_build)
     OCTREE_V1 = OctreeV1(octree_grid_v1_build, free_space_v1_build)
     MARCH_GRAD_V1 = MarchGradV1(raymarch_v1_build, octree_grid_bwd_v1_build)
     MESH_V1 = MeshV1(mesh_v1_build)
+    SPHERE_TRACE_V1 = WalkDesign(finish_baseline_build(sphere_trace_v1_build,
+                                                       SPHERE_TRACE_V1_SRC), "_v1")
+    WALK_PROBE = WalkDesign(finish_baseline_build(walk_probe_build, "the walk probe"), "")
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in str(kernels.BUILD_INFO.get("log", "")).splitlines()
              if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
@@ -5142,6 +5646,9 @@ def run() -> dict:
     t0 = time.perf_counter()
     query_step_info = query_step_phase()
     phases["phase_s"]["query and step folded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walk_info = walk_phase(dev)
+    phases["phase_s"]["walks"] = time.perf_counter() - t0
     print(json.dumps({"kernels": phases["kernels"]}), flush=True)
     for line in phases["lines"]:
         print(json.dumps(line), flush=True)
@@ -5151,6 +5658,7 @@ def run() -> dict:
     print(json.dumps({"march_grad_shapes": march_grad_info}), flush=True)
     print(json.dumps({"mesh_shapes": mesh_info}), flush=True)
     print(json.dumps({"query_step_shapes": query_step_info}), flush=True)
+    print(json.dumps({"walk_shapes": walk_info}), flush=True)
     print(json.dumps({"phase_s": phases["phase_s"], "profiler_shortfalls": PROFILER_SHORTFALLS,
                       "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi, flush=True)

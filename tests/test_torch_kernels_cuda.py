@@ -2099,3 +2099,141 @@ def test_fused_sphere_loop_on_the_card(dev, compaction, mid_compaction):
     assert float(both.float().mean()) > 0.2
     assert float((got.depth - want.depth)[both].abs().max()) <= 1e-4
     assert float((got.normal - want.normal)[both].abs().max()) <= 1e-4
+
+
+# -- K12's walk and K13 around the short step (csrc/sphere_walker.cuh), beside the earlier
+# -- design (csrc/baselines/sphere_trace_v1.cu) ---------------------------------------------
+@pytest.fixture(scope="module")
+def walk_v1():
+    """The earlier design of the walks, built beside the library (as chip_smoke.py does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import chip_smoke
+    started = chip_smoke.start_baseline_build(chip_smoke.SPHERE_TRACE_V1_SRC,
+                                              "libwisp_sphere_trace_v1.so")
+    return chip_smoke.WalkDesign(
+        chip_smoke.finish_baseline_build(started, chip_smoke.SPHERE_TRACE_V1_SRC), "_v1")
+
+
+def _walk_fields(blas, level):
+    """{name: (free-space field, occupancy)}: the octree's, all free (k = 32 everywhere),
+    all occupied."""
+    fd = blas.free_space_distance()
+    occ = blas.occ_grid if blas.occ_grid is not None else torch.ones_like(fd, dtype=torch.bool)
+    return {"octree": (fd, occ),
+            "all free": (torch.full_like(fd, 32), torch.zeros_like(occ)),
+            "all occupied": (torch.zeros_like(fd), torch.ones_like(occ))}
+
+
+def _hard_walk_rays(dev, level):
+    """The hard rays of chip_smoke.py's "walks" step and seeded rays, with the walk's start
+    (t, alive, t_far)."""
+    import chip_smoke
+    from wisp_tpu_torch.accelstructs.octree_as import aabb_intersect
+    ho, hd = chip_smoke.walk_hard_rays(dev, level)
+    so, sd = _spc_rays(2000, dev)
+    o, d = torch.cat([ho, so]), torch.cat([hd, sd])
+    t_near, t_far = aabb_intersect(o, d, 0.0, 10.0)
+    t = t_near.clamp(min=0.0) + 1e-6
+    return o, d, t, t_far > t, t_far
+
+
+@pytest.mark.parametrize("level", [6, 8])
+@pytest.mark.parametrize("steps", [0, 1, 32])
+def test_sdf_walk_hard_rays(dev, walk_v1, level, steps):
+    """K12's walk on the hard rays, on the shell octree's field, an all-free and an
+    all-occupied one: the kernel and the earlier design bit-equal to the plain version."""
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import sdf_walk, sdf_walk_plain
+    blas = _sphere_octree(level, dev)
+    o, d, t, alive, t_far = _hard_walk_rays(dev, level)
+    for name, (fd, _) in _walk_fields(blas, level).items():
+        states = {k: [t.clone(), alive.clone()] for k in ("new", "was", "plain")}
+        before = kernels.LAUNCHES["sdf_walk"]
+        sdf_walk(o, d, *states["new"], t_far, fd, level, steps)
+        walk_v1.sdf_walk(o, d, *states["was"], t_far, fd, level, steps)
+        sdf_walk_plain(o, d, *states["plain"], t_far, fd, level, steps)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["sdf_walk"] == before + 1
+        for k in ("new", "was"):
+            for a, b in zip(states[k], states["plain"]):
+                assert torch.equal(a, b), (name, k)
+        if steps and name == "octree":
+            assert bool((states["new"][0] != t).any())
+
+
+@pytest.mark.parametrize("kind", ["map", "search", "dense", "bitfield"])
+@pytest.mark.parametrize("steps", [0, 1, 64])
+def test_spc_trace_hard_rays(dev, walk_v1, kind, steps):
+    """K13 on every route, on the hard rays and the three fields: t, hit, pidx and the
+    overflow count of the kernel and of the earlier design bit-equal to the plain version."""
+    from wisp_tpu_torch.tracers.packed_spc_tracer import spc_trace, spc_trace_plain
+    blas = _traced_octree(kind, dev)
+    level = blas.max_level
+    route = blas.query_routes[level]
+    o, d, _, _, _ = _hard_walk_rays(dev, level)
+    for name, (fd, occ) in _walk_fields(blas, level).items():
+        args = (o, d, 0.0, 10.0, fd, occ, route, level, steps)
+        want = spc_trace_plain(*args)
+        for got in (spc_trace(*args), walk_v1.spc_trace(*args)):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), name
+        if name == "octree" and steps == 64:
+            assert bool(want[1].any())
+        if name == "all free" and steps == 1:       # one skip of 31 cells stays in the box
+            assert float(want[3]) > 0
+
+
+def test_sphere_step_and_iter_hard_rays(dev):
+    """sphere_step and sphere_iter on the hard rays after the walk, 4 iterations with a
+    field of both signs (some under min_dis): t, alive and hit bit-equal to the plain
+    version's, the rows within 1e-6."""
+    from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import (sdf_walk, sphere_iter,
+                                                          sphere_iter_plain, sphere_step,
+                                                          sphere_step_plain)
+    level = 6
+    blas = _sphere_octree(level, dev)
+    o, d, t, alive, t_far = _hard_walk_rays(dev, level)
+    fd = blas.free_space_distance()
+    sdf_walk(o, d, t, alive, t_far, fd, level, 8)
+    n = o.shape[0]
+    grid = OctreeGrid(blas=blas, feature_dim=16, num_lods=3, feature_std=0.5,
+                      generator=torch.Generator().manual_seed(52), device=dev)
+    fused = grid.query_interp_args(2) + (True,)
+    g = torch.Generator(device="cpu").manual_seed(53)
+    step_k = [t.clone(), alive.clone(), torch.zeros_like(alive)]
+    step_p = [t.clone(), alive.clone(), torch.zeros_like(alive)]
+    iter_k = [t.clone(), alive.clone(), torch.zeros_like(alive)]
+    iter_p = [t.clone(), alive.clone(), torch.zeros_like(alive)]
+    with torch.no_grad():
+        for i in range(4):
+            field = ((torch.rand(n, 4, generator=g) - 0.2) * 0.05).to(dev)
+            dist = field[:, 0].contiguous()
+            sphere_step(o, d, *step_k, t_far, dist, fd, level, 0.8, 3e-3)
+            sphere_step_plain(o, d, *step_p, t_far, dist, fd, level, 0.8, 3e-3)
+            rows = sphere_iter(o, d, *iter_k, t_far, field, fd, level, 0.8, 3e-3, *fused)
+            want = sphere_iter_plain(o, d, *iter_p, t_far, field, fd, level, 0.8, 3e-3,
+                                     *fused)
+            torch.cuda.synchronize()
+            for a, b, c in zip(step_k, step_p, iter_k):
+                assert torch.equal(a, b) and torch.equal(c, b), i
+            assert (rows - want).abs().max().item() <= 1e-6, i
+    assert bool(step_k[2].any())
+
+
+def test_walk_kernels_equal_the_earlier_design_on_a_level8_field(dev, walk_v1):
+    """A level-8 shell octree's field: the walk and K13 (the binary-searched route) of the
+    kernel equal the earlier design's bit for bit, at 64 steps, 1 and 0."""
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import sdf_walk
+    from wisp_tpu_torch.tracers.packed_spc_tracer import spc_trace
+    blas = _traced_octree("search", dev)
+    level = blas.max_level
+    fd = blas.free_space_distance()
+    o, d, t, alive, t_far = _hard_walk_rays(dev, level)
+    for steps in (64, 1, 0):
+        new, was = [t.clone(), alive.clone()], [t.clone(), alive.clone()]
+        sdf_walk(o, d, *new, t_far, fd, level, steps)
+        walk_v1.sdf_walk(o, d, *was, t_far, fd, level, steps)
+        args = (o, d, 0.0, 10.0, fd, blas.occ_grid, blas.query_routes[level], level, steps)
+        for a, b in zip(new + list(spc_trace(*args)), was + list(walk_v1.spc_trace(*args))):
+            assert torch.equal(a, b), steps

@@ -14,11 +14,15 @@
 // live ray hits when |d| < min_dis, else steps max(d*step_size, 0); in free space it takes
 // the free step; a live ray past t_far dies. t, alive and hit are updated in place.
 //
-// Bound on this card: bytes. Per ray 24 bytes of ray, t, t_far, the flags and d, and one
-// 4-byte gather of the free-space field (8 MB at level 7, in L2) a step. Design: one thread
-// a ray; the walk keeps its state in registers for all its steps. The float operations are
-// the plain version's, in its order (true divisions, no fused multiply-add), so t agrees bit
-// for bit.
+// Bound on this card: by bytes 24 bytes of ray, t, t_far, the flags and d a ray, and one
+// 4-byte gather of the free-space field (8 MB at level 7, in L2) a step; far below a launch.
+// What sets the time is the walk's chain: one thread a ray (a 16,384-ray chunk is about one
+// warp a scheduler), so a launch lasts as long as its longest walk times the latency of one
+// step, and nothing hides that latency. Design: the walk in registers, and a short step
+// (sphere_walker.cuh): one floor an axis for both the cell and the cell plane, and no
+// division where the skip (k-1)*voxel is known to be the larger candidate (one product
+// and a compare). The results are the plain version's bit for bit (its order, IEEE
+// divisions, no fused multiply-add). The earlier design is baselines/sphere_trace_v1.cu.
 //
 // K13 — the SPC tracer's first-hit walk, fused.
 //
@@ -31,10 +35,14 @@
 // num_overflow (alive and not in an occupied cell: the walk's budget ran out) added to one
 // float. Outputs: t, hit and pidx a ray.
 //
-// Bound on this card: bytes. Per ray 24 bytes of ray in, 9 bytes out, and one 4-byte gather
-// of the free-space field a walk step (8 MB at level 7, in L2); the occupancy and the index
-// map add one gather each. Design: one thread a ray, the walk in registers; the overflow
-// count takes one atomic per overflowing ray.
+// Bound on this card: by bytes 24 bytes of ray in, 9 bytes out, and one 4-byte gather of the
+// free-space field a walk step (8 MB at level 7, in L2), the occupancy and the index map one
+// gather each; as K12's walk, the longest walk's chain sets the time. Design: K12's short
+// step; after the walk, a ray whose last step found its cell occupied keeps that step's
+// point and cell; the occupancy byte and the route's lookup are issued together (the lookup
+// used only where the ray hit); the overflowing rays are counted with one atomic a warp (a
+// ballot's population count: integers below 2^24, so the float total is the plain
+// version's sum of 0/1 floats exactly).
 #include "common.cuh"
 #include "octree_lookup.cuh"
 #include "sphere_walker.cuh"
@@ -58,10 +66,10 @@ __global__ void sdf_walk_kernel(const float* __restrict__ origins,
   float t = t_io[r];
   bool alive = true;
   for (int i = 0; i < num_steps; ++i) {
-    float px, py, pz;
-    const int k = w.fsd(free_dist, t, px, py, pz);
+    float px, py, pz, qx, qy, qz;
+    const int k = w.fsd(free_dist, t, px, py, pz, qx, qy, qz);
     if (k <= 0) break;
-    t = t + w.free_step(k, px, py, pz);
+    t = t + w.free_step(k, px, py, pz, qx, qy, qz);
     if (!(t <= t_far)) {
       alive = false;
       break;
@@ -101,44 +109,66 @@ __global__ void spc_trace_kernel(const float* __restrict__ origins,
                                  int route, const void* table, long long len,
                                  float* __restrict__ t_out, uint8_t* __restrict__ hit_out,
                                  int* __restrict__ pidx_out, float* __restrict__ num_overflow) {
+  // every lane of a warp reaches the ballot below: a lane past N takes no ray
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
-  Walker w;
-  w.init(origins, dirs, r, level);
-  const float o[3] = {w.ox, w.oy, w.oz};
-  const float d[3] = {w.dx, w.dy, w.dz};
-  float t_near, t_far;
-  wisp::slab_test(o, d, dist_min, dist_max, t_near, t_far);
-  float t = fmaxf(t_near, 0.0f) + 1e-6f;
-  bool alive = t_far > t;
-  float px, py, pz;
-  if (alive) {
-    for (int i = 0; i < num_steps; ++i) {
-      const int k = w.fsd(free_dist, t, px, py, pz);
-      if (k <= 0) break;
-      t = t + w.free_step(k, px, py, pz);
-      if (!(t <= t_far)) {
-        alive = false;
-        break;
+  const bool valid = r < N;
+  bool alive = false, hit = false, overflow = false;
+  float t = 0.0f;
+  int pidx = -1;
+  if (valid) {
+    Walker w;
+    w.init(origins, dirs, r, level);
+    const float o[3] = {w.ox, w.oy, w.oz};
+    const float d[3] = {w.dx, w.dy, w.dz};
+    float t_near, t_far;
+    wisp::slab_test(o, d, dist_min, dist_max, t_near, t_far);
+    t = fmaxf(t_near, 0.0f) + 1e-6f;
+    alive = t_far > t;
+    float px, py, pz, qx, qy, qz;
+    bool at_point = false;   // the last step found the cell at t occupied: p and q are t's
+    if (alive) {
+      for (int i = 0; i < num_steps; ++i) {
+        const int k = w.fsd(free_dist, t, px, py, pz, qx, qy, qz);
+        if (k <= 0) {
+          at_point = true;
+          break;
+        }
+        t = t + w.free_step(k, px, py, pz, qx, qy, qz);
+        if (!(t <= t_far)) {
+          alive = false;
+          break;
+        }
       }
     }
+    if (alive) {             // a ray that died neither hits nor overflows
+      if (!at_point) {
+        w.point(t, px, py, pz);
+        qx = w.plane_index(px);
+        qy = w.plane_index(py);
+        qz = w.plane_index(pz);
+      }
+      const bool inside = px >= -1.0f && px < 1.0f && py >= -1.0f && py < 1.0f &&
+                          pz >= -1.0f && pz < 1.0f;
+      bool in_occ = inside;
+      if (inside) {
+        const int cx = w.cell_coord(qx), cy = w.cell_coord(qy), cz = w.cell_coord(qz);
+        // both loads in flight together; the lookup is kept only where the ray hits
+        const uint8_t occupied =
+            occ != nullptr ? occ[((long long)cx * w.res + cy) * w.res + cz] : (uint8_t)1;
+        const int cand = wisp::lookup_cell(route, table, len, level, cx, cy, cz);
+        in_occ = occupied != 0;
+        if (in_occ) pidx = cand;
+      }
+      hit = in_occ;
+      overflow = !in_occ;
+    }
   }
-  w.point(t, px, py, pz);
-  const bool inside = px >= -1.0f && px < 1.0f && py >= -1.0f && py < 1.0f && pz >= -1.0f &&
-                      pz < 1.0f;
-  int qx = 0, qy = 0, qz = 0;
-  bool in_occ = inside;
-  if (inside) {
-    qx = min(max((int)floorf((px + 1.0f) * w.half_res), 0), w.res - 1);
-    qy = min(max((int)floorf((py + 1.0f) * w.half_res), 0), w.res - 1);
-    qz = min(max((int)floorf((pz + 1.0f) * w.half_res), 0), w.res - 1);
-    if (occ != nullptr) in_occ = occ[((long long)qx * w.res + qy) * w.res + qz] != 0;
-  }
-  const bool hit = alive && in_occ;
-  if (alive && !in_occ) atomicAdd(num_overflow, 1.0f);
+  const unsigned over = __ballot_sync(wisp::kFullMask, overflow);
+  if ((threadIdx.x & 31) == 0 && over != 0u) atomicAdd(num_overflow, (float)__popc(over));
+  if (!valid) return;
   t_out[r] = t;
   hit_out[r] = (uint8_t)hit;
-  pidx_out[r] = hit ? wisp::lookup_cell(route, table, len, level, qx, qy, qz) : -1;
+  pidx_out[r] = pidx;
 }
 }  // namespace
 
