@@ -12,6 +12,7 @@ Run from the root of a checkout; it imports that checkout's ``chip_smoke.py`` an
     python3 chip_compaction_bench.py octree [label]
     python3 chip_compaction_bench.py l8 [label]
     python3 chip_compaction_bench.py spc [label]
+    python3 chip_compaction_bench.py seg [label]
 
 ``kernels``: ``compact`` (K3, K6a) and ``compact_rays`` (K12, its mid pass) at the four
 shapes of ``PERF.md``'s compaction rows, on seeded inputs (march-like runs of valid steps;
@@ -26,7 +27,10 @@ out) and, after 300 NGLOD app steps, 10 each of the 512x512 SDF frame uncompacte
 compaction 0.55 and with the mid pass at 0.3 (the nglod app phase's settings), in turns;
 then one flagship frame under torch.profiler (``profile_frame``: device-busy ms, idle
 share, the kernels with the most device time; K2 runs once a chunk, 16 times).
-``sdf``: the SDF frames of ``paths`` alone, in a process that runs nothing before them.
+``sdf``: the SDF frames of ``paths`` alone, in a process that runs nothing before them,
+then one frame of each under torch.profiler (``chip_smoke.profile_call``: wall, device-busy
+ms and idle share; the compacted frames take one scatter-back launch a chunk, the mid
+frame one more for its mid pass).
 ``sdfframe``: the SDF render phase's frame (``chip_smoke.nglod_pipeline``, 512x512 through
 ``OfflineRenderer.render_lookat``, the free-space field (K11) made once a chunk, as the
 tracer makes it when no field is held): 15 frames' wall ms after a warm-up, then one frame
@@ -49,6 +53,11 @@ orthographic rays through ``OfflineRenderer.render`` in chunks of 65,536, 64 wal
 (``chip_smoke.profile_call``: wall, device-busy ms and idle share each; the kernels with the
 most device time of the first) and one frame's launches (``kernels.LAUNCHES`` and every
 device kernel).
+``seg``: the "seg" phase's trainer (the flagship trainer with ``seg_early_stop``
+``chip_smoke.SEG_EPS`` and ``seg_count`` ``chip_smoke.SEG_COUNT``: K6a, K6b, K6c and K5
+accumulated on four segments a step): 40 steps' wall ms (the first two left out of the
+median), then one step under torch.profiler (``chip_smoke.profile_step``: device-busy ms,
+idle share, top kernels) and one step's launches (``kernels.LAUNCHES``).
 Each mode prints one JSON line; run ``paths`` from the parent's and the change's checkouts
 in turns (parent, change, change, parent, ...) to compare them: these paths are bound by
 the host, and their spread from process to process is wide.
@@ -194,6 +203,14 @@ def paths_mode(dev, flagship: bool) -> dict:
         for name, tracer in tracers.items():
             out[f"sdf_{name}_frame_ms"].append(
                 clock(lambda: cs.trace_chunks(nef, tracer, rays, cs.NGLOD_CHUNK)))
+    if not flagship:
+        profile = {}
+        for name, tracer in tracers.items():
+            wall, busy, top, launched = cs.profile_call(
+                lambda: cs.trace_chunks(nef, tracer, rays, cs.NGLOD_CHUNK))
+            profile[name] = {"wall_ms": wall, "device_busy_ms": busy,
+                             "device_idle_share": cs.idle_share(busy, wall),
+                             "device_kernels_launched": launched, "top_device_kernels": top}
     return out, profile
 
 
@@ -280,9 +297,22 @@ def spc_frame_mode(dev) -> tuple:
     return {"spc_frame_ms": frames}, frame_profile
 
 
+def seg_mode(dev) -> tuple:
+    kernels.build()
+    trainer = cs.flagship_trainer(dev)
+    tracer = trainer.pipeline.tracer
+    tracer.seg_early_stop, tracer.seg_count = cs.SEG_EPS, cs.SEG_COUNT
+    steps = [clock(trainer.iterate) for _ in range(40)]
+    profile = cs.profile_step(trainer)
+    kernels.reset_launches()
+    clock(trainer.iterate)
+    profile["step_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    return {"seg_step_ms": steps[2:]}, profile
+
+
 def main() -> int:
     if len(sys.argv) < 2 or sys.argv[1] not in ("kernels", "paths", "sdf", "sdfframe",
-                                                "octree", "l8", "spc"):
+                                                "octree", "l8", "spc", "seg"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -301,13 +331,15 @@ def main() -> int:
         result, profile = level8_mode(dev)
     elif mode == "spc":
         result, profile = spc_frame_mode(dev)
+    elif mode == "seg":
+        result, profile = seg_mode(dev)
     else:
         result, profile = paths_mode(dev, mode == "paths")
     if mode != "kernels":
         result = {"median_ms": {k: statistics.median(v) for k, v in result.items()},
                   "all_ms": result}
     if profile is not None:
-        result["profile_step" if mode in ("octree", "l8") else "profile_frame"] = profile
+        result["profile_step" if mode in ("octree", "l8", "seg") else "profile_frame"] = profile
     print(json.dumps({"mode": mode, "label": sys.argv[2] if len(sys.argv) > 2
                       else None, "device": cs.nvidia_smi_line(), **result}), flush=True)
     return 0

@@ -97,8 +97,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    backward, the accumulated scatter-max and the shared kernels must all have run; the
    unsegmented compaction and composite never); holds K6a and K5 accumulated against their
    plain versions exactly on every segment of step 25, K6b within 1e-4 (acc_tau out 1e-5
-   relative) and K6c within 1e-5 of each gradient's largest entry on its second segment,
-   and times them; then, on one 16,384-ray chunk of the render path's carved field at
+   relative) on every segment and with a culling carry, and K6c within 1e-5 of each
+   gradient's largest entry on its second segment, and times them (K6b beside its earlier
+   design, ``wisp_tpu_torch/csrc/baselines/integrate_seg_v1.cu``); then, on one
+   16,384-ray chunk of the render path's carved field at
    compaction 1.0, holds the segmented trace at eps 1e-20 to the unsegmented one (1e-3,
    the same valid count) and at eps 1e-3 within eps + 1e-4 in rgb, and times one 512x512
    frame with the cull and one without;
@@ -112,15 +114,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    frame (the tracker's snapshot camera, rays shuffled by ``default_rng(0)``, chunks of
    65,536) uncompacted, at compaction 0.55 and with mid-loop compaction 0.3 at mid_at 0.5
    (counts from 0 before the three timed frames, read exactly: 32 sphere iterations and a
-   closing step a loop, two loops with the mid pass, no K9), holds the compacted traces to
+   closing step a loop, two loops with the mid pass, no K9, one scatter-back of every
+   channel a compacted chunk and one a mid pass), holds the compacted traces to
    the uncompacted one with float32 decoders (the same hits except within SDF_HIT_MARGIN of
    min_dis, depth and normals within their tolerances; no invented hit where a chunk drops
    rays), and profiles a compacted chunk; builds ``--blas-level 8`` and runs 50 steps (the
    last profiled) and one render chunk (counts from 0 before the build: K9's search in the
    dataset's narrowband filter, the fused query's search on every step); builds the
    texture flags on the yaml, resamples and runs 50 steps (counts from 0: K17 launched);
-   holds K12's compaction (both passes), its scatter-back, K9's search (with and without
-   the ancestor chain) and K17 against their plain versions and times them;
+   holds K12's compaction (both passes), its scatter-back (every channel of the last
+   compacted chunk and of its mid pass, as the tracer called it; beside the earlier design,
+   ``wisp_tpu_torch/csrc/baselines/scatter_rows_v1.cu``, a launch a channel), K9's search
+   (with and without the ancestor chain) and K17 against their plain versions and times
+   them;
 14. SPC browser path ("spc browser"): builds tools/spc_render_bench.py's scene with the
    port's ``pointcloud_to_octree`` (a level-7 SPC of 1,000,000 surface samples of a
    radius-0.7, subdivision-4 icosphere, coloured by position), sets the counts to 0, makes
@@ -215,7 +221,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    probe built from an edited copy of the source whose field read hits one fixed cell, on
    uniform fields of k = 1 and k = 4, where both take the same steps); then makes 200 calls
    back to back on one stream and holds each shape's last result equal to its first;
-23. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+23. scatter and segment ("scatter and segment"): holds K12's scatter-back (one launch for
+   every channel) bit for bit, and its earlier design, to the plain version on the trained
+   NGLOD frame's last compacted chunk (t, xyz, hit, normal) and its mid pass (t, hit), and
+   K6b, and its earlier design, within 1e-4 (acc_tau out 1e-5 relative) on the seg phase's
+   four segments of step 25 and on a segment with a culling carry; times each beside the
+   earlier design with its launches a call and the path's launches, then makes 200 calls
+   back to back on one stream and holds each call's last result equal to its first;
+24. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels (K15's forward: 0, no path launches it), from the SDF training run
    for K9, K15's backward and K16, from the octree NeRF's 25 steps for K7, from the stoch
@@ -227,8 +240,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    K14), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
    ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
    ``uniform_path`` JSON lines, the ``compaction_shapes``, ``hashgrid_shapes``,
-   ``octree_grid_shapes``, ``march_grad_shapes``, ``mesh_shapes``, ``query_step_shapes`` and
-   ``walk_shapes`` lines, the ``phase_s`` line, the nvidia-smi line and, last, ``{"ok":
+   ``octree_grid_shapes``, ``march_grad_shapes``, ``mesh_shapes``, ``query_step_shapes``,
+   ``walk_shapes`` and ``scatter_seg_shapes`` lines, the ``phase_s`` line, the nvidia-smi
+   line and, last, ``{"ok":
    true, "device": {...}}``.
 """
 
@@ -437,6 +451,15 @@ WALK_PROBE_EDIT = ("    unsigned zero;\n"
                    "    asm volatile(\"mov.u32 %0, 0;\" : \"=r\"(zero));\n"
                    "    return __ldg(free_dist + (cell(qx, qy, qz) & zero));")
 WALK_PROBE = None              # a WalkDesign once built (run())
+
+SCATTER_ROWS_V1_SRC = "wisp_tpu_torch/csrc/baselines/scatter_rows_v1.cu"
+INTEGRATE_SEG_V1_SRC = "wisp_tpu_torch/csrc/baselines/integrate_seg_v1.cu"
+SCATTER_SEG_V1 = None          # a ScatterSegV1 once built (run())
+SCATTER_SEG_V1_DESIGN = {
+    "scatter_rows": "csrc/baselines/scatter_rows_v1.cu (a launch a channel; a thread a "
+                    "(slot, 4-byte word) or (slot, byte), each reading the slot's index)",
+    "integrate_seg_fwd": "csrc/baselines/integrate_seg_v1.cu (K4's forward with the carry: "
+                         "a step a lane, 32 steps a dependent round; 4 rounds at S = 128)"}
 
 
 def start_walk_probe_build():
@@ -801,6 +824,59 @@ class MeshV1:
                 nearest.data_ptr(), tidx.data_ptr(), self._stream())
             require(status == 0, f"wisp_closest_point_v1 failed to launch ({status})")
         return dist, nearest, tidx
+
+class ScatterSegV1:
+    """The earlier designs of K12's scatter-back (a launch a channel) and of K6b, called on
+    the current stream with their wrappers' arguments; their launches are not the port's
+    and are not counted."""
+
+    def __init__(self, started_scatter, started_seg):
+        import ctypes
+        import torch
+        from wisp_tpu_torch import kernels
+        self.torch, self.kernels = torch, kernels
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self.scatter_lib = finish_baseline_build(started_scatter, SCATTER_ROWS_V1_SRC)
+        self.scatter_lib.wisp_scatter_rows_v1.argtypes = [P, P, L, I, L, P, P]
+        self.seg_lib = finish_baseline_build(started_seg, INTEGRATE_SEG_V1_SRC)
+        self.seg_lib.wisp_integrate_seg_fwd_v1.argtypes = \
+            kernels._SIGNATURES["wisp_integrate_seg_fwd"]
+
+    def _stream(self) -> int:
+        return self.torch._C._cuda_getCurrentRawStream(self.torch._C._cuda_getDevice())
+
+    def scatter_rows_many(self, idx, pairs, mid=False):
+        """``scatter_rows_many`` as the earlier design's launch a channel."""
+        import math
+        for v, out in pairs:
+            k, row_bytes = v.shape[0], math.prod(v.shape[1:]) * v.element_size()
+            if k and row_bytes:
+                status = self.scatter_lib.wisp_scatter_rows_v1(
+                    v.data_ptr(), idx.data_ptr(), k, row_bytes, out.shape[0], out.data_ptr(),
+                    self._stream())
+                require(status == 0, f"wisp_scatter_rows_v1 failed to launch ({status})")
+        return [out for _, out in pairs]
+
+    def integrate_segment(self, density, deltas, depths, mask, color, acc_tau, extra=None,
+                          with_depth=True):
+        """``integrate_segment``'s forward with the earlier design."""
+        torch, ptr = self.torch, self.kernels.ptr
+        r, s = density.shape
+        ce = 0 if extra is None else extra.shape[-1]
+        new = functools.partial(torch.empty, dtype=torch.float32, device=density.device)
+        out = {"rgb": new((r, 3)), "alpha": new((r, 1)), "acc_tau": new((r,))}
+        if with_depth:
+            out["depth"] = new((r, 1))
+        if extra is not None:
+            out["extra"] = new((r, ce))
+        status = self.seg_lib.wisp_integrate_seg_fwd_v1(
+            density.data_ptr(), deltas.data_ptr(), depths.data_ptr(), mask.data_ptr(),
+            color.data_ptr(), ptr(extra), acc_tau.data_ptr(), r, s, ce, out["rgb"].data_ptr(),
+            out["alpha"].data_ptr(), ptr(out.get("depth")), ptr(out.get("extra")),
+            out["acc_tau"].data_ptr(), self._stream())
+        require(status == 0, f"wisp_integrate_seg_fwd_v1 failed to launch ({status})")
+        return out
+
 
 def march_equal(got, want) -> bool:
     """K2/K8's contract: points, depths, deltas, mask and densities bit for bit."""
@@ -2007,6 +2083,110 @@ def walk_phase(dev) -> dict:
         for key, _, ref in callers:
             require(walk_equal(last[key], ref), f"{key}, called back to back, differs from "
                                                 f"its first result")
+    return out
+
+
+SCATTER_SEG_BACK_TO_BACK = 200
+
+
+def scatter_seg_phase() -> dict:
+    """K12's scatter-back and K6b on the calls the paths recorded (SCATTER_SEG_CALLS): the
+    trained NGLOD frame's last compacted chunk's scatter-back of every channel and its mid
+    pass's, bit for bit to the plain version and to the earlier design (a launch a
+    channel); the seg phase's segments of step 25 and the checked segment with the culling
+    carry within SEG_FWD_TOL (acc_tau out SEG_ACC_REL_TOL relative) of the plain version,
+    the earlier design too. Each call timed beside the earlier design (device ms, event
+    ms), with its hand-written launches and device kernels a call and the path's launches;
+    then SCATTER_SEG_BACK_TO_BACK calls back to back on one stream, the calls in turns,
+    each call's last result held equal to its first."""
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.ops.compaction import scatter_rows_many, scatter_rows_many_plain
+    from wisp_tpu_torch.ops.integration import integrate_segment, integrate_segment_plain
+    require(all(k in SCATTER_SEG_CALLS for k in ("scatter", "scatter mid", "segments")),
+            f"the scatter and segment calls recorded are {sorted(SCATTER_SEG_CALLS)}")
+    frame, seg = SCATTER_SEG_CALLS["frame launches"], SCATTER_SEG_CALLS["seg launches"]
+    out = {"was_design": SCATTER_SEG_V1_DESIGN, "frame_launches": frame,
+           "seg_launches": seg, "seg_launches_a_step": seg["integrate_seg_fwd"] / seg["steps"]}
+    callers = []
+
+    def hand_launches(counter, fn):
+        before = kernels.LAUNCHES[counter]
+        result = fn()
+        return result, kernels.LAUNCHES[counter] - before
+
+    with torch.no_grad():
+        for key in ("scatter", "scatter mid"):
+            rec = SCATTER_SEG_CALLS[key]
+            mid, idx = key.endswith("mid"), rec["idx"]
+            counter = "scatter_rays_mid" if mid else "scatter_rays"
+            want = scatter_rows_many_plain(idx, scatter_pairs(rec))
+            got, hand = hand_launches(
+                counter, lambda: scatter_rows_many(idx, scatter_pairs(rec), mid=mid))
+            was = SCATTER_SEG_V1.scatter_rows_many(idx, scatter_pairs(rec))
+            require(scatter_equal(got, want) and scatter_equal(was, want),
+                    f"{key}: (new, earlier design) bit-equal to the plain version: "
+                    f"{(scatter_equal(got, want), scatter_equal(was, want))}")
+            require(hand == 1, f"{key}: {hand} launches a call, not one")
+            work = scatter_pairs(rec)
+            new_call = functools.partial(scatter_rows_many, idx, work, mid=mid)
+            was_call = functools.partial(SCATTER_SEG_V1.scatter_rows_many, idx, work)
+            new_t, was_t = timed(new_call), timed(was_call)
+            sizes = scatter_sizes(rec)
+            out[key] = {
+                **sizes, "channels": list(rec["names"]), "exact": True, "ms": new_t[0],
+                "event_ms": new_t[1], "was_ms": was_t[0], "was_event_ms": was_t[1],
+                "bound_ms": bound(scatter_bytes(rec, sizes), 0)[0],
+                "hand_written_launches_per_call": hand,
+                "launches_per_call": launches_per_call(new_call),
+                "was_launches_per_call": launches_per_call(was_call),
+                "path_launches": frame[counter]}
+            bases = [b for _, b in rec["pairs"]]
+
+            def again(work=work, bases=bases, new_call=new_call):
+                for (_, o), b in zip(work, bases):
+                    o.copy_(b)
+                return new_call()
+
+            callers.append((key, again, want))
+        for key, args in SCATTER_SEG_CALLS["segments"]:
+            want = integrate_segment_plain(*args)
+            got, hand = hand_launches("integrate_seg_fwd", lambda: integrate_segment(*args))
+            was = SCATTER_SEG_V1.integrate_segment(*args)
+            err, rel = seg_fwd_errors(got, want)
+            was_err, was_rel = seg_fwd_errors(was, want)
+            require(seg_fwd_within(got, want) and seg_fwd_within(was, want),
+                    f"integrate_seg_fwd at {key}: (new, earlier design) off the plain version "
+                    f"by {(err, rel)}, {(was_err, was_rel)}")
+            require(hand == 1, f"integrate_seg_fwd at {key}: {hand} launches a call, not one")
+            new_call = functools.partial(integrate_segment, *args)
+            was_call = functools.partial(SCATTER_SEG_V1.integrate_segment, *args)
+            new_t, was_t = timed(new_call), timed(was_call)
+            r, steps = args[0].shape
+            out[key] = {
+                "rays": r, "steps": steps, "rounds": -(-steps // 128),
+                "was_rounds": -(-steps // 32), "max_abs_err": err, "acc_tau_rel_err": rel,
+                "was_max_abs_err": was_err, "was_acc_tau_rel_err": was_rel,
+                "rays_culled": float((args[5] >= SCATTER_SEG_CALLS["tau_cap"]).float().mean()),
+                "ms": new_t[0], "event_ms": new_t[1], "was_ms": was_t[0],
+                "was_event_ms": was_t[1],
+                "bound_ms": bound(r * steps * 21 + r * 28, r * steps * 16)[0],
+                "hand_written_launches_per_call": hand,
+                "launches_per_call": launches_per_call(new_call),
+                "was_launches_per_call": launches_per_call(was_call)}
+            callers.append((key, new_call, got))
+        torch.cuda.synchronize()
+        last = {}
+        for i in range(SCATTER_SEG_BACK_TO_BACK):
+            key, call, _ = callers[i % len(callers)]
+            last[key] = call()
+        torch.cuda.synchronize()
+        for key, _, first in callers:
+            same = (scatter_equal(last[key], first) if key.startswith("scatter") else
+                    set(last[key]) == set(first)
+                    and all(torch.equal(last[key][k], first[k]) for k in first))
+            require(same, f"{key}, called back to back, differs from its first result")
+    out["back_to_back_calls"] = SCATTER_SEG_BACK_TO_BACK
     return out
 
 
@@ -4396,6 +4576,26 @@ def recording_segments(calls: list):
         yield
 
 
+SEG_FWD_TOL = 1e-4             # K6b: rgb, alpha, depth and extras, absolute (K4's)
+SEG_ACC_REL_TOL = 1e-5         # K6b: acc_tau out, relative
+
+
+def seg_fwd_errors(got, want):
+    """K6b's errors against the plain version: the largest absolute error of rgb, alpha,
+    depth and the extras, and the largest relative error of acc_tau out."""
+    err = max([float((got[k] - want[k]).abs().max()) for k in want
+               if k != "acc_tau" and want[k].numel()] + [0.0])
+    acc = want["acc_tau"]
+    rel = (float(((got["acc_tau"] - acc).abs() / acc.abs().clamp(min=1e-30)).max())
+           if acc.numel() else 0.0)
+    return err, rel
+
+
+def seg_fwd_within(got, want) -> bool:
+    err, rel = seg_fwd_errors(got, want)
+    return set(got) == set(want) and err <= SEG_FWD_TOL and rel <= SEG_ACC_REL_TOL
+
+
 def seg_kernel_phase(calls):
     """K6a, K6b, K6c and K5 accumulated against their plain versions and timed, on one
     segment's inputs of the last step: K6a exactly on every segment (kept slots and count),
@@ -4455,20 +4655,33 @@ def seg_kernel_phase(calls):
                               budget))
 
     density, deltas, depths, smask, color, acc_in = c["integrate"]
-    fk = integrate_segment(density, deltas, depths, smask, color, acc_in)
-    fp = integrate_segment_plain(density, deltas, depths, smask, color, acc_in)
-    err = max(float((fk[k] - fp[k]).abs().max()) for k in ("rgb", "alpha", "depth"))
-    acc_rel = float(((fk["acc_tau"] - fp["acc_tau"]).abs()
-                     / fp["acc_tau"].abs().clamp(min=1e-30)).max())
-    require(acc_rel <= 1e-5, f"integrate_seg_fwd: acc_tau out {acc_rel} relative > 1e-5")
+    # K6b on every segment of step 25 and, on the checked segment, with the culling carry
+    segs = [(f"segment {i}", cc["integrate"]) for i, cc in enumerate(calls)]
+    segs.append((f"segment {SEG_CHECK_SEGMENT}, culling carry",
+                 (density, deltas, depths, smask, color, acc_cull)))
+    SCATTER_SEG_CALLS.update(segments=segs, tau_cap=cap)
+    errs = [seg_fwd_errors(integrate_segment(*a), integrate_segment_plain(*a)) for _, a in segs]
+    err, acc_rel = max(e for e, _ in errs), max(e for _, e in errs)
+    require(acc_rel <= SEG_ACC_REL_TOL,
+            f"integrate_seg_fwd: acc_tau out {acc_rel} relative > {SEG_ACC_REL_TOL}")
     rows.append(kernel_row(
         "integrate_seg_fwd", "wisp_tpu_torch/csrc/integrate.cu",
-        "wisp_tpu/tracers/packed_rf_tracer.py:362", err, 1e-4,
+        "wisp_tpu/tracers/packed_rf_tracer.py:362", err, SEG_FWD_TOL,
         timed(lambda: integrate_segment(density, deltas, depths, smask, color, acc_in)),
         timed(lambda: integrate_segment_plain(density, deltas, depths, smask, color,
                                               acc_in)),
         nbytes=r * s * (4 + 4 + 1 + 12) + r * 4 + r * (12 + 4 + 4) + r * 8, ops=r * s * 16))
-    rows[-1]["acc_tau_rel_err"] = acc_rel
+    rows[-1].update(acc_tau_rel_err=acc_rel,
+                    checked_on=f"the {len(calls)} segments of step 25 and segment "
+                               f"{SEG_CHECK_SEGMENT} with the culling carry; timed on "
+                               f"segment {SEG_CHECK_SEGMENT}")
+    seg_args = (density, deltas, depths, smask, color, acc_in)
+    add_launches_and_was(
+        rows[-1], lambda: integrate_segment(*seg_args),
+        SCATTER_SEG_V1 and (lambda: SCATTER_SEG_V1.integrate_segment(*seg_args)),
+        lambda: seg_fwd_within(SCATTER_SEG_V1.integrate_segment(*seg_args),
+                               integrate_segment_plain(*seg_args)),
+        design=SCATTER_SEG_V1_DESIGN["integrate_seg_fwd"])
 
     g_rgb = torch.randn((r, 3), generator=g, device=density.device) / r
     g_alpha = torch.randn((r, 1), generator=g, device=density.device) / r
@@ -4610,6 +4823,8 @@ def seg_phase(dev):
     launches = dict(kernels.LAUNCHES)
     missing = [k for k in SEG_KERNELS if launches[k] <= 0]
     require(not missing, f"kernels not launched on the segmented training path: {missing}")
+    SCATTER_SEG_CALLS["seg launches"] = {"steps": len(steps),
+                                         "integrate_seg_fwd": launches["integrate_seg_fwd"]}
     require(launches["integrate_fwd"] == 0 and launches["compact"] == 0,
             "the segmented path launched the unsegmented compaction or composite")
     require(len(calls) == SEG_COUNT, f"step 25 traced {len(calls)} segments")
@@ -4683,6 +4898,102 @@ def recording_ray_compaction(calls: list):
 
     with mock.patch.object(packed_sdf_tracer, "compact_rays", recording):
         yield calls
+
+
+# the calls of the "scatter and segment" step: "scatter" and "scatter mid" (the trained
+# NGLOD frame's last compacted chunk's scatter-back of every channel, and its mid pass's:
+# the slots and each channel's rows and base, cloned before the call), "segments" ([(key,
+# integrate_segment's arguments)]: the seg phase's step 25 and a culling carry) and the
+# paths' launches ("frame launches", "seg launches")
+SCATTER_SEG_CALLS = {}
+SCATTER_NAMES = {False: ("t", "xyz", "hit", "normal"), True: ("t", "hit")}
+
+
+@contextmanager
+def recording_scatters():
+    """Keep the SDF tracer's last ``scatter_rows_many`` call of each pass in
+    SCATTER_SEG_CALLS."""
+    from wisp_tpu_torch.tracers import packed_sdf_tracer
+    original = packed_sdf_tracer.scatter_rows_many
+
+    def recording(idx, pairs, mid=False):
+        pairs = list(pairs)
+        names = SCATTER_NAMES[mid] + tuple(f"extra {i}" for i in
+                                           range(len(pairs) - len(SCATTER_NAMES[mid])))
+        SCATTER_SEG_CALLS["scatter mid" if mid else "scatter"] = {
+            "idx": idx.clone(), "pairs": [(v.clone(), out.clone()) for v, out in pairs],
+            "names": names}
+        return original(idx, pairs, mid=mid)
+
+    with mock.patch.object(packed_sdf_tracer, "scatter_rows_many", recording):
+        yield
+
+
+def scatter_pairs(rec):
+    """A recorded scatter-back's (rows, base) pairs, with fresh copies of the bases."""
+    return [(v, out.clone()) for v, out in rec["pairs"]]
+
+
+def scatter_equal(got, want) -> bool:
+    import torch
+    return all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+
+
+def scatter_sizes(rec) -> dict:
+    """A recorded scatter-back's slots, rays, kept slots and channels' row bytes."""
+    import math
+    (v, out), idx = rec["pairs"][0], rec["idx"]
+    return {"slots": v.shape[0], "rays": out.shape[0],
+            "kept": int((idx[:v.shape[0]] < out.shape[0]).sum()),
+            "row_bytes": [math.prod(v.shape[1:]) * v.element_size() for v, _ in rec["pairs"]]}
+
+
+def scatter_bytes(rec, sizes) -> int:
+    """The compulsory bytes of a scatter-back: each slot's index, each kept row read and
+    written."""
+    return rec["idx"].shape[0] * 8 + sizes["kept"] * 2 * sum(sizes["row_bytes"])
+
+
+def scatter_row(name, rec):
+    """K12's scatter-back row (first pass or mid pass) on a recorded call of every channel:
+    bit-equal to the plain version, timed beside the plain version, the library's
+    ``index_copy_`` a channel in sequence and the earlier design's launch a channel."""
+    import torch
+    from wisp_tpu_torch.ops.compaction import scatter_rows_many, scatter_rows_many_plain
+    mid = name.endswith("mid")
+    idx, pairs = rec["idx"], rec["pairs"]
+    want = scatter_rows_many_plain(idx, scatter_pairs(rec))
+    require(scatter_equal(scatter_rows_many(idx, scatter_pairs(rec), mid=mid), want),
+            f"{name} differs from the plain version")
+    sizes = scatter_sizes(rec)
+    k, p = sizes["slots"], sizes["rays"]
+    work = scatter_pairs(rec)
+    padded = [torch.zeros((p + 1,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+              for v, _ in pairs]
+
+    def library():
+        for buf, (v, _) in zip(padded, pairs):
+            buf.index_copy_(0, idx[:k], v)
+
+    row = kernel_row(
+        name, "wisp_tpu_torch/csrc/compaction.cu",
+        "wisp_tpu/tracers/packed_sdf_tracer.py:206-207" if mid
+        else "wisp_tpu/tracers/packed_sdf_tracer.py:211-217", 0.0, 0.0,
+        timed(lambda: scatter_rows_many(idx, work, mid=mid)),
+        timed(lambda: scatter_rows_many_plain(idx, work)),
+        nbytes=scatter_bytes(rec, sizes), ops=0, library_ms=timed(library))
+    row.update(library_call="a sequence: one index_copy_ a channel into P+1 rows (the empty "
+                            "slots' row P)",
+               checked_on=(f"every channel of the {'mid pass' if mid else 'last compacted chunk'}"
+                           f" of the trained frame: " + ", ".join(
+                               f"{n} ({b} bytes a row)" for n, b in zip(rec["names"],
+                                                                         sizes["row_bytes"]))))
+    add_launches_and_was(
+        row, lambda: scatter_rows_many(idx, work, mid=mid),
+        SCATTER_SEG_V1 and (lambda: SCATTER_SEG_V1.scatter_rows_many(idx, work)),
+        lambda: scatter_equal(SCATTER_SEG_V1.scatter_rows_many(idx, scatter_pairs(rec)),
+                              want), design=SCATTER_SEG_V1_DESIGN["scatter_rows"])
+    return row, {**sizes, "channels": list(rec["names"])}
 
 
 def trace_chunks(nef, tracer, rays, chunk: int):
@@ -4797,14 +5108,21 @@ def nglod_frame(dev, pipeline, tracker):
     # with the mid pass), the normals' 6 taps through the fused query; no K9, no K15
     chunks = -(-n // NGLOD_CHUNK)
     loops = sum(1 if t.mid_compaction is None else 2 for t in tracers.values())
+    # and one scatter-back a compacted chunk, one more a mid pass (every channel in it)
     want = {"sphere_iter": chunks * base.num_steps * len(tracers),
             "sphere_step": chunks * loops, "octree_query_interp":
-            chunks * SDF_FD_TAPS * len(tracers), "octree_query": 0, "octree_interp": 0}
+            chunks * SDF_FD_TAPS * len(tracers), "octree_query": 0, "octree_interp": 0,
+            "scatter_rays": chunks * sum(t.compaction is not None for t in tracers.values()),
+            "scatter_rays_mid": chunks * sum(t.mid_compaction is not None
+                                             for t in tracers.values())}
     got = {k: launches[k] for k in want}
     require(got == want, f"trained-field frame launches {got}, expected {want}")
     calls = []
-    with recording_ray_compaction(calls):
+    with recording_ray_compaction(calls), recording_scatters():
         trace_chunks(nef, tracers["mid"], rays, NGLOD_CHUNK)
+    SCATTER_SEG_CALLS["frame launches"] = {
+        "frames": len(tracers), "chunks_a_frame": chunks,
+        **{k: launches[k] for k in ("scatter_rays", "scatter_rays_mid")}}
     first = [c for c in calls if not c["mid"]]
     mids = [c for c in calls if c["mid"]]
     info = {"frame_rays": n, "chunk": NGLOD_CHUNK,
@@ -4859,8 +5177,7 @@ def ray_compaction_rows(calls, launches):
     """K12's compaction (first and mid-loop pass) and its scatter-back against their plain
     versions on the recorded last chunk's inputs, exactly, and timed."""
     import torch
-    from wisp_tpu_torch.ops.compaction import (compact_rays, compact_rays_plain, scatter_rows,
-                                               scatter_rows_plain)
+    from wisp_tpu_torch.ops.compaction import compact_rays, compact_rays_plain
     rows, shapes = [], {}
     for name, call in (("compact_rays", [c for c in calls if not c["mid"]][-1]),
                        ("compact_rays_mid", [c for c in calls if c["mid"]][-1])):
@@ -4885,29 +5202,11 @@ def ray_compaction_rows(calls, launches):
             THREEPASS and (lambda: THREEPASS.compact_rays(mask, budget, o, d, t, tf)),
             lambda: rays_equal(THREEPASS.compact_rays(mask, budget, o, d, t, tf), want))
         shapes[name] = {"rays": r, "budget": budget, "count": int(want[5])}
-        if not mid:
-            r0, idx, o_c = r, want[0], want[1]
-    # the scatter-back of the first pass's slots' points onto the walk's (xyz, [B, 3])
-    r = r0
-    xyz_c = (o_c + 0.5).contiguous()
-    base = torch.zeros((r, 3), dtype=torch.float32, device=idx.device)
-    got = scatter_rows(xyz_c, idx, base.clone())
-    want = scatter_rows_plain(xyz_c, idx, base.clone())
-    require(torch.equal(got, want), "scatter_rows differs from the plain version")
-    kept = int((idx < r).sum())
-    padded = torch.zeros((r + 1, 3), dtype=torch.float32, device=idx.device)
-    for name, mid in (("scatter_rays", False), ("scatter_rays_mid", True)):
-        rows.append(kernel_row(
-            name, "wisp_tpu_torch/csrc/compaction.cu",
-            "wisp_tpu/tracers/packed_sdf_tracer.py:207" if not mid
-            else "wisp_tpu/tracers/packed_sdf_tracer.py:200", 0.0, 0.0,
-            timed(lambda: scatter_rows(xyz_c, idx, base, mid=mid)),
-            timed(lambda: scatter_rows_plain(xyz_c, idx, base)),
-            nbytes=idx.shape[0] * 8 + kept * 12 * 2, ops=0,
-            library_ms=timed(lambda: padded.index_copy_(0, idx, xyz_c))))
-        rows[-1]["library_call"] = "index_copy_ into R+1 rows (the empty slots' row R)"
-        rows[-1]["checked_on"] = "the xyz scatter of the first pass (the mid pass's has t)"
-    shapes["scatter_rows"] = {"slots": idx.shape[0], "kept": kept}
+    # the scatter-back of every channel of the last compacted chunk and of its mid pass,
+    # as the tracer called it
+    for name, key in (("scatter_rays", "scatter"), ("scatter_rays_mid", "scatter mid")):
+        row, shapes[name] = scatter_row(name, SCATTER_SEG_CALLS[key])
+        rows.append(row)
     for row_ in rows:
         row_["launches"] = launches[row_["name"]]
     return rows, shapes
@@ -5608,9 +5907,13 @@ def run() -> dict:
     sphere_trace_v1_build = start_baseline_build(SPHERE_TRACE_V1_SRC,
                                                  "libwisp_sphere_trace_v1.so")
     walk_probe_build = start_walk_probe_build()
+    scatter_rows_v1_build = start_baseline_build(SCATTER_ROWS_V1_SRC,
+                                                 "libwisp_scatter_rows_v1.so")
+    integrate_seg_v1_build = start_baseline_build(INTEGRATE_SEG_V1_SRC,
+                                                  "libwisp_integrate_seg_v1.so")
     kernels.build(verbose=True)
     global THREEPASS, HASHGRID_V1, OCTREE_V1, MARCH_GRAD_V1, MESH_V1, SPHERE_TRACE_V1, \
-        WALK_PROBE
+        WALK_PROBE, SCATTER_SEG_V1
     THREEPASS = ThreePass(threepass_build)
     HASHGRID_V1 = HashGridV1(hashgrid_v1_build)
     OCTREE_V1 = OctreeV1(octree_grid_v1_build, free_space_v1_build)
@@ -5619,6 +5922,7 @@ def run() -> dict:
     SPHERE_TRACE_V1 = WalkDesign(finish_baseline_build(sphere_trace_v1_build,
                                                        SPHERE_TRACE_V1_SRC), "_v1")
     WALK_PROBE = WalkDesign(finish_baseline_build(walk_probe_build, "the walk probe"), "")
+    SCATTER_SEG_V1 = ScatterSegV1(scatter_rows_v1_build, integrate_seg_v1_build)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in str(kernels.BUILD_INFO.get("log", "")).splitlines()
              if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
@@ -5649,6 +5953,9 @@ def run() -> dict:
     t0 = time.perf_counter()
     walk_info = walk_phase(dev)
     phases["phase_s"]["walks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scatter_seg_info = scatter_seg_phase()
+    phases["phase_s"]["scatter and segment"] = time.perf_counter() - t0
     print(json.dumps({"kernels": phases["kernels"]}), flush=True)
     for line in phases["lines"]:
         print(json.dumps(line), flush=True)
@@ -5659,6 +5966,7 @@ def run() -> dict:
     print(json.dumps({"mesh_shapes": mesh_info}), flush=True)
     print(json.dumps({"query_step_shapes": query_step_info}), flush=True)
     print(json.dumps({"walk_shapes": walk_info}), flush=True)
+    print(json.dumps({"scatter_seg_shapes": scatter_seg_info}), flush=True)
     print(json.dumps({"phase_s": phases["phase_s"], "profiler_shortfalls": PROFILER_SHORTFALLS,
                       "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi, flush=True)

@@ -2237,3 +2237,186 @@ def test_walk_kernels_equal_the_earlier_design_on_a_level8_field(dev, walk_v1):
         args = (o, d, 0.0, 10.0, fd, blas.occ_grid, blas.query_routes[level], level, steps)
         for a, b in zip(new + list(spc_trace(*args)), was + list(walk_v1.spc_trace(*args))):
             assert torch.equal(a, b), steps
+
+
+# -- K12's scatter-back in one launch a chunk and K6b in one round a segment, beside the
+# -- earlier designs (csrc/baselines/scatter_rows_v1.cu, integrate_seg_v1.cu) ------------
+@pytest.fixture(scope="module")
+def scatter_seg_v1():
+    """The earlier designs of K12's scatter-back and of K6b, built beside the library (as
+    chip_smoke.py does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import chip_smoke
+    return chip_smoke.ScatterSegV1(
+        chip_smoke.start_baseline_build(chip_smoke.SCATTER_ROWS_V1_SRC,
+                                        "libwisp_scatter_rows_v1.so"),
+        chip_smoke.start_baseline_build(chip_smoke.INTEGRATE_SEG_V1_SRC,
+                                        "libwisp_integrate_seg_v1.so"))
+
+
+def _rows(g, n, kind, dev, misaligned):
+    """[n, ...] rows of a channel kind: (dtype, row shape); ``misaligned``: a view one
+    element into its buffer, so that the rows start off 16 bytes."""
+    dtype, shape = kind
+    numel = n * int(np.prod(shape)) + 1
+    if dtype == torch.bool:
+        flat = torch.rand(numel, generator=g) < 0.5
+    elif dtype == torch.uint8:
+        flat = torch.randint(0, 256, (numel,), generator=g, dtype=torch.uint8)
+    else:
+        flat = torch.randn(numel, generator=g).to(dtype)
+    flat = flat.to(dev)
+    start = 1 if misaligned else 0
+    return flat[start:start + numel - 1].view((n,) + tuple(shape))
+
+
+# channels by row bytes: 1 (bool), 3 (uint8 x 3), 4 (float), 6 (bf16 x 3), 12 (float x 3),
+# 16 (float x 4)
+_SCATTER_KINDS = {1: (torch.bool, ()), 3: (torch.uint8, (3,)), 4: (torch.float32, ()),
+                  6: (torch.bfloat16, (3,)), 12: (torch.float32, (3,)),
+                  16: (torch.float32, (4,))}
+
+
+@pytest.mark.parametrize("widths,misaligned,k,empty", [
+    ((4, 12, 1, 12), False, 3000, 400),           # the tracer's chunk: t, xyz, hit, normal
+    ((4, 1), False, 1500, 900),                   # its mid pass: t, hit
+    ((1, 3, 4, 6, 12, 16), False, 3000, 0),
+    ((1, 3, 4, 6, 12, 16), True, 3000, 700),
+    ((16, 12, 4, 1, 16, 12, 4, 1, 3, 6, 16), False, 2000, 300),   # two tables
+    ((16, 12, 4, 1, 16, 12, 4, 1, 3, 6, 16), True, 2000, 300),
+    ((4, 12), False, 0, 0)])
+def test_scatter_rows_many_kernel(dev, scatter_seg_v1, widths, misaligned, k, empty):
+    from wisp_tpu_torch.ops.compaction import (SCATTER_CHANNELS, scatter_rows_many,
+                                               scatter_rows_many_plain)
+    g = torch.Generator(device="cpu").manual_seed(41 + k + len(widths))
+    p = 5000
+    idx = torch.randperm(p, generator=g)[:k]
+    idx[k - empty:] = p
+    idx = idx.to(dev)
+    pairs = [(_rows(g, k, _SCATTER_KINDS[w], dev, misaligned),
+              _rows(g, p, _SCATTER_KINDS[w], dev, misaligned)) for w in widths]
+    bases = [b.clone() for _, b in pairs]
+    before = kernels.LAUNCHES["scatter_rays"]
+    got = scatter_rows_many(idx, [(v, b.clone()) for v, b in pairs])
+    torch.cuda.synchronize()
+    tables = -(-len(widths) // SCATTER_CHANNELS) if k else 0
+    assert kernels.LAUNCHES["scatter_rays"] == before + tables
+    want = scatter_rows_many_plain(idx, [(v, b.clone()) for v, b in pairs])
+    was = scatter_seg_v1.scatter_rows_many(idx, [(v, b.clone()) for v, b in pairs])
+    for gt, w, wa, base in zip(got, want, was, bases):
+        assert torch.equal(gt, w) and torch.equal(wa, w)
+        assert torch.equal(gt, base) == (k == empty)
+
+
+def test_scatter_rows_many_rejects_bad_inputs(dev):
+    from wisp_tpu_torch.ops.compaction import scatter_rows_many
+    idx = torch.zeros(10, dtype=torch.int64, device=dev)
+    v = torch.zeros(10, 3, device=dev)
+    with pytest.raises(ValueError):        # channels of different K
+        scatter_rows_many(idx, [(v, torch.zeros(20, 3, device=dev)),
+                                (v[:5], torch.zeros(20, 3, device=dev))])
+    with pytest.raises(ValueError):        # another P
+        scatter_rows_many(idx, [(v, torch.zeros(20, 3, device=dev)),
+                                (v, torch.zeros(21, 3, device=dev))])
+    with pytest.raises(ValueError):        # more rows than slots
+        scatter_rows_many(idx[:5], [(v, torch.zeros(20, 3, device=dev))])
+    with pytest.raises(TypeError):         # dtypes differ
+        scatter_rows_many(idx, [(v, torch.zeros(20, 3, device=dev, dtype=torch.float64))])
+    with pytest.raises(ValueError):        # row shapes differ
+        scatter_rows_many(idx, [(v, torch.zeros(20, 4, device=dev))])
+
+
+@pytest.mark.parametrize("mid_compaction", [None, 0.6])
+def test_sdf_tracer_scatters_a_chunk_in_one_launch(dev, mid_compaction):
+    """The compacted SDF trace of one chunk makes one ``scatter_rays`` launch for t, xyz,
+    hit, normal and an extra channel, and one ``scatter_rays_mid`` for the mid pass's t and
+    hit; each call's results equal the per-channel plain sequence on its own inputs."""
+    from wisp_tpu_torch import interop
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+    from wisp_tpu_torch.models.nefs.neural_sdf import NeuralSDF
+    from wisp_tpu_torch.ops.compaction import scatter_rows_plain
+    from wisp_tpu_torch.tracers import packed_sdf_tracer
+    from wisp_tpu_torch.tracers.packed_sdf_tracer import PackedSDFTracer
+    blas = _sphere_octree(5, dev)
+    gen = torch.Generator().manual_seed(52)
+    grid = OctreeGrid(blas=blas, feature_dim=16, num_lods=3, feature_std=0.01, generator=gen,
+                      device=dev, multiscale_type="sum")
+    nef = NeuralSDF(grid=grid, position_input=True, hidden_dim=32, generator=gen, device=dev)
+    with torch.no_grad():
+        for name, value in interop.sphere_sdf_decoder(16, 32, seed=0, radius=0.6).items():
+            nef.get_parameter(name).copy_(torch.from_numpy(value))
+    rng = np.random.default_rng(53)
+    o = np.float32([0.05, -0.03, -3.0]) + rng.normal(scale=0.05, size=(4096, 3))
+    target = np.concatenate([rng.uniform(-0.7, 0.7, (4096, 2)), np.zeros((4096, 1))], -1)
+    dirs = (target - o) / np.linalg.norm(target - o, axis=-1, keepdims=True)
+    rays = Rays(torch.from_numpy(o.astype(np.float32)).to(dev),
+                torch.from_numpy(dirs.astype(np.float32)).to(dev), 0.0, 10.0)
+    tracer = PackedSDFTracer(num_steps=32, step_size=0.8, compaction=0.9,
+                             mid_compaction=mid_compaction)
+    original = packed_sdf_tracer.scatter_rows_many
+    calls = []
+
+    def checked(idx, pairs, mid=False):
+        pairs = list(pairs)
+        want = [scatter_rows_plain(v, idx, out.clone()) for v, out in pairs]
+        got = original(idx, pairs, mid=mid)
+        calls.append((mid, len(pairs), all(torch.equal(a, b) for a, b in zip(got, want))))
+        return got
+
+    packed_sdf_tracer.scatter_rows_many = checked
+    try:
+        with torch.no_grad():
+            before = dict(kernels.LAUNCHES)
+            rb = tracer(nef, rays, channels=tracer.get_supported_channels() | {"sdf"})
+            torch.cuda.synchronize()
+    finally:
+        packed_sdf_tracer.scatter_rows_many = original
+    mids = int(mid_compaction is not None)
+    assert kernels.LAUNCHES["scatter_rays"] == before["scatter_rays"] + 1
+    assert kernels.LAUNCHES["scatter_rays_mid"] == before["scatter_rays_mid"] + mids
+    assert sorted(calls) == sorted([(False, 5, True)] + [(True, 2, True)] * mids)
+    assert float(rb.hit.float().mean()) > 0.2
+
+
+def _segment_cases():
+    """(S, Ce, with depth, aligned): every S with the main path's options, then the extras,
+    no depth and rows off 16 bytes."""
+    cases = [(s, 0, True, True) for s in (1, 31, 32, 127, 128, 129, 257, 8192)]
+    cases += [(s, ce, d, True) for s, ce, d in ((128, 3, True), (129, 16, False),
+                                                (8192, 3, False), (31, 16, True))]
+    cases += [(s, 0, True, False) for s in (128, 256, 129)]
+    return cases
+
+
+@pytest.mark.parametrize("s,ce,with_depth,aligned", _segment_cases())
+def test_integrate_segment_kernel_rounds(dev, scatter_seg_v1, s, ce, with_depth, aligned):
+    r = 64
+    g, density, deltas, depths, mask, color, acc_tau = _segment_inputs(dev, r, s, 60 + s)
+    # a carry that culls about half of the rays
+    acc_tau = acc_tau * 4.6
+    extra = torch.rand(r, s, ce, generator=g).to(dev) if ce else None
+    if not aligned:                          # the same values one element into a buffer
+        def shifted(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            view = buf[1:].view(x.shape)
+            view.copy_(x)
+            return view
+        density, depths, mask, color = (shifted(x) for x in (density, depths, mask, color))
+        assert density.data_ptr() % 16 and color.data_ptr() % 16
+    args = (density, deltas, depths, mask, color, acc_tau)
+    before = kernels.LAUNCHES["integrate_seg_fwd"]
+    got = integrate_segment(*args, extra=extra, with_depth=with_depth)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["integrate_seg_fwd"] == before + 1
+    want = integrate_segment_plain(*args, extra=extra, with_depth=with_depth)
+    was = scatter_seg_v1.integrate_segment(*args, extra=extra, with_depth=with_depth)
+    assert set(got) == set(want) == set(was)
+    for out in (got, was):
+        for k in want:
+            if k == "acc_tau":
+                tol = 1e-5 * want[k].abs().clamp(min=1e-30)
+                assert bool(((out[k] - want[k]).abs() <= tol).all()), k
+            else:
+                assert (out[k] - want[k]).abs().max().item() <= 1e-4, k

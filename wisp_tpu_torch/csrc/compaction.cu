@@ -80,11 +80,25 @@
 // reads no state of another. Positions, counts and prefixes are int32: R*S < 2^31.
 //
 // scatter_rows — the tracer's scatter-back of the compacted slots (`.at[idx].set(v,
-// mode="drop")` onto a given base, packed_sdf_tracer.py:207-217): out[idx[k]] = v[k] for
-// the first K slots whose index is below P, rows of any width in bytes (t, xyz, normal and
-// extras as floats, hit as bytes). Bound: bytes, one 8-byte index and one row read and one
-// row written a kept slot. Design: one thread a (slot, 4-byte word), or a (slot, byte)
-// where the row width is not a multiple of 4.
+// mode="drop")` onto a given base, packed_sdf_tracer.py:200-217): out_c[idx[k]] = v_c[k] for
+// the first K slots whose index is below P, for every channel c of a chunk (t, xyz, hit,
+// normal and the extras; the mid pass's t and hit), rows of any width in bytes. Bound: bytes,
+// one 8-byte index a slot and each channel's row read and written a kept slot. The earlier
+// design (csrc/baselines/scatter_rows_v1.cu) took a launch a channel, each re-reading the
+// index to move a 1-12 byte row, so a chunk paid the launch floor (~1.5 us) four times.
+// Design (wisp_scatter_rows_many): one launch for up to kScatterChannels channels, whose
+// table (source, destination, row bytes and the width of a move) is a kernel parameter.
+// One thread a slot: it loads the slot's index once and, with it, every channel's row of
+// at most 16 bytes into registers, then stores the rows where the index is kept. So a slot
+// waits for one memory round trip, not one a channel: copying the channels in turn, a
+// row's load waits for the previous row's store (the compiler cannot tell the channels'
+// rows apart). A longer row (an extra channel of more than 4 floats) is copied after them.
+// A few lanes a slot, one a channel, lost the stores' coalescing over the sorted slots
+// (chip_scatter_seg_bench.py; PERF.md). A row moves with the widest move
+// that its width and both base addresses allow (16, 8, 4 or 1 bytes; a row of a multiple
+// of w bytes at a base aligned to w keeps every row aligned to w). The kept slots'
+// indices are distinct (one slot a ray), so no two threads write one row; the copy moves
+// bits, equal to the plain version's.
 //
 // scatter_back backward (the autodiff of packed_rf_tracer.py:214, the `.at[idx].set`
 // scatter): a gather of the cotangent rows at the slots' sample indices,
@@ -107,6 +121,7 @@ constexpr int kRayTile = kThreads * kGroups;   // K12: rays a tile
 constexpr int kFillSlots = kThreads * 8;       // K12: slots a fill block
 constexpr unsigned long long kInclusive = 1ull << 31;   // status flag; else an aggregate
 constexpr unsigned long long kValueMask = kInclusive - 1;
+constexpr int kScatterChannels = 8;            // scatter_rows: channels a launch
 
 // bit k set where byte k of w is not 0
 __device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
@@ -425,15 +440,122 @@ compact_rays_kernel(const uint8_t* __restrict__ mask, int R, long long budget, i
   }
 }
 
-template <typename T>
-__global__ void scatter_rows_kernel(const T* __restrict__ v, const long long* __restrict__ idx,
-                                    long long K, int width, long long P, T* __restrict__ out) {
+// K3's scatter-back: one thread a (slot, float) of the [K, C] rows
+__global__ void scatter_floats_kernel(const uint32_t* __restrict__ v,
+                                      const long long* __restrict__ idx, long long K, int C,
+                                      long long P, uint32_t* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= K * width) return;
-  const long long k = i / width;
-  const int c = (int)(i % width);
+  if (i >= K * C) return;
+  const long long k = i / C;
+  const int c = (int)(i % C);
   const long long q = idx[k];
-  if (q < P) out[q * width + c] = v[i];
+  if (q < P) out[q * C + c] = v[i];
+}
+
+// scatter_rows: each channel's source and destination rows, row bytes and bytes a move
+struct ScatterTable {
+  const uint8_t* src[kScatterChannels];
+  uint8_t* dst[kScatterChannels];
+  int row_bytes[kScatterChannels];
+  int move[kScatterChannels];
+  int n;
+};
+
+constexpr int kRowMoves = 4;     // scatter_rows: moves of a long row loaded before stores
+
+// A row of at most 16 bytes, in registers (indexed only by constants).
+union SmallRow {
+  uint4 v;
+  uint2 d[2];
+  uint32_t w[4];
+  uint8_t b[16];
+};
+
+// Load (kStore false) or store a row of rb <= 16 bytes with moves of `move` bytes.
+template <bool kStore>
+__device__ __forceinline__ void small_row(const uint8_t* src, uint8_t* dst, int rb, int move,
+                                          SmallRow& r) {
+  switch (move) {
+    case 16:
+      if (kStore) *reinterpret_cast<uint4*>(dst) = r.v;
+      else r.v = *reinterpret_cast<const uint4*>(src);
+      break;
+    case 8:
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (8 * i < rb) {
+          if (kStore) reinterpret_cast<uint2*>(dst)[i] = r.d[i];
+          else r.d[i] = reinterpret_cast<const uint2*>(src)[i];
+        }
+      break;
+    case 4:
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * i < rb) {
+          if (kStore) reinterpret_cast<uint32_t*>(dst)[i] = r.w[i];
+          else r.w[i] = reinterpret_cast<const uint32_t*>(src)[i];
+        }
+      break;
+    default:
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (i < rb) {
+          if (kStore) dst[i] = r.b[i];
+          else r.b[i] = src[i];
+        }
+  }
+}
+
+// A row of any length: each batch of kRowMoves loads issued before its stores.
+template <typename W>
+__device__ __forceinline__ void copy_row(const uint8_t* src, uint8_t* dst, int moves) {
+  const W* s = reinterpret_cast<const W*>(src);
+  W* d = reinterpret_cast<W*>(dst);
+  for (int i = 0; i < moves; i += kRowMoves) {
+    W r[kRowMoves];
+#pragma unroll
+    for (int j = 0; j < kRowMoves; ++j)
+      if (i + j < moves) r[j] = s[i + j];
+#pragma unroll
+    for (int j = 0; j < kRowMoves; ++j)
+      if (i + j < moves) d[i + j] = r[j];
+  }
+}
+
+// One thread a slot: its index and every channel's row of at most 16 bytes are loaded
+// together (the rows into registers), then stored where the index is kept; a longer row
+// is copied after them.
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_many_kernel(const ScatterTable tab, const long long* __restrict__ idx,
+                         long long K, long long P) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  const long long q = idx[k];
+  SmallRow rows[kScatterChannels];
+#pragma unroll
+  for (int c = 0; c < kScatterChannels; ++c) {
+    const int rb = tab.row_bytes[c];
+    if (c < tab.n && rb <= 16)
+      small_row<false>(tab.src[c] + k * rb, nullptr, rb, tab.move[c], rows[c]);
+  }
+  if (q < 0 || q >= P) return;           // an empty slot (index P): JAX's mode="drop"
+#pragma unroll
+  for (int c = 0; c < kScatterChannels; ++c) {
+    if (c >= tab.n) break;
+    const int rb = tab.row_bytes[c];
+    uint8_t* dst = tab.dst[c] + q * rb;
+    if (rb <= 16) {
+      small_row<true>(nullptr, dst, rb, tab.move[c], rows[c]);
+      continue;
+    }
+    const uint8_t* src = tab.src[c] + k * rb;
+    switch (tab.move[c]) {
+      case 16: copy_row<uint4>(src, dst, rb / 16); break;
+      case 8: copy_row<uint2>(src, dst, rb / 8); break;
+      case 4: copy_row<uint32_t>(src, dst, rb / 4); break;
+      default: copy_row<uint8_t>(src, dst, rb); break;
+    }
+  }
 }
 
 __global__ void zero_kernel(float* __restrict__ out, long long n) {
@@ -515,7 +637,7 @@ WISP_EXPORT int wisp_scatter_back(const float* v, const long long* idx, long lon
     if (err != cudaSuccess) return (int)err;
   }
   if (K * C > 0) {   // the floats' bits, as scatter_rows moves them
-    scatter_rows_kernel<uint32_t><<<wisp::ceil_div(K * C, 256), 256, 0, st>>>(
+    scatter_floats_kernel<<<wisp::ceil_div(K * C, 256), 256, 0, st>>>(
         (const uint32_t*)v, idx, K, C, P, (uint32_t*)out);
   }
   return (int)cudaGetLastError();
@@ -552,19 +674,26 @@ WISP_EXPORT int wisp_compact_rays(const uint8_t* mask, int R, long long budget,
   return (int)cudaGetLastError();
 }
 
-// out[idx[k]] = v[k] for k < K where idx[k] < P; rows of row_bytes bytes; out is given.
-WISP_EXPORT int wisp_scatter_rows(const void* v, const long long* idx, long long K,
-                                  int row_bytes, long long P, void* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (K > 0 && row_bytes > 0) {
-    if (row_bytes % 4 == 0) {
-      const int w = row_bytes / 4;
-      scatter_rows_kernel<uint32_t><<<wisp::ceil_div(K * w, 256), 256, 0, st>>>(
-          (const uint32_t*)v, idx, K, w, P, (uint32_t*)out);
-    } else {
-      scatter_rows_kernel<uint8_t><<<wisp::ceil_div(K * row_bytes, 256), 256, 0, st>>>(
-          (const uint8_t*)v, idx, K, row_bytes, P, (uint8_t*)out);
-    }
+// For each of the n <= kScatterChannels channels c, out_c[idx[k]] = v_c[k] for k < K where
+// 0 <= idx[k] < P. table: n rows of (v_c, out_c, row bytes), int64 each, on the host; every
+// out_c is given, of P rows.
+WISP_EXPORT int wisp_scatter_rows_many(const long long* table, int n, const long long* idx,
+                                       long long K, long long P, void* stream) {
+  if (n < 1 || n > kScatterChannels || K < 0) return (int)cudaErrorInvalidValue;
+  ScatterTable tab;
+  tab.n = n;
+  for (int c = 0; c < n; ++c) {
+    const long long src = table[3 * c], dst = table[3 * c + 1], rb = table[3 * c + 2];
+    if (rb < 1 || rb > (1 << 30)) return (int)cudaErrorInvalidValue;
+    const long long a = src | dst | rb;
+    tab.src[c] = reinterpret_cast<const uint8_t*>(src);
+    tab.dst[c] = reinterpret_cast<uint8_t*>(dst);
+    tab.row_bytes[c] = (int)rb;
+    tab.move[c] = a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 1;
   }
+  for (int c = n; c < kScatterChannels; ++c) tab.row_bytes[c] = 0;
+  if (K > 0)
+    scatter_rows_many_kernel<<<wisp::ceil_div(K, kThreads), kThreads, 0,
+                               (cudaStream_t)stream>>>(tab, idx, K, P);
   return (int)cudaGetLastError();
 }

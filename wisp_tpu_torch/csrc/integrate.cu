@@ -29,8 +29,8 @@
 // without subtracting two large sums.
 //
 // K6b / K6c — one depth segment of the segmented trace (wisp_tpu/tracers/
-// packed_rf_tracer.py _trace_segmented, the scan body :362-375 and :385). The same kernels,
-// instantiated with a carried per-ray optical depth A = acc_tau[r] of the segments before:
+// packed_rf_tracer.py _trace_segmented, the scan body :362-375 and :385), with a carried
+// per-ray optical depth A = acc_tau[r] of the segments before:
 // w_i = exp(-(A + sum_prev_i)) * (1 - exp(-tau_i)), with A added inside the exponent as JAX
 // writes it. The forward writes the segment's partial rgb = sum w_i c_i (no background
 // term), alpha, depth, the extra columns sum w_i f_i (the tracer scales their total by the
@@ -38,7 +38,21 @@
 // gw_i = g_rgb.c_i + g_alpha + g_depth*t_i (no background term) and g_acc the cotangent of
 // acc_tau_out, dL/dtau_i = T_i*exp(-tau_i)*gw_i - sum_{k>i} w_k*gw_k + g_acc and
 // dL/dA = g_acc - sum_i w_i*gw_i. Bound: bytes, K4's plus 8 bytes a ray (forward: A read,
-// acc_tau_out written) or 12 (backward: A and g_acc read, dL/dA written).
+// acc_tau_out written) or 12 (backward: A and g_acc read, dL/dA written). The backward is
+// K4's backward kernel instantiated with the carry.
+// K6b's design (integrate_seg_fwd_kernel): a segment is short (128 steps on the main path)
+// and its rays few (2,048: ~16 warps an SM), so K4's forward, 32 steps a round, left each
+// warp four dependent rounds of load, scan and exponentials with little to hide their
+// latency (the earlier design, csrc/baselines/integrate_seg_v1.cu). Here one warp takes a
+// ray and each lane kSegVec = 4 consecutive steps, so a round covers 128 steps. A lane
+// issues its round's loads together (where S % 4 == 0 and the rows are aligned: a float4
+// of density, a float4 of depths, one 32-bit word of the mask, three float4s of colour;
+// else scalar loads), takes the inclusive prefix of its 4 taus in step order, and one
+// shuffle scan of the lanes' totals gives each lane the optical depth before its steps;
+// the round's total carries to the next round (S > 128). The extra columns (Ce <= 16, in
+// registers) sit behind one uniform branch, so that the main path (Ce = 0) runs none of
+// their code. The sums are taken in another order than K4's, so results agree with the
+// plain version to float32 rounding.
 #include "common.cuh"
 
 namespace {
@@ -51,27 +65,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// kSeg: the segment form (K6b): acc_tau is read and acc_out written, rgb carries no
-// background and the extra columns are not scaled by alpha; bg and hit are unused.
-template <bool kSeg>
 __global__ void integrate_fwd_kernel(const float* __restrict__ density,
                                      const float* __restrict__ deltas,
                                      const float* __restrict__ depths,
                                      const uint8_t* __restrict__ mask,
                                      const float* __restrict__ color,
-                                     const float* __restrict__ extra,
-                                     const float* __restrict__ acc_tau, int R, int S, int Ce,
+                                     const float* __restrict__ extra, int R, int S, int Ce,
                                      float bg0, float bg1, float bg2,
                                      float* __restrict__ rgb, float* __restrict__ alpha,
                                      float* __restrict__ depth, uint8_t* __restrict__ hit,
-                                     float* __restrict__ extra_out,
-                                     float* __restrict__ acc_out) {
+                                     float* __restrict__ extra_out) {
   const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long r = gtid >> 5;
   const int lane = threadIdx.x & 31;
   if (r >= R) return;  // whole warps leave together: a warp never straddles two rays
   const float delta = deltas[r];
-  const float A = kSeg ? acc_tau[r] : 0.0f;
   float carry = 0.0f;
   float a = 0.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, dep = 0.0f;
   float ex[kMaxExtra];
@@ -92,7 +100,7 @@ __global__ void integrate_fwd_kernel(const float* __restrict__ density,
     carry = __shfl_sync(wisp::kFullMask, incl, 31);
     if (s < S) {
       const float sum_prev = incl - tau;
-      const float w = expf(-(kSeg ? A + sum_prev : sum_prev)) * (1.0f - expf(-tau));
+      const float w = expf(-sum_prev) * (1.0f - expf(-tau));
       a += w;
       c0 += w * color[3 * o];
       c1 += w * color[3 * o + 1];
@@ -109,19 +117,146 @@ __global__ void integrate_fwd_kernel(const float* __restrict__ density,
   for (int k = 0; k < Ce; ++k) ex[k] = warp_sum(ex[k]);
   if (lane == 0) {
     alpha[r] = a;
-    if (kSeg) {
-      rgb[3 * r] = c0;
-      rgb[3 * r + 1] = c1;
-      rgb[3 * r + 2] = c2;
-      acc_out[r] = A + carry;
-    } else {
-      rgb[3 * r] = bg0 * (1.0f - a) + c0;
-      rgb[3 * r + 1] = bg1 * (1.0f - a) + c1;
-      rgb[3 * r + 2] = bg2 * (1.0f - a) + c2;
-      hit[r] = (uint8_t)(a > 0.0f);
-    }
+    rgb[3 * r] = bg0 * (1.0f - a) + c0;
+    rgb[3 * r + 1] = bg1 * (1.0f - a) + c1;
+    rgb[3 * r + 2] = bg2 * (1.0f - a) + c2;
+    hit[r] = (uint8_t)(a > 0.0f);
     if (depth != nullptr) depth[r] = dep;
-    for (int k = 0; k < Ce; ++k) extra_out[r * Ce + k] = kSeg ? ex[k] : a * ex[k];
+    for (int k = 0; k < Ce; ++k) extra_out[r * Ce + k] = a * ex[k];
+  }
+}
+
+constexpr int kSegVec = 4;                 // K6b: consecutive steps a lane
+constexpr int kSegRound = 32 * kSegVec;    // K6b: steps a round of a warp
+
+// K6b. kVector: S % 4 == 0 and density, depths (where read), colour on 16 bytes and the
+// mask on 4, so that a lane's steps load as vectors.
+template <bool kVector>
+__global__ void __launch_bounds__(256)
+integrate_seg_fwd_kernel(const float* __restrict__ density, const float* __restrict__ deltas,
+                         const float* __restrict__ depths, const uint8_t* __restrict__ mask,
+                         const float* __restrict__ color, const float* __restrict__ extra,
+                         const float* __restrict__ acc_tau, int R, int S, int Ce,
+                         float* __restrict__ rgb, float* __restrict__ alpha,
+                         float* __restrict__ depth, float* __restrict__ extra_out,
+                         float* __restrict__ acc_out) {
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= R) return;  // whole warps leave together
+  const float delta = deltas[r];
+  const float A = acc_tau[r];
+  float carry = 0.0f;
+  float a = 0.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, dep = 0.0f;
+  float ex[kMaxExtra];
+#pragma unroll
+  for (int k = 0; k < kMaxExtra; ++k) ex[k] = 0.0f;
+  for (int s0 = 0; s0 < S; s0 += kSegRound) {
+    const int sl = s0 + kSegVec * lane;          // the lane's first step
+    const long long o = r * S + sl;
+    // the round's loads, all issued before any arithmetic
+    float dens[kSegVec], dp[kSegVec], col[3 * kSegVec];
+    uint32_t m = 0u;                             // byte j: the mask of step sl + j
+#pragma unroll
+    for (int j = 0; j < kSegVec; ++j) dens[j] = dp[j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 3 * kSegVec; ++j) col[j] = 0.0f;
+    if (kVector) {
+      if (sl < S) {                              // S % 4 == 0: all 4 steps are in the row
+        const float4 dv = __ldg(reinterpret_cast<const float4*>(density + o));
+        dens[0] = dv.x; dens[1] = dv.y; dens[2] = dv.z; dens[3] = dv.w;
+        m = __ldg(reinterpret_cast<const unsigned int*>(mask + o));
+        const float4* cv = reinterpret_cast<const float4*>(color + 3 * o);
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          const float4 c = __ldg(cv + v);
+          col[4 * v] = c.x; col[4 * v + 1] = c.y; col[4 * v + 2] = c.z; col[4 * v + 3] = c.w;
+        }
+        if (depth != nullptr) {
+          const float4 tv = __ldg(reinterpret_cast<const float4*>(depths + o));
+          dp[0] = tv.x; dp[1] = tv.y; dp[2] = tv.z; dp[3] = tv.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSegVec; ++j) {
+        if (sl + j < S) {
+          dens[j] = density[o + j];
+          m |= (uint32_t)mask[o + j] << (8 * j);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) col[3 * j + c] = color[3 * (o + j) + c];
+          if (depth != nullptr) dp[j] = depths[o + j];
+        }
+      }
+    }
+    // the lane's inclusive prefix in step order, then a scan of the lanes' totals
+    float tau[kSegVec], incl[kSegVec];
+    float run = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kSegVec; ++j) {
+      tau[j] = dens[j] * delta * (float)((m >> (8 * j)) & 0xffu);
+      run += tau[j];
+      incl[j] = run;
+    }
+    float x = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y = __shfl_up_sync(wisp::kFullMask, x, off);
+      if (lane >= off) x += y;
+    }
+    float before = __shfl_up_sync(wisp::kFullMask, x, 1);   // the lanes before this one
+    if (lane == 0) before = 0.0f;
+    const float base = carry + before;
+    carry += __shfl_sync(wisp::kFullMask, x, 31);
+    float w[kSegVec];
+#pragma unroll
+    for (int j = 0; j < kSegVec; ++j) {
+      w[j] = 0.0f;
+      if (sl + j < S) {
+        const float sum_prev = (base + incl[j]) - tau[j];
+        w[j] = expf(-(A + sum_prev)) * (1.0f - expf(-tau[j]));
+        a += w[j];
+        c0 += w[j] * col[3 * j];
+        c1 += w[j] * col[3 * j + 1];
+        c2 += w[j] * col[3 * j + 2];
+        dep += w[j] * dp[j];
+      }
+    }
+    // the extra columns behind one uniform branch: their predicated code run at every
+    // round cost the main path (Ce = 0) ~0.8 us a segment (chip_scatter_seg_bench.py,
+    // "per-step extras"; PERF.md)
+    if (Ce > 0) {
+#pragma unroll
+      for (int j = 0; j < kSegVec; ++j) {
+        if (sl + j < S) {
+#pragma unroll
+          for (int k = 0; k < kMaxExtra; ++k)
+            if (k < Ce) ex[k] += w[j] * extra[(o + j) * Ce + k];
+        }
+      }
+    }
+  }
+  a = warp_sum(a);
+  c0 = warp_sum(c0);
+  c1 = warp_sum(c1);
+  c2 = warp_sum(c2);
+  dep = warp_sum(dep);
+  if (Ce > 0) {
+#pragma unroll
+    for (int k = 0; k < kMaxExtra; ++k)
+      if (k < Ce) ex[k] = warp_sum(ex[k]);
+  }
+  if (lane == 0) {
+    alpha[r] = a;
+    rgb[3 * r] = c0;
+    rgb[3 * r + 1] = c1;
+    rgb[3 * r + 2] = c2;
+    acc_out[r] = A + carry;
+    if (depth != nullptr) depth[r] = dep;
+    if (Ce > 0) {
+#pragma unroll
+      for (int k = 0; k < kMaxExtra; ++k)
+        if (k < Ce) extra_out[r * Ce + k] = ex[k];
+    }
   }
 }
 
@@ -259,10 +394,10 @@ WISP_EXPORT int wisp_integrate_fwd(const float* density, const float* deltas,
   const long long threads_total = (long long)R * 32;
   if (threads_total > 0) {
     const int threads = 256;
-    integrate_fwd_kernel<false><<<wisp::ceil_div(threads_total, threads), threads, 0,
-                                  (cudaStream_t)stream>>>(
-        density, deltas, depths, mask, color, extra, nullptr, R, S, Ce, bg0, bg1, bg2, rgb,
-        alpha, depth, hit, extra_out, nullptr);
+    integrate_fwd_kernel<<<wisp::ceil_div(threads_total, threads), threads, 0,
+                           (cudaStream_t)stream>>>(
+        density, deltas, depths, mask, color, extra, R, S, Ce, bg0, bg1, bg2, rgb, alpha,
+        depth, hit, extra_out);
   }
   return (int)cudaGetLastError();
 }
@@ -279,10 +414,18 @@ WISP_EXPORT int wisp_integrate_seg_fwd(const float* density, const float* deltas
   const long long threads_total = (long long)R * 32;
   if (threads_total > 0) {
     const int threads = 256;
-    integrate_fwd_kernel<true><<<wisp::ceil_div(threads_total, threads), threads, 0,
-                                 (cudaStream_t)stream>>>(
-        density, deltas, depths, mask, color, extra, acc_tau, R, S, Ce, 0.0f, 0.0f, 0.0f,
-        rgb, alpha, depth, nullptr, extra_out, acc_out);
+    const unsigned blocks = wisp::ceil_div(threads_total, threads);
+    const bool vector = S % kSegVec == 0 && (uintptr_t)density % 16 == 0 &&
+                        (uintptr_t)color % 16 == 0 && (uintptr_t)mask % 4 == 0 &&
+                        (depth == nullptr || (uintptr_t)depths % 16 == 0);
+    if (vector)
+      integrate_seg_fwd_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          density, deltas, depths, mask, color, extra, acc_tau, R, S, Ce, rgb, alpha, depth,
+          extra_out, acc_out);
+    else
+      integrate_seg_fwd_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          density, deltas, depths, mask, color, extra, acc_tau, R, S, Ce, rgb, alpha, depth,
+          extra_out, acc_out);
   }
   return (int)cudaGetLastError();
 }

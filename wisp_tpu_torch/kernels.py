@@ -97,8 +97,8 @@ _SIGNATURES = {
     # stream
     "wisp_compact_rays": [_P, _I, _L, _P, _P, _P, _P, _P, _P, ctypes.c_uint32, _P, _P, _P,
                           _P, _P, _P, _P],
-    # v idx K row_bytes P out stream
-    "wisp_scatter_rows": [_P, _P, _L, _I, _L, _P, _P],
+    # table (host: n rows of v, out, row bytes) n idx K P stream
+    "wisp_scatter_rows_many": [_P, _I, _P, _L, _L, _P],
     # occ level cap bits dist stream
     "wisp_free_space_distance": [_P, _I, _I, _P, _P, _P],
     # coords pidx N P col0 n_lods F lods (host struct) sum vec out stream

@@ -17,8 +17,9 @@ where its ray's ``acc_tau < tau_cap``, compared in float32 as JAX compares it.
 ``compact_rays`` and ``scatter_rows`` are K12's compaction, the SDF tracer's (packed_sdf_
 tracer.py:168-220): the rays of an [R] mask in order, whose payload is each kept ray's
 origin, direction, depth and exit; every slot is defined (JAX's fill: index R and ray
-R-1's row), and ``scatter_rows`` writes the slots' rows back onto a given tensor, as JAX's
-``.at[idx].set(v, mode="drop")``. Their launches count apart from K3's (``compact_rays``,
+R-1's row), and ``scatter_rows_many`` writes the slots' rows of every channel of a chunk back
+onto given tensors in one launch, as JAX's ``.at[idx].set(v, mode="drop")`` on each
+(``scatter_rows``: one channel). Their launches count apart from K3's (``compact_rays``,
 ``scatter_rays``, and ``*_mid`` for the tracer's mid-loop pass).
 
 ``compact`` (two launches) and ``compact_rays`` (one) keep a few words on the device across
@@ -28,6 +29,7 @@ its own.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import threading
 from typing import Optional, Tuple
@@ -42,6 +44,8 @@ _RAY_TILE = 256
 _STEP_TILE = 32
 _GROUP_TILES = 32
 _RAYS_TILE = 1024
+# channels a launch of K12's scatter-back (csrc/compaction.cu kScatterChannels)
+SCATTER_CHANNELS = 8
 
 
 class _StreamState:
@@ -292,23 +296,51 @@ def scatter_rows_plain(v: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) ->
     return out
 
 
+def scatter_rows_many_plain(idx: torch.Tensor, pairs) -> list:
+    """Plain PyTorch version of ``scatter_rows_many``: ``scatter_rows_plain`` on each pair in
+    turn."""
+    return [scatter_rows_plain(v, idx, out) for v, out in pairs]
+
+
+def scatter_rows_many(idx: torch.Tensor, pairs, mid: bool = False) -> list:
+    """``out[idx[k]] = v[k]`` in place for every ``(v, out)`` of ``pairs``, for the K rows of
+    each ``v`` [K, ...] whose slot index is below P = out.shape[0]; an index P (an empty
+    slot) is dropped. Every ``v`` has the same K and every ``out`` [P, ...] the same P, with
+    its ``v``'s dtype and row shape. One launch a table of ``SCATTER_CHANNELS`` channels
+    (the tracer's chunk takes one), counted under ``scatter_rays``, or ``scatter_rays_mid``
+    for the tracer's mid-loop pass. Returns the ``out`` tensors."""
+    pairs = list(pairs)
+    if not idx.is_cuda:
+        return scatter_rows_many_plain(idx, pairs)
+    kernels.check(idx, "idx", torch.int64, (None,))
+    k = p = None
+    table = []
+    for i, (v, out) in enumerate(pairs):
+        kernels.check(v, f"v[{i}]", v.dtype, None)
+        kernels.check(out, f"out[{i}]", v.dtype, (None,) + tuple(v.shape[1:]))
+        if k is None:
+            k, p = v.shape[0], out.shape[0]
+        if (v.shape[0], out.shape[0]) != (k, p):
+            raise ValueError(f"scatter_rows_many: channel {i} has {v.shape[0]} rows onto "
+                             f"{out.shape[0]}, channel 0 {k} onto {p}")
+        row_bytes = math.prod(v.shape[1:]) * v.element_size()
+        if row_bytes:
+            table += [v.data_ptr(), out.data_ptr(), row_bytes]
+    if k is not None and k > idx.shape[0]:
+        raise ValueError(f"scatter_rows_many: {k} rows for {idx.shape[0]} slots")
+    if k:
+        for c in range(0, len(table), 3 * SCATTER_CHANNELS):
+            part = table[c:c + 3 * SCATTER_CHANNELS]
+            rows = (ctypes.c_longlong * len(part))(*part)    # alive until the call returns
+            kernels.launch("wisp_scatter_rows_many",
+                           "scatter_rays_mid" if mid else "scatter_rays",
+                           ctypes.addressof(rows), len(part) // 3, idx.data_ptr(), k, p)
+    return [out for _, out in pairs]
+
+
 def scatter_rows(v: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
                  mid: bool = False) -> torch.Tensor:
     """``out[idx[k]] = v[k]`` in place for the K rows of ``v`` [K, ...] whose slot index is
     below P = out.shape[0]; an index P (an empty slot) is dropped. ``out`` [P, ...] has
-    ``v``'s dtype and row shape; it is returned. ``mid`` counts the launch as the tracer's
-    mid-loop pass."""
-    if not v.is_cuda:
-        return scatter_rows_plain(v, idx, out)
-    k = v.shape[0]
-    kernels.check(v, "v", v.dtype, None)
-    kernels.check(out, "out", v.dtype, (None,) + tuple(v.shape[1:]))
-    kernels.check(idx, "idx", torch.int64, (None,))
-    if k > idx.shape[0]:
-        raise ValueError(f"scatter_rows: {k} rows for {idx.shape[0]} slots")
-    row_bytes = v[0].numel() * v.element_size() if k else 0
-    if k and row_bytes:
-        kernels.launch("wisp_scatter_rows", "scatter_rays_mid" if mid else "scatter_rays",
-                       v.data_ptr(), idx.data_ptr(), k, row_bytes, out.shape[0],
-                       out.data_ptr())
-    return out
+    ``v``'s dtype and row shape; it is returned. ``scatter_rows_many`` with one channel."""
+    return scatter_rows_many(idx, [(v, out)], mid)[0]

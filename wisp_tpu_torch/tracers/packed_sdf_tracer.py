@@ -26,9 +26,10 @@ that are still alive after the walk go through steps 2 and 3, packed into
 ``max(round(R * compaction), 1)`` slots; with ``mid_compaction`` too, after
 ``round(num_steps * mid_at)`` iterations the rays still alive are packed again into
 ``max(round(R * mid_compaction), 1)`` slots for the rest. The results go back onto the
-walk's values (``scatter_rows``): a ray that was dropped keeps the walk's depth and point,
-misses, and has a zero normal. ``num_overflow`` counts the rays dropped by either budget
-(it is 0 without compaction), as JAX does.
+walk's values (``scatter_rows_many``, one launch for every channel of a chunk or of the mid
+pass): a ray that was dropped keeps the walk's depth and point, misses, and has a zero
+normal. ``num_overflow`` counts the rays dropped by either budget (it is 0 without
+compaction), as JAX does.
 
 As in JAX every ray (or slot) is queried at every iteration, and nothing in the loop reads
 the device. ``sdf_walk`` and ``sphere_step`` update t, alive and hit in place: on a CUDA
@@ -48,7 +49,7 @@ from wisp_tpu_torch.accelstructs.octree_as import aabb_intersect
 from wisp_tpu_torch.core.render_buffer import RenderBuffer
 from wisp_tpu_torch.models.grids.octree_grid import (OctreeGrid, lod_tables,
                                                      octree_query_interp_plain, ray_lanes)
-from wisp_tpu_torch.ops.compaction import compact_rays, ray_budget, scatter_rows
+from wisp_tpu_torch.ops.compaction import compact_rays, ray_budget, scatter_rows_many
 from wisp_tpu_torch.ops.differential import finitediff_gradient
 from wisp_tpu_torch.ops.geometric import voxel_boundary_step
 from wisp_tpu_torch.ops.spc.core import quantize_points
@@ -339,18 +340,18 @@ class PackedSDFTracer(BaseTracer):
                 live2 = idx2 < budget
                 hit_m = torch.zeros_like(live2)
                 sphere_loop(o_m, d_m, t_m, live2, hit_m, tf_m, num_steps - n1)
-                scatter_rows(t_m, idx2, t_c, mid=True)
-                scatter_rows(hit_m, idx2, hit_c, mid=True)
+                scatter_rows_many(idx2, [(t_m, t_c), (hit_m, hit_c)], mid=True)
                 dropped_mid = (count2 - budget2).clamp(min=0)
             xyz_c, normal_c, extras_c = finalize(o_c, d_c, t_c, hit_c)
-            # onto the walk's values: a dropped ray keeps its depth and point and misses
-            xyz = scatter_rows(xyz_c, idx, o + t[:, None] * d)
-            scatter_rows(t_c, idx, t)
-            hit = scatter_rows(hit_c, idx, torch.zeros_like(alive))
-            normal = scatter_rows(normal_c, idx, torch.zeros_like(o))
-            extras = {ch: scatter_rows(v.contiguous(), idx,
-                                       v.new_zeros((num_rays,) + tuple(v.shape[1:])))
+            # onto the walk's values: a dropped ray keeps its depth and point and misses;
+            # the point is taken from the walk's t before the slots' depths overwrite it
+            xyz = o + t[:, None] * d
+            hit = torch.zeros_like(alive)
+            normal = torch.zeros_like(o)
+            extras = {ch: v.new_zeros((num_rays,) + tuple(v.shape[1:]))
                       for ch, v in extras_c.items()}
+            scatter_rows_many(idx, [(t_c, t), (xyz_c, xyz), (hit_c, hit), (normal_c, normal)]
+                              + [(v.contiguous(), extras[ch]) for ch, v in extras_c.items()])
             num_overflow = ((count - budget).clamp(min=0) + dropped_mid).to(torch.float32)
 
         hit_c = hit[:, None]
