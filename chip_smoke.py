@@ -250,6 +250,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -348,6 +349,17 @@ PROFILER_FALLBACKS = []
 PROFILER_SESSIONS = 5
 
 
+def call_name(fn) -> str:
+    """Where a timed or profiled call comes from, for ``PROFILER_FALLBACKS``: a function's
+    file and first line, through any ``functools.partial`` around it; else its repr."""
+    while isinstance(fn, functools.partial):
+        fn = fn.func
+    code = getattr(fn, "__code__", None)
+    if code is not None:
+        return f"{os.path.basename(code.co_filename)} line {code.co_firstlineno}"
+    return getattr(fn, "__qualname__", None) or repr(fn)
+
+
 def timed(fn, iters: int = 20, warmup: int = 3):
     """(device ms, event ms) of one call of ``fn``. The device time is the kernels' own
     device time under torch.profiler over ``iters`` calls: for each kernel its mean time a
@@ -373,8 +385,7 @@ def timed(fn, iters: int = 20, warmup: int = 3):
             ms = sum(k["ms"] / k["count"] * max(1, round(k["count"] / iters))
                      for k in recorded)
             return ms, event_ms
-    PROFILER_FALLBACKS.append({"timed": f"chip_smoke.py line {fn.__code__.co_firstlineno}",
-                               "device_ms": "event time"})
+    PROFILER_FALLBACKS.append({"timed": call_name(fn), "device_ms": "event time"})
     return event_ms, event_ms
 
 
@@ -2570,9 +2581,7 @@ def profile_call(fn, top: int = 12):
     busy_ms, top_kernels = device_kernels(prof, top)
     launches = sum(k["count"] for k in device_kernels(prof, None)[1])
     if not top_kernels:
-        PROFILER_FALLBACKS.append({"profile": f"chip_smoke.py line "
-                                              f"{fn.__code__.co_firstlineno}",
-                                   "device_busy_ms": "not measured"})
+        PROFILER_FALLBACKS.append({"profile": call_name(fn), "device_busy_ms": "not measured"})
         busy_ms = launches = None
     return wall_ms, busy_ms, top_kernels, launches
 

@@ -8,8 +8,13 @@ plain version (no JAX, no card).
     ``_fsd_at`` and ``_free_step``, the plain version's step, with both branches taken.
     (c) Its walk equals ``sdf_walk_plain``. (d) K13 counts its overflowing rays a warp at a
     time: the float total of the warps' integer counts, added in any order, equals the plain
-    version's sum of 0/1 floats.
+    version's sum of 0/1 floats. (e) ``chip_smoke.timed`` and ``profile_call``, when no
+    profiler session records a kernel, fall back and name the call, a ``functools.partial``
+    such as the card's timed calls included.
 """
+
+import functools
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -200,3 +205,21 @@ def test_warp_counts_of_an_spc_trace():
     overflow = alive & ~hit
     assert 0 < int(overflow.sum()) < o.shape[0]
     assert warp_total(overflow, seed=5) == float(num_overflow)
+
+
+@pytest.mark.parametrize("wrap", ["partial", "function"])
+def test_profiler_fallback_names_the_call(wrap):
+    """(e) with every profiler session empty."""
+    def call(x=0):
+        return x
+
+    fn = functools.partial(call, 1) if wrap == "partial" else call
+    with mock.patch.object(chip_smoke, "cuda_ms", lambda f, iters, warmup: 1.5), \
+            mock.patch.object(chip_smoke, "device_kernels", lambda prof, top: (0.0, [])), \
+            mock.patch.object(chip_smoke, "PROFILER_FALLBACKS", []) as fallbacks, \
+            mock.patch("torch.profiler.profile"), mock.patch("torch.cuda.synchronize"):
+        assert chip_smoke.timed(fn, iters=2) == (1.5, 1.5)
+        assert chip_smoke.profile_call(fn)[1:] == (None, [], None)
+    where = f"test_torch_walk_rules.py line {call.__code__.co_firstlineno}"
+    assert fallbacks == [{"timed": where, "device_ms": "event time"},
+                         {"profile": where, "device_busy_ms": "not measured"}]
