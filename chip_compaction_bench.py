@@ -26,7 +26,9 @@ carved field), 40 flagship training steps (the train phase's trainer; the first 
 out) and, after 300 NGLOD app steps, 10 each of the 512x512 SDF frame uncompacted, at
 compaction 0.55 and with the mid pass at 0.3 (the nglod app phase's settings), in turns;
 then one flagship frame under torch.profiler (``profile_frame``: device-busy ms, idle
-share, the kernels with the most device time; K2 runs once a chunk, 16 times).
+share, the kernels with the most device time; K2 runs once a chunk, 16 times) and one
+flagship training step after the 40 (``train_step``: device-busy ms, idle share and the
+device kernels it launched).
 ``sdf``: the SDF frames of ``paths`` alone, in a process that runs nothing before them,
 then one frame of each under torch.profiler (``chip_smoke.profile_call``: wall, device-busy
 ms and idle share; the compacted frames take one scatter-back launch a chunk, the mid
@@ -39,8 +41,8 @@ with the most device time), then one frame's launches, by ``kernels.LAUNCHES`` a
 torch.profiler (every device kernel).
 ``octree``: the octree NeRF phase's trainer (``nerf_octree_lego_proxy.yaml`` through
 ``main_nerf``, ``chip_smoke.octree_app``): 40 steps' wall ms (the first two left out of the
-median), then one step under torch.profiler (``chip_smoke.profile_step``: device-busy ms,
-idle share, top kernels; K15's backward runs once a step).
+median), then one step under torch.profiler (device-busy ms, idle share, the device
+kernels it launched, top kernels; K15's backward runs once a step).
 ``l8``: the NGLOD app's trainer on a level-8 octree (``chip_smoke.nglod_app`` with
 ``--blas-level 8``, as the nglod phase's level-8 step: its max level above the pidx maps,
 so each step's octree query binary-searches its code table): 40 steps' wall ms (the first
@@ -56,8 +58,8 @@ device kernel).
 ``seg``: the "seg" phase's trainer (the flagship trainer with ``seg_early_stop``
 ``chip_smoke.SEG_EPS`` and ``seg_count`` ``chip_smoke.SEG_COUNT``: K6a, K6b, K6c and K5
 accumulated on four segments a step): 40 steps' wall ms (the first two left out of the
-median), then one step under torch.profiler (``chip_smoke.profile_step``: device-busy ms,
-idle share, top kernels) and one step's launches (``kernels.LAUNCHES``).
+median), then one step under torch.profiler (device-busy ms, idle share, the device
+kernels it launched, top kernels) and one step's launches (``kernels.LAUNCHES``).
 Each mode prints one JSON line; run ``paths`` from the parent's and the change's checkouts
 in turns (parent, change, change, parent, ...) to compare them: these paths are bound by
 the host, and their spread from process to process is wide.
@@ -170,6 +172,7 @@ def paths_mode(dev, flagship: bool) -> dict:
         del pipeline, renderer
         trainer = cs.flagship_trainer(dev)
         out["train_step_ms"] = [clock(trainer.iterate) for _ in range(40)][2:]
+        profile["train_step"] = step_profile(trainer)
         del trainer
         torch.cuda.empty_cache()
 
@@ -243,7 +246,7 @@ def octree_mode(dev) -> tuple:
     kernels.build()
     _, (_, trainer, _) = cs.octree_app(dev)
     steps = [clock(trainer.iterate) for _ in range(40)]
-    return {"octree_step_ms": steps[2:]}, cs.profile_step(trainer)
+    return {"octree_step_ms": steps[2:]}, step_profile(trainer)
 
 
 def level8_mode(dev) -> tuple:
@@ -297,13 +300,22 @@ def spc_frame_mode(dev) -> tuple:
     return {"spc_frame_ms": frames}, frame_profile
 
 
+def step_profile(trainer) -> dict:
+    """One step under torch.profiler (``chip_smoke.profile_call``): wall, device-busy ms,
+    idle share, the device kernels it launched and the kernels with the most device time."""
+    wall, busy, top, launched = cs.profile_call(trainer.iterate)
+    return {"profile_step_ms": wall, "step_device_busy_ms": busy,
+            "step_device_idle_share": cs.idle_share(busy, wall),
+            "step_device_kernels": launched, "step_top_device_kernels": top}
+
+
 def seg_mode(dev) -> tuple:
     kernels.build()
     trainer = cs.flagship_trainer(dev)
     tracer = trainer.pipeline.tracer
     tracer.seg_early_stop, tracer.seg_count = cs.SEG_EPS, cs.SEG_COUNT
     steps = [clock(trainer.iterate) for _ in range(40)]
-    profile = cs.profile_step(trainer)
+    profile = step_profile(trainer)
     kernels.reset_launches()
     clock(trainer.iterate)
     profile["step_launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}

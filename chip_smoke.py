@@ -37,8 +37,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
 7. profiles step 20 and, after the counts are read, holds each training kernel (K1, K3
    and K4 backward, K5, and the jittered march) against its plain version at the shapes
    of step 25 and times it (K1 backward beside the earlier K1 design, with its bound
-   counting the whole table gradient it writes); the prune's and step 25's K1 calls are
-   recorded for the "hashgrid" step;
+   counting the whole table gradient it writes; K5 and K3's scatter-back backward, the
+   one gather of colour and density, on step 25's own calls, beside their earlier
+   designs ``wisp_tpu_torch/csrc/baselines/scatter_max_v1.cu`` with the cell lookup's
+   PyTorch launches in front and ``scatter_back_bwd_v1.cu``, a launch a channel); the
+   prune's and step 25's K1 calls are recorded for the "hashgrid" step, step 25's K5 and
+   gather for the "feedback and gather" step;
 8. SDF path: builds the NGLOD pipeline of app/nglod/configs/nglod_octree.yaml at full
    width on main_nglod.py's procedural icosphere (octree level 7; OctreeGrid 16 features
    x 6 LODs, 'sum'; NeuralSDF hidden 128; PackedSDFTracer 32 steps, step 0.8) with the
@@ -228,7 +232,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    four segments of step 25 and on a segment with a culling carry; times each beside the
    earlier design with its launches a call and the path's launches, then makes 200 calls
    back to back on one stream and holds each call's last result equal to its first;
-24. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+24. feedback and gather ("feedback and gather"): holds K5 (the cell lookup, the mask and
+   the max in one launch) and K3's scatter-back backward (colour's and density's
+   cotangents gathered in one launch), and their earlier designs with the launches that
+   fed them (``cell_ids``; density's select-view backward), exactly to the plain versions
+   on the calls that flagship train step 25 and the seg phase's step 25 made (K5 into a
+   fresh grid and into the carried grid of four segments; a gather a trace or segment);
+   requires one hand-written launch a call; times each beside the earlier design with the
+   device kernels a call of both; reports the device kernels of the flagship's and the
+   seg phase's profiled steps and the launches a step; then makes 200 calls back to back on
+   one stream and holds each call's last result equal to its first;
+25. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels (K15's forward: 0, no path launches it), from the SDF training run
    for K9, K15's backward and K16, from the octree NeRF's 25 steps for K7, from the stoch
@@ -241,7 +255,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
    ``uniform_path`` JSON lines, the ``compaction_shapes``, ``hashgrid_shapes``,
    ``octree_grid_shapes``, ``march_grad_shapes``, ``mesh_shapes``, ``query_step_shapes``,
-   ``walk_shapes`` and ``scatter_seg_shapes`` lines, the ``phase_s`` line, the nvidia-smi
+   ``walk_shapes``, ``scatter_seg_shapes`` and ``feedback_gather_shapes`` lines, the
+   ``phase_s`` line, the nvidia-smi
    line and, last, ``{"ok":
    true, "device": {...}}``.
 """
@@ -471,6 +486,16 @@ SCATTER_SEG_V1_DESIGN = {
                     "(slot, 4-byte word) or (slot, byte), each reading the slot's index)",
     "integrate_seg_fwd": "csrc/baselines/integrate_seg_v1.cu (K4's forward with the carry: "
                          "a step a lane, 32 steps a dependent round; 4 rounds at S = 128)"}
+
+SCATTER_MAX_V1_SRC = "wisp_tpu_torch/csrc/baselines/scatter_max_v1.cu"
+SCATTER_BACK_BWD_V1_SRC = "wisp_tpu_torch/csrc/baselines/scatter_back_bwd_v1.cu"
+FEEDBACK_GATHER_V1 = None      # a FeedbackGatherV1 once built (run())
+FEEDBACK_GATHER_V1_DESIGN = {
+    "scatter_max": "csrc/baselines/scatter_max_v1.cu (ready int64 ids; the cell lookup in "
+                   "front as PyTorch's cell_ids, and torch.where on the mask)",
+    "scatter_back_bwd": "csrc/baselines/scatter_back_bwd_v1.cu (a launch a channel, a thread "
+                        "a (slot, column) with a 64-bit division; density's cotangent through "
+                        "the select view's backward, a zero fill and a copy)"}
 
 
 def start_walk_probe_build():
@@ -889,6 +914,65 @@ class ScatterSegV1:
         return out
 
 
+class FeedbackGatherV1:
+    """The earlier designs of K5 (keyed by ready ids) and of K3's scatter-back backward (a
+    launch a channel), called on the current stream with the launches in front of them that
+    the path made for them (K5: ``cell_ids`` and, with a mask, ``torch.where``; the
+    backward: density's select view undone by a zero fill and a copy); their launches are
+    not the port's and are not counted."""
+
+    def __init__(self, started_max, started_bwd):
+        import ctypes
+        import torch
+        self.torch = torch
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self.max_lib = finish_baseline_build(started_max, SCATTER_MAX_V1_SRC)
+        self.max_lib.wisp_scatter_max_v1.argtypes = [P, P, L, L, P, P]
+        self.bwd_lib = finish_baseline_build(started_bwd, SCATTER_BACK_BWD_V1_SRC)
+        self.bwd_lib.wisp_scatter_back_bwd_v1.argtypes = [P, P, L, I, L, P, P]
+
+    def _stream(self) -> int:
+        return self.torch._C._cuda_getCurrentRawStream(self.torch._C._cuda_getDevice())
+
+    def scatter_max_points(self, points, density, level, out=None, keep=None):
+        """``scatter_max_points`` as the earlier path computed it: ``cell_ids``, the mask's
+        ``torch.where``, the density as a contiguous float32 column, then the kernel."""
+        torch = self.torch
+        from wisp_tpu_torch.ops.density_grid import cell_ids
+        size = 8 ** level
+        ids = cell_ids(points, level)
+        if keep is not None:
+            ids = torch.where(keep, ids, size)
+        values = density.float().contiguous()
+        grid = torch.zeros((size,), dtype=torch.float32, device=points.device) \
+            if out is None else out
+        if ids.numel():
+            status = self.max_lib.wisp_scatter_max_v1(ids.data_ptr(), values.data_ptr(),
+                                                      ids.numel(), size, grid.data_ptr(),
+                                                      self._stream())
+            require(status == 0, f"wisp_scatter_max_v1 failed to launch ({status})")
+        return grid
+
+    def scatter_back_bwd_many(self, grads, idx, k):
+        """The gather of each channel's cotangent with the earlier design's launch a channel;
+        a flat cotangent (density's) first goes through the select view's backward."""
+        torch = self.torch
+        outs = []
+        for g in grads:
+            if g.ndim == 1:
+                z = torch.zeros((g.shape[0], 1), dtype=g.dtype, device=g.device)
+                z.select(-1, 0).copy_(g)
+                g = z
+            out = torch.empty((k, g.shape[1]), dtype=torch.float32, device=g.device)
+            if k:
+                status = self.bwd_lib.wisp_scatter_back_bwd_v1(
+                    g.data_ptr(), idx.data_ptr(), k, g.shape[1], g.shape[0], out.data_ptr(),
+                    self._stream())
+                require(status == 0, f"wisp_scatter_back_bwd_v1 failed to launch ({status})")
+            outs.append(out)
+        return outs
+
+
 def march_equal(got, want) -> bool:
     """K2/K8's contract: points, depths, deltas, mask and densities bit for bit."""
     import torch
@@ -976,6 +1060,8 @@ def plain_versions():
             mock.patch.object(packed_rf_tracer, "compact", compaction.compact_plain), \
             mock.patch.object(packed_rf_tracer, "scatter_back",
                               compaction.scatter_back_plain), \
+            mock.patch.object(packed_rf_tracer, "scatter_back_many",
+                              compaction.scatter_back_many_plain), \
             mock.patch.object(packed_rf_tracer, "integrate", integration.integrate_plain):
         yield
 
@@ -2201,6 +2287,263 @@ def scatter_seg_phase() -> dict:
     return out
 
 
+# the tracer's K5 calls and the scatter-back's backward gathers that the flagship's and the
+# seg phase's step 25 made, for the "feedback and gather" step and the K5 and K3 backward
+# rows: key -> {"k5": [(points, density, level, the grid before the call or None, keep)],
+# "gather": [(cotangents (cloned), idx, k)]}; and "<path> step" -> its profiled step's
+# device kernels and the hand-written launches a step
+FEEDBACK_GATHER_CALLS = {}
+FEEDBACK_GATHER_BACK_TO_BACK = 200
+
+
+@contextmanager
+def recording_feedback_gather(key: str):
+    """Record the inputs of the tracer's K5 calls (``scatter_max_points``; the grid it maxes
+    into cloned before the call) and of the scatter-back's backward gathers
+    (``scatter_back_bwd_many``; the cotangents cloned) under ``key``. The calls go on
+    unchanged and count their launches."""
+    from wisp_tpu_torch.ops import compaction
+    from wisp_tpu_torch.tracers import packed_rf_tracer as tr
+    k5, bwd = tr.scatter_max_points, compaction.scatter_back_bwd_many
+    rec = FEEDBACK_GATHER_CALLS.setdefault(key, {"k5": [], "gather": []})
+
+    def rec_k5(points, density, level, out=None, keep=None):
+        rec["k5"].append((points, density, level, None if out is None else out.clone(),
+                          keep))
+        return k5(points, density, level, out=out, keep=keep)
+
+    def rec_bwd(grads, idx, k):
+        grads = list(grads)
+        rec["gather"].append(([g.clone() for g in grads], idx, k))
+        return bwd(grads, idx, k)
+
+    with mock.patch.object(tr, "scatter_max_points", rec_k5), \
+            mock.patch.object(compaction, "scatter_back_bwd_many", rec_bwd):
+        yield
+
+
+def grid_equal(a, b) -> bool:
+    """K5's contract: the same grid, NaN where the other has NaN (the kernel writes one NaN
+    pattern, PyTorch another)."""
+    import torch
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0),
+                                                              b.nan_to_num(0.0))
+
+
+def feedback_work(rec) -> dict:
+    """A recorded K5 call's sizes and compulsory bytes: 12 bytes of point and the density's
+    bytes (1 of mask) a sample, 4 bytes a touched cell (a cell some kept sample with a
+    positive or NaN density reaches)."""
+    import torch
+    from wisp_tpu_torch.ops.density_grid import cell_ids
+    pts, dens, level, start, keep = rec
+    k = pts.shape[0]
+    hits = (dens.float() > 0) | dens.isnan()
+    if keep is not None:
+        hits = hits & keep
+    touched = int(torch.unique(cell_ids(pts, level)[hits]).numel())
+    return {"samples": k, "samples_kept": k if keep is None else int(keep.sum()),
+            "cells_touched": touched, "level": level, "density_dtype": str(dens.dtype),
+            "density_stride": dens.stride(0), "masked": keep is not None,
+            "carried_grid": start is not None,
+            "bytes": k * (12 + dens.element_size() + (0 if keep is None else 1)) + touched * 4}
+
+
+def feedback_calls(rec, held: bool = False):
+    """(new, plain, earlier design) callers of a recorded K5 call as the path made it: into
+    a fresh grid (with its zero fill), or into a fresh copy of the carried grid; ``held``
+    (for timing): each caller maxes into one copy of the carried grid, or of a zero grid
+    for a fresh one, made here, so that a call times the kernel and what feeds it alone."""
+    import torch
+    from wisp_tpu_torch.ops.density_grid import scatter_max_points, scatter_max_points_plain
+    pts, dens, level, start, keep = rec
+
+    def with_grid(fn):
+        if held:
+            grid = (torch.zeros((8 ** level,), dtype=torch.float32, device=pts.device)
+                    if start is None else start.clone())
+            return lambda: fn(pts, dens, level, grid, keep)
+        return lambda: fn(pts, dens, level, None if start is None else start.clone(), keep)
+
+    return (with_grid(scatter_max_points), with_grid(scatter_max_points_plain),
+            FEEDBACK_GATHER_V1 and with_grid(FEEDBACK_GATHER_V1.scatter_max_points))
+
+
+def feedback_row(name, replaces, rec):
+    """K5's ``kernels`` row on a recorded call: held exactly to its plain version, timed as
+    the path calls it, beside the earlier design with the lookup's launches in front
+    (``was_ms``) and ``scatter_reduce_`` over precomputed ids (``library_ms``: not the same
+    function, no cell lookup)."""
+    import torch
+    from wisp_tpu_torch.ops.density_grid import cell_ids
+    pts, dens, level, start, keep = rec
+    new, plain, was = feedback_calls(rec)
+    got, want = new(), plain()
+    err = 0.0 if grid_equal(got, want) else float((got - want).nan_to_num(0.0).abs().max())
+    if start is not None:           # the carried grid: no copy of it in the timed calls
+        new, plain, was = feedback_calls(rec, held=True)
+    work = feedback_work(rec)
+    ids = cell_ids(pts, level)
+    vals = dens.float()
+    if keep is not None:
+        ids, vals = ids[keep], vals[keep]
+    lib = torch.zeros_like(got) if start is None else start.clone()
+    row = kernel_row(name, "wisp_tpu_torch/csrc/scatter_max.cu", replaces, err, 0.0,
+                     timed(new), timed(plain), work["bytes"], 0.0,
+                     library_ms=timed(lambda: lib.scatter_reduce_(0, ids, vals, "amax",
+                                                                  include_self=True)))
+    row.update(work)
+    row["library_call"] = ("scatter_reduce_(0, ids, values, 'amax') over precomputed cell ids "
+                           "into a held grid: not the same function (no cell lookup, no "
+                           "zero fill)")
+    if start is None:               # a fresh grid: ms has its zero fill; the kernel alone
+        kernel_t = timed(feedback_calls(rec, held=True)[0])
+        row.update(kernel_ms=kernel_t[0], kernel_event_ms=kernel_t[1])
+    check = feedback_calls(rec)[2]
+    return add_launches_and_was(row, new, was, lambda: grid_equal(check(), want),
+                                FEEDBACK_GATHER_V1_DESIGN["scatter_max"])
+
+
+def gather_work(rec) -> dict:
+    """A recorded gather's sizes and compulsory bytes: 8 bytes of index a slot, each
+    channel's row read at a live slot and written at every slot."""
+    import math
+    grads, idx, k = rec
+    cols = sum(math.prod(g.shape[1:]) for g in grads)
+    live = int((idx[:k] < grads[0].shape[0]).sum())
+    return {"slots": k, "live_slots": live, "channels": [list(g.shape[1:]) for g in grads],
+            "columns": cols, "bytes": k * 8 + live * cols * 4 + k * cols * 4}
+
+
+def gather_row(rec):
+    """K3's scatter-back backward row on a recorded gather (colour's and density's
+    cotangents): held exactly to its plain version, timed beside the earlier design (a
+    launch a channel, density through the select view's backward: ``was_ms``) and
+    ``index_select`` of the colour rows alone (``library_ms``)."""
+    import functools as ft
+    from wisp_tpu_torch.ops.compaction import (scatter_back_bwd_many,
+                                               scatter_back_bwd_many_plain)
+    grads, idx, k = rec
+    new = ft.partial(scatter_back_bwd_many, grads, idx, k)
+    plain = ft.partial(scatter_back_bwd_many_plain, grads, idx, k)
+    was = FEEDBACK_GATHER_V1 and ft.partial(FEEDBACK_GATHER_V1.scatter_back_bwd_many, grads,
+                                            idx, k)
+    got, want = new(), plain()
+    err = max([float((a.reshape(-1) - b.reshape(-1)).abs().max()) if k else 0.0
+               for a, b in zip(got, want)])
+    work = gather_work(rec)
+    sel = idx[:k]
+    library = (timed(lambda: grads[0].index_select(0, sel))
+               if work["live_slots"] == k else None)
+    row = kernel_row("scatter_back_bwd", "wisp_tpu_torch/csrc/compaction.cu",
+                     "wisp_tpu/tracers/packed_rf_tracer.py:214", err, 0.0, timed(new),
+                     timed(plain), work["bytes"], 0.0, library_ms=library)
+    row.update(work)
+    row["library_call"] = ("index_select of the colour cotangent's rows alone: no single "
+                           "PyTorch call gathers both channels")
+
+    def was_equal():
+        return all(a.reshape(-1).equal(b.reshape(-1)) for a, b in zip(was(), want))
+
+    return add_launches_and_was(row, new, was, was_equal,
+                                FEEDBACK_GATHER_V1_DESIGN["scatter_back_bwd"])
+
+
+def feedback_gather_phase() -> dict:
+    """K5 and K3's scatter-back backward on the calls that the flagship's and the seg phase's
+    step 25 made (FEEDBACK_GATHER_CALLS: the flagship's K5 into a fresh grid and its gather
+    of colour and density, the seg step's four segments' K5 into the carried grid and
+    their four gathers): each new kernel exactly equal to its plain version and to the
+    earlier design with the launches in front of it, one hand-written launch a call, timed
+    beside that design (device ms, event ms) with the device kernels a call of each; the
+    device kernels of a profiled flagship and seg step; then FEEDBACK_GATHER_BACK_TO_BACK
+    calls back to back on one stream, the calls in turns, each call's last result held
+    equal to its first."""
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.ops.compaction import (scatter_back_bwd_many,
+                                               scatter_back_bwd_many_plain)
+    recs = {k: FEEDBACK_GATHER_CALLS.get(k, {}) for k in ("train step 25", "seg step 25")}
+    counts = {k: (len(r.get("k5", ())), len(r.get("gather", ()))) for k, r in recs.items()}
+    require(counts == {"train step 25": (1, 1), "seg step 25": (SEG_COUNT, SEG_COUNT)},
+            f"K5 calls and gathers recorded: {counts}")
+    out = {"was_design": FEEDBACK_GATHER_V1_DESIGN,
+           "steps": {k: FEEDBACK_GATHER_CALLS.get(k) for k in ("flagship step", "seg step")}}
+    callers = []
+
+    def hand_launches(counter, fn):
+        before = kernels.LAUNCHES[counter]
+        result = fn()
+        return result, kernels.LAUNCHES[counter] - before
+
+    with torch.no_grad():
+        for key, rec in recs.items():
+            for i, call in enumerate(rec["k5"]):
+                name = f"{key}: K5 {i}"
+                new, plain, was = feedback_calls(call)
+                counter = "scatter_max" if call[3] is None else "scatter_max_acc"
+                want = plain()
+                got, hand = hand_launches(counter, new)
+                require(grid_equal(got, want) and grid_equal(was(), want),
+                        f"{name}: (new, earlier design) equal to the plain version: "
+                        f"{(grid_equal(got, want), grid_equal(was(), want))}")
+                require(hand == 1, f"{name}: {hand} launches a call, not one")
+                callers.append((name, new, got, grid_equal))
+                # timed as the path calls it (a fresh grid: with its zero fill), the carried
+                # grid held; "kernel_ms": into a held grid, the kernel and what feeds it alone
+                if call[3] is not None:
+                    new, _, was = feedback_calls(call, held=True)
+                held_new, _, held_was = feedback_calls(call, held=True)
+                new_t, was_t = timed(new), timed(was)
+                kernel_t, was_kernel_t = timed(held_new), timed(held_was)
+                work = feedback_work(call)
+                out[name] = {**work, "exact": True, "ms": new_t[0], "event_ms": new_t[1],
+                             "was_ms": was_t[0], "was_event_ms": was_t[1],
+                             "kernel_ms": kernel_t[0], "was_kernel_ms": was_kernel_t[0],
+                             "bound_ms": bound(work["bytes"], 0)[0],
+                             "hand_written_launches_per_call": hand,
+                             "launches_per_call": launches_per_call(new),
+                             "was_launches_per_call": launches_per_call(was)}
+            for i, (grads, idx, k) in enumerate(rec["gather"]):
+                name = f"{key}: gather {i}"
+                want = scatter_back_bwd_many_plain(grads, idx, k)
+                got, hand = hand_launches("scatter_back_bwd",
+                                          lambda: scatter_back_bwd_many(grads, idx, k))
+                was = FEEDBACK_GATHER_V1.scatter_back_bwd_many(grads, idx, k)
+
+                def same(a, b):
+                    return all(x.reshape(-1).equal(y.reshape(-1)) for x, y in zip(a, b))
+
+                require(same(got, want) and same(was, want),
+                        f"{name}: (new, earlier design) equal to the plain version: "
+                        f"{(same(got, want), same(was, want))}")
+                require(hand == (1 if k else 0), f"{name}: {hand} launches a call, not one")
+                new_call = functools.partial(scatter_back_bwd_many, grads, idx, k)
+                was_call = functools.partial(FEEDBACK_GATHER_V1.scatter_back_bwd_many, grads,
+                                             idx, k)
+                new_t, was_t = timed(new_call), timed(was_call)
+                work = gather_work((grads, idx, k))
+                out[name] = {**work, "exact": True, "ms": new_t[0], "event_ms": new_t[1],
+                             "was_ms": was_t[0], "was_event_ms": was_t[1],
+                             "bound_ms": bound(work["bytes"], 0)[0],
+                             "hand_written_launches_per_call": hand,
+                             "launches_per_call": launches_per_call(new_call),
+                             "was_launches_per_call": launches_per_call(was_call)}
+                callers.append((name, new_call, got, same))
+        torch.cuda.synchronize()
+        last = {}
+        for i in range(FEEDBACK_GATHER_BACK_TO_BACK):
+            name, call, _, _ = callers[i % len(callers)]
+            last[name] = call()
+        torch.cuda.synchronize()
+        for name, _, first, same in callers:
+            require(same(last[name], first), f"{name}, called back to back, differs from its "
+                                             f"first result")
+    out["back_to_back_calls"] = FEEDBACK_GATHER_BACK_TO_BACK
+    out["gather_order"] = "the backward's: a seg step's gather 0 is its last segment's"
+    return out
+
+
 # the K2/K8 and K15 backward calls that the paths made, for the "march and octree grad"
 # step: key -> {"kind": counter name, "args": the wrapper's arguments (cloned)}
 MARCH_GRAD_CALLS = {}
@@ -2671,9 +3014,7 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
     import torch
     from wisp_tpu_torch.accelstructs.octree_as import raymarch_ray, raymarch_ray_plain
     from wisp_tpu_torch.ops import grid as grid_ops
-    from wisp_tpu_torch.ops.compaction import (compact, compaction_budget, scatter_back,
-                                               scatter_back_bwd, scatter_back_bwd_plain)
-    from wisp_tpu_torch.ops.density_grid import cell_ids, scatter_max, scatter_max_plain
+    from wisp_tpu_torch.ops.compaction import compact, compaction_budget, scatter_back
     from wisp_tpu_torch.ops.integration import integrate_bwd, integrate_bwd_plain
     pipeline = trainer.pipeline
     nef, tracer = pipeline.nef, pipeline.tracer
@@ -2739,19 +3080,9 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
         grid.codebook.resolutions, grid.codebook_bitwidth, 3, f_dim, n_lods,
         grid_ops.SHARED_LOD_BYTES))
 
-    # scatter-back backward of the colour channel (the gather)
-    g_col = torch.randn((r * s, 3), generator=g, device=o.device)
-    bk = scatter_back_bwd(g_col, idx, kept)
-    bp = scatter_back_bwd_plain(g_col, idx, kept)
-    sel = idx[:kept]
-    row("scatter_back_bwd", "wisp_tpu_torch/csrc/compaction.cu",
-        "wisp_tpu/tracers/packed_rf_tracer.py:214",
-        float((bk - bp).abs().max()) if kept else 0.0, 0.0,
-        timed(lambda: scatter_back_bwd(g_col, idx, kept)),
-        timed(lambda: scatter_back_bwd_plain(g_col, idx, kept)),
-        nbytes=kept * (8 + 12 + 12), ops=0.0,
-        library_ms=timed(lambda: g_col.index_select(0, sel)))
-
+    # K3's scatter-back backward: the gather of colour's and density's cotangents, as step
+    # 25 made it
+    rows.append(gather_row(FEEDBACK_GATHER_CALLS["train step 25"]["gather"][0]))
     # K4 backward, with the step's densities and colours and a cotangent of rgb only
     density = scatter_back(out["density"].float().contiguous(), idx, r * s).reshape(r, s)
     color = scatter_back(out["rgb"].float().contiguous(), idx, r * s).reshape(r, s, 3)
@@ -2770,30 +3101,28 @@ def train_kernel_phase(trainer, num_rays: int, compaction: float):
         nbytes=r * s * (4 + 1 + 12) + r * (4 + 12) + r * s * (4 + 12),
         ops=r * s * 40)
 
-    # K5 on the step's cells and densities
-    ids = cell_ids(coords, level)
-    dens = out["density"][:, 0].float().contiguous()
-    size = 8 ** level
-    mk = scatter_max(ids, dens, size)
-    mp_ = scatter_max_plain(ids, dens, size)
-    lib_grid = torch.zeros((size,), dtype=torch.float32, device=o.device)
-    row("scatter_max", "wisp_tpu_torch/csrc/scatter_max.cu",
-        "wisp_tpu/tracers/packed_rf_tracer.py:255",
-        0.0 if torch.equal(mk, mp_) else float((mk - mp_).abs().max()), 0.0,
-        timed(lambda: scatter_max(ids, dens, size)),
-        timed(lambda: scatter_max_plain(ids, dens, size)),
-        nbytes=kept * (8 + 4) + size * 4, ops=0.0,
-        library_ms=timed(lambda: lib_grid.scatter_reduce_(0, ids, dens, "amax")))
+    # K5 on step 25's points and densities, as the tracer called it
+    rows.append(feedback_row("scatter_max", "wisp_tpu/tracers/packed_rf_tracer.py:255",
+                             FEEDBACK_GATHER_CALLS["train step 25"]["k5"][0]))
     return rows, {"rays": r, "valid": valid, "budget": budget, "kept": kept,
                   "trained_lods": n_lods}
 
 
 def profile_step(trainer, top: int = 12) -> dict:
     """One training step under torch.profiler: device time by kernel and the idle share."""
-    wall_ms, busy_ms, top_kernels, _ = profile_call(trainer.iterate, top)
+    wall_ms, busy_ms, top_kernels, launched = profile_call(trainer.iterate, top)
     return {"profile_step_ms": wall_ms, "step_device_busy_ms": busy_ms,
             "step_device_idle_share": idle_share(busy_ms, wall_ms),
-            "step_top_device_kernels": top_kernels}
+            "step_device_kernels": launched, "step_top_device_kernels": top_kernels}
+
+
+def step_kernels(profiled: dict, launches: dict, steps: int) -> dict:
+    """A path's profiled step's device kernels and busy ms, and the hand-written launches a
+    step of K5 and K3's scatter-back both ways over its ``steps`` steps."""
+    names = ("scatter_max", "scatter_max_acc", "scatter_back", "scatter_back_bwd")
+    return {"profiled_step_device_kernels": profiled.get("step_device_kernels"),
+            "profiled_step_device_busy_ms": profiled.get("step_device_busy_ms"),
+            "launches_a_step": {k: launches[k] / steps for k in names}}
 
 
 def train_phase(dev):
@@ -2830,7 +3159,8 @@ def train_phase(dev):
         else:
             t0 = time.perf_counter()
             if i == TRAIN_STEPS_BEFORE_PRUNE + TRAIN_STEPS_AFTER_PRUNE - 1:
-                with recording_k1("train step 25"), recording_march_grad("train step 25"):
+                with recording_k1("train step 25"), recording_march_grad("train step 25"), \
+                        recording_feedback_gather("train step 25"):
                     trainer.iterate()
             else:
                 trainer.iterate()
@@ -2843,6 +3173,7 @@ def train_phase(dev):
     launches = dict(kernels.LAUNCHES)
     missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
     require(not missing, f"kernels not launched on the training path: {missing}")
+    FEEDBACK_GATHER_CALLS["flagship step"] = step_kernels(profiled, launches, len(steps))
     rows, shape_info = train_kernel_phase(trainer, steps[-1]["rays"], steps[-1]["budget"])
     losses = [st["loss"] for st in steps]
     require(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
@@ -3820,7 +4151,7 @@ OCTREE_PROFILED_STEP = 20
 OCTREE_VALID_VIEWS, OCTREE_VALID_RES = 2, 256
 # launches a step and a chunk: the field's query and blend are one fused launch (no K9)
 OCTREE_STEP_KERNELS = {"raymarch_voxel": 1, "compact": 1, "octree_query_interp": 1,
-                       "octree_interp_bwd": 1, "scatter_back": 2, "scatter_back_bwd": 2,
+                       "octree_interp_bwd": 1, "scatter_back": 2, "scatter_back_bwd": 1,
                        "integrate_fwd": 1, "integrate_bwd": 1}
 OCTREE_FRAME_KERNELS = {"raymarch_voxel": 1, "compact": 1, "octree_query_interp": 1,
                         "scatter_back": 2, "integrate_fwd": 1}
@@ -4564,7 +4895,7 @@ def recording_segments(calls: list):
     """Record the inputs of the segmented trace's compaction, composite and accumulated
     scatter-max calls (the calls themselves go on unchanged, and count their launches)."""
     from wisp_tpu_torch.tracers import packed_rf_tracer as tr
-    compact, integrate_segment, scatter_max = tr.compact, tr.integrate_segment, tr.scatter_max
+    compact, integrate_segment, k5 = tr.compact, tr.integrate_segment, tr.scatter_max_points
 
     def rec_compact(mask, samples, dirs, budget, acc_tau=None, tau_cap=None):
         calls.append({"compact": (mask, samples, dirs, budget, acc_tau.clone(), tau_cap)})
@@ -4575,13 +4906,13 @@ def recording_segments(calls: list):
                                                             depths, mask, color, acc_tau))
         return integrate_segment(density, deltas, depths, mask, color, acc_tau, **kw)
 
-    def rec_scatter_max(ids, values, size, out=None):
-        calls[-1]["scatter_max"] = (ids, values, size, out.clone())
-        return scatter_max(ids, values, size, out=out)
+    def rec_scatter_max(points, density, level, out=None, keep=None):
+        calls[-1]["scatter_max"] = (points, density, level, out.clone(), keep)
+        return k5(points, density, level, out=out, keep=keep)
 
     with mock.patch.object(tr, "compact", rec_compact), \
             mock.patch.object(tr, "integrate_segment", rec_integrate), \
-            mock.patch.object(tr, "scatter_max", rec_scatter_max):
+            mock.patch.object(tr, "scatter_max_points", rec_scatter_max):
         yield
 
 
@@ -4612,7 +4943,6 @@ def seg_kernel_phase(calls):
     of each gradient (dL/dA too), K5 accumulated exactly on every segment."""
     import torch
     from wisp_tpu_torch.ops.compaction import compact, compact_plain
-    from wisp_tpu_torch.ops.density_grid import scatter_max, scatter_max_plain
     from wisp_tpu_torch.ops.integration import (integrate_segment, integrate_segment_bwd,
                                                 integrate_segment_bwd_plain,
                                                 integrate_segment_plain)
@@ -4625,10 +4955,8 @@ def seg_kernel_phase(calls):
                 and torch.equal(got[1][:kept], want[1][:kept])
                 and torch.equal(got[2][:kept], want[2][:kept]),
                 f"compact_live differs from its plain version on segment {i}")
-        ids, vals, size, start = c["scatter_max"]
-        mk = scatter_max(ids, vals, size, out=start.clone())
-        mp = scatter_max_plain(ids, vals, size, out=start.clone())
-        require(torch.equal(mk, mp), f"scatter_max_acc differs on segment {i}")
+        new, plain, _ = feedback_calls(c["scatter_max"])
+        require(grid_equal(new(), plain()), f"scatter_max_acc differs on segment {i}")
     c = calls[SEG_CHECK_SEGMENT]
     mask, samples, dirs, budget, acc, cap = c["compact"]
     r, s = mask.shape
@@ -4715,21 +5043,11 @@ def seg_kernel_phase(calls):
     rows[-1]["errs_density_color_acc"] = errs
     rows[-1]["scales_density_color_acc"] = scales
 
-    ids, vals, size, start = c["scatter_max"]
-    buf = start.clone()
-    lib = start.clone()
-    touched = int(torch.unique(ids).numel())
-    rows.append(kernel_row(
-        "scatter_max_acc", "wisp_tpu_torch/csrc/scatter_max.cu",
-        "wisp_tpu/tracers/packed_rf_tracer.py:383", 0.0, 0.0,
-        timed(lambda: scatter_max(ids, vals, size, out=buf)),
-        timed(lambda: scatter_max_plain(ids, vals, size, out=buf)),
-        nbytes=ids.numel() * (8 + 4) + touched * 8, ops=0.0,
-        library_ms=timed(lambda: lib.scatter_reduce_(0, ids, vals, "amax",
-                                                     include_self=True))))
+    rows.append(feedback_row("scatter_max_acc", "wisp_tpu/tracers/packed_rf_tracer.py:383",
+                             c["scatter_max"]))
     return rows, {"segment": SEG_CHECK_SEGMENT, "rays": r, "steps": s, "budget": budget,
                   "valid": valid, "marched": int(mask.sum()), "kept": kept,
-                  "cells_touched": touched}
+                  "cells_touched": rows[-1]["cells_touched"]}
 
 
 def seg_chunk_check(dev):
@@ -4820,7 +5138,8 @@ def seg_phase(dev):
             profiled = profile_step(trainer)     # step 20 runs under the profiler
         elif last:
             with recording_segments(calls), recording_k1("seg step 25"), \
-                    recording_march_grad("seg step 25"):
+                    recording_march_grad("seg step 25"), \
+                    recording_feedback_gather("seg step 25"):
                 trainer.iterate()
         else:
             trainer.iterate()
@@ -4834,6 +5153,7 @@ def seg_phase(dev):
     require(not missing, f"kernels not launched on the segmented training path: {missing}")
     SCATTER_SEG_CALLS["seg launches"] = {"steps": len(steps),
                                          "integrate_seg_fwd": launches["integrate_seg_fwd"]}
+    FEEDBACK_GATHER_CALLS["seg step"] = step_kernels(profiled, launches, len(steps))
     require(launches["integrate_fwd"] == 0 and launches["compact"] == 0,
             "the segmented path launched the unsegmented compaction or composite")
     require(len(calls) == SEG_COUNT, f"step 25 traced {len(calls)} segments")
@@ -5920,9 +6240,13 @@ def run() -> dict:
                                                  "libwisp_scatter_rows_v1.so")
     integrate_seg_v1_build = start_baseline_build(INTEGRATE_SEG_V1_SRC,
                                                   "libwisp_integrate_seg_v1.so")
+    scatter_max_v1_build = start_baseline_build(SCATTER_MAX_V1_SRC,
+                                                "libwisp_scatter_max_v1.so")
+    scatter_back_bwd_v1_build = start_baseline_build(SCATTER_BACK_BWD_V1_SRC,
+                                                     "libwisp_scatter_back_bwd_v1.so")
     kernels.build(verbose=True)
     global THREEPASS, HASHGRID_V1, OCTREE_V1, MARCH_GRAD_V1, MESH_V1, SPHERE_TRACE_V1, \
-        WALK_PROBE, SCATTER_SEG_V1
+        WALK_PROBE, SCATTER_SEG_V1, FEEDBACK_GATHER_V1
     THREEPASS = ThreePass(threepass_build)
     HASHGRID_V1 = HashGridV1(hashgrid_v1_build)
     OCTREE_V1 = OctreeV1(octree_grid_v1_build, free_space_v1_build)
@@ -5932,6 +6256,7 @@ def run() -> dict:
                                                        SPHERE_TRACE_V1_SRC), "_v1")
     WALK_PROBE = WalkDesign(finish_baseline_build(walk_probe_build, "the walk probe"), "")
     SCATTER_SEG_V1 = ScatterSegV1(scatter_rows_v1_build, integrate_seg_v1_build)
+    FEEDBACK_GATHER_V1 = FeedbackGatherV1(scatter_max_v1_build, scatter_back_bwd_v1_build)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in str(kernels.BUILD_INFO.get("log", "")).splitlines()
              if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
@@ -5965,6 +6290,9 @@ def run() -> dict:
     t0 = time.perf_counter()
     scatter_seg_info = scatter_seg_phase()
     phases["phase_s"]["scatter and segment"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feedback_gather_info = feedback_gather_phase()
+    phases["phase_s"]["feedback and gather"] = time.perf_counter() - t0
     print(json.dumps({"kernels": phases["kernels"]}), flush=True)
     for line in phases["lines"]:
         print(json.dumps(line), flush=True)
@@ -5976,6 +6304,7 @@ def run() -> dict:
     print(json.dumps({"query_step_shapes": query_step_info}), flush=True)
     print(json.dumps({"walk_shapes": walk_info}), flush=True)
     print(json.dumps({"scatter_seg_shapes": scatter_seg_info}), flush=True)
+    print(json.dumps({"feedback_gather_shapes": feedback_gather_info}), flush=True)
     print(json.dumps({"phase_s": phases["phase_s"], "profiler_shortfalls": PROFILER_SHORTFALLS,
                       "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi, flush=True)

@@ -15,9 +15,12 @@ from wisp_tpu_torch import kernels
 from wisp_tpu_torch.accelstructs.octree_as import raymarch_ray, raymarch_ray_plain
 from wisp_tpu_torch.ops import grid as grid_ops
 from wisp_tpu_torch.ops.compaction import (compact, compact_plain, scatter_back,
-                                           scatter_back_bwd, scatter_back_bwd_plain,
+                                           scatter_back_bwd_many,
+                                           scatter_back_bwd_many_plain, scatter_back_bwd_plain,
+                                           scatter_back_many, scatter_back_many_plain,
                                            scatter_back_plain)
-from wisp_tpu_torch.ops.density_grid import scatter_max, scatter_max_plain
+from wisp_tpu_torch.ops.density_grid import (scatter_max, scatter_max_points,
+                                             scatter_max_points_plain)
 from wisp_tpu_torch.ops.integration import (integrate, integrate_bwd, integrate_bwd_plain,
                                             integrate_plain, integrate_segment,
                                             integrate_segment_bwd,
@@ -270,13 +273,81 @@ def test_scatter_back_bwd_kernel(dev, frac, budget):
     idx, _, _, count = compact(mask, samples, dirs, budget)
     kept = min(int(count), budget)
     grad_out = torch.randn(300 * 130, 3, generator=g).to(dev)
-    got = scatter_back_bwd(grad_out, idx, kept)
+    before = kernels.LAUNCHES["scatter_back_bwd"]
+    got = scatter_back_bwd_many([grad_out], idx, kept)[0]
+    assert kernels.LAUNCHES["scatter_back_bwd"] == before + (1 if kept else 0)
     want = scatter_back_bwd_plain(grad_out, idx, kept)
     assert torch.equal(got, want)
     v = torch.randn(kept, 3, generator=g).to(dev).requires_grad_(True)
     (scatter_back(v, idx, 300 * 130) * grad_out).sum().backward()
     assert torch.equal(v.grad, want)
-    assert scatter_back_bwd(grad_out, idx, 0).shape == (0, 3)
+    assert scatter_back_bwd_many([grad_out], idx, 0)[0].shape == (0, 3)
+
+
+def _slots_with_empties(dev, g, total, budget, kept, empty):
+    """``budget`` slots: ``kept`` distinct sample indices, ``empty`` of them set to total
+    (an empty slot), the rest total too."""
+    idx = torch.full((budget,), total, dtype=torch.int64)
+    idx[:kept] = torch.randperm(total, generator=g)[:kept]
+    idx[kept - empty:kept] = total
+    return idx.to(dev)
+
+
+@pytest.mark.parametrize("kept,empty", [(0, 0), (1, 0), (5000, 0), (5000, 700),
+                                        (200000, 3)])
+def test_scatter_back_many_kernel(dev, kept, empty):
+    """Colour [K, 3] and flat density [K] on one idx: the forward per channel, the backward
+    one launch, both equal to the plain version and to autograd of it, with empty slots."""
+    g = torch.Generator(device="cpu").manual_seed(31 + kept + empty)
+    total = max(2 * kept, 64)
+    idx = _slots_with_empties(dev, g, total, kept + 128, kept, empty)
+    color = torch.randn(kept, 3, generator=g).to(dev)
+    dens = torch.randn(kept, generator=g).to(dev)
+    g_col = torch.randn(total, 3, generator=g).to(dev)
+    g_den = torch.randn(total, generator=g).to(dev)
+    c, d = color.clone().requires_grad_(True), dens.clone().requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
+    oc, od = scatter_back_many(idx, total, c, d)
+    assert kernels.LAUNCHES["scatter_back"] == before["scatter_back"] + 2
+    assert od.shape == (total,)
+    (oc * g_col).sum().add((od * g_den).sum()).backward()
+    assert kernels.LAUNCHES["scatter_back_bwd"] == before["scatter_back_bwd"] + (kept > 0)
+    pc, pd = color.clone().requires_grad_(True), dens.clone().requires_grad_(True)
+    wc, wd = scatter_back_many_plain(idx, total, pc, pd)
+    (wc * g_col).sum().add((wd * g_den).sum()).backward()
+    assert torch.equal(oc, wc) and torch.equal(od, wd)
+    assert torch.equal(c.grad, pc.grad) and torch.equal(d.grad, pd.grad)
+    got = scatter_back_bwd_many([g_col, g_den], idx, kept)
+    want = scatter_back_bwd_many_plain([g_col, g_den], idx, kept)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _gather_launches(widths):
+    """Launches of scatter_back_bwd_many: channels split into entries of at most 32 columns,
+    packed in order, at most 8 entries and 32 columns a launch."""
+    launches, n, cols = 1, 0, 0
+    for w in widths:
+        for part in [min(32, w - c) for c in range(0, w, 32)]:
+            if n == 8 or cols + part > 32:
+                launches, n, cols = launches + 1, 0, 0
+            n, cols = n + 1, cols + part
+    return launches
+
+
+@pytest.mark.parametrize("widths", [(1,), (4,), (7,), (40,), (3, 1, 12, 2, 5, 8, 1, 2, 3),
+                                    (1,) * 9])
+def test_scatter_back_bwd_many_kernel_widths(dev, widths):
+    """Channels of 1-40 columns (wider than 32 take several entries; more than 8 entries or
+    32 columns take another launch), each gathered exactly."""
+    g = torch.Generator(device="cpu").manual_seed(sum(widths))
+    total, kept = 3000, 1200
+    idx = _slots_with_empties(dev, g, total, 1500, kept, 40)
+    grads = [torch.randn(total, w, generator=g).to(dev) for w in widths]
+    before = kernels.LAUNCHES["scatter_back_bwd"]
+    got = scatter_back_bwd_many(grads, idx, kept)
+    assert kernels.LAUNCHES["scatter_back_bwd"] == before + _gather_launches(widths)
+    want = scatter_back_bwd_many_plain(grads, idx, kept)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("r,s,with_depth", [(200, 77, False), (64, 512, True), (0, 40, False)])
@@ -313,23 +384,50 @@ def test_integrate_bwd_kernel(dev, r, s, with_depth):
         assert (d.grad - wd).abs().max().item() <= 1e-5 * max(1.0, wd.abs().max().item())
 
 
-@pytest.mark.parametrize("k", [0, 50, 200000])
-def test_scatter_max_kernel(dev, k):
-    g = torch.Generator(device="cpu").manual_seed(9)
-    ids = torch.randint(-3, 4096 + 3, (k,), generator=g).to(dev)
-    vals = torch.relu(torch.randn(k, generator=g)).to(dev)
-    got = scatter_max(ids, vals, 4096)
-    want = scatter_max_plain(ids, vals, 4096)
+def _feedback_samples(dev, k, level, seed):
+    """k points in [-1.2, 1.2]^3, a quarter on exact cell faces, relu'd densities (the
+    field's density column: a [k, 16] buffer's column 0) and a mask."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    res = 2 ** level
+    pts = torch.rand(k, 3, generator=g) * 2.4 - 1.2
+    faces = -1.0 + 2.0 * torch.randint(0, res + 1, (k // 4, 3), generator=g).float() / res
+    pts[:k // 4] = faces
+    feats = torch.randn(k, 16, generator=g) * 3.0
+    keep = torch.rand(k, generator=g) < 0.7
+    return pts.to(dev), torch.relu(feats).to(dev), keep.to(dev)
+
+
+def _grid_equal(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0),
+                                                              b.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("k,level", [(0, 7), (50, 3), (200000, 7), (125000, 7)])
+@pytest.mark.parametrize("dtype,masked", [(torch.float32, False), (torch.float32, True),
+                                          (torch.bfloat16, False)])
+def test_scatter_max_kernel(dev, k, level, dtype, masked):
+    """K5 with the cell lookup: points to cells, the mask and the max in one launch, equal
+    to the plain version (cell_ids and scatter_max_plain); densities read at their stride
+    (the field's column) in float32 or bfloat16."""
+    pts, feats, keep = _feedback_samples(dev, k, level, 9 + k)
+    dens = feats.to(dtype)[:, 0]                       # stride 16
+    keep = keep if masked else None
+    before = kernels.LAUNCHES["scatter_max"]
+    got = scatter_max_points(pts, dens, level, keep=keep)
+    assert kernels.LAUNCHES["scatter_max"] == before + (1 if k else 0)
+    want = scatter_max_points_plain(pts, dens, level, keep=keep)
     assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        scatter_max(torch.zeros(k, dtype=torch.int64, device=dev), dens.float(), 8 ** level)
 
 
 def test_scatter_max_kernel_propagates_nan(dev):
-    ids = torch.tensor([3, 3, 5], device=dev)
+    pts = torch.tensor([[0.1, 0.1, 0.1], [0.12, 0.1, 0.1], [-0.5, 0.5, 0.9]], device=dev)
     vals = torch.tensor([1.0, float("nan"), 2.0], device=dev)
-    got = scatter_max(ids, vals, 8)
-    want = scatter_max_plain(ids.cpu(), vals.cpu(), 8)
-    assert torch.isnan(got[3]) and torch.isnan(want[3])
-    assert got[5].item() == want[5].item() == 2.0
+    got = scatter_max_points(pts, vals, 3)
+    want = scatter_max_points_plain(pts.cpu(), vals.cpu(), 3)
+    assert _grid_equal(got.cpu(), want)
+    assert int(torch.isnan(got).sum()) == 1 and float(got.nan_to_num(0.0).max()) == 2.0
 
 
 def _sphere_octree(level, device):
@@ -764,18 +862,24 @@ def test_integrate_segment_bwd_kernel(dev, r, s, with_depth, with_acc):
                 1e-5 * max(1e-30, want_.abs().max().item())
 
 
-@pytest.mark.parametrize("k", [0, 50, 200000])
+@pytest.mark.parametrize("k", [0, 50, 27660, 200000])
 def test_scatter_max_accumulated_kernel(dev, k):
+    """K5 into a carried grid: 4 calls (the segments of one trace), each equal to the plain
+    version, a NaN among the densities of the last."""
     g = torch.Generator(device="cpu").manual_seed(15)
-    start = torch.relu(torch.randn(4096, generator=g)).to(dev)
-    ids = torch.randint(-3, 4096 + 3, (k,), generator=g).to(dev)
-    vals = torch.relu(torch.randn(k, generator=g)).to(dev)
+    start = torch.relu(torch.randn(8 ** 7, generator=g)).to(dev)
     got, want = start.clone(), start.clone()
     before = kernels.LAUNCHES["scatter_max_acc"]
-    out = scatter_max(ids, vals, 4096, out=got)
-    scatter_max_plain(ids, vals, 4096, out=want)
-    assert out is got and torch.equal(got, want)
-    assert kernels.LAUNCHES["scatter_max_acc"] == before + (1 if k else 0)
+    for seg in range(4):
+        pts, feats, _ = _feedback_samples(dev, k, 7, 40 + seg)
+        dens = feats[:, 0]
+        if seg == 3 and k:
+            dens = dens.clone()
+            dens[k // 2] = float("nan")
+        out = scatter_max_points(pts, dens, 7, out=got)
+        scatter_max_points_plain(pts, dens, 7, out=want)
+        assert out is got and _grid_equal(got, want)
+    assert kernels.LAUNCHES["scatter_max_acc"] == before + (4 if k else 0)
 
 
 # -- K9's search, dense and bitfield routes, K12's compaction, K17 ---------------------------

@@ -101,11 +101,27 @@
 // bits, equal to the plain version's.
 //
 // scatter_back backward (the autodiff of packed_rf_tracer.py:214, the `.at[idx].set`
-// scatter): a gather of the cotangent rows at the slots' sample indices,
-// grad_v[k, c] = grad_out[idx[k], c] (0 for an empty slot). Bound on this card: bytes, one
-// 8-byte index and C floats read and C floats written per kept slot. Design: one thread per
-// (slot, column), so a warp reads the index of a few slots and C consecutive floats of
-// each row; the result is exact.
+// scatter of every differentiable channel of a trace or segment, colour and density):
+// grad_v_c[k] = grad_out_c[idx[k]], a row of each channel's cotangent at the slot's sample
+// index (0 for an empty slot, index P). Bound on this card: bytes, one 8-byte index a slot
+// and each channel's row read and written (16 bytes for colour and density). The earlier
+// design (baselines/scatter_back_bwd_v1.cu) took a launch a channel and a thread a (slot,
+// column), each dividing its flat index by C in 64 bits, and density's cotangent reached it
+// through the select view's backward (a zero fill and a copy over the n x s floats).
+// Design (wisp_scatter_back_bwd_many): one launch for up to kGatherEntries entries of at
+// most kGatherLanes columns in all, whose table (source, destination, columns, row stride,
+// in floats, and each entry's first lane) is a kernel parameter. L lanes a slot, L the
+// least power of two >= the columns (4 for colour and density): lane j of a slot moves
+// column j of the slots' concatenated rows, so a warp's loads and stores each cover 32 / L
+// consecutive slots' rows (colour's 12-byte rows of 8 slots are 96 contiguous bytes of
+// output), and the L lanes' loads of the slot's index are one broadcast; a shift and a mask
+// give the slot and lane, no division. On the card (chip_feedback_gather_bench.py, at the
+// shape of flagship train step 25, 124,260 slots) this took 0.0039-0.0040 ms where one
+// thread a slot (its index, then every row, then the stores) took 0.0041-0.0042 (0.0048
+// in the redesign's first build, whose table loop predicated 32 loads a thread) and a
+// block's rows staged through shared memory for coalesced stores 0.0041-0.0042. Density's
+// cotangent is read as the flat [n*s] that K4's or K6c's backward wrote. A float is
+// copied, so the result is exact.
 #include "common.cuh"
 
 namespace {
@@ -122,6 +138,8 @@ constexpr int kFillSlots = kThreads * 8;       // K12: slots a fill block
 constexpr unsigned long long kInclusive = 1ull << 31;   // status flag; else an aggregate
 constexpr unsigned long long kValueMask = kInclusive - 1;
 constexpr int kScatterChannels = 8;            // scatter_rows: channels a launch
+constexpr int kGatherEntries = 8;              // scatter_back backward: entries a launch
+constexpr int kGatherLanes = 32;               // ... of at most 32 columns in all
 
 // bit k set where byte k of w is not 0
 __device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
@@ -564,15 +582,33 @@ __global__ void zero_kernel(float* __restrict__ out, long long n) {
     out[i] = 0.0f;
 }
 
-__global__ void gather_kernel(const float* __restrict__ grad_out,
-                              const long long* __restrict__ idx, long long K, int C,
-                              long long P, float* __restrict__ grad_v) {
+// scatter_back backward: each entry's cotangent rows (src, [P, stride] floats from its
+// column 0), its gradient rows (dst, [K, stride]), its columns and its first lane
+struct GatherTable {
+  const float* src[kGatherEntries];
+  float* dst[kGatherEntries];
+  int cols[kGatherEntries];
+  int stride[kGatherEntries];
+  int first[kGatherEntries];
+  int n;
+  int lanes;        // columns in all
+  int shift;        // log2 of the lanes a slot
+};
+
+__global__ void gather_many_kernel(const GatherTable tab, const long long* __restrict__ idx,
+                                   long long K, long long P) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= K * C) return;
-  const long long k = t / C;
-  const int c = (int)(t % C);
+  const long long k = t >> tab.shift;
+  const int j = (int)(t & ((1 << tab.shift) - 1));
+  if (k >= K || j >= tab.lanes) return;
+  int e = 0;
+#pragma unroll
+  for (int i = 1; i < kGatherEntries; ++i)
+    if (i < tab.n && j >= tab.first[i]) e = i;
+  const int c = j - tab.first[e];
   const long long q = idx[k];
-  grad_v[t] = q < P ? grad_out[q * C + c] : 0.0f;
+  const bool live = q >= 0 && q < P;     // an empty slot (index P) gathers zeros
+  tab.dst[e][k * tab.stride[e] + c] = live ? tab.src[e][q * tab.stride[e] + c] : 0.0f;
 }
 
 template <int W>
@@ -643,14 +679,36 @@ WISP_EXPORT int wisp_scatter_back(const float* v, const long long* idx, long lon
   return (int)cudaGetLastError();
 }
 
-// grad_out: [P, C] cotangent of scatter_back's output; grad_v: [K, C].
-WISP_EXPORT int wisp_scatter_back_bwd(const float* grad_out, const long long* idx,
-                                      long long K, int C, long long P, float* grad_v,
-                                      void* stream) {
-  if (K * C > 0) {
-    gather_kernel<<<wisp::ceil_div(K * C, 256), 256, 0, (cudaStream_t)stream>>>(
-        grad_out, idx, K, C, P, grad_v);
+// For each of the n <= kGatherEntries entries e, dst_e[k * stride_e + j] = src_e[idx[k] *
+// stride_e + j] for j < cols_e and k < K, 0 where idx[k] is not below P; the columns of all
+// entries at most kGatherLanes. table: n rows of (src, dst, cols, stride), int64 each, on
+// the host.
+WISP_EXPORT int wisp_scatter_back_bwd_many(const long long* table, int n,
+                                           const long long* idx, long long K, long long P,
+                                           void* stream) {
+  if (n < 1 || n > kGatherEntries || K < 0) return (int)cudaErrorInvalidValue;
+  GatherTable tab;
+  tab.n = n;
+  int lanes = 0;
+  for (int e = 0; e < kGatherEntries; ++e) {
+    const bool used = e < n;
+    const long long cols = used ? table[4 * e + 2] : 0, stride = used ? table[4 * e + 3] : 0;
+    if (used && (cols < 1 || stride < cols || stride > (1 << 20)))
+      return (int)cudaErrorInvalidValue;
+    tab.src[e] = used ? reinterpret_cast<const float*>(table[4 * e]) : nullptr;
+    tab.dst[e] = used ? reinterpret_cast<float*>(table[4 * e + 1]) : nullptr;
+    tab.cols[e] = (int)cols;
+    tab.stride[e] = (int)stride;
+    tab.first[e] = lanes;
+    lanes += (int)cols;
+    if (lanes > kGatherLanes) return (int)cudaErrorInvalidValue;
   }
+  tab.lanes = lanes;
+  tab.shift = 0;
+  while ((1 << tab.shift) < lanes) ++tab.shift;
+  if (K > 0)
+    gather_many_kernel<<<wisp::ceil_div(K << tab.shift, kThreads), kThreads, 0,
+                         (cudaStream_t)stream>>>(tab, idx, K, P);
   return (int)cudaGetLastError();
 }
 

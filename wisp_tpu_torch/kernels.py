@@ -65,8 +65,8 @@ _SIGNATURES = {
     "wisp_compact": [_P, _P, _F, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P],
     # v idx K C P out stream
     "wisp_scatter_back": [_P, _P, _L, _I, _L, _P, _P],
-    # grad_out idx K C P grad_v stream
-    "wisp_scatter_back_bwd": [_P, _P, _L, _I, _L, _P, _P],
+    # table (host: n rows of grad_out, grad_v, columns, row stride) n idx K P stream
+    "wisp_scatter_back_bwd_many": [_P, _I, _P, _L, _L, _P],
     # coords table N dim F n_lods out_lods res scale hi begin dense codebook_size out stream
     "wisp_hashgrid_fwd": [_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_uint32,
                           _P, _P],
@@ -89,8 +89,8 @@ _SIGNATURES = {
     # grad_color grad_acc stream
     "wisp_integrate_seg_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                _P],
-    # ids values K size grid stream
-    "wisp_scatter_max": [_P, _P, _L, _L, _P, _P],
+    # points density stride bf16 keep K level grid stream
+    "wisp_scatter_max_points": [_P, _P, _L, _I, _P, _L, _I, _P, _P],
     # coords N level routes tables lens (host arrays) with_parents out stream
     "wisp_octree_query": [_P, _L, _I, _P, _P, _P, _I, _P, _P],
     # mask R budget origins dirs t t_far status ticket epoch count idx o_c d_c t_c tf_c

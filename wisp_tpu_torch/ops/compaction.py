@@ -6,9 +6,10 @@ The valid samples of an [R, S] mask go, in step-major order, into a budget of B 
 more than B samples are valid, the latest march steps across all rays are dropped, not the
 trailing rays. On a CUDA tensor these functions launch ``csrc/compaction.cu``; on a CPU
 tensor they run their plain versions. Indices are integers and the scatter and gather move
-floats unchanged, so the two agree exactly. ``scatter_back`` is differentiable: its backward
-is ``scatter_back_bwd``, the gather of the cotangent at the slots' indices (the autodiff of
-the JAX scatter). ``compact`` needs no gradient: sample points are not parameters.
+floats unchanged, so the two agree exactly. ``scatter_back_many`` (``scatter_back``: one
+channel) is differentiable: its backward is ``scatter_back_bwd_many``, the gather of every
+channel's cotangent at the slots' indices in one launch (the autodiff of the JAX scatter).
+``compact`` needs no gradient: sample points are not parameters.
 
 Given a per-ray carried optical depth ``acc_tau`` and ``tau_cap``, ``compact`` also culls
 (K6a, the segmented trace's live test, packed_rf_tracer.py:338-343): a sample is valid only
@@ -46,6 +47,10 @@ _GROUP_TILES = 32
 _RAYS_TILE = 1024
 # channels a launch of K12's scatter-back (csrc/compaction.cu kScatterChannels)
 SCATTER_CHANNELS = 8
+# entries, and columns in all, a launch of K3's scatter-back backward (csrc/compaction.cu
+# kGatherEntries, kGatherLanes)
+GATHER_ENTRIES = 8
+GATHER_LANES = 32
 
 
 class _StreamState:
@@ -175,13 +180,20 @@ def scatter_back_plain(v: torch.Tensor, idx: torch.Tensor, total: int) -> torch.
     return out[:total]
 
 
+def scatter_back_many_plain(idx: torch.Tensor, total: int, *vs: torch.Tensor) -> list:
+    """Plain PyTorch version of ``scatter_back_many``: ``scatter_back_plain`` on each
+    channel, differentiable by autograd."""
+    return [scatter_back_plain(v.reshape(v.shape[0], math.prod(v.shape[1:])), idx, total)
+            .reshape((total,) + tuple(v.shape[1:])) for v in vs]
+
+
 def _scatter_back_fwd(v: torch.Tensor, idx: torch.Tensor, total: int) -> torch.Tensor:
-    k, c = v.shape
-    kernels.check(v, "v", torch.float32, (k, c))
+    k, c = v.shape[0], math.prod(v.shape[1:])
+    kernels.check(v, "v", torch.float32, None)
     kernels.check(idx, "idx", torch.int64, (None,))
     if k > idx.shape[0]:
         raise ValueError(f"scatter_back: {k} rows for {idx.shape[0]} slots")
-    out = torch.empty((total, c), dtype=torch.float32, device=v.device)
+    out = torch.empty((total,) + tuple(v.shape[1:]), dtype=torch.float32, device=v.device)
     kernels.launch("wisp_scatter_back", "scatter_back", v.data_ptr(), idx.data_ptr(), k, c,
                    total, out.data_ptr())
     return out
@@ -189,47 +201,101 @@ def _scatter_back_fwd(v: torch.Tensor, idx: torch.Tensor, total: int) -> torch.T
 
 def scatter_back_bwd_plain(grad_out: torch.Tensor, idx: torch.Tensor, k: int
                            ) -> torch.Tensor:
-    """Plain PyTorch version of ``scatter_back_bwd``."""
+    """Rows of one channel's cotangent ``grad_out`` [total, C] at the first ``k`` slots'
+    indices, zero for an empty slot -> [k, C]: one channel of
+    ``scatter_back_bwd_many_plain``."""
     padded = torch.cat([grad_out, grad_out.new_zeros((1, grad_out.shape[1]))])
     return padded[idx[:k]]
 
 
-def scatter_back_bwd(grad_out: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
-    """The gradient of ``scatter_back`` in ``v``: rows of the cotangent ``grad_out``
-    [total, C] at the first ``k`` slots' indices, zero for an empty slot -> [k, C]."""
-    if not grad_out.is_cuda:
-        return scatter_back_bwd_plain(grad_out, idx, k)
-    total, c = grad_out.shape
-    kernels.check(grad_out, "grad_out", torch.float32, (total, c))
+def scatter_back_bwd_many_plain(grads, idx: torch.Tensor, k: int) -> list:
+    """Plain PyTorch version of ``scatter_back_bwd_many``: ``scatter_back_bwd_plain`` on
+    each channel."""
+    return [scatter_back_bwd_plain(g.reshape(g.shape[0], math.prod(g.shape[1:])), idx, k)
+            .reshape((k,) + tuple(g.shape[1:])) for g in grads]
+
+
+def scatter_back_bwd_many(grads, idx: torch.Tensor, k: int) -> list:
+    """The gradients of ``scatter_back_many`` in its channels: for each cotangent ``grads``
+    [total, ...] (float32, contiguous), its rows at the first ``k`` slots' indices, zero for
+    an empty slot -> [k, ...]. One launch for up to ``GATHER_ENTRIES`` channels of
+    ``GATHER_LANES`` columns in all (colour and density take one; a wider channel is split
+    into entries of at most ``GATHER_LANES`` columns), counted under ``scatter_back_bwd``."""
+    grads = list(grads)
+    if not idx.is_cuda:
+        return scatter_back_bwd_many_plain(grads, idx, k)
     kernels.check(idx, "idx", torch.int64, (None,))
     if k > idx.shape[0]:
         raise ValueError(f"scatter_back_bwd: {k} rows for {idx.shape[0]} slots")
-    grad_v = torch.empty((k, c), dtype=torch.float32, device=grad_out.device)
-    kernels.launch("wisp_scatter_back_bwd", "scatter_back_bwd", grad_out.data_ptr(),
-                   idx.data_ptr(), k, c, total, grad_v.data_ptr())
-    return grad_v
+    total = None
+    entries, outs = [], []
+    for i, g in enumerate(grads):
+        kernels.check(g, f"grads[{i}]", torch.float32, None)
+        if total is None:
+            total = g.shape[0]
+        if g.shape[0] != total:
+            raise ValueError(f"scatter_back_bwd: channel {i} has {g.shape[0]} rows, channel "
+                             f"0 {total}")
+        c = math.prod(g.shape[1:])
+        out = torch.empty((k,) + tuple(g.shape[1:]), dtype=torch.float32, device=g.device)
+        outs.append(out)
+        for col in range(0, c, GATHER_LANES):
+            entries.append((g.data_ptr() + 4 * col, out.data_ptr() + 4 * col,
+                            min(GATHER_LANES, c - col), c))
+    if not k:
+        return outs
+    launches, cols = [[]], 0
+    for entry in entries:       # entries a launch: at most GATHER_ENTRIES, GATHER_LANES columns
+        if len(launches[-1]) == GATHER_ENTRIES or cols + entry[2] > GATHER_LANES:
+            launches.append([])
+            cols = 0
+        launches[-1].append(entry)
+        cols += entry[2]
+    for part in launches:
+        if part:
+            flat = [x for entry in part for x in entry]
+            rows = (ctypes.c_longlong * len(flat))(*flat)    # alive until the call returns
+            kernels.launch("wisp_scatter_back_bwd_many", "scatter_back_bwd",
+                           ctypes.addressof(rows), len(part), idx.data_ptr(), k, total)
+    return outs
 
 
-class _ScatterBackFn(torch.autograd.Function):
+class _ScatterBackManyFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, v, idx, total):
+    def forward(ctx, idx, total, *vs):
         ctx.save_for_backward(idx)
-        ctx.k = v.shape[0]
-        return _scatter_back_fwd(v, idx, total)
+        ctx.k = vs[0].shape[0]
+        return tuple(_scatter_back_fwd(v, idx, total) for v in vs)
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, *grads_out):
         (idx,) = ctx.saved_tensors
-        return scatter_back_bwd(grad_out.contiguous(), idx, ctx.k), None, None
+        want = [i for i, g in enumerate(grads_out)
+                if g is not None and ctx.needs_input_grad[2 + i]]
+        got = scatter_back_bwd_many([grads_out[i].contiguous() for i in want], idx, ctx.k)
+        grads = [None] * len(grads_out)
+        for i, g in zip(want, got):
+            grads[i] = g
+        return (None, None, *grads)
+
+
+def scatter_back_many(idx: torch.Tensor, total: int, *vs: torch.Tensor) -> list:
+    """The rows ``vs`` ([K] or [K, ...] float32, contiguous, one K) of the first K slots
+    back to a zero-filled [total] or [total, ...] each, at the slots' sample indices; slots
+    holding ``total`` (empty) are dropped. Only ``idx[:K]`` is read. Differentiable in every
+    channel: the forward launches the scatter once a channel (``scatter_back``), the
+    backward gathers every channel's cotangent in one launch (``scatter_back_bwd_many``), so
+    a trace's colour [K, 3] and flat density [K] take one gather."""
+    if not vs[0].is_cuda:
+        return scatter_back_many_plain(idx, total, *vs)
+    return list(_ScatterBackManyFn.apply(idx, total, *vs))
 
 
 def scatter_back(v: torch.Tensor, idx: torch.Tensor, total: int) -> torch.Tensor:
     """Rows ``v`` [K, C] of the first K slots back to a zero-filled [total, C] at the
     slots' sample indices; slots holding ``total`` (empty) are dropped. Only ``idx[:K]``
-    is read. Differentiable in ``v``."""
-    if not v.is_cuda:
-        return scatter_back_plain(v, idx, total)
-    return _ScatterBackFn.apply(v, idx, total)
+    is read. Differentiable in ``v`` (``scatter_back_many`` with one channel)."""
+    return scatter_back_many(idx, total, v)[0]
 
 
 def ray_budget(num_rays: int, fraction: float) -> int:

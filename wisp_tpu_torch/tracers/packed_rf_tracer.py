@@ -10,10 +10,10 @@ unchanged (empty slots are dropped by the scatter-back) at the cost of one read 
 valid count per trace.
 
 ``trace`` builds an autograd graph when gradients are enabled: the backward runs K4
-backward, the scatter-back's gather and K1 backward. Rendering wraps its calls in
-``torch.no_grad``. ``key`` (a ``torch.Generator``, or the jitter [R, S] itself) jitters the
-march depths; ``density_feedback`` adds ``density_max_grid``, the per-cell max of the kept
-samples' densities (K5).
+backward, the scatter-back's one gather of colour and density and K1 backward. Rendering
+wraps its calls in ``torch.no_grad``. ``key`` (a ``torch.Generator``, or the jitter [R, S]
+itself) jitters the march depths; ``density_feedback`` adds ``density_max_grid``, the
+per-cell max of the kept samples' densities (K5, the cell lookup inside its launch).
 
 ``seg_early_stop > 0`` runs ``_trace_segmented`` (K6, JAX's ``_trace_segmented``): the march's
 samples in ``seg_count`` depth segments, each culled where the ray's carried optical depth
@@ -29,8 +29,9 @@ import numpy as np
 import torch
 
 from wisp_tpu_torch.core.render_buffer import RenderBuffer
-from wisp_tpu_torch.ops.compaction import compact, compaction_budget, scatter_back
-from wisp_tpu_torch.ops.density_grid import cell_ids, scatter_max
+from wisp_tpu_torch.ops.compaction import (compact, compaction_budget, scatter_back,
+                                           scatter_back_many)
+from wisp_tpu_torch.ops.density_grid import scatter_max_points
 from wisp_tpu_torch.ops.integration import integrate, integrate_segment
 from wisp_tpu_torch.tracers.base_tracer import BaseTracer
 
@@ -39,6 +40,16 @@ def _back(v: torch.Tensor, idx: torch.Tensor, n: int, s: int) -> torch.Tensor:
     """The kept slots' rows ``v`` [K, ...] scattered back to [n, s, C] (K3)."""
     v2 = v.reshape(v.shape[0], int(np.prod(v.shape[1:]))).contiguous()
     return scatter_back(v2, idx, n * s).reshape(n, s, v2.shape[-1])
+
+
+def _back_field(out, idx: torch.Tensor, n: int, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kept slots' colour [K, 3] and density [K, 1] scattered back to [n, s, 3] and
+    [n, s] in one differentiable call (K3), whose backward gathers both cotangents in one
+    launch; density comes back flat, with no select view for autograd to undo."""
+    k = out["density"].shape[0]
+    color, density = scatter_back_many(idx, n * s, out["rgb"].contiguous(),
+                                       out["density"].reshape(k))
+    return color.reshape(n, s, 3), density.reshape(n, s)
 
 
 class PackedRFTracer(BaseTracer):
@@ -145,6 +156,7 @@ class PackedRFTracer(BaseTracer):
             out = nef(channels=req_channels, coords=coords, ray_d=cray_d[:kept],
                       lod_idx=lod_idx, max_compute_lod=max_compute_lod, stoch_rows=budget)
             fb_points, fb_keep = coords, None
+            color, density = _back_field(out, idx, n, s)
 
             def back(v):
                 return _back(v, idx, n, s)
@@ -155,22 +167,18 @@ class PackedRFTracer(BaseTracer):
                       max_compute_lod=max_compute_lod, stoch_rows=rs)
             num_valid = int(mask.sum())
             fb_points, fb_keep = flat, mask.reshape(-1)
+            color = out["rgb"].reshape(n, s, 3).contiguous()
+            density = out["density"].reshape(n, s).contiguous()
 
             def back(v):
                 return v.reshape(n, s, -1)
 
         density_max_grid = None
         if density_feedback:
-            level = self._fb_level(nef)
-            ids = cell_ids(fb_points, level)
-            if fb_keep is not None:
-                # samples off the mask go to an id past the grid, which the scatter drops
-                ids = torch.where(fb_keep, ids, 8 ** level)
-            density_max_grid = scatter_max(
-                ids, out["density"][:, 0].detach().float().contiguous(), 8 ** level)
+            # K5 with the cell lookup inside: the samples off the mask (uncompacted) dropped
+            density_max_grid = scatter_max_points(fb_points, out["density"][:, 0].detach(),
+                                                  self._fb_level(nef), keep=fb_keep)
 
-        color = back(out["rgb"]).contiguous()
-        density = back(out["density"])[..., 0].contiguous()
         extra = None
         if extra_channels:
             # extra channels are integrated without a gradient (training asks for none)
@@ -241,9 +249,7 @@ class PackedRFTracer(BaseTracer):
             out = nef(channels=req_channels, coords=coords, ray_d=cray_d[:kept],
                       lod_idx=lod_idx, max_compute_lod=max_compute_lod, stoch_rows=budget)
             if fb_grid is not None:
-                scatter_max(cell_ids(coords, level),
-                            out["density"][:, 0].detach().float().contiguous(), 8 ** level,
-                            out=fb_grid)
+                scatter_max_points(coords, out["density"][:, 0].detach(), level, out=fb_grid)
 
             def back(v):
                 return _back(v, idx, n, s_g)
@@ -254,9 +260,9 @@ class PackedRFTracer(BaseTracer):
                                   dim=-1).contiguous()
             # culled samples have no slot: their density is 0 after the scatter-back, so
             # the march's mask composites as JAX's mask & live does
-            res = integrate_segment(back(out["density"])[..., 0].contiguous(), mr.deltas,
-                                    seg_depths, seg_mask, back(out["rgb"]).contiguous(),
-                                    acc_tau, extra=extra, with_depth="depth" in channels)
+            color, density = _back_field(out, idx, n, s_g)
+            res = integrate_segment(density, mr.deltas, seg_depths, seg_mask, color, acc_tau,
+                                    extra=extra, with_depth="depth" in channels)
             acc_tau = res["acc_tau"]
             for k in ("rgb", "alpha", "depth", "extra"):
                 if k in res:
