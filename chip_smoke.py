@@ -152,7 +152,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    and jittered, on the trained octree and on the render path's carved field at stride
    2) and times it; then, counts from 0, runs K14 (``hashgrid_query``) once on the trained
    flagship codebook at that chunk's kept samples, holds it to its plain version exactly
-   and times it beside ``index_select`` of the precomputed rows;
+   and to its earlier design (``wisp_tpu_torch/csrc/baselines/hashgrid_query_v1.cu``,
+   built beside the library; the K14 row's ``was_ms``) bit for bit, there and at the
+   chunk's first 65,536 kept samples, and times it at both beside both and beside
+   ``index_select`` of the precomputed rows;
 16. compaction step ("compaction"): holds both compaction kernels, and the three-pass
    design, exactly to their plain versions on the last compaction that each phase's
    tracers made (a render chunk, a training step's budget, the octree NeRF's step, the
@@ -440,6 +443,10 @@ HASHGRID_V1_SRC = "wisp_tpu_torch/csrc/baselines/hashgrid_v1.cu"
 HASHGRID_V1 = None             # a HashGridV1 once built (run())
 HASHGRID_V1_DESIGN = ("csrc/baselines/hashgrid_v1.cu (a thread a (sample, LOD); scalar "
                       "atomics)")
+HASHGRID_QUERY_V1_SRC = "wisp_tpu_torch/csrc/baselines/hashgrid_query_v1.cu"
+HASHGRID_QUERY_V1 = None       # a HashGridQueryV1 once built (run())
+HASHGRID_QUERY_V1_DESIGN = ("csrc/baselines/hashgrid_query_v1.cu (a thread a (point, LOD, "
+                            "corner) with 64-bit divisions; scalar stores)")
 OCTREE_GRID_V1_SRC = "wisp_tpu_torch/csrc/baselines/octree_grid_v1.cu"
 FREE_SPACE_V1_SRC = "wisp_tpu_torch/csrc/baselines/free_space_v1.cu"
 OCTREE_V1 = None               # an OctreeV1 once built (run())
@@ -649,6 +656,34 @@ class HashGridV1:
         geometry = k1_geometry(coords, rows, (resolutions, bitwidth, lod_idx, table_rows, first,
                                               sizes), out_lods)
         return self.bwd(coords, grad_out, geometry, table_rows, stoch_mask, u0)
+
+
+class HashGridQueryV1:
+    """The earlier design of K14 (a thread a (point, LOD, corner)), called on the current
+    stream with ``hashgrid_query``'s arguments; its launches are not the port's and are not
+    counted."""
+
+    def __init__(self, started):
+        import ctypes
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self.lib = finish_baseline_build(started, HASHGRID_QUERY_V1_SRC)
+        self.lib.wisp_hashgrid_query_v1.argtypes = [P, P, L, I, I, I, P, P, P, P, P,
+                                                    ctypes.c_uint32, P, P]
+
+    def query(self, coords, *args):
+        """``grid.hashgrid_query`` with this design."""
+        import torch
+        from wisp_tpu_torch.ops.grid import query_args
+        n, dim, f_dim, n_lods, codebook_size, arrays = query_args(coords, *args)
+        out = torch.empty((n, n_lods, 2 ** dim, f_dim), dtype=torch.float32,
+                          device=coords.device)
+        if n:
+            status = self.lib.wisp_hashgrid_query_v1(
+                coords.data_ptr(), args[3].data_ptr(), n, dim, f_dim, n_lods,
+                *(a.ctypes.data for a in arrays), codebook_size, out.data_ptr(),
+                ThreePass._stream())
+            require(status == 0, f"wisp_hashgrid_query_v1 failed to launch ({status})")
+        return out
 
 
 class OctreeV1:
@@ -6060,26 +6095,34 @@ def uniform_rows(pipeline, rays, launches) -> list:
     return [row]
 
 
-def query_row(grid, coords) -> tuple:
-    """K14 on the flagship codebook at one render chunk's kept samples: counts from 0, one
-    call, counts read; held to its plain version exactly (NaN where the plain version has
-    NaN), timed beside index_select of the precomputed rows."""
+QUERY_SMALL = 65_536            # K14's short call: the chunk's first kept samples
+
+
+def query_equal(got, want) -> bool:
+    """K14's contract: the same NaNs, and every other entry equal."""
     import torch
-    from wisp_tpu_torch import kernels
+    return (got.shape == want.shape and torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)))
+
+
+def query_shape(grid, coords, args, plain_iters: int) -> dict:
+    """K14 at one shape: held to its plain version exactly and to the earlier design bit
+    for bit, then timed beside both and beside index_select of the precomputed rows (the
+    plain version by events alone); its bound and the events again after the profiler."""
+    import torch
     from wisp_tpu_torch.ops import grid as grid_ops
-    table = grid.codebook.feats.detach()
-    args = (grid.codebook.resolutions, grid.codebook_bitwidth, grid.num_lods - 1, table,
-            grid.codebook.begin_idxes, grid.codebook.num_feats)
-    kernels.reset_launches()
+    table = args[3]
     got = grid_ops.hashgrid_query(coords, *args)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    require(launches["hashgrid_query"] == 1 and sum(launches.values()) == 1,
-            f"hashgrid_query launches {launches}")
     want = grid_ops.hashgrid_query_plain(coords, *args)
-    require(torch.equal(got.isnan(), want.isnan())
-            and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)),
-            "hashgrid_query differs from the plain version")
+    require(query_equal(got, want), "hashgrid_query differs from the plain version")
+    if HASHGRID_QUERY_V1 is not None:
+        was = HASHGRID_QUERY_V1.query(coords, *args)
+        require(torch.equal(got.view(torch.int32), was.view(torch.int32)),
+                f"hashgrid_query differs from the earlier design "
+                f"({HASHGRID_QUERY_V1_DESIGN}) at {coords.shape[0]} points")
+        del was
+    nan_entries = int(got.isnan().sum())
+    del got, want
     n, n_lods, f_dim = coords.shape[0], grid.num_lods, grid.feature_dim
     offsets = torch.as_tensor(grid_ops.corner_offsets(3), device=coords.device)
     rows = []
@@ -6091,18 +6134,64 @@ def query_row(grid, coords) -> tuple:
                     + grid.codebook.begin_idxes[i])
     rows = torch.stack(rows, dim=1).reshape(-1)
     distinct = int(torch.unique(rows).numel())
+
+    def run():
+        return grid_ops.hashgrid_query(coords, *args)
+
+    ms = timed(run)
+    out = {"points": n, "lods": n_lods, "distinct_rows": distinct, "nan_entries": nan_entries,
+           "ms": ms[0], "event_ms": ms[1], "event_ms_after_profiler": cuda_ms(run),
+           "plain_ms": events_only(lambda: grid_ops.hashgrid_query_plain(coords, *args),
+                                   iters=plain_iters, warmup=1)[0],
+           "bytes": n * 12 + distinct * f_dim * 4 + n * n_lods * 8 * f_dim * 4,
+           "ops": n * n_lods * (3 * 4 + 8 * 6)}
+    out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"])
+    out["library_ms"], out["library_event_ms"] = timed(lambda: torch.index_select(table, 0,
+                                                                                 rows))
+    if HASHGRID_QUERY_V1 is not None:
+        was_run = functools.partial(HASHGRID_QUERY_V1.query, coords, *args)
+        was = timed(was_run)
+        out.update(was_ms=was[0], was_event_ms=was[1],
+                   was_event_ms_after_profiler=cuda_ms(was_run))
+    return out
+
+
+def query_row(grid, coords) -> tuple:
+    """K14 on the flagship codebook at one render chunk's kept samples: counts from 0, one
+    call, counts read; then at that shape and at the chunk's first ``QUERY_SMALL`` kept
+    samples (``query_shape``: held to the plain version and the earlier design, timed). The
+    row is the chunk's; the short call's numbers go under ``small``."""
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.ops import grid as grid_ops
+    table = grid.codebook.feats.detach()
+    args = (grid.codebook.resolutions, grid.codebook_bitwidth, grid.num_lods - 1, table,
+            grid.codebook.begin_idxes, grid.codebook.num_feats)
+    kernels.reset_launches()
+    grid_ops.hashgrid_query(coords, *args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require(launches["hashgrid_query"] == 1 and sum(launches.values()) == 1,
+            f"hashgrid_query launches {launches}")
+    chunk = query_shape(grid, coords, args, plain_iters=3)
+    small = query_shape(grid, coords[:QUERY_SMALL].contiguous(), args, plain_iters=5)
     row = kernel_row(
         "hashgrid_query", "wisp_tpu_torch/csrc/hashgrid.cu", "wisp_tpu/ops/grid.py:369",
-        0.0, 0.0, timed(lambda: grid_ops.hashgrid_query(coords, *args)),
-        events_only(lambda: grid_ops.hashgrid_query_plain(coords, *args), iters=3, warmup=1),
-        nbytes=n * 12 + distinct * f_dim * 4 + n * n_lods * 8 * f_dim * 4,
-        ops=n * n_lods * (3 * 4 + 8 * 6),
-        library_ms=timed(lambda: torch.index_select(table, 0, rows)))
+        0.0, 0.0, (chunk["ms"], chunk["event_ms"]), (chunk["plain_ms"], chunk["plain_ms"]),
+        nbytes=chunk["bytes"], ops=chunk["ops"],
+        library_ms=(chunk["library_ms"], chunk["library_event_ms"]))
     row["launches"] = launches["hashgrid_query"]
     row["library_call"] = ("index_select of the precomputed corner rows (over precomputed "
                            "rows: not the same function)")
-    return row, {"points": n, "lods": n_lods, "distinct_rows": distinct,
-                 "nan_entries": int(got.isnan().sum())}
+    row["event_ms_after_profiler"] = chunk["event_ms_after_profiler"]
+    if "was_ms" in chunk:
+        row.update(was_ms=chunk["was_ms"], was_event_ms=chunk["was_event_ms"],
+                   was_event_ms_after_profiler=chunk["was_event_ms_after_profiler"],
+                   was_design=HASHGRID_QUERY_V1_DESIGN)
+    row["small"] = {k: v for k, v in small.items() if k not in ("bytes", "ops")}
+    return row, {"points": chunk["points"], "lods": chunk["lods"],
+                 "distinct_rows": chunk["distinct_rows"], "nan_entries": chunk["nan_entries"],
+                 "small": row["small"]}
 
 
 def uniform_phase(dev):
@@ -6226,6 +6315,8 @@ def run() -> dict:
     t0 = time.perf_counter()
     threepass_build = start_baseline_build(THREEPASS_SRC, "libwisp_threepass.so")
     hashgrid_v1_build = start_baseline_build(HASHGRID_V1_SRC, "libwisp_hashgrid_v1.so")
+    hashgrid_query_v1_build = start_baseline_build(HASHGRID_QUERY_V1_SRC,
+                                                   "libwisp_hashgrid_query_v1.so")
     octree_grid_v1_build = start_baseline_build(OCTREE_GRID_V1_SRC,
                                                 "libwisp_octree_grid_v1.so")
     free_space_v1_build = start_baseline_build(FREE_SPACE_V1_SRC, "libwisp_free_space_v1.so")
@@ -6245,10 +6336,11 @@ def run() -> dict:
     scatter_back_bwd_v1_build = start_baseline_build(SCATTER_BACK_BWD_V1_SRC,
                                                      "libwisp_scatter_back_bwd_v1.so")
     kernels.build(verbose=True)
-    global THREEPASS, HASHGRID_V1, OCTREE_V1, MARCH_GRAD_V1, MESH_V1, SPHERE_TRACE_V1, \
-        WALK_PROBE, SCATTER_SEG_V1, FEEDBACK_GATHER_V1
+    global THREEPASS, HASHGRID_V1, HASHGRID_QUERY_V1, OCTREE_V1, MARCH_GRAD_V1, MESH_V1, \
+        SPHERE_TRACE_V1, WALK_PROBE, SCATTER_SEG_V1, FEEDBACK_GATHER_V1
     THREEPASS = ThreePass(threepass_build)
     HASHGRID_V1 = HashGridV1(hashgrid_v1_build)
+    HASHGRID_QUERY_V1 = HashGridQueryV1(hashgrid_query_v1_build)
     OCTREE_V1 = OctreeV1(octree_grid_v1_build, free_space_v1_build)
     MARCH_GRAD_V1 = MarchGradV1(raymarch_v1_build, octree_grid_bwd_v1_build)
     MESH_V1 = MeshV1(mesh_v1_build)

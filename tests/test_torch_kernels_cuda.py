@@ -1100,27 +1100,88 @@ def test_spc_trace_kernel(dev, kind, steps):
     assert float(got[3]) == 0.0 if kind == "dense" else (float(got[3]) > 0) == (steps == 3)
 
 
-@pytest.mark.parametrize("dim", [2, 3])
-def test_hashgrid_query_kernel(dev, dim):
-    """K14 in 3D and 2D on dense and hashed LODs, NaN past a 2D dense LOD's table."""
+def _query_case(dim, f_dim, n, dev, seed=20):
+    """K14's inputs: 4 LODs, dense and hashed (a 2D dense LOD at res 300 whose upper
+    corners index past its table: NaN), points inside and outside [-1, 1]^d, the first
+    four on the upper edge."""
     resolutions = [4, 16, 300, 512] if dim == 2 else [4, 8, 16, 64]
     bitwidth = 17 if dim == 2 else 10
     sizes = [min(r ** dim, 2 ** bitwidth) for r in resolutions]
     first = np.concatenate([[0], np.cumsum(sizes)]).astype(int).tolist()
-    g = torch.Generator(device="cpu").manual_seed(20)
-    table = torch.randn(first[-1], 2, generator=g).to(dev)
-    coords = (torch.rand(4000, dim, generator=g) * 2.1 - 1.05)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table = torch.randn(first[-1], f_dim, generator=g).to(dev)
+    coords = (torch.rand(n, dim, generator=g) * 2.1 - 1.05)
     coords[:4] = 1.0
-    coords = coords.to(dev)
+    return coords.to(dev), (resolutions, bitwidth, 3, table, first, sizes)
+
+
+def _query_equal(got, want):
+    return (got.shape == want.shape and torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0)))
+
+
+@pytest.mark.parametrize("f_dim", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_hashgrid_query_kernel(dev, dim, f_dim):
+    """K14 in 3D and 2D on dense and hashed LODs, at the vector widths and at widths no
+    vector load covers, NaN past a 2D dense LOD's table."""
+    coords, args = _query_case(dim, f_dim, 4000, dev)
     before = kernels.LAUNCHES["hashgrid_query"]
-    got = grid_ops.hashgrid_query(coords, resolutions, bitwidth, 3, table, first, sizes)
-    want = grid_ops.hashgrid_query_plain(coords, resolutions, bitwidth, 3, table, first,
-                                         sizes)
+    got = grid_ops.hashgrid_query(coords, *args)
+    want = grid_ops.hashgrid_query_plain(coords, *args)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["hashgrid_query"] == before + 1
-    assert got.shape == (4000, 4, 2 ** dim, 2)
-    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
-    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().any() == (dim == 2)
+    assert got.shape == (4000, 4, 2 ** dim, f_dim)
+    assert _query_equal(got, want) and got.isnan().any() == (dim == 2)
+
+
+@pytest.mark.parametrize("f_dim", [2, 5, 64])
+@pytest.mark.parametrize("n", [0, 1, 33, 4001])
+def test_hashgrid_query_kernel_ragged(dev, n, f_dim):
+    """K14 where the points end inside a block's 32 (33, 4,001), at one point and at none
+    (no launch); F = 64 is wider than the block's staging tile, so its lanes write their
+    rows straight out."""
+    coords, args = _query_case(3, f_dim, max(n, 4), dev, seed=n)
+    coords = coords[:n].contiguous()
+    before = kernels.LAUNCHES["hashgrid_query"]
+    got = grid_ops.hashgrid_query(coords, *args)
+    want = grid_ops.hashgrid_query_plain(coords, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hashgrid_query"] == before + (n > 0)
+    assert got.shape == (n, 4, 8, f_dim) and _query_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def query_v1():
+    """The earlier design of K14, built beside the library (as chip_smoke.py does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import chip_smoke
+    return chip_smoke.HashGridQueryV1(chip_smoke.start_baseline_build(
+        chip_smoke.HASHGRID_QUERY_V1_SRC, "libwisp_hashgrid_query_v1.so"))
+
+
+def test_hashgrid_query_equals_the_earlier_design(dev, query_v1):
+    """K14 and its earlier design bit for bit at a flagship-like shape: 16 LODs from res 16
+    to 512, bitwidth 19, F = 2, 65,536 seeded points along neighbouring rays."""
+    from wisp_tpu_torch.models.grids.hash_grid import HashGrid
+    g = torch.Generator(device="cpu").manual_seed(19)
+    grid = HashGrid.from_geometric(feature_dim=2, num_lods=16, codebook_bitwidth=19,
+                                   min_grid_res=16, max_grid_res=512, feature_std=0.5,
+                                   generator=g, device=dev)
+    t = torch.linspace(0.0, 1.0, 256)[:, None, None]
+    o = torch.rand(1, 256, 3, generator=g) * 0.1 - torch.tensor([0.9, 0.9, 0.9])
+    d = torch.tensor([1.7, 1.6, 1.8]) + torch.rand(1, 256, 3, generator=g) * 0.05
+    coords = (o + t * d).reshape(-1, 3).contiguous().to(dev)
+    args = (grid.codebook.resolutions, 19, 15, grid.codebook.feats.detach(),
+            grid.codebook.begin_idxes, grid.codebook.num_feats)
+    got = grid_ops.hashgrid_query(coords, *args)
+    was = query_v1.query(coords, *args)
+    want = grid_ops.hashgrid_query_plain(coords, *args)
+    torch.cuda.synchronize()
+    assert got.shape == (65536, 16, 8, 2)
+    assert torch.equal(got.view(torch.int32), was.view(torch.int32))
+    assert _query_equal(got, want)
 
 
 # -- the compaction kernels' cases: tiles, budgets, alignment, path shapes, back to back --------

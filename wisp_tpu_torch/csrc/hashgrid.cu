@@ -77,15 +77,29 @@
 // K14 — the raw corner-feature query, hashgrid_query.
 //
 // Replaces wisp_tpu/ops/grid.py hashgrid_query (:369-390): for every point and LOD 0..lod
-// the feature rows of the 2^d cell corners, no blend: [N, L, 2^d, F]. JAX's body, not K1's:
-// x = clip((c + 1) / 2 * res, 0, res-1-1e-5) per axis (K1 scales by res/2 instead), the
-// corners floor(x) + _corner_offsets, their rows by hash_index (the same dense row-major
-// index or uint32 hash as K1) into the LOD's slice of the table; a row at or past the
-// slice's end reads NaN, as jnp.take's default fill mode does (a dense LOD whose clip
-// rounds up to res-1 in float32). Bound on this card: bytes, the [N, L, 2^d, F] output
-// (1 KB a point at the flagship's 16 LODs, F 2) and the rows read. Design: one thread a
-// (point, LOD, corner), so a warp writes 32 consecutive rows of the output; the per-LOD
-// constants travel in the argument block.
+// the feature rows of the 2^d cell corners, no blend: [N, L, 2^d, F], any F >= 1. JAX's
+// body, not K1's: x = clip((c + 1) / 2 * res, 0, res-1-1e-5) per axis (K1 scales by res/2
+// instead), the corners floor(x) + _corner_offsets, their rows by hash_index (the same dense
+// row-major index or uint32 hash as K1) into the LOD's slice of the table; a row at or past
+// the slice's end reads NaN, as jnp.take's default fill mode does (a dense LOD whose clip
+// rounds up to res-1 in float32). Bound on this card: bytes, the [N, L, 2^d, F] output (1 KB
+// a point at the flagship's 16 LODs, F 2: 5 GB at a uniform render chunk's kept samples)
+// and the rows read. Design: a block takes 32 points, one a lane, and a group of LODs, one
+// a warp at a time (a loop), so a lane computes its point's (c + 1) / 2 once and each
+// (point, LOD) cell once, in 32-bit arithmetic with no division; a warp's 32 points share
+// one LOD (one dense or hash branch, per-LOD constants from the argument block), and where
+// neighbouring points are close in space (a render chunk's step-major samples) their corner
+// rows fall in the same lines. A lane issues its 2^d row loads (vectors for F in 1, 2, 4, 8;
+// scalars for any other F; an L2 evict-last policy) before it writes them, as 16-byte
+// chunks, into the block's staging tile in shared memory (each point's run of LODs padded
+// to 128-byte lines, a chunk's place in its line XORed with the point so that neither the
+// writes nor the reads conflict); the block then writes the tile one point's contiguous run
+// a warp, 16-byte streaming stores (st.global.cs, evict-first: the output is not read again
+// here, and the table should stay in L2). A group holds as many LODs as fit the staging
+// budget; a (point, LOD) wider than the budget (F > 48 in 3D) is written straight from its
+// lane.
+// The earlier design (one thread a (point, LOD, corner)) is kept in
+// baselines/hashgrid_query_v1.cu as the yardstick.
 #include <algorithm>
 
 #include "common.cuh"
@@ -588,90 +602,225 @@ cudaError_t dispatch_f(int F, bool backward, const float* coords, const float* t
   }
 }
 
-template <int F>
-struct Row { float v[F]; };
-
-template <int F>
-__device__ __forceinline__ Row<F> load_row(const float* __restrict__ table, long long row) {
-  Row<F> out;
-  if constexpr (F == 2) {
-    const float2 x = __ldg(reinterpret_cast<const float2*>(table) + row);
-    out.v[0] = x.x;
-    out.v[1] = x.y;
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) out.v[f] = __ldg(table + row * F + f);
-  }
-  return out;
-}
-
-// K14's per-LOD constants.
+// K14's per-LOD constants and its launch's shape (query_launch)
 struct QueryTable {
   int n_lods;
+  int f_dim;                  // F
   int res[kMaxLods];
   float hi[kMaxLods];         // res - 1 - 1e-5
-  long long begin[kMaxLods];  // first table row of the LOD
-  long long rows[kMaxLods];   // rows of the LOD's slice
-  int dense[kMaxLods];
-  unsigned codebook_size;
+  unsigned begin[kMaxLods];   // first table row of the LOD
+  unsigned rows[kMaxLods];    // rows of the LOD's slice: a row at or past it reads NaN
+  int dense[kMaxLods];        // 1: row-major index, 0: spatial hash
+  unsigned hash_mask;         // 2^bitwidth - 1
+  int lod_group;              // LODs a block writes; blockIdx.y is the group
+  int run_stride;             // 16-byte chunks of the tile a point's run takes; 0: no tile
 };
 
-template <int D, int F>
-__global__ void hashgrid_query_kernel(const float* __restrict__ coords,
-                                      const float* __restrict__ table, long long N,
-                                      QueryTable q, float* __restrict__ out) {
-  constexpr int C = 1 << D;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= N * q.n_lods * C) return;
-  const int c = (int)(tid % C);
-  const int l = (int)((tid / C) % q.n_lods);
-  const long long n = tid / ((long long)C * q.n_lods);
+constexpr int kQueryPoints = 32;          // a block's points, one a lane
+constexpr int kQueryStageBytes = 49152;   // a block's staging tile at most
+
+// the place of chunk j of point p's run in its 128-byte line
+__device__ __forceinline__ int query_swizzle(int j, int p) { return j ^ (p & 7); }
+
+// the 2^d corner rows of one (point, LOD), u = (c + 1) / 2 per axis: x = clip(u * res, 0,
+// res-1-1e-5) rounded as JAX rounds it, the corners floor(x) + corner bits (bit k toggles
+// axis d-1-k), their rows by hash_index; in[k] is false where the row is at or past the
+// LOD's slice
+template <int D>
+__device__ __forceinline__ void query_corners(const float (&u)[D], int l, const QueryTable& q,
+                                              unsigned (&row)[1 << D], bool (&in)[1 << D]) {
   const unsigned primes[3] = {1u, 2654435761u, 805459861u};
+  const bool dense = q.dense[l];
   const unsigned res = (unsigned)q.res[l];
-  unsigned idx = 0u, stride = 1u;
+  unsigned lo[D], up[D];
+  unsigned stride = 1u;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    float x = (coords[n * D + d] + 1.0f) / 2.0f * (float)q.res[l];
-    x = fminf(fmaxf(x, 0.0f), q.hi[l]);
-    const unsigned cc = (unsigned)(int)floorf(x) + ((c >> (D - 1 - d)) & 1u);
-    if (q.dense[l]) {
-      idx += cc * stride;
-      stride *= res;
-    } else {
-      idx = d == 0 ? cc * primes[0] : idx ^ (cc * primes[d]);
+    const float x = fminf(fmaxf(u[d] * (float)q.res[l], 0.0f), q.hi[l]);
+    const unsigned c0 = (unsigned)(int)floorf(x);
+    const unsigned m = dense ? stride : primes[d];
+    lo[d] = c0 * m;
+    up[d] = (c0 + 1u) * m;
+    stride *= res;
+  }
+#pragma unroll
+  for (int k = 0; k < (1 << D); ++k) {
+    unsigned idx = 0u;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const unsigned term = (k >> (D - 1 - d)) & 1 ? up[d] : lo[d];
+      idx = d == 0 ? term : (dense ? idx + term : idx ^ term);
+    }
+    if (!dense) idx &= q.hash_mask;
+    in[k] = idx < q.rows[l];
+    row[k] = q.begin[l] + idx;
+  }
+}
+
+// K14 reads the table with an L2 evict-last policy: the output's write stream passes
+// through the L2 too, and the table's rows are read again by neighbouring points
+__device__ __forceinline__ unsigned long long evict_last_policy() {
+  unsigned long long policy;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ float ldg_last(const float* p, unsigned long long policy) {
+  float v;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v) : "l"(p), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ float2 ldg_last(const float2* p, unsigned long long policy) {
+  float2 v;
+  asm("ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
+      : "=f"(v.x), "=f"(v.y) : "l"(p), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ float4 ldg_last(const float4* p, unsigned long long policy) {
+  float4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p), "l"(policy));
+  return v;
+}
+
+// one corner's row (F in 1, 2, 4, 8: one or two vector loads), or NaN past its LOD's slice
+template <int F>
+__device__ __forceinline__ void query_row(const float* __restrict__ table, unsigned r, bool in,
+                                          unsigned long long policy, float (&v)[F]) {
+  if (!in) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = __int_as_float(0x7fc00000);
+  } else if constexpr (F == 1) {
+    v[0] = ldg_last(table + r, policy);
+  } else if constexpr (F == 2) {
+    const float2 x = ldg_last(reinterpret_cast<const float2*>(table) + r, policy);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      const float4 x = ldg_last(reinterpret_cast<const float4*>(table) + (size_t)r * (F / 4) + q,
+                                policy);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
     }
   }
-  if (!q.dense[l]) idx %= q.codebook_size;
-  float* o = out + tid * F;
-  if ((long long)idx >= q.rows[l]) {
+}
+
+// FT: F where it is 1, 2, 4 or 8 (vector loads, the rows in registers), 0 for any other F
+// (q.f_dim: a feature at a time, scalar loads and tile writes)
+template <int D, int FT>
+__global__ void __launch_bounds__(256) hashgrid_query_kernel(
+    const float* __restrict__ coords, const float* __restrict__ table, int N,
+    const __grid_constant__ QueryTable q, float* __restrict__ out) {
+  constexpr int C = 1 << D;
+  extern __shared__ float4 query_tile[];
+  const int F = FT > 0 ? FT : q.f_dim;
+  const int pair4 = C * F / 4;                 // 16-byte chunks of a (point, LOD)
+  const int l0 = blockIdx.y * q.lod_group;
+  const int l1 = min(l0 + q.lod_group, q.n_lods);
+  const int p0 = blockIdx.x * kQueryPoints;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int n = p0 + lane;
+  const bool staged = q.run_stride > 0;
+  const unsigned long long policy = evict_last_policy();
+  if (n < N) {
+    float u[D];
 #pragma unroll
-    for (int f = 0; f < F; ++f) o[f] = __int_as_float(0x7fc00000);   // NaN
-    return;
+    for (int d = 0; d < D; ++d) u[d] = (coords[(size_t)n * D + d] + 1.0f) / 2.0f;
+    float4* mine = query_tile + lane * q.run_stride;
+    for (int l = l0 + warp; l < l1; l += warps) {
+      unsigned row[C];
+      bool in[C];
+      query_corners<D>(u, l, q, row, in);
+      const int j0 = (l - l0) * pair4;
+      if constexpr (FT > 0) {
+        float v[C][FT];
+#pragma unroll
+        for (int k = 0; k < C; ++k) query_row<FT>(table, row[k], in[k], policy, v[k]);
+#pragma unroll
+        for (int j = 0; j < C * FT / 4; ++j) {
+          float4 x;
+          x.x = v[(4 * j) / FT][(4 * j) % FT];
+          x.y = v[(4 * j + 1) / FT][(4 * j + 1) % FT];
+          x.z = v[(4 * j + 2) / FT][(4 * j + 2) % FT];
+          x.w = v[(4 * j + 3) / FT][(4 * j + 3) % FT];
+          mine[query_swizzle(j0 + j, lane)] = x;
+        }
+      } else {
+        float* direct = out + ((size_t)n * q.n_lods + l) * (C * F);
+        for (int f = 0; f < F; ++f) {
+          float v[C];
+#pragma unroll
+          for (int k = 0; k < C; ++k)
+            v[k] = in[k] ? ldg_last(table + (size_t)row[k] * F + f, policy)
+                         : __int_as_float(0x7fc00000);
+#pragma unroll
+          for (int k = 0; k < C; ++k) {
+            const int e = k * F + f;
+            if (staged) {
+              float* w = reinterpret_cast<float*>(mine + query_swizzle(j0 + (e >> 2), lane));
+              w[e & 3] = v[k];
+            } else {
+              __stcs(direct + e, v[k]);
+            }
+          }
+        }
+      }
+    }
   }
-  const Row<F> row = load_row<F>(table, q.begin[l] + (long long)idx);
-#pragma unroll
-  for (int f = 0; f < F; ++f) o[f] = row.v[f];
+  if (!staged) return;
+  __syncthreads();
+  // the tile out: a warp a point's run of the group's LODs, contiguous in the output
+  const int points = min(kQueryPoints, N - p0);
+  const int run = (l1 - l0) * pair4;
+  for (int p = warp; p < points; p += warps) {
+    float4* o = reinterpret_cast<float4*>(out + ((size_t)(p0 + p) * q.n_lods + l0) * (C * F));
+    const float4* s = query_tile + p * q.run_stride;
+    for (int j = lane; j < run; j += 32) __stcs(o + j, s[query_swizzle(j, p)]);
+  }
+}
+
+// The LOD group: as many LODs as the block's tile holds in kQueryStageBytes (32 points, each
+// point's run padded to 128-byte lines), spread evenly over the groups; a (point, LOD) wider
+// than the budget writes straight from its lane (run_stride 0). A warp a LOD of the group,
+// at most 8.
+template <int D, int FT>
+cudaError_t query_launch(const float* coords, const float* table, int N, QueryTable& q,
+                         float* out, cudaStream_t st) {
+  const int pair4 = (1 << D) * q.f_dim / 4;
+  int g = q.n_lods;
+  while (g > 0 && (long long)kQueryPoints * ((g * pair4 + 7) / 8 * 8) * 16 > kQueryStageBytes)
+    --g;
+  if (g == 0) {
+    q.lod_group = q.n_lods;
+    q.run_stride = 0;
+  } else {
+    const int groups = (q.n_lods + g - 1) / g;
+    q.lod_group = (q.n_lods + groups - 1) / groups;
+    q.run_stride = (q.lod_group * pair4 + 7) / 8 * 8;
+  }
+  const int warps = std::min(8, q.lod_group);
+  const size_t smem = (size_t)kQueryPoints * q.run_stride * 16;
+  const dim3 grid(wisp::ceil_div(N, kQueryPoints), wisp::ceil_div(q.n_lods, q.lod_group));
+  hashgrid_query_kernel<D, FT><<<grid, 32 * warps, smem, st>>>(coords, table, N, q, out);
+  return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t query_dispatch(int F, const float* coords, const float* table, long long N,
-                           const QueryTable& q, float* out, cudaStream_t st) {
-  const long long total = N * q.n_lods * (1 << D);
-  if (total == 0) return cudaGetLastError();
-  const int threads = 256;
-  const int blocks = wisp::ceil_div(total, threads);
-  switch (F) {
-    case 1: hashgrid_query_kernel<D, 1><<<blocks, threads, 0, st>>>(coords, table, N, q, out);
-            break;
-    case 2: hashgrid_query_kernel<D, 2><<<blocks, threads, 0, st>>>(coords, table, N, q, out);
-            break;
-    case 4: hashgrid_query_kernel<D, 4><<<blocks, threads, 0, st>>>(coords, table, N, q, out);
-            break;
-    case 8: hashgrid_query_kernel<D, 8><<<blocks, threads, 0, st>>>(coords, table, N, q, out);
-            break;
-    default: return cudaErrorInvalidValue;
+cudaError_t query_dispatch(const float* coords, const float* table, int N, QueryTable& q,
+                           float* out, cudaStream_t st) {
+  switch (q.f_dim) {
+    case 1: return query_launch<D, 1>(coords, table, N, q, out, st);
+    case 2: return query_launch<D, 2>(coords, table, N, q, out, st);
+    case 4: return query_launch<D, 4>(coords, table, N, q, out, st);
+    case 8: return query_launch<D, 8>(coords, table, N, q, out, st);
+    default: return query_launch<D, 0>(coords, table, N, q, out, st);
   }
-  return cudaGetLastError();
 }
 
 // The LOD table of both directions, checked: the hash modulo is a mask (codebook_size a
@@ -779,27 +928,38 @@ WISP_EXPORT int wisp_hashgrid_bwd(const float* coords, const float* grad_out,
 }
 
 // K14. res/hi/begin/rows/dense: host arrays of n_lods entries (rows: each LOD's slice of the
-// table); out: [N, n_lods, 2^dim, F].
+// table, begin + rows below 2^32); codebook_size: 2^bitwidth; out: [N, n_lods, 2^dim, F],
+// 16-byte aligned; table: aligned to its row loads (8 bytes at F = 2, 16 at F = 4 or 8).
 WISP_EXPORT int wisp_hashgrid_query(const float* coords, const float* table, long long N,
                                     int dim, int F, int n_lods, const int* res,
                                     const float* hi, const long long* begin,
                                     const long long* rows, const int* dense,
                                     unsigned codebook_size, float* out, void* stream) {
-  if (n_lods < 1 || n_lods > kMaxLods) return (int)cudaErrorInvalidValue;
+  if (N < 0 || N > 0x7fffffffLL || F < 1 || F > (1 << 20) || n_lods < 1 ||
+      n_lods > kMaxLods || codebook_size == 0 || (codebook_size & (codebook_size - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t align = F == 2 ? 8 : (F == 4 || F == 8) ? 16 : 4;
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(table) % align != 0)
+    return (int)cudaErrorMisalignedAddress;
   QueryTable q;
   q.n_lods = n_lods;
-  q.codebook_size = codebook_size;
+  q.f_dim = F;
+  q.hash_mask = codebook_size - 1u;
   for (int l = 0; l < n_lods; ++l) {
+    if (res[l] < 1 || begin[l] < 0 || rows[l] < 0 || begin[l] + rows[l] > 0xffffffffLL)
+      return (int)cudaErrorInvalidValue;
     q.res[l] = res[l];
     q.hi[l] = hi[l];
-    q.begin[l] = begin[l];
-    q.rows[l] = rows[l];
+    q.begin[l] = (unsigned)begin[l];
+    q.rows[l] = (unsigned)rows[l];
     q.dense[l] = dense[l];
   }
+  if (N == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dim) {
-    case 2: return (int)query_dispatch<2>(F, coords, table, N, q, out, st);
-    case 3: return (int)query_dispatch<3>(F, coords, table, N, q, out, st);
+    case 2: return (int)query_dispatch<2>(coords, table, (int)N, q, out, st);
+    case 3: return (int)query_dispatch<3>(coords, table, (int)N, q, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -29,6 +29,7 @@ survives in ``stoch_lods``, since it decides which LODs take the exact gradient.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -466,34 +467,54 @@ def hashgrid_query_plain(coords: torch.Tensor, resolutions: Sequence[int],
     return torch.stack(out, dim=1)
 
 
+@functools.lru_cache(maxsize=64)
+def _query_arrays(res: Tuple[int, ...], first: Tuple[int, ...], sizes: Tuple[int, ...],
+                  dim: int, codebook_size: int) -> tuple:
+    """K14's per-LOD argument arrays (res, hi, first, sizes, dense), built once a set of
+    LOD tables: an API caller's short calls would otherwise spend more host time on them
+    than the card spends on the kernel. Read only (the kernel gets their addresses)."""
+    return (np.asarray(res, np.int32), np.asarray([r - 1 - 1e-5 for r in res], np.float32),
+            np.asarray(first, np.int64), np.asarray(sizes, np.int64),
+            np.asarray([int(r ** dim <= codebook_size) for r in res], np.int32))
+
+
+def query_args(coords: torch.Tensor, resolutions: Sequence[int], codebook_bitwidth: int,
+               lod_idx: int, codebook: torch.Tensor, codebook_first_idx: Sequence[int],
+               codebook_sizes: Sequence[int]) -> tuple:
+    """Check what K14 takes and give its per-LOD argument arrays: (N, dim, F, LODs,
+    codebook size, (res, hi, first, sizes, dense))."""
+    n_lods = int(lod_idx) + 1
+    n, dim = coords.shape[0], coords.shape[1]
+    f_dim = codebook.shape[-1]
+    kernels.check(coords, "coords", torch.float32, (n, dim))
+    kernels.check(codebook, "codebook", torch.float32, (None, f_dim))
+    if dim not in (2, 3) or f_dim < 1 or not 1 <= n_lods <= 32:
+        raise ValueError(f"hashgrid_query takes dim 2/3, F >= 1 and 1-32 LODs, got "
+                         f"{dim}, {f_dim}, {n_lods}")
+    codebook_size = 2 ** int(codebook_bitwidth)
+    first = tuple(int(codebook_first_idx[i]) for i in range(n_lods))
+    sizes = tuple(int(codebook_sizes[i]) for i in range(n_lods))
+    if any(f + s > codebook.shape[0] for f, s in zip(first, sizes)):
+        raise ValueError("hashgrid_query: codebook is smaller than its LOD tables")
+    arrays = _query_arrays(tuple(int(resolutions[i]) for i in range(n_lods)), first, sizes,
+                           dim, codebook_size)
+    return n, dim, f_dim, n_lods, codebook_size, arrays
+
+
 def hashgrid_query(coords: torch.Tensor, resolutions: Sequence[int], codebook_bitwidth: int,
                    lod_idx: int, codebook: torch.Tensor, codebook_first_idx: Sequence[int],
                    codebook_sizes: Sequence[int]) -> torch.Tensor:
     """The raw feature rows of the 2^d cell corners of every point at LODs 0..``lod_idx``
-    (K14): [N, d] coords in [-1, 1] -> [N, lod_idx+1, 2^d, F], corners in
+    (K14): [N, d] coords in [-1, 1] -> [N, lod_idx+1, 2^d, F] at any F, corners in
     ``corner_offsets`` order. The cell is that of clip((c+1)/2 * res, 0, res-1-1e-5) (JAX's
     transform, not K1's), its corners' rows ``hash_index`` within the LOD's table; a row past
     the LOD's ``codebook_sizes`` entry reads NaN, as in JAX."""
     if not coords.is_cuda:
         return hashgrid_query_plain(coords, resolutions, codebook_bitwidth, lod_idx, codebook,
                                     codebook_first_idx, codebook_sizes)
-    n_lods = int(lod_idx) + 1
-    n, dim = coords.shape[0], coords.shape[1]
-    f_dim = codebook.shape[-1]
-    kernels.check(coords, "coords", torch.float32, (n, dim))
-    kernels.check(codebook, "codebook", torch.float32, (None, f_dim))
-    if dim not in (2, 3) or f_dim not in (1, 2, 4, 8) or not 1 <= n_lods <= 32:
-        raise ValueError(f"hashgrid_query takes dim 2/3, F in 1/2/4/8 and 1-32 LODs, got "
-                         f"{dim}, {f_dim}, {n_lods}")
-    codebook_size = 2 ** int(codebook_bitwidth)
-    res = [int(resolutions[i]) for i in range(n_lods)]
-    first = [int(codebook_first_idx[i]) for i in range(n_lods)]
-    sizes = [int(codebook_sizes[i]) for i in range(n_lods)]
-    if any(f + s > codebook.shape[0] for f, s in zip(first, sizes)):
-        raise ValueError("hashgrid_query: codebook is smaller than its LOD tables")
-    arrays = (np.asarray(res, np.int32), np.asarray([r - 1 - 1e-5 for r in res], np.float32),
-              np.asarray(first, np.int64), np.asarray(sizes, np.int64),
-              np.asarray([int(r ** dim <= codebook_size) for r in res], np.int32))
+    n, dim, f_dim, n_lods, codebook_size, arrays = query_args(
+        coords, resolutions, codebook_bitwidth, lod_idx, codebook, codebook_first_idx,
+        codebook_sizes)
     out = torch.empty((n, n_lods, 2 ** dim, f_dim), dtype=torch.float32, device=coords.device)
     if n:
         kernels.launch("wisp_hashgrid_query", "hashgrid_query", coords.data_ptr(),
