@@ -156,20 +156,41 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    built beside the library; the K14 row's ``was_ms``) bit for bit, there and at the
    chunk's first 65,536 kept samples, and times it at both beside both and beside
    ``index_select`` of the precomputed rows;
-16. compaction step ("compaction"): holds both compaction kernels, and the three-pass
+16. triplanar path ("triplanar"): parses app/nerf/configs/nerf_triplanar_lego_proxy.yaml
+   through ``main_nerf.parse_args`` and ``build()`` at its width (a make_dense level-7
+   octree; TriplanarGrid of 4 LODs from 2^5, 4 features a plane, 'sum'; hidden 64; a 'ray'
+   march of 512 steps, compaction 0.5, AMP, RMSprop) with the octree path's depth cut (4
+   views, no snapshots or checkpoints), sets the counts to 0, runs 25 steps (the 20th
+   profiled, the 25th's K18 calls recorded), reads the counts (exactly: a step's march,
+   compaction, K18 forward and backward, two scatter-backs, their gather, K4 both ways),
+   requires finite losses that fall, validates on 2 views, renders a warm-up and then one
+   512x512 frame (counts exactly, a chunk: K2, K3, K18 where the chunk keeps samples, two
+   scatter-backs, K4), checks the frame and one chunk against the plain versions, and holds
+   K18 forward (within 1e-6) and backward (within 1e-5 of the largest entry) to their plain
+   versions at step 25's calls, timed, with their bounds;
+17. codebook path ("codebook"): the same for app/nerf/configs/nerf_codebook_lego_proxy.yaml
+   (a sparse level-7 octree of the scene's point cloud; CodebookOctreeGrid of LODs 4-7,
+   F = 5, 2^4 entries, 'sum'; a 'voxel' march of 16 steps, compaction 0.0625): a step's
+   K7, K3, K19's resolve, the fused query, K15's backward, K19's backward, two
+   scatter-backs, their gather and K4 both ways; a frame chunk's K7, K3, K19's resolve, the
+   fused query where the chunk keeps samples, two scatter-backs and K4; K19's resolve
+   (E within 1e-6, a equal off the counted vertices whose two largest softmax values lie
+   within an ulp) and backward (d logits and d dictionary within 1e-5 of their largest
+   entries) held at step 25's calls, timed, with their bounds;
+18. compaction step ("compaction"): holds both compaction kernels, and the three-pass
    design, exactly to their plain versions on the last compaction that each phase's
    tracers made (a render chunk, a training step's budget, the octree NeRF's step, the
    stoch and uniform paths', a seg segment with its carry, an SDF chunk and its mid pass),
    times each beside the three-pass design, then runs them all again back to back on one
    stream with no synchronisation between the calls and holds every result once more;
-17. hash-grid step ("hashgrid"): holds K1 forward, exact and stochastic backward, and the
+19. hash-grid step ("hashgrid"): holds K1 forward, exact and stochastic backward, and the
    earlier K1 design, to their plain versions on the K1 calls the phases recorded (a render
    chunk, train step 25 and the prune's 2,097,152 cells, the stoch step with injected
    uniforms, the seg step, the uniform chunk): the forward within 1e-5, the backward within
    1e-5 of the largest entry, the stochastic backward by ``stoch_parity`` (no flip outside
    tie rows, counts exact); times each beside the earlier design, then makes 200 calls
    back to back on one stream and holds each shape's last result to its first;
-18. octree grid step ("octree grid"): holds K15's forward (within 1e-6) and K11 (exactly),
+20. octree grid step ("octree grid"): holds K15's forward (within 1e-6) and K11 (exactly),
    and their earlier designs (``wisp_tpu_torch/csrc/baselines/octree_grid_v1.cu`` and
    ``free_space_v1.cu``, built beside the library; the K15 and K11 rows' ``was_ms``), to
    their plain versions on the calls the phases recorded (the SDF render chunk after the
@@ -178,7 +199,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    level-8 chunk; K11 at levels 7 and 8), times each beside the earlier design with its
    launches and host time a call, then makes 200 calls back to back on one stream and
    holds each shape's last result equal to its first;
-19. march and octree grad step ("march and octree grad"): holds K2/K8 (bit for bit) and
+21. march and octree grad step ("march and octree grad"): holds K2/K8 (bit for bit) and
    K15's backward (within 1e-5 of the largest entry), and their earlier designs
    (``wisp_tpu_torch/csrc/baselines/raymarch_v1.cu`` and ``octree_grid_bwd_v1.cu``, built
    beside the library; the K2, K8 and K15 backward rows' ``was_ms``), to their plain
@@ -189,7 +210,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    launches and host time a call and, for K15's backward, each LOD's adds, distinct rows,
    most adds to a row and route, then makes 200 calls back to back on one stream and holds
    each shape's last result to its first;
-20. mesh step ("mesh"): holds K16 and K17, and their earlier designs
+22. mesh step ("mesh"): holds K16 and K17, and their earlier designs
    (``wisp_tpu_torch/csrc/baselines/mesh_sdf_v1.cu``, built beside the library; the K16 and
    K17 rows' ``was_ms``), to their plain versions on the calls the phases recorded (the
    SDF train phase's resample of 2.2 M points and its ``validate()``, the NGLOD texture
@@ -201,7 +222,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    earlier design with its bound and share, K16's band pairs and the points whose band
    holds more than its candidate list (from the plain arithmetic in torch), then makes 50
    calls back to back on one stream and holds each shape's last result to its first;
-21. query and step folded ("query and step folded"): holds the fused query
+23. query and step folded ("query and step folded"): holds the fused query
    (``octree_query_interp``: K9 folded into K15's forward) and the sphere iteration
    (``sphere_iter``: K12's step folded in front of it) to their plain versions on the calls
    the phases recorded (the SDF render chunk, the SDF train batch with its cells, the
@@ -211,7 +232,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    K15 and the concatenation) with their launches and host time a call, then makes 200
    fused queries back to back on one stream and holds each shape's last result to its
    first;
-22. walks ("walks"): holds K12's walk and K13, and their earlier design
+24. walks ("walks"): holds K12's walk and K13, and their earlier design
    (``wisp_tpu_torch/csrc/baselines/sphere_trace_v1.cu``, built beside the library; the K12
    walk and K13 rows' ``was_ms``), bit for bit to their plain versions (t, alive; t, hit,
    pidx, the overflow count) on the calls the phases recorded (the SDF render chunk, the
@@ -220,7 +241,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    directions, a component of +0, -0 and +-1e-13, lengths 0.25 and 4, origins on cell
    planes, no moving axis) on the octree's field, an all-free and an all-occupied one, at
    the budget and at 0 and 1 steps; holds ``sphere_step`` and ``sphere_iter`` again on the
-   sphere iterations of step 21 and ``sphere_step`` on the hard rays; times three of the
+   sphere iterations of step 23 and ``sphere_step`` on the hard rays; times three of the
    recorded calls (the SDF render chunk and the SPC chunk are timed in their phases' rows)
    beside the earlier design with their launches, host time a call, floor (the same call at
    num_steps = 0), longest walk and time a chain step; splits a chain
@@ -228,14 +249,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    probe built from an edited copy of the source whose field read hits one fixed cell, on
    uniform fields of k = 1 and k = 4, where both take the same steps); then makes 200 calls
    back to back on one stream and holds each shape's last result equal to its first;
-23. scatter and segment ("scatter and segment"): holds K12's scatter-back (one launch for
+25. scatter and segment ("scatter and segment"): holds K12's scatter-back (one launch for
    every channel) bit for bit, and its earlier design, to the plain version on the trained
    NGLOD frame's last compacted chunk (t, xyz, hit, normal) and its mid pass (t, hit), and
    K6b, and its earlier design, within 1e-4 (acc_tau out 1e-5 relative) on the seg phase's
    four segments of step 25 and on a segment with a culling carry; times each beside the
    earlier design with its launches a call and the path's launches, then makes 200 calls
    back to back on one stream and holds each call's last result equal to its first;
-24. feedback and gather ("feedback and gather"): holds K5 (the cell lookup, the mask and
+26. feedback and gather ("feedback and gather"): holds K5 (the cell lookup, the mask and
    the max in one launch) and K3's scatter-back backward (colour's and density's
    cotangents gathered in one launch), and their earlier designs with the launches that
    fed them (``cell_ids``; density's select-view backward), exactly to the plain versions
@@ -245,7 +266,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    device kernels a call of both; reports the device kernels of the flagship's and the
    seg phase's profiled steps and the launches a step; then makes 200 calls back to back on
    one stream and holds each call's last result equal to its first;
-25. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+27. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels (K15's forward: 0, no path launches it), from the SDF training run
    for K9, K15's backward and K16, from the octree NeRF's 25 steps for K7, from the stoch
@@ -254,9 +275,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    compaction, its level-8 build, steps and chunk for K9's search and its texture
    resample and steps for K17, from the SPC frame for K13 and the SPC raytrace
    for K10, from the uniform path's steps and frame for K8 and from its one query for
-   K14), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
-   ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path`` and
-   ``uniform_path`` JSON lines, the ``compaction_shapes``, ``hashgrid_shapes``,
+   K14, from the triplanar and codebook paths' 25 steps for K18 and K19, with their
+   frames' launches beside), the main-path, ``train_path``, ``sdf_path``, ``sdf_train_path``,
+   ``octree_nerf_path``, ``stoch_path``, ``seg_path``, ``nglod_path``, ``spc_path``,
+   ``uniform_path``, ``triplanar_path`` and ``codebook_path`` JSON lines, the
+   ``compaction_shapes``, ``hashgrid_shapes``,
    ``octree_grid_shapes``, ``march_grad_shapes``, ``mesh_shapes``, ``query_step_shapes``,
    ``walk_shapes``, ``scatter_seg_shapes`` and ``feedback_gather_shapes`` lines, the
    ``phase_s`` line, the nvidia-smi
@@ -6299,6 +6322,395 @@ def uniform_phase(dev):
     return rows, info
 
 
+# -- slice 10: the triplanar and the VQAD codebook NeRFs through main_nerf ---------------------
+TRIPLANAR_CONFIG = "app/nerf/configs/nerf_triplanar_lego_proxy.yaml"
+CODEBOOK_CONFIG = "app/nerf/configs/nerf_codebook_lego_proxy.yaml"
+# the depth cut of both: the octree phase's (4 views, 25 steps, no snapshots or checkpoints;
+# validation once below on a small split)
+NEW_GRID_STEPS = 25
+NEW_GRID_PROFILED_STEP = 20
+TRIPLANAR_STEP_KERNELS = {"raymarch_ray": 1, "compact": 1, "triplane_fwd": 1,
+                          "triplane_bwd": 1, "scatter_back": 2, "scatter_back_bwd": 1,
+                          "integrate_fwd": 1, "integrate_bwd": 1}
+TRIPLANAR_FRAME_KERNELS = {"raymarch_ray": 1, "compact": 1, "triplane_fwd": 1,
+                           "scatter_back": 2, "integrate_fwd": 1}
+CODEBOOK_STEP_KERNELS = {"raymarch_voxel": 1, "compact": 1, "codebook_resolve": 1,
+                         "octree_query_interp": 1, "octree_interp_bwd": 1,
+                         "codebook_bwd": 1, "scatter_back": 2, "scatter_back_bwd": 1,
+                         "integrate_fwd": 1, "integrate_bwd": 1}
+# a frame's chunk resolves the codebook whether or not it keeps a sample; the field's
+# kernels with points (the fused query, K18) run only on chunks that keep one
+CODEBOOK_FRAME_KERNELS = {"raymarch_voxel": 1, "compact": 1, "codebook_resolve": 1,
+                          "octree_query_interp": 1, "scatter_back": 2, "integrate_fwd": 1}
+FIELD_POINT_KERNELS = ("triplane_fwd", "octree_query_interp")
+# the recorded K18 and K19 calls of each phase's last step: (phase, kernel) -> inputs
+NEW_GRID_CALLS = {}
+
+
+@contextmanager
+def recording_new_grid_calls(phase: str):
+    """Keep (cloned) the inputs of the K18 and K19 calls made inside, by phase."""
+    from wisp_tpu_torch.ops import codebook, triplane
+    fwd, bwd = triplane._sample_fwd, triplane.triplane_sample_bwd
+    resolve, resolve_bwd = codebook._resolve, codebook.codebook_resolve_bwd
+
+    def rec_fwd(coords, flat_planes, multiscale_type, out_lods):
+        NEW_GRID_CALLS[phase, "triplane_fwd"] = (
+            coords.clone(), [p.detach().clone() for p in flat_planes], multiscale_type,
+            out_lods)
+        return fwd(coords, flat_planes, multiscale_type, out_lods)
+
+    def rec_bwd(coords, shapes, multiscale_type, grad_out):
+        NEW_GRID_CALLS[phase, "triplane_bwd"] = (coords.clone(), list(shapes),
+                                                 multiscale_type, grad_out.clone())
+        return bwd(coords, shapes, multiscale_type, grad_out)
+
+    def rec_resolve(logits, dictionaries, mode, buffer):
+        NEW_GRID_CALLS[phase, "codebook_resolve"] = (
+            [t.detach().clone() for t in logits], [t.detach().clone() for t in dictionaries],
+            mode)
+        return resolve(logits, dictionaries, mode, buffer)
+
+    def rec_resolve_bwd(logits, dictionaries, arg, mode, grad_e):
+        NEW_GRID_CALLS[phase, "codebook_bwd"] = (
+            [t.detach().clone() for t in logits], [t.detach().clone() for t in dictionaries],
+            arg.clone(), mode, [g.clone() for g in grad_e])
+        return resolve_bwd(logits, dictionaries, arg, mode, grad_e)
+
+    with mock.patch.object(triplane, "_sample_fwd", rec_fwd), \
+            mock.patch.object(triplane, "triplane_sample_bwd", rec_bwd), \
+            mock.patch.object(codebook, "_resolve", rec_resolve), \
+            mock.patch.object(codebook, "codebook_resolve_bwd", rec_resolve_bwd):
+        yield
+
+
+def codebook_resolve_plain_all(logits, dictionaries, mode="train", buffer=None):
+    """``codebook_resolve`` by its plain version a LOD (the chunk check's route)."""
+    import torch
+    from wisp_tpu_torch.ops.codebook import codebook_resolve_plain
+    outs = [codebook_resolve_plain(lg, d, mode) for lg, d in zip(logits, dictionaries)]
+    return [o[0] for o in outs], torch.cat([o[1] for o in outs])
+
+
+def triplane_rows(coords, planes) -> list:
+    """Distinct rows of each plane (fmx, fmy, fmz a LOD) that K18's corners at ``coords``
+    touch: its data-dependent reads (forward) or the rows its adds reach (backward)."""
+    import torch
+    from wisp_tpu_torch.ops.triplane import reflect
+    x, y, z = (reflect(coords[:, i]) for i in range(3))
+    out = []
+    for lod in planes:
+        w = lod[0].shape[0]
+        for u, v in ((y, z), (x, z), (x, y)):
+            cu = ((u + 1.0) * 0.5 * (w - 1)).floor().long().clamp(0, w - 1)
+            cv = ((v + 1.0) * 0.5 * (w - 1)).floor().long().clamp(0, w - 1)
+            rows = torch.cat([cv * w + cu, cv * w + (cu + 1).clamp(max=w - 1),
+                              (cv + 1).clamp(max=w - 1) * w + cu,
+                              (cv + 1).clamp(max=w - 1) * w + (cu + 1).clamp(max=w - 1)])
+            out.append(int(torch.unique(rows).numel()))
+    return out
+
+
+def triplane_rows_and_checks(phase: str, launches: dict) -> list:
+    """K18 forward and backward against their plain versions at the phase's recorded
+    calls (the last training step's), timed, with their bounds."""
+    import torch
+    from wisp_tpu_torch.ops import triplane
+    coords, flat, multiscale, out_lods = NEW_GRID_CALLS[phase, "triplane_fwd"]
+    planes = [tuple(flat[3 * i:3 * i + 3]) for i in range(len(flat) // 3)]
+    n, f_dim, lods = coords.shape[0], flat[0].shape[2], len(planes)
+    got = triplane._sample_fwd(coords, flat, multiscale, out_lods)
+    want = triplane.triplane_sample_plain(coords, planes, multiscale, out_lods)
+    fwd_err = float((got - want).abs().max())
+    rows = triplane_rows(coords, planes)
+    width = got.shape[1]
+    ops_point = 3 * lods * (40 + 11 * f_dim) + (3 * f_dim * (lods - 1) if multiscale == "sum"
+                                                else 0)
+    fwd = kernel_row("triplane_fwd", "wisp_tpu_torch/csrc/triplane.cu",
+                     "wisp_tpu/models/grids/triplanar_grid.py:29", fwd_err, 1e-6,
+                     timed(lambda: triplane._sample_fwd(coords, flat, multiscale, out_lods)),
+                     timed(lambda: triplane.triplane_sample_plain(coords, planes, multiscale,
+                                                                  out_lods), iters=5),
+                     nbytes=n * 12 + n * width * 4 + sum(rows) * f_dim * 4,
+                     ops=n * ops_point)
+    bcoords, shapes, bmulti, grad_out = NEW_GRID_CALLS[phase, "triplane_bwd"]
+    gk = triplane.triplane_sample_bwd(bcoords, shapes, bmulti, grad_out)
+    gp = triplane.triplane_sample_bwd_plain(bcoords, shapes, bmulti, grad_out)
+    scale = max(float(g.abs().max()) for g in gp)
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    nb = bcoords.shape[0]
+    table_bytes = sum(a * b * c for a, b, c in shapes) * 4
+    bwd = kernel_row("triplane_bwd", "wisp_tpu_torch/csrc/triplane.cu",
+                     "wisp_tpu/ops/grid.py:55", bwd_err, 1e-5 * scale,
+                     timed(lambda: triplane.triplane_sample_bwd(bcoords, shapes, bmulti,
+                                                                grad_out)),
+                     timed(lambda: triplane.triplane_sample_bwd_plain(bcoords, shapes, bmulti,
+                                                                      grad_out), iters=3),
+                     nbytes=nb * 12 + grad_out.numel() * 4 + table_bytes,
+                     ops=nb * len(shapes) * (40 + 12 * f_dim))
+    fwd.update(shape=f"{phase} step {NEW_GRID_STEPS}: {n} samples, {lods} LODs, F = {f_dim}, "
+                     f"{multiscale}", launches=launches["triplane_fwd"], rows_touched=rows)
+    bwd.update(shape=f"{phase} step {NEW_GRID_STEPS}: {nb} samples",
+               launches=launches["triplane_bwd"],
+               adds_16_bytes=nb * len(shapes) * 4 * max(1, f_dim // 4),
+               hottest_rows=[a * b for a, b, _ in shapes[:3]])
+    return [fwd, bwd]
+
+
+def codebook_ties(logits, mode) -> list:
+    """A bool [V_l] a LOD: the vertices whose two largest values (softmax in training, the
+    logits in eval) lie within an ulp of each other, where two orders of summation may pick
+    two indices."""
+    import torch
+    from wisp_tpu_torch.ops.codebook import softmax_plain
+    out = []
+    for lg in logits:
+        if mode == "baked" or lg.shape[0] == 0:
+            out.append(torch.zeros(lg.shape[0], dtype=torch.bool, device=lg.device))
+            continue
+        v = softmax_plain(lg) if mode == "train" else lg
+        top = torch.topk(v, 2, dim=-1).values
+        ulp = torch.nextafter(top[:, 0], torch.full_like(top[:, 0], float("inf"))) - top[:, 0]
+        out.append(top[:, 0] - top[:, 1] <= ulp)
+    return out
+
+
+def codebook_rows_and_checks(phase: str, launches: dict) -> list:
+    """K19's resolve and backward against their plain versions at the phase's recorded
+    calls (the last training step's), timed, with their bounds; the near-tie vertices are
+    counted and left out of the equality of a."""
+    import torch
+    from wisp_tpu_torch.ops import codebook
+    logits, dicts, mode = NEW_GRID_CALLS[phase, "codebook_resolve"]
+    rows = [lg.shape[0] for lg in logits]
+    k, f_dim = dicts[0].shape
+    buffer = codebook.resolve_buffer(rows, f_dim, None, dicts[0].device)
+    tables, arg = codebook._resolve(logits, dicts, mode, buffer)
+    ties = codebook_ties(logits, mode)
+    err, start, differ = 0.0, 0, 0
+    for lg, d, e, tie in zip(logits, dicts, tables, ties):
+        want, want_arg = codebook.codebook_resolve_plain(lg, d, mode)
+        a = arg[start:start + lg.shape[0]]
+        start += lg.shape[0]
+        keep = ~tie
+        differ += int((a[keep] != want_arg[keep]).sum())
+        if bool(keep.any()):
+            err = max(err, float((e[keep] - want[keep]).abs().max()))
+    require(differ == 0, f"codebook_resolve: {differ} indices differ off the near ties")
+    n_ties = sum(int(t.sum()) for t in ties)
+    v = sum(rows)
+    res = kernel_row("codebook_resolve", "wisp_tpu_torch/csrc/codebook.cu",
+                     "wisp_tpu/models/grids/codebook_grid.py:71", err, 1e-6,
+                     timed(lambda: codebook._resolve(logits, dicts, mode, buffer)),
+                     timed(lambda: codebook_resolve_plain_all(logits, dicts, mode), iters=5),
+                     nbytes=v * (k * 4 + f_dim * 4 + 4) + len(rows) * k * f_dim * 4,
+                     ops=v * (5 * k + f_dim + 3))
+    res.update(shape=f"{phase} step {NEW_GRID_STEPS}: {v} vertices {rows}, 2^bw = {k}, "
+                     f"F = {f_dim}, {mode}", launches=launches["codebook_resolve"],
+               near_ties=n_ties)
+    blogits, bdicts, barg, bmode, grad_e = NEW_GRID_CALLS[phase, "codebook_bwd"]
+    dl_k, dd_k = codebook.codebook_resolve_bwd(blogits, bdicts, barg, bmode, grad_e)
+    dl_p, dd_p, start = [], [], 0
+    for lg, d, g in zip(blogits, bdicts, grad_e):
+        a = barg[start:start + lg.shape[0]]
+        start += lg.shape[0]
+        p = codebook.codebook_resolve_bwd_plain(lg, d, a, bmode, g)
+        dl_p.append(p[0])
+        dd_p.append(p[1])
+    scale_l = max(float(t.abs().max()) for t in dl_p)
+    scale_d = max(float(t.abs().max()) for t in dd_p)
+    err_l = max(float((a - b).abs().max()) for a, b in zip(dl_k, dl_p))
+    err_d = max(float((a - b).abs().max()) for a, b in zip(dd_k, dd_p))
+    require(err_d <= 1e-5 * scale_d, f"codebook_bwd: d dictionary error {err_d} above "
+                                     f"{1e-5 * scale_d}")
+
+    def plain_bwd():
+        start = 0
+        for lg, d, g in zip(blogits, bdicts, grad_e):
+            codebook.codebook_resolve_bwd_plain(lg, d, barg[start:start + lg.shape[0]],
+                                                bmode, g)
+            start += lg.shape[0]
+
+    bwd = kernel_row("codebook_bwd", "wisp_tpu_torch/csrc/codebook.cu",
+                     "wisp_tpu/models/grids/codebook_grid.py:84", err_l, 1e-5 * scale_l,
+                     timed(lambda: codebook.codebook_resolve_bwd(blogits, bdicts, barg, bmode,
+                                                                 grad_e)),
+                     timed(plain_bwd, iters=5),
+                     nbytes=v * (k * 8 + f_dim * 4 + 4) + 2 * len(rows) * k * f_dim * 4,
+                     ops=v * (k * (6 + 2 * f_dim) + 2 * f_dim))
+    bwd.update(shape=f"{phase} step {NEW_GRID_STEPS}: {v} vertices, {bmode}",
+               launches=launches["codebook_bwd"], d_dictionary_err=err_d,
+               d_dictionary_tol=1e-5 * scale_d,
+               shared_sums=int(len(rows) * k * f_dim * 4 <= codebook.BWD_SHARED_BYTES))
+    return [res, bwd]
+
+
+def new_grid_phase(dev, phase: str, config: str, step_kernels: dict, frame_kernels: dict):
+    """A shipped yaml through main_nerf at full width: parse and build, counts from 0,
+    ``NEW_GRID_STEPS`` steps (one profiled, the last recorded), counts read; validate() on a
+    small split; a warm-up frame, counts from 0, one 512x512 frame, counts read; the frame's
+    checks and one chunk against the plain versions; the phase's new kernels held to their
+    plain versions at the last step's calls and timed."""
+    import math
+    import numpy as np
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.app.nerf import main_nerf
+    from wisp_tpu_torch.core.camera import Camera
+    from wisp_tpu_torch.core.rays import Rays
+    from wisp_tpu_torch.datasets.random_view_dataset import RandomViewDataset
+    from wisp_tpu_torch.models.grids import codebook_grid, triplanar_grid
+    from wisp_tpu_torch.ops.raygen.raygen import generate_pinhole_rays
+    from wisp_tpu_torch.ops.triplane import triplane_sample_plain
+    t0 = time.perf_counter()
+    cfg = main_nerf.parse_args(["--config", config, *OCTREE_OVERRIDES, "--device", str(dev)])
+    pipeline, trainer, renderer = main_nerf.build(cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    grid, tracer = pipeline.nef.grid, pipeline.tracer
+    stats = {"grid": type(grid).__name__, "active_lods": list(grid.active_lods),
+             "feature_dim": grid.feature_dim, "blas_level": grid.blas.max_level,
+             "blas_dense": grid.blas.dense,
+             "table_shapes": [list(p.shape) for name, p in grid.named_parameters()],
+             "parameters_mb": sum(p.numel() * 4 for p in grid.parameters()) / 1e6}
+    print(json.dumps({f"{phase}_nerf": stats, "setup_s": setup_s}), flush=True)
+
+    # -- training: counts from 0, the steps, counts read right after ----------------------
+    steps = []
+    kernels.reset_launches()
+    for i in range(NEW_GRID_STEPS):
+        rays = trainer.train_dataset.transform.num_samples
+        budget = tracer.compaction
+        if i == NEW_GRID_PROFILED_STEP - 1:
+            profiled = profile_step(trainer)
+            ms = profiled["profile_step_ms"]
+        else:
+            t1 = time.perf_counter()
+            if i == NEW_GRID_STEPS - 1:
+                with recording_new_grid_calls(phase):
+                    trainer.iterate()
+            else:
+                trainer.iterate()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        steps.append({"step": i + 1, "ms": ms, "rays": rays, "budget": budget,
+                      "valid": trainer._prev_num_samples, "loss": trainer.last_loss})
+    train_launches = dict(kernels.LAUNCHES)
+    want = {k: v * NEW_GRID_STEPS for k, v in step_kernels.items()}
+    got = {k: train_launches[k] for k in want}
+    require(got == want, f"{phase} training launches {got}, expected {want}")
+    others = {k: v for k, v in train_launches.items() if k not in want and v}
+    require(not others, f"{phase} training launched other kernels: {others}")
+    losses = [st["loss"] for st in steps]
+    require(all(math.isfinite(x) for x in losses), f"non-finite {phase} loss: {losses}")
+    first, late = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    require(late < first, f"the {phase} loss did not fall: {first} -> {late}")
+
+    # -- validate() on a small split ------------------------------------------------------
+    t1 = time.perf_counter()
+    trainer.validation_dataset = RandomViewDataset(
+        num_views=OCTREE_VALID_VIEWS, height=OCTREE_VALID_RES, width=OCTREE_VALID_RES,
+        split="test", scene="lego_proxy", device=dev)
+    metrics = trainer.validate()
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t1
+    require(math.isfinite(metrics["psnr"]), f"bad {phase} validation PSNR {metrics}")
+
+    # -- the frame: counts from 0, one 512x512 frame, counts read right after -------------
+    renderer.render_lookat(pipeline, f=EYE)          # warm-up
+    torch.cuda.synchronize()
+    chunk_valid = []
+    trace = tracer.trace
+
+    @functools.wraps(trace)
+    def recording_trace(*args, **kwargs):
+        rb_ = trace(*args, **kwargs)
+        chunk_valid.append(tracer.prev_num_samples)
+        return rb_
+
+    tracer.trace = recording_trace
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    rb = renderer.render_lookat(pipeline, f=EYE)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t1) * 1e3
+    frame_launches = dict(kernels.LAUNCHES)
+    del tracer.trace
+    chunks = len(chunk_valid)
+    field_chunks = sum(1 for v in chunk_valid if v > 0)
+    want = {k: v * (field_chunks if k in FIELD_POINT_KERNELS else chunks)
+            for k, v in frame_kernels.items()}
+    got = {k: frame_launches[k] for k in want}
+    require(got == want, f"{phase} frame launches {got}, expected {want}")
+    others = {k: v for k, v in frame_launches.items() if k not in want and v}
+    require(not others, f"the {phase} frame launched other kernels: {others}")
+    rgb, alpha = rb.rgb, rb.alpha
+    require(tuple(rgb.shape) == (RES, RES, 3) and tuple(alpha.shape) == (RES, RES, 1),
+            f"bad {phase} frame shapes {rb}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (rgb, alpha, rb.depth))
+    require(finite, f"non-finite {phase} frame")
+    require(float(alpha.min()) >= 0.0 and float(alpha.max()) <= 1.0 + 1e-5,
+            f"{phase} alpha outside [0, 1]")
+    hit_frac = float(rb.hit.float().mean())
+    # the triplanar field fills the box, which covers the whole view: every ray may hit
+    require(0.0 < hit_frac <= 1.0, f"{phase} hit fraction {hit_frac}")
+
+    # -- one chunk against the plain versions ---------------------------------------------
+    cam = Camera.from_args(eye=EYE, at=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0), width=RES,
+                           height=RES, fov=np.radians(30.0), near=0.0, far=10.0)
+    all_rays = generate_pinhole_rays(cam, device=dev)
+    n_chunk = renderer.render_batch
+    sl = slice(CHUNK_INDEX * n_chunk, (CHUNK_INDEX + 1) * n_chunk)
+    chunk = Rays(all_rays.origins[sl].contiguous(), all_rays.dirs[sl].contiguous(),
+                 all_rays.dist_min, all_rays.dist_max)
+    with torch.no_grad():
+        a = pipeline(rays=chunk)
+        before = dict(kernels.LAUNCHES)
+        with plain_versions(), \
+                mock.patch.object(triplanar_grid, "triplane_sample", triplane_sample_plain), \
+                mock.patch.object(codebook_grid, "codebook_resolve",
+                                  codebook_resolve_plain_all):
+            b = pipeline(rays=chunk)
+        require(dict(kernels.LAUNCHES) == before, "a plain-version trace launched a kernel")
+    chunk_err = {k: float((a.channels[k] - b.channels[k]).abs().max())
+                 for k in ("rgb", "alpha", "depth")}
+    require(all(e <= 1e-3 for e in chunk_err.values()),
+            f"{phase} chunk differs from the plain versions: {chunk_err}")
+    require(float(a.num_valid_samples) == float(b.num_valid_samples) > 0,
+            f"{phase} chunk valid-sample counts differ or are 0")
+    require(float((rgb.reshape(-1, 3)[sl] - a.rgb).abs().max()) <= 1e-6,
+            f"{phase} chunk re-trace differs from the frame")
+
+    with torch.no_grad():
+        if phase == "triplanar":
+            rows = triplane_rows_and_checks(phase, train_launches)
+        else:
+            rows = codebook_rows_and_checks(phase, train_launches)
+    for row_ in rows:
+        row_["frame_launches"] = frame_launches[row_["name"]]
+    steady = sorted(st["ms"] for st in steps[1:NEW_GRID_STEPS - 1]
+                    if st["step"] != NEW_GRID_PROFILED_STEP)
+    info = {
+        f"{phase}_path": f"main_nerf.parse_args + build ({os.path.basename(config)}, 4 views), "
+                         f"MultiviewTrainer.iterate x {NEW_GRID_STEPS}, validate(), "
+                         f"render_lookat {RES}x{RES}",
+        "setup_s": setup_s, "grid": stats, "step_ms_median": steady[len(steady) // 2],
+        "loss_steps_1_5": first, "loss_steps_21_25": late,
+        "rays_per_step": [st["rays"] for st in steps],
+        "budget_per_step": [st["budget"] for st in steps],
+        "valid_per_step": [st["valid"] for st in steps],
+        "steps_ms": [st["ms"] for st in steps], "train_launches": train_launches,
+        "validate": {"views": OCTREE_VALID_VIEWS, "res": OCTREE_VALID_RES,
+                     "psnr": metrics["psnr"], "s": validate_s},
+        "frame_ms": frame_ms, "frame_launches": frame_launches, "hit_fraction": hit_frac,
+        "frame_chunk_valid": chunk_valid,
+        "chunk_max_abs_err_vs_plain": chunk_err, "chunk_tol": 1e-3,
+    }
+    info.update(profiled)
+    info.update({f"frame_{k}": v for k, v in profile_frame(renderer, pipeline).items()})
+    return rows, info
+
+
 def run() -> dict:
     import torch
     try:
@@ -6405,7 +6817,7 @@ def run() -> dict:
 
 
 def run_phases(dev, build_s: float) -> dict:
-    """The ten paths in order; their kernel rows, JSON lines and seconds."""
+    """The twelve paths in order; their kernel rows, JSON lines and seconds."""
     import numpy as np
     import torch
     from wisp_tpu_torch import kernels
@@ -6554,12 +6966,26 @@ def run_phases(dev, build_s: float) -> dict:
     COMPACTION_PHASE[0] = "uniform"
     t0 = time.perf_counter()
     uniform_rows_, uniform_info = uniform_phase(dev)
+    torch.cuda.empty_cache()
     phase_s["uniform"] = time.perf_counter() - t0
+    COMPACTION_PHASE[0] = "triplanar"
+    t0 = time.perf_counter()
+    triplanar_rows, triplanar_info = new_grid_phase(
+        dev, "triplanar", TRIPLANAR_CONFIG, TRIPLANAR_STEP_KERNELS, TRIPLANAR_FRAME_KERNELS)
+    torch.cuda.empty_cache()
+    phase_s["triplanar"] = time.perf_counter() - t0
+    COMPACTION_PHASE[0] = "codebook"
+    t0 = time.perf_counter()
+    codebook_rows, codebook_info = new_grid_phase(
+        dev, "codebook", CODEBOOK_CONFIG, CODEBOOK_STEP_KERNELS, CODEBOOK_FRAME_KERNELS)
+    phase_s["codebook"] = time.perf_counter() - t0
     return {"kernels": rows + train_rows + sdf_rows + sdf_train_rows + octree_rows[:1]
-            + stoch_rows + seg_rows + nglod_rows + spc_rows_ + uniform_rows_,
+            + stoch_rows + seg_rows + nglod_rows + spc_rows_ + uniform_rows_
+            + triplanar_rows + codebook_rows,
             "lines": [main, train_info, sdf_info, sdf_train_info,
                       {"octree_nerf_path": octree_info, "raymarch_voxel_rows": octree_rows},
-                      stoch_info, seg_info, nglod_info, spc_info, uniform_info],
+                      stoch_info, seg_info, nglod_info, spc_info, uniform_info,
+                      triplanar_info, codebook_info],
             "phase_s": phase_s}
 
 

@@ -30,6 +30,8 @@ CONFIGS = sorted(ROOT.glob("app/*/configs/*.yaml"))
 OCTREE = str(ROOT / "app/nerf/configs/nerf_octree_lego_proxy.yaml")
 HASH = str(ROOT / "app/nerf/configs/nerf_hash_lego_proxy.yaml")
 STOCH = str(ROOT / "app/nerf/configs/nerf_hash_lego_proxy_stoch.yaml")
+TRIPLANAR = str(ROOT / "app/nerf/configs/nerf_triplanar_lego_proxy.yaml")
+CODEBOOK = str(ROOT / "app/nerf/configs/nerf_codebook_lego_proxy.yaml")
 # the fields whose values differ by design: the default device ('tpu' / 'cuda')
 DIFFERENT_BY_DESIGN = {"device"}
 OVERRIDES = ["--dataset.num-views", "4", "--trainer.save-every", "-1",
@@ -69,7 +71,8 @@ def _leaf_count(d):
     return sum(_leaf_count(v) if isinstance(v, dict) else 1 for v in d.values())
 
 
-@pytest.mark.parametrize("config", [OCTREE, HASH, STOCH], ids=["octree", "hash", "stoch"])
+@pytest.mark.parametrize("config", [OCTREE, HASH, STOCH, TRIPLANAR, CODEBOOK],
+                         ids=["octree", "hash", "stoch", "triplanar", "codebook"])
 @pytest.mark.parametrize("overrides", [False, True], ids=["yaml", "yaml+cli"])
 def test_parse_config_matches_jax(config, overrides):
     args = ["--config", config] + (OVERRIDES if overrides else [])
@@ -101,12 +104,27 @@ def test_print_config_reads_back(tmp_path, capsys):
     assert config_to_dict(again) == config_to_dict(cfg)
 
 
+@pytest.mark.parametrize("config,grid", [(TRIPLANAR, "TriplanarGrid"),
+                                         (CODEBOOK, "CodebookOctreeGrid")],
+                         ids=["triplanar", "codebook"])
+def test_new_grid_configs_read_back(tmp_path, capsys, config, grid):
+    """The triplanar and codebook yamls, ported since, parse to their grids and read back
+    from what ``print_config`` writes."""
+    cfg = main_nerf.parse_args(["--config", config])
+    assert config_to_dict(cfg)["grid"]["constructor"] == grid
+    main_nerf.print_config(cfg)
+    path = tmp_path / "printed.yaml"
+    path.write_text(capsys.readouterr().out)
+    again = parse_config(NeRFAppConfig, args=["--config", str(path)])
+    assert config_to_dict(again) == config_to_dict(cfg)
+
+
 @pytest.mark.parametrize("args,match", [
     (["--config", OCTREE, "--trainer.save-valid-imgs", "true"], "save_valid_imgs"),
     (["--config", OCTREE, "--tracer.early-stop", "0.01"], "early_stop"),
     (["--config", HASH, "--trainer.render-segments", "4"], "render_segments"),
-    (["--config", str(ROOT / "app/nerf/configs/nerf_triplanar_lego_proxy.yaml")],
-     "TriplanarGrid.*item 8"),
+    (["--config", TRIPLANAR, "--dataset.constructor", "NeRFSyntheticDataset"],
+     "NeRFSyntheticDataset.*item 5"),
     (["--config", OCTREE, "--dataset.constructor", "RTMVDataset"], "RTMVDataset"),
     (["--config", OCTREE, "--tracker.wandb", "true"], "wandb"),
     (["--config", OCTREE, "--trainer.random-lod", "true"], "random_lod"),

@@ -2585,3 +2585,229 @@ def test_integrate_segment_kernel_rounds(dev, scatter_seg_v1, s, ce, with_depth,
                 assert bool(((out[k] - want[k]).abs() <= tol).all()), k
             else:
                 assert (out[k] - want[k]).abs().max().item() <= 1e-4, k
+
+
+# -- K18, the triplane sample, and K19, the codebook lookup ------------------------------------
+
+def _triplanes(f_dim, n_lods, dev, seed, base=2):
+    """n_lods LODs of three planes [2^l + 1, 2^l + 1, F] (std 0.5) from level ``base``."""
+    g = torch.Generator().manual_seed(seed)
+    return [tuple((torch.randn(2 ** (base + l) + 1, 2 ** (base + l) + 1, f_dim, generator=g)
+                   * 0.5).to(dev) for _ in range(3)) for l in range(n_lods)]
+
+
+def _triplane_coords(n, dev, seed):
+    """Points in and up to 1.7 outside the box (the fold's both sides), some on its faces."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1.7, 1.7, (n, 3)).astype(np.float32)
+    pts[:n // 10, 1] = rng.choice([-1.0, 1.0], n // 10)
+    return torch.from_numpy(pts).to(dev)
+
+
+@pytest.mark.parametrize("f_dim,n_lods,out_lods,multiscale,n", [
+    (1, 1, 1, "sum", 1000), (2, 2, 2, "cat", 1037), (3, 3, 4, "cat", 999),
+    (4, 4, 4, "sum", 4096), (4, 2, 4, "cat", 1), (5, 4, 4, "sum", 777), (6, 1, 3, "cat", 500),
+    (7, 3, 3, "sum", 333), (8, 4, 4, "cat", 2048), (8, 3, 3, "sum", 0)])
+def test_triplane_kernels(dev, f_dim, n_lods, out_lods, multiscale, n):
+    """K18 forward within 1e-6 of its plain version (F 1-8, 1-4 LODs, 'sum' and 'cat'
+    padded past the given LODs, ragged and empty calls), one launch; its backward within
+    1e-5 of the largest entry of the plain one's (the atomics add in no fixed order)."""
+    from wisp_tpu_torch.ops.triplane import (triplane_sample, triplane_sample_bwd,
+                                             triplane_sample_bwd_plain, triplane_sample_plain)
+    planes = _triplanes(f_dim, n_lods, dev, seed=60 + f_dim)
+    coords = _triplane_coords(n, dev, seed=61 + n)
+    before = dict(kernels.LAUNCHES)
+    got = triplane_sample(coords, planes, multiscale, out_lods)
+    want = triplane_sample_plain(coords, planes, multiscale, out_lods)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["triplane_fwd"] == before["triplane_fwd"] + (1 if n else 0)
+    assert got.shape == want.shape == (n, 3 * f_dim * (1 if multiscale == "sum" else out_lods))
+    if n:
+        assert (got - want).abs().max().item() <= 1e-6
+    shapes = [tuple(p.shape) for lod in planes for p in lod]
+    cot = torch.randn(got.shape, generator=torch.Generator().manual_seed(62)).to(dev)
+    g_k = triplane_sample_bwd(coords, shapes, multiscale, cot)
+    g_p = triplane_sample_bwd_plain(coords, shapes, multiscale, cot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["triplane_bwd"] == before["triplane_bwd"] + (1 if n else 0)
+    scale = max(float(b.abs().max()) for b in g_p)
+    for a, b in zip(g_k, g_p):
+        assert a.shape == b.shape and float((a - b).abs().max()) <= 1e-5 * max(scale, 1e-30)
+
+
+def test_triplanar_grid_on_the_card(dev):
+    """TriplanarGrid.interpolate at the yaml's widths (4 LODs from 5, F = 4) on 65,536
+    points, forward and the planes' gradient, against the same grid on the CPU; the
+    coordinates' gradient raises."""
+    from wisp_tpu_torch.models.grids.triplanar_grid import TriplanarGrid
+    grids = [TriplanarGrid(feature_dim=4, log_base_resolution=5, num_lods=4, feature_std=0.5,
+                           generator=torch.Generator().manual_seed(63), device=d)
+             for d in (dev, "cpu")]
+    coords = _triplane_coords(65_536, dev, seed=64)
+    cot = torch.randn(65_536, 12, generator=torch.Generator().manual_seed(65))
+    outs = []
+    for grid, c, g in zip(grids, (coords, coords.cpu()), (cot.to(dev), cot)):
+        out = grid.interpolate(c, 3)
+        out.backward(g)
+        outs.append(out.detach().cpu())
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-6
+    for v_k, v_p in zip(grids[0].features, grids[1].features):
+        for name in ("fmx", "fmy", "fmz"):
+            a, b = getattr(v_k, name).grad.cpu(), getattr(v_p, name).grad
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    with pytest.raises(NotImplementedError, match="coordinates"):
+        grids[0].interpolate(coords.clone().requires_grad_(True), 3)
+
+
+def test_aabb_march_kernel(dev):
+    """K2 at level 0 (AxisAlignedBBoxAS, one cell) equals its plain version."""
+    from wisp_tpu_torch.accelstructs.aabb_as import AxisAlignedBBoxAS
+    from wisp_tpu_torch.core.rays import Rays
+    o, d = (torch.from_numpy(a).to(dev) for a in ray_arrays(1000, seed=66))
+    blas = AxisAlignedBBoxAS(device=dev)
+    jitter = torch.rand(1000, 96, generator=torch.Generator().manual_seed(67)).to(dev)
+    for key in (None, jitter):
+        before = kernels.LAUNCHES["raymarch_ray"]
+        got = blas.raymarch(Rays(o, d, 0.0, 8.0), raymarch_type="ray", num_samples=96, key=key)
+        want = raymarch_ray_plain(o, d, 0.0, 8.0, 96, 1, None, 0, key)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["raymarch_ray"] == before + 1
+        for name in ("samples", "depth_samples", "deltas", "mask"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert int(got.mask.sum()) > 0
+
+
+def _codebook_tables(bits, f_dim, rows, mode, dev, seed, std=1.0):
+    g = torch.Generator().manual_seed(seed)
+    k = 2 ** bits
+    dicts = [(torch.randn(k, f_dim, generator=g) * 0.5).to(dev) for _ in rows]
+    if mode == "baked":
+        logits = [torch.randint(0, k, (v,), generator=g).float().to(dev) for v in rows]
+    else:
+        logits = [(torch.randn(v, k, generator=g) * std).to(dev) for v in rows]
+    return logits, dicts
+
+
+def _near_ties(logits, mode):
+    """Per LOD, the vertices whose two largest values (softmax in training, the logits in
+    eval) lie within an ulp of each other: there two orders of summation may pick two
+    indices."""
+    from wisp_tpu_torch.ops.codebook import softmax_plain
+    out = []
+    for lg in logits:
+        if mode == "baked" or lg.shape[1] < 2:
+            out.append(torch.zeros(lg.shape[0], dtype=torch.bool, device=lg.device))
+            continue
+        v = softmax_plain(lg) if mode == "train" else lg
+        top = torch.topk(v, 2, dim=-1).values
+        ulp = torch.nextafter(top[:, 0], torch.full_like(top[:, 0], np.inf)) - top[:, 0]
+        out.append(top[:, 0] - top[:, 1] <= ulp)
+    return out
+
+
+@pytest.mark.parametrize("bits,f_dim,rows,mode,std", [
+    (1, 5, (300,), "train", 1.0), (2, 1, (100, 400), "train", 1.0),
+    (3, 8, (1, 77, 500), "eval", 1.0), (4, 5, (2000, 7000, 20000, 60000), "train", 0.01),
+    (4, 5, (2000, 7000, 20000, 60000), "eval", 0.01), (4, 5, (500, 0, 900), "baked", 1.0),
+    (5, 3, (1000, 3000), "train", 1.0), (6, 7, (333, 4444), "train", 0.3),
+    (7, 2, (2500,), "baked", 1.0), (8, 5, (4096, 10000), "train", 1.0),
+    (8, 33, (700,), "eval", 1.0)])
+def test_codebook_resolve_kernel(dev, bits, f_dim, rows, mode, std):
+    """K19's resolve against its plain version (bitwidth 1-8, F up to 33, 1-4 LODs,
+    ragged and empty LODs, every mode, the config's std 0.01 among them): E within 1e-6
+    and a equal, except at the counted vertices whose two largest values lie within an ulp
+    (where the plain version's sum may round them apart); one launch for every LOD."""
+    from wisp_tpu_torch.ops.codebook import codebook_resolve, codebook_resolve_plain
+    logits, dicts = _codebook_tables(bits, f_dim, rows, mode, dev, seed=70 + bits, std=std)
+    before = kernels.LAUNCHES["codebook_resolve"]
+    tables, arg = codebook_resolve(logits, dicts, mode)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["codebook_resolve"] == before + 1
+    ties = _near_ties(logits, mode)
+    start = 0
+    for lg, d, e, tie in zip(logits, dicts, tables, ties):
+        want, want_arg = codebook_resolve_plain(lg, d, mode)
+        a = arg[start:start + lg.shape[0]]
+        start += lg.shape[0]
+        keep = ~tie
+        assert e.shape == want.shape == (lg.shape[0], f_dim)
+        if keep.any():
+            assert torch.equal(a[keep], want_arg[keep])
+            assert (e[keep] - want[keep]).abs().max().item() <= 1e-6
+    assert sum(int(t.sum()) for t in ties) <= max(1, sum(rows) // 1000)
+
+
+@pytest.mark.parametrize("bits,f_dim,rows,mode,shared", [
+    (4, 5, (2000, 7000, 20000, 60000), "train", True), (1, 2, (500, 9), "train", True),
+    (8, 5, (4096, 3000), "train", True), (8, 16, (1000, 2000, 3000, 4000), "train", False),
+    (3, 6, (1000, 0, 500), "eval", True), (5, 4, (800,), "baked", True)])
+def test_codebook_bwd_kernel(dev, bits, f_dim, rows, mode, shared):
+    """K19's backward against its plain version at the forward's indices: d logits and d
+    dictionary within 1e-5 of their largest entries (the dictionary's adds come in no fixed
+    order), through the block-shared sums or straight to the tables."""
+    from wisp_tpu_torch.ops import codebook
+    logits, dicts = _codebook_tables(bits, f_dim, rows, mode, dev, seed=80 + bits)
+    assert (len(rows) * 2 ** bits * f_dim * 4 <= codebook.BWD_SHARED_BYTES) == shared
+    _, arg = codebook.codebook_resolve(logits, dicts, mode)
+    g = torch.Generator().manual_seed(81)
+    grad_e = [torch.randn(v, f_dim, generator=g).to(dev) for v in rows]
+    before = kernels.LAUNCHES["codebook_bwd"]
+    d_logits, d_dict = codebook.codebook_resolve_bwd(logits, dicts, arg, mode, grad_e)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["codebook_bwd"] == before + 1
+    start = 0
+    for i, (lg, d, ge) in enumerate(zip(logits, dicts, grad_e)):
+        a = arg[start:start + lg.shape[0]]
+        start += lg.shape[0]
+        want_logits, want_dict = codebook.codebook_resolve_bwd_plain(lg, d, a, mode, ge)
+        scale = float(want_dict.abs().max()) if lg.shape[0] else 1.0
+        assert float((d_dict[i] - want_dict).abs().max()) <= 1e-5 * scale
+        if mode == "train":
+            if lg.shape[0]:
+                assert float((d_logits[i] - want_logits).abs().max()) <= \
+                    1e-5 * float(want_logits.abs().max())
+        else:
+            assert d_logits[i] is None
+
+
+def test_codebook_rejects_a_bitwidth_above_8(dev):
+    from wisp_tpu_torch.ops.codebook import codebook_resolve
+    logits, dicts = _codebook_tables(9, 2, (10,), "train", dev, seed=90)
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        codebook_resolve(logits, dicts, "train")
+
+
+def test_codebook_grid_on_the_card(dev):
+    """CodebookOctreeGrid at the yaml's widths (LODs 4-7 of a level-7 octree, F = 5, 2^4
+    entries, 'sum') on 65,536 points: the forward and the logits' and dictionaries'
+    gradients against the same grid on the CPU (within 1e-6, and 1e-5 of the largest
+    entry); E stays in the grid's buffer, so the fused query's table cache holds one entry
+    for it across calls; one resolve and one backward launch a step."""
+    from wisp_tpu_torch.models.grids import octree_grid
+    from wisp_tpu_torch.models.grids.codebook_grid import CodebookOctreeGrid
+    grids = [CodebookOctreeGrid(blas=_sphere_octree(7, d), feature_dim=5, num_lods=4,
+                                multiscale_type="sum", feature_std=1.0, codebook_bitwidth=4,
+                                generator=torch.Generator().manual_seed(91), device=d)
+             for d in (dev, "cpu")]
+    coords = _fused_coords(65_536, dev, seed=92)
+    cot = torch.randn(65_536, 5, generator=torch.Generator().manual_seed(93))
+    assert not any(bool(t.any()) for t in _near_ties([f.detach() for f in grids[1].features],
+                                                       "train"))
+    outs = []
+    before = dict(kernels.LAUNCHES)
+    for grid, c, g in zip(grids, (coords, coords.cpu()), (cot.to(dev), cot)):
+        out = grid.interpolate(c, 3)
+        out.backward(g)
+        outs.append(out.detach().cpu())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["codebook_resolve"] == before["codebook_resolve"] + 1
+    assert kernels.LAUNCHES["codebook_bwd"] == before["codebook_bwd"] + 1
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-6
+    for a, b in zip(list(grids[0].features) + list(grids[0].dictionary),
+                    list(grids[1].features) + list(grids[1].dictionary)):
+        assert float((a.grad.cpu() - b.grad).abs().max()) <= 1e-5 * float(b.grad.abs().max())
+    cached = len(octree_grid._LOD_TABLES)
+    with torch.no_grad():
+        for _ in range(3):
+            grids[0].interpolate(coords, 3)
+    assert len(octree_grid._LOD_TABLES) == cached

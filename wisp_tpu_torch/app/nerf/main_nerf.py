@@ -3,10 +3,11 @@ config and the command line, on the card unless ``--device cpu``.
 
     python -m wisp_tpu_torch.app.nerf.main_nerf --config app/nerf/configs/nerf_octree_lego_proxy.yaml
 
-Grids: ``HashGrid.from_geometric`` and ``OctreeGrid`` (the others raise, naming their ROADMAP
-item). The octree is built from the dataset's point cloud with ``--sparse-blas`` (the
-procedural scene's ``scene_pointcloud``, dilated twice), else it is ``make_dense``. The yaml
-files are read as data, with the port's own reader (``wisp_tpu_torch.config``).
+Grids, JAX's union: ``HashGrid.from_geometric``, ``HashGrid.from_octree``, ``OctreeGrid``,
+``TriplanarGrid`` and ``CodebookOctreeGrid``. The octree is built from the dataset's point
+cloud with ``--sparse-blas`` (the procedural scene's ``scene_pointcloud``, dilated twice),
+else it is ``make_dense``; every grid gets it. The yaml files are read as data, with the
+port's own reader (``wisp_tpu_torch.config``).
 
 The tracker gets the app's config (written to ``config.yaml`` in the run's log dir) and a
 512x512 ``OfflineRenderer`` for the ``render_every`` snapshots; ``save_every`` saves the
@@ -30,8 +31,10 @@ from wisp_tpu_torch.config.utils import check_ported
 from wisp_tpu_torch.datasets.random_view_dataset import RandomViewDataset
 from wisp_tpu_torch.datasets.transforms.ray_sampler import SampleRays
 from wisp_tpu_torch.device import resolve_device
+from wisp_tpu_torch.models.grids.codebook_grid import CodebookOctreeGrid
 from wisp_tpu_torch.models.grids.hash_grid import HashGrid
 from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+from wisp_tpu_torch.models.grids.triplanar_grid import TriplanarGrid
 from wisp_tpu_torch.models.nefs.nerf import NeuralRadianceField
 from wisp_tpu_torch.models.pipeline import Pipeline
 from wisp_tpu_torch.tracers.packed_rf_tracer import PackedRFTracer
@@ -48,7 +51,8 @@ class NeRFAppConfig:
     blas_level: int = 7
     sparse_blas: bool = False
     nef: autoconfig(NeuralRadianceField) = None
-    grid: autoconfig(HashGrid.from_geometric, OctreeGrid) = None
+    grid: autoconfig(HashGrid.from_geometric, HashGrid.from_octree, OctreeGrid, TriplanarGrid,
+                     CodebookOctreeGrid) = None
     tracer: autoconfig(PackedRFTracer) = None
     dataset: autoconfig(RandomViewDataset) = None
     dataset_transform: autoconfig(SampleRays) = None

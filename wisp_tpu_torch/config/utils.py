@@ -78,9 +78,6 @@ NOT_PORTED: Dict[str, Tuple[Callable[[Any], bool], str]] = {
 
 # constructor names of the JAX package's unions that the port has not ported yet
 NOT_PORTED_CONSTRUCTORS: Dict[str, str] = {
-    "HashGrid.from_octree": "ROADMAP Queue 1, item 3",
-    "TriplanarGrid": "ROADMAP Queue 1, item 8",
-    "CodebookOctreeGrid": "ROADMAP Queue 1, item 8",
     "NeRFSyntheticDataset": "ROADMAP Queue 1, item 5",
     "RTMVDataset": "ROADMAP Queue 1, item 5",
 }

@@ -1,8 +1,8 @@
 """Weights carried across: build the port's pipeline from the JAX pipeline's parameters,
 given as numpy arrays, so that both packages compute the same function.
 
-``build_pipeline`` builds a NeRF (on a hash grid or an octree grid; any of its marches,
-'ray', 'uniform' or 'voxel', as ``config["tracer"]`` says), ``build_sdf_pipeline`` the
+``build_pipeline`` builds a NeRF (on a hash, octree, triplanar or codebook grid; any of its
+marches, 'ray', 'uniform' or 'voxel', as ``config["tracer"]`` says), ``build_sdf_pipeline`` the
 NGLOD SDF and ``build_spc_field`` the SPC browser's field (see each).
 ``sphere_sdf_decoder`` makes the deterministic decoder weights under which a NeuralSDF
 approximates the sphere |x| - 0.9 (the checks of a render need a field that converges;
@@ -12,7 +12,11 @@ random weights do not).
 
 * ``grid.codebook.feats`` [total, F] — the flat hash table of a hash grid, or
   ``grid.features.<i>`` [V_i, F] — the dual-vertex features of an OctreeGrid's active LOD i
-  (``config["grid"]["constructor"] == "OctreeGrid"``);
+  (``config["grid"]["constructor"] == "OctreeGrid"``), or
+  ``grid.features.<i>.fmx`` / ``.fmy`` / ``.fmz`` [W_i, W_i, F] — the planes of a
+  TriplanarGrid's LOD i (``"TriplanarGrid"``), or ``grid.features.<i>`` [V_i, 2^bw] (the
+  logits) and ``grid.dictionary.<i>`` [2^bw, F] of a CodebookOctreeGrid
+  (``"CodebookOctreeGrid"``);
 * ``blas.codes.<l>`` — the sorted morton codes of level l = 0..blas_level of a sparse octree
   (an OctreeGrid needs one); without them the octree is ``make_dense``;
 * ``decoder_density.layers.<i>.weight`` [out, in] / ``.bias`` [out], ``decoder_density.lout.*``,
@@ -23,8 +27,8 @@ random weights do not).
 
 ``config`` holds the static settings: ``blas_level``, ``blas_dense`` (a ``make_dense`` octree
 never carved), ``grid`` (``resolutions``, ``feature_dim``, ``codebook_bitwidth``,
-``multiscale_type`` of a HashGrid; or ``constructor: "OctreeGrid"`` and the OctreeGrid's
-keyword arguments), ``nef`` (NeuralRadianceField keyword arguments, the prune settings
+``multiscale_type`` of a HashGrid; or a ``constructor`` of the other three and its keyword
+arguments), ``nef`` (NeuralRadianceField keyword arguments, the prune settings
 ``prune_density_decay``, ``prune_min_density`` and ``prune_grace`` among them) and ``tracer``
 (PackedRFTracer keyword arguments). This module reads numpy only; reading a JAX pipeline
 into such a dict is the caller's business (the parity tests do it).
@@ -39,8 +43,10 @@ import torch
 
 from wisp_tpu_torch.accelstructs.octree_as import MeshExtent, OctreeAS
 from wisp_tpu_torch.device import DeviceLike, resolve_device
+from wisp_tpu_torch.models.grids.codebook_grid import CodebookOctreeGrid
 from wisp_tpu_torch.models.grids.hash_grid import HashGrid
 from wisp_tpu_torch.models.grids.octree_grid import OctreeGrid
+from wisp_tpu_torch.models.grids.triplanar_grid import TriplanarGrid
 from wisp_tpu_torch.models.nefs.nerf import NeuralRadianceField
 from wisp_tpu_torch.models.nefs.neural_sdf import NeuralSDF, NeuralSDFTex
 from wisp_tpu_torch.models.nefs.spc_field import SPCField
@@ -83,10 +89,22 @@ def build_pipeline(params: Mapping[str, np.ndarray], config: Dict[str, Any],
         dens = torch.from_numpy(np.array(params["blas.cell_density"], np.float32))
         blas = blas.update_occupancy(occ, dens.to(device))
     g = dict(config["grid"])
-    if g.pop("constructor", "HashGrid") == "OctreeGrid":
+    constructor = g.pop("constructor", "HashGrid")
+    if constructor == "OctreeGrid":
         grid = OctreeGrid(blas=blas, device=device, **g)
         for i, feats in enumerate(grid.features):
             _load(feats, params[f"grid.features.{i}"], f"grid.features.{i}")
+    elif constructor == "TriplanarGrid":
+        grid = TriplanarGrid(blas=blas, device=device, **g)
+        for i, volume in enumerate(grid.features):
+            for name in ("fmx", "fmy", "fmz"):
+                key = f"grid.features.{i}.{name}"
+                _load(getattr(volume, name), params[key], key)
+    elif constructor == "CodebookOctreeGrid":
+        grid = CodebookOctreeGrid(blas=blas, device=device, **g)
+        for i, (feats, entries) in enumerate(zip(grid.features, grid.dictionary)):
+            _load(feats, params[f"grid.features.{i}"], f"grid.features.{i}")
+            _load(entries, params[f"grid.dictionary.{i}"], f"grid.dictionary.{i}")
     else:
         grid = HashGrid(blas=blas, feature_dim=int(g["feature_dim"]),
                         resolutions=[int(r) for r in g["resolutions"]],

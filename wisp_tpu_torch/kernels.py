@@ -45,7 +45,8 @@ LAUNCHES: Dict[str, int] = {"raymarch_ray": 0, "compact": 0, "scatter_back": 0,
                             "compact_rays": 0, "compact_rays_mid": 0, "scatter_rays": 0,
                             "scatter_rays_mid": 0, "closest_point": 0, "raymarch_uniform": 0,
                             "raytrace": 0, "spc_trace": 0, "hashgrid_query": 0,
-                            "octree_query_interp": 0, "sphere_iter": 0}
+                            "octree_query_interp": 0, "sphere_iter": 0, "triplane_fwd": 0,
+                            "triplane_bwd": 0, "codebook_resolve": 0, "codebook_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -130,6 +131,14 @@ _SIGNATURES = {
     # stream
     "wisp_hashgrid_query": [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_uint32, _P,
                             _P],
+    # coords N n_lods out_lods F planes (host struct) sum vec out stream
+    "wisp_triplane_fwd": [_P, _L, _I, _I, _I, _P, _I, _I, _P, _P],
+    # coords N n_lods out_lods F grads (host struct) sum vec grad_out stream
+    "wisp_triplane_bwd": [_P, _L, _I, _I, _I, _P, _I, _I, _P, _P],
+    # n_lods K F mode lods (host struct) stream
+    "wisp_codebook_resolve": [_I, _I, _I, _I, _P, _P],
+    # n_lods K F mode shared lods (host struct) stream
+    "wisp_codebook_bwd": [_I, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -261,6 +270,13 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
             ok = ok and (s is None or s == d)
         if not ok:
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def vector_width(f_dim: int, ptrs: Sequence[int]) -> int:
+    """Features a lane of a kernel that moves 16-byte vectors where it can (K15 both ways,
+    K18 both ways): 4 where F % 4 == 0 and every table (and cotangent) starts on 16 bytes,
+    else 1."""
+    return 4 if f_dim % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 1
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -68,6 +68,21 @@ class HashGrid(BLASGrid):
         self.register_buffer("occupancy", occupancy)
 
     @classmethod
+    def from_octree(cls, blas=None, feature_dim: int = 2, base_lod: int = 2, num_lods: int = 1,
+                    multiscale_type: str = "sum", feature_std: float = 0.0,
+                    feature_bias: float = 0.0, codebook_bitwidth: int = 8, coord_dim: int = 3,
+                    dense_lod_matmul: Optional[str] = None, stoch_grad: bool = False,
+                    generator: Optional[torch.Generator] = None,
+                    device: DeviceLike = None) -> "HashGrid":
+        """The octree's sampling pattern: resolutions 2^base_lod .. 2^(base_lod+num_lods-1)."""
+        resolutions = [2 ** (base_lod + x) for x in range(num_lods)]
+        return cls(blas=blas, feature_dim=feature_dim, resolutions=resolutions,
+                   multiscale_type=multiscale_type, feature_std=feature_std,
+                   feature_bias=feature_bias, codebook_bitwidth=codebook_bitwidth,
+                   coord_dim=coord_dim, dense_lod_matmul=dense_lod_matmul,
+                   stoch_grad=stoch_grad, generator=generator, device=device)
+
+    @classmethod
     def from_geometric(cls, blas=None, feature_dim: int = 2, num_lods: int = 16,
                        multiscale_type: str = "sum", feature_std: float = 0.0,
                        feature_bias: float = 0.0, codebook_bitwidth: int = 8,

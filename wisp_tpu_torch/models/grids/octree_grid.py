@@ -89,11 +89,10 @@ def _check_geometry(coords, pidx, col0, trinkets, levels, multiscale_type):
     return n, n_lods
 
 
-def interp_vector_width(f_dim: int, feature_ptrs: Sequence[int]) -> int:
-    """K15's route, forward and backward: 4 features a lane (F/4 lanes a point, 16-byte
-    loads and stores, float4 atomics) where F % 4 == 0 and every table (and the backward's
-    cotangent) starts on 16 bytes, else 1 (a lane a feature)."""
-    return 4 if f_dim % 4 == 0 and all(p % 16 == 0 for p in feature_ptrs) else 1
+# K15's route, forward and backward: 4 features a lane (F/4 lanes a point, 16-byte loads and
+# stores, float4 atomics) where F % 4 == 0 and every table (and the backward's cotangent)
+# starts on 16 bytes, else 1 (a lane a feature)
+interp_vector_width = kernels.vector_width
 
 
 def _interp_fwd(coords, pidx, col0, trinkets, features, levels, multiscale_type):
@@ -430,20 +429,25 @@ class OctreeGrid(BLASGrid):
             feats = self._closest(pidx, col0, n)
         return feats.reshape(*output_shape, feats.shape[-1])
 
+    def feature_tables(self, n: int) -> List[torch.Tensor]:
+        """The feature tables [V_i, F] that LODs 0..n-1 interpolate (a codebook grid
+        resolves its own, ``codebook_grid.py``)."""
+        # list() first: slicing the ParameterList would build a new module each call
+        return list(self.features)[:n]
+
     def query_interp_args(self, lod_idx: int):
         """``octree_query_interp``'s arguments after the coordinates for LODs 0..lod_idx:
         (routes, trinkets, features, levels, multiscale_type)."""
         n = lod_idx + 1
-        # list() first: slicing the ParameterList would build a new module each call
-        return (self.blas.query_routes, self.trinkets[:n], list(self.features)[:n],
+        return (self.blas.query_routes, self.trinkets[:n], self.feature_tables(n),
                 self.active_lods[:n], self.multiscale_type)
 
     def _closest(self, pidx: torch.Tensor, col0: int, n: int) -> torch.Tensor:
         """'closest': each LOD's feature row of the cell itself (a plain gather)."""
         outs = []
-        for i in range(n):
+        for i, table in enumerate(self.feature_tables(n)):
             p = pidx[:, col0 + i]
-            fs = self.features[i][p.clamp(min=0)]
+            fs = table[p.clamp(min=0)]
             outs.append(torch.where((p >= 0)[:, None], fs, torch.zeros_like(fs)))
         return _combine_lods(outs, self.multiscale_type)
 
