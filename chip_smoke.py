@@ -165,9 +165,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    compaction, K18 forward and backward, two scatter-backs, their gather, K4 both ways),
    requires finite losses that fall, validates on 2 views, renders a warm-up and then one
    512x512 frame (counts exactly, a chunk: K2, K3, K18 where the chunk keeps samples, two
-   scatter-backs, K4), checks the frame and one chunk against the plain versions, and holds
-   K18 forward (within 1e-6) and backward (within 1e-5 of the largest entry) to their plain
-   versions at step 25's calls, timed, with their bounds;
+   scatter-backs, K4; the warm-up frame's K18 call of chunk ``CHUNK_INDEX`` recorded),
+   checks the frame and one chunk against the plain versions, and holds K18 forward
+   (within 1e-6) and backward (within 1e-5 of the largest entry) to their plain versions
+   at step 25's calls, timed, with their bounds;
 17. codebook path ("codebook"): the same for app/nerf/configs/nerf_codebook_lego_proxy.yaml
    (a sparse level-7 octree of the scene's point cloud; CodebookOctreeGrid of LODs 4-7,
    F = 5, 2^4 entries, 'sum'; a 'voxel' march of 16 steps, compaction 0.0625): a step's
@@ -266,7 +267,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    device kernels a call of both; reports the device kernels of the flagship's and the
    seg phase's profiled steps and the launches a step; then makes 200 calls back to back on
    one stream and holds each call's last result equal to its first;
-27. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
+27. K18 beside its first design ("K18 beside its first design"): at the triplanar phase's
+   recorded calls (train step 25's forward and backward, the frame chunk's forward), holds
+   K18's forward bit for bit to the plain version and to the first design
+   (``wisp_tpu_torch/csrc/baselines/triplane_v1.cu``, built beside the library; the K18
+   rows' ``was_ms``) and its backward, and the first design's, within 1e-5 of the plain
+   version's largest entry; times each beside the first design and the library yardstick
+   (``triplane_library``: ``F.grid_sample`` with reflection padding at the negated
+   coordinates, one call a (LOD, plane), forward and its autograd backward; the K18 rows'
+   ``library_ms``), the backward at each of its options, and the backward on the frame
+   chunk's points with a seeded cotangent (a render-ordered batch, held to the float64 sum
+   of its terms), one launch a call; prints each on a ``k18_design`` line;
+28. prints the ``kernels`` JSON line (every kernel: launches from the render frame for the
    forward kernels, from the training run for the training kernels, from the SDF frame
    for the SDF kernels (K15's forward: 0, no path launches it), from the SDF training run
    for K9, K15's backward and K16, from the octree NeRF's 25 steps for K7, from the stoch
@@ -281,7 +293,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one card an
    ``uniform_path``, ``triplanar_path`` and ``codebook_path`` JSON lines, the
    ``compaction_shapes``, ``hashgrid_shapes``,
    ``octree_grid_shapes``, ``march_grad_shapes``, ``mesh_shapes``, ``query_step_shapes``,
-   ``walk_shapes``, ``scatter_seg_shapes`` and ``feedback_gather_shapes`` lines, the
+   ``walk_shapes``, ``scatter_seg_shapes`` and ``feedback_gather_shapes`` lines (and, before
+   them, the ``k18_design`` lines), the
    ``phase_s`` line, the nvidia-smi
    line and, last, ``{"ok":
    true, "device": {...}}``.
@@ -526,6 +539,11 @@ FEEDBACK_GATHER_V1_DESIGN = {
     "scatter_back_bwd": "csrc/baselines/scatter_back_bwd_v1.cu (a launch a channel, a thread "
                         "a (slot, column) with a 64-bit division; density's cotangent through "
                         "the select view's backward, a zero fill and a copy)"}
+TRIPLANE_V1_SRC = "wisp_tpu_torch/csrc/baselines/triplane_v1.cu"
+TRIPLANE_V1 = None             # a TriplaneV1 once built (run())
+TRIPLANE_V1_DESIGN = ("csrc/baselines/triplane_v1.cu (a thread a (point, plane, float4), the "
+                      "plane fastest; the LODs in a loop of runtime trip count; one float4 "
+                      "atomic a corner)")
 
 
 def start_walk_probe_build():
@@ -1029,6 +1047,67 @@ class FeedbackGatherV1:
                 require(status == 0, f"wisp_scatter_back_bwd_v1 failed to launch ({status})")
             outs.append(out)
         return outs
+
+
+class TriplaneV1:
+    """The earlier design of K18 forward and backward, called on the current stream with the
+    wrappers' arguments and their host work (the checks, the planes' argument block, the
+    gradients' zero fill); its launches are not the port's and are not counted."""
+
+    def __init__(self, started):
+        import ctypes
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self.lib = finish_baseline_build(started, TRIPLANE_V1_SRC)
+        for name in ("wisp_triplane_v1_fwd", "wisp_triplane_v1_bwd"):
+            getattr(self.lib, name).argtypes = [P, L, I, I, I, P, I, I, P, P]
+
+    @staticmethod
+    def _stream() -> int:
+        import torch
+        return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+    def sample(self, coords, flat_planes, multiscale_type, out_lods):
+        """``triplane._sample_fwd`` with this design."""
+        import ctypes
+        import torch
+        from wisp_tpu_torch import kernels
+        from wisp_tpu_torch.ops import triplane
+        n, n_lods, f_dim = coords.shape[0], len(flat_planes) // 3, flat_planes[0].shape[2]
+        triplane._check(coords, n_lods, multiscale_type, out_lods)
+        block = triplane._plane_block(flat_planes, f_dim)
+        width = 3 * f_dim * (1 if multiscale_type == "sum" else out_lods)
+        out = torch.empty((n, width), dtype=torch.float32, device=coords.device)
+        if n:
+            vec = kernels.vector_width(f_dim,
+                                       [t.data_ptr() for t in flat_planes] + [out.data_ptr()])
+            status = self.lib.wisp_triplane_v1_fwd(
+                coords.data_ptr(), n, n_lods, out_lods, f_dim, ctypes.addressof(block),
+                int(multiscale_type == "sum"), vec, out.data_ptr(), self._stream())
+            require(status == 0, f"wisp_triplane_v1_fwd failed to launch ({status})")
+        return out
+
+    def sample_bwd(self, coords, shapes, multiscale_type, grad_out):
+        """``triplane.triplane_sample_bwd`` with this design."""
+        import ctypes
+        import torch
+        from wisp_tpu_torch import kernels
+        from wisp_tpu_torch.ops import triplane
+        n, n_lods, f_dim = coords.shape[0], len(shapes) // 3, shapes[0][2]
+        out_lods = 1 if multiscale_type == "sum" else grad_out.shape[1] // (3 * f_dim)
+        triplane._check(coords, n_lods, multiscale_type, max(out_lods, n_lods))
+        sizes = [a * b * c for a, b, c in shapes]
+        flat = torch.zeros((sum(sizes),), dtype=torch.float32, device=coords.device)
+        grads = [t.view(sz) for t, sz in zip(torch.split(flat, sizes), shapes)]
+        if n:
+            block = triplane._plane_block(grads, f_dim)
+            vec = kernels.vector_width(f_dim,
+                                       [g.data_ptr() for g in grads] + [grad_out.data_ptr()])
+            status = self.lib.wisp_triplane_v1_bwd(
+                coords.data_ptr(), n, n_lods, max(out_lods, n_lods), f_dim,
+                ctypes.addressof(block), int(multiscale_type == "sum"), vec,
+                grad_out.data_ptr(), self._stream())
+            require(status == 0, f"wisp_triplane_v1_bwd failed to launch ({status})")
+        return grads
 
 
 def march_equal(got, want) -> bool:
@@ -2600,6 +2679,176 @@ def feedback_gather_phase() -> dict:
     out["back_to_back_calls"] = FEEDBACK_GATHER_BACK_TO_BACK
     out["gather_order"] = "the backward's: a seg step's gather 0 is its last segment's"
     return out
+
+
+def triplane_bwd_options(n: int, widths, f_dim: int) -> dict:
+    """K18 backward's shared LODs to time, by name: none (each corner added straight to the
+    gradient) and the rule's (``bwd_shared_lods``)."""
+    from wisp_tpu_torch.ops import triplane
+    k = triplane.bwd_shared_lods(n, widths, f_dim)
+    return {"no shared LODs": 0, f"{k} shared LODs": k}
+
+
+def triplane_design_phase() -> dict:
+    """K18 beside its first design (``csrc/baselines/triplane_v1.cu``) at the triplanar
+    phase's recorded calls: the forward of train step 25 and of one frame chunk held bit for
+    bit to the plain version and to the first design, the backward of step 25 within 1e-5
+    of the plain version's largest entry (the first design's too); each timed beside the
+    first design and the library yardstick (``triplane_library``, forward and backward),
+    with one hand-written launch a call and its bound; the backward also with and without
+    its shared LODs (``triplane_bwd_options``) on the step and on the frame chunk's points
+    with a seeded cotangent (a render-ordered batch). Each measurement is printed on a line of its
+    own; returns the K18 rows' additions."""
+    import torch
+    from wisp_tpu_torch import kernels
+    from wisp_tpu_torch.ops import triplane
+    partial = functools.partial
+    rows = {}
+
+    def hand(counter, fn):
+        before = kernels.LAUNCHES[counter]
+        result = fn()
+        return result, kernels.LAUNCHES[counter] - before
+
+    with torch.no_grad():
+        for key, label in (("triplane_fwd", f"train step {NEW_GRID_STEPS}"),
+                           ("triplane_fwd_frame", f"frame chunk {CHUNK_INDEX}")):
+            coords, flat, multiscale, out_lods = NEW_GRID_CALLS["triplanar", key]
+            planes = [tuple(flat[3 * i:3 * i + 3]) for i in range(len(flat) // 3)]
+            want = triplane.triplane_sample_plain(coords, planes, multiscale, out_lods)
+            got, launched = hand("triplane_fwd", partial(triplane._sample_fwd, coords, flat,
+                                                         multiscale, out_lods))
+            was = TRIPLANE_V1.sample(coords, flat, multiscale, out_lods)
+            require(launched == 1, f"K18 forward at the {label}: {launched} launches")
+            require(torch.equal(got, want) and torch.equal(was, want),
+                    f"K18 forward at the {label}: (new, first design) bit-equal to the plain "
+                    f"version: {(torch.equal(got, want), torch.equal(was, want))}")
+            permuted = triplane_library_planes(flat)
+            lib_err = float((triplane_library(coords, permuted, multiscale) - want).abs().max())
+            work = triplane_fwd_work(coords, planes, multiscale, out_lods)
+            new_t = timed(partial(triplane._sample_fwd, coords, flat, multiscale, out_lods))
+            was_t = timed(partial(TRIPLANE_V1.sample, coords, flat, multiscale, out_lods))
+            lib_t = timed(partial(triplane_library, coords, permuted, multiscale))
+            plain_t = events_only(partial(triplane.triplane_sample_plain, coords, planes,
+                                          multiscale, out_lods), iters=3, warmup=1)
+            rec = {"call": f"K18 forward, triplanar {label}", "samples": coords.shape[0],
+                   "bit_equal_to_plain": True, "bit_equal_to_first_design": True,
+                   "ms": new_t[0], "event_ms": new_t[1], "was_ms": was_t[0],
+                   "was_event_ms": was_t[1], "library_ms": lib_t[0],
+                   "library_event_ms": lib_t[1], "library_max_abs_err": lib_err,
+                   "plain_event_ms": plain_t[1],
+                   "bound_ms": bound(work["bytes"], work["ops"])[0],
+                   "bound_by": bound(work["bytes"], work["ops"])[1], "bytes": work["bytes"],
+                   "hand_written_launches_per_call": launched}
+            print(json.dumps({"k18_design": rec}), flush=True)
+            rows[key] = rec
+            del got, want, was
+
+        bcoords, shapes, bmulti, grad_out = NEW_GRID_CALLS["triplanar", "triplane_bwd"]
+        f_dim, widths = shapes[0][2], [sh[0] for sh in shapes[::3]]
+        want = triplane.triplane_sample_bwd_plain(bcoords, shapes, bmulti, grad_out)
+        scale = max(float(g.abs().max()) for g in want)
+        got, launched = hand("triplane_bwd", partial(triplane.triplane_sample_bwd, bcoords,
+                                                     shapes, bmulti, grad_out))
+        was = TRIPLANE_V1.sample_bwd(bcoords, shapes, bmulti, grad_out)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        was_err = max(float((a - b).abs().max()) for a, b in zip(was, want))
+        require(launched == 1, f"K18 backward: {launched} launches")
+        require(err <= 1e-5 * scale and was_err <= 1e-5 * scale,
+                f"K18 backward at step {NEW_GRID_STEPS}: (new, first design) errors "
+                f"{(err, was_err)} above {1e-5 * scale}")
+        flat_planes = [p for p in NEW_GRID_CALLS["triplanar", "triplane_fwd"][1]]
+        permuted = triplane_library_planes(flat_planes, requires_grad=True)
+        with torch.enable_grad():
+            lib_out = triplane_library(bcoords, permuted, bmulti)
+            lib_grads = torch.autograd.grad(lib_out, permuted, grad_out, retain_graph=True)
+            lib_err = max(float((a[0].permute(1, 2, 0) - b).abs().max())
+                          for a, b in zip(lib_grads, want))
+
+            def library_bwd():
+                return torch.autograd.grad(lib_out, permuted, grad_out, retain_graph=True)
+
+            lib_t = timed(library_bwd)
+        new_t = timed(partial(triplane.triplane_sample_bwd, bcoords, shapes, bmulti, grad_out))
+        was_t = timed(partial(TRIPLANE_V1.sample_bwd, bcoords, shapes, bmulti, grad_out))
+        variants = {}
+        for name, shared in triplane_bwd_options(bcoords.shape[0], widths, f_dim).items():
+            variants[name] = timed(partial(triplane.triplane_sample_bwd, bcoords, shapes,
+                                           bmulti, grad_out, shared))[0]
+        sizes = sum(a * b * c for a, b, c in shapes)
+        nbytes = bcoords.shape[0] * 12 + grad_out.numel() * 4 + sizes * 4
+        ops = bcoords.shape[0] * len(shapes) * (40 + 12 * f_dim)
+        rec = {"call": f"K18 backward, triplanar train step {NEW_GRID_STEPS}",
+               "samples": bcoords.shape[0], "max_abs_err": err, "was_max_abs_err": was_err,
+               "tol": 1e-5 * scale, "ms": new_t[0], "event_ms": new_t[1], "was_ms": was_t[0],
+               "was_event_ms": was_t[1], "library_ms": lib_t[0], "library_event_ms": lib_t[1],
+               "library_max_abs_err": lib_err, "bound_ms": bound(nbytes, ops)[0],
+               "bound_by": bound(nbytes, ops)[1], "hand_written_launches_per_call": launched,
+               "n_shared_rule": triplane.bwd_shared_lods(bcoords.shape[0], widths, f_dim),
+               "ms_by_option": variants, "zero_fill": "inside the call (4.22 MB)"}
+        print(json.dumps({"k18_design": rec}), flush=True)
+        rows["triplane_bwd"] = rec
+        del got, want, was, lib_out, lib_grads
+
+        # the backward on a render-ordered batch: the frame chunk's points, a seeded
+        # cotangent; held to triplane_bwd_f64 (the coarse rows take ~10^6 adds: float32 sums
+        # of them in two orders, the plain version's included, differ by more than 1e-5 of
+        # the largest entry), the rule's options required within 1e-5 of it
+        fcoords, _, fmulti, f_out_lods = NEW_GRID_CALLS["triplanar", "triplane_fwd_frame"]
+        gen = torch.Generator(device=fcoords.device).manual_seed(71)
+        cot = torch.randn((fcoords.shape[0], 3 * f_dim), generator=gen, device=fcoords.device)
+        ref = triplane_bwd_f64(fcoords, shapes, fmulti, cot)
+        scale = max(float(g.abs().max()) for g in ref)
+
+        def ref_err(got):
+            return max(float((a.double() - b).abs().max()) for a, b in zip(got, ref))
+
+        render = {"call": f"K18 backward, the frame chunk {CHUNK_INDEX}'s points (a "
+                          f"render-ordered batch) with a seeded cotangent",
+                  "samples": fcoords.shape[0], "tol": 1e-5 * scale,
+                  "reference": "triplane_bwd_f64 (float32 terms summed in float64)",
+                  "plain_max_abs_err": ref_err(triplane.triplane_sample_bwd_plain(
+                      fcoords, shapes, fmulti, cot)),
+                  "n_shared_rule": triplane.bwd_shared_lods(fcoords.shape[0], widths, f_dim)}
+        rule = render["n_shared_rule"]
+        for name, shared in triplane_bwd_options(fcoords.shape[0], widths, f_dim).items():
+            err = ref_err(triplane.triplane_sample_bwd(fcoords, shapes, fmulti, cot, shared))
+            if shared == rule:
+                require(err <= 1e-5 * scale, f"K18 backward at the frame chunk: {err} above "
+                                             f"{1e-5 * scale}")
+            render[name] = {"max_abs_err": err,
+                            "ms": timed(partial(triplane.triplane_sample_bwd, fcoords, shapes,
+                                                fmulti, cot, shared), iters=5)[0]}
+        render["was_ms"] = timed(partial(TRIPLANE_V1.sample_bwd, fcoords, shapes, fmulti, cot),
+                                 iters=5)[0]
+        render["was_max_abs_err"] = ref_err(TRIPLANE_V1.sample_bwd(fcoords, shapes, fmulti, cot))
+        del ref
+        print(json.dumps({"k18_design": render}), flush=True)
+        rows["triplane_bwd_render_order"] = render
+    return rows
+
+
+def add_k18_design(kernel_rows: list, design: dict) -> None:
+    """The K18 rows of the ``kernels`` line with the step's numbers: ``was_ms`` (the first
+    design in the same run), the library yardstick and the frame chunk's forward."""
+    for row_ in kernel_rows:
+        if row_["name"] == "triplane_fwd":
+            d = design["triplane_fwd"]
+            frame = design["triplane_fwd_frame"]
+            row_.update(was_ms=d["was_ms"], was_event_ms=d["was_event_ms"],
+                        was_design=TRIPLANE_V1_DESIGN, library_ms=d["library_ms"],
+                        library_event_ms=d["library_event_ms"],
+                        library_call=TRIPLANE_LIBRARY_CALL,
+                        frame_chunk={k: frame[k] for k in (
+                            "samples", "ms", "event_ms", "was_ms", "was_event_ms",
+                            "library_ms", "library_event_ms", "plain_event_ms", "bound_ms",
+                            "bound_by")})
+        elif row_["name"] == "triplane_bwd":
+            d = design["triplane_bwd"]
+            row_.update(was_ms=d["was_ms"], was_event_ms=d["was_event_ms"],
+                        was_design=TRIPLANE_V1_DESIGN, library_ms=d["library_ms"],
+                        library_event_ms=d["library_event_ms"],
+                        library_call=TRIPLANE_LIBRARY_CALL + " (its autograd backward)")
 
 
 # the K2/K8 and K15 backward calls that the paths made, for the "march and octree grad"
@@ -6360,10 +6609,10 @@ def recording_new_grid_calls(phase: str):
             out_lods)
         return fwd(coords, flat_planes, multiscale_type, out_lods)
 
-    def rec_bwd(coords, shapes, multiscale_type, grad_out):
+    def rec_bwd(coords, shapes, multiscale_type, grad_out, options=None):
         NEW_GRID_CALLS[phase, "triplane_bwd"] = (coords.clone(), list(shapes),
                                                  multiscale_type, grad_out.clone())
-        return bwd(coords, shapes, multiscale_type, grad_out)
+        return bwd(coords, shapes, multiscale_type, grad_out, options)
 
     def rec_resolve(logits, dictionaries, mode, buffer):
         NEW_GRID_CALLS[phase, "codebook_resolve"] = (
@@ -6381,6 +6630,26 @@ def recording_new_grid_calls(phase: str):
             mock.patch.object(triplane, "triplane_sample_bwd", rec_bwd), \
             mock.patch.object(codebook, "_resolve", rec_resolve), \
             mock.patch.object(codebook, "codebook_resolve_bwd", rec_resolve_bwd):
+        yield
+
+
+@contextmanager
+def recording_frame_chunk(phase: str):
+    """Keep (cloned) the inputs of the K18 forward call that a frame rendered inside makes
+    for its chunk ``CHUNK_INDEX`` (its last call, if it makes fewer), by phase."""
+    from wisp_tpu_torch.ops import triplane
+    fwd = triplane._sample_fwd
+    calls = [0]
+
+    def rec_fwd(coords, flat_planes, multiscale_type, out_lods):
+        if calls[0] <= CHUNK_INDEX:
+            NEW_GRID_CALLS[phase, "triplane_fwd_frame"] = (
+                coords.clone(), [p.detach().clone() for p in flat_planes], multiscale_type,
+                out_lods)
+        calls[0] += 1
+        return fwd(coords, flat_planes, multiscale_type, out_lods)
+
+    with mock.patch.object(triplane, "_sample_fwd", rec_fwd):
         yield
 
 
@@ -6411,6 +6680,130 @@ def triplane_rows(coords, planes) -> list:
     return out
 
 
+def triplane_fwd_work(coords, planes, multiscale, out_lods) -> dict:
+    """K18 forward's compulsory work at one call: bytes (12 of point and the output row a
+    sample, each corner row it touches once) and float32 operations; rows touched a plane."""
+    n, f_dim, lods = coords.shape[0], planes[0][0].shape[2], len(planes)
+    width = 3 * f_dim * (1 if multiscale == "sum" else out_lods)
+    rows = triplane_rows(coords, planes)
+    ops_point = 3 * lods * (40 + 11 * f_dim) + (3 * f_dim * (lods - 1) if multiscale == "sum"
+                                                else 0)
+    return {"bytes": n * 12 + n * width * 4 + sum(rows) * f_dim * 4, "ops": n * ops_point,
+            "rows_touched": rows}
+
+
+def triplane_bwd_f64(coords, shapes, multiscale, grad_out) -> list:
+    """K18 backward's reference for long sums: each corner's term (g (1-fy)) (1-fx) and its
+    siblings rounded in float32 exactly as the kernels and autograd of the plain version
+    compute it, the terms summed into each row in float64. A float32 sum of ~10^6 terms
+    (a render chunk's coarse rows) in any order is off it by more than 1e-5 of the largest
+    entry; this reference is not."""
+    import torch
+    from wisp_tpu_torch.ops.triplane import reflect
+    x, y, z = (reflect(coords[:, i]) for i in range(3))
+    f_dim, out = shapes[0][2], []
+    for lod in range(len(shapes) // 3):
+        w = shapes[3 * lod][0]
+        for q, (u, v) in enumerate(((y, z), (x, z), (x, y))):
+            xs = (u + 1.0) * 0.5 * (w - 1)
+            ys = (v + 1.0) * 0.5 * (w - 1)
+            x0 = torch.floor(xs).to(torch.int32).clamp(0, w - 1)
+            y0 = torch.floor(ys).to(torch.int32).clamp(0, w - 1)
+            x1, y1 = (x0 + 1).clamp(0, w - 1), (y0 + 1).clamp(0, w - 1)
+            fx, fy = (xs - x0)[:, None], (ys - y0)[:, None]
+            col = (lod if multiscale == "cat" else 0) * 3 * f_dim + q * f_dim
+            g = grad_out[:, col:col + f_dim]
+            table = torch.zeros((w * w, f_dim), dtype=torch.float64, device=coords.device)
+            for rows, term in ((y0 * w + x0, g * (1 - fy) * (1 - fx)),
+                               (y0 * w + x1, g * (1 - fy) * fx),
+                               (y1 * w + x0, g * fy * (1 - fx)), (y1 * w + x1, g * fy * fx)):
+                table.index_add_(0, rows.long(), term.double())
+            out.append(table.reshape(w, w, f_dim))
+    return out
+
+
+TRIPLANE_LIBRARY_CALL = ("a sequence, not one call: F.grid_sample(plane [1, F, W, W], "
+                         "-coords, 'bilinear', 'reflection', align_corners=True), one a "
+                         "(LOD, plane), 12 at the yaml, summed over the LODs; the permutes "
+                         "made once, outside the timed calls")
+
+
+def triplane_library_planes(flat_planes, requires_grad: bool = False) -> list:
+    """Each plane [W, W, F] as ``grid_sample``'s input [1, F, W, W] (height the row y, width
+    the column x): the permutes of K18's library yardstick, made once, outside its timed
+    calls."""
+    return [p.detach().permute(2, 0, 1)[None].contiguous().requires_grad_(requires_grad)
+            for p in flat_planes]
+
+
+def triplane_library(coords, permuted, multiscale_type: str = "sum"):
+    """K18's library yardstick: ``triplane_sample_plain``'s function up to rounding as a
+    sequence of PyTorch calls, one ``F.grid_sample`` a (LOD, plane) of ``permuted``
+    (``triplane_library_planes``), bilinear with reflection padding and align_corners=True at
+    the negated coordinates (JAX's fold maps x to -x inside [-1, 1] and reflects with period
+    4 outside it, as that padding does); 'sum' adds the LODs in order, 'cat' sets them side
+    by side (without padding columns)."""
+    import torch
+    import torch.nn.functional as nnf
+    n = coords.shape[0]
+    neg = -coords
+    grids = [neg[:, [1, 2]].reshape(1, 1, n, 2), neg[:, [0, 2]].reshape(1, 1, n, 2),
+             neg[:, [0, 1]].reshape(1, 1, n, 2)]          # (u, v) of fmx, fmy, fmz
+    feats = []
+    for i in range(0, len(permuted), 3):
+        cols = [nnf.grid_sample(permuted[i + q], grids[q], mode="bilinear",
+                                padding_mode="reflection", align_corners=True)[0, :, 0].T
+                for q in range(3)]
+        feats.append(torch.cat(cols, dim=-1))
+    if multiscale_type != "sum":
+        return torch.cat(feats, dim=-1)
+    out = feats[0]
+    for f in feats[1:]:
+        out = out + f
+    return out
+
+
+def triplane_coords(order: str, rays: int, steps: int, dev, seed: int = 0):
+    """[rays * steps, 3] sample points, ``steps`` evenly spaced inside the box [-1, 1]^3 along
+    each ray (a dense box: every sample valid, as at the triplanar yaml), flattened step-major
+    as the tracer's compaction orders them (slot s * rays + r). 'render': neighbouring
+    pixels of a 512-wide 512x512 frame from EYE through the middle rows (a render chunk);
+    'train': rays from random eyes at distance 3-4 towards random points near the centre (a
+    training batch of random pixels)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if order == "render":
+        eye = np.asarray(EYE, np.float64)
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        up = np.cross(fwd, right)
+        k = np.arange(rays)
+        row, col = RES // 2 - rays // RES // 2 + k // RES, k % RES
+        half = np.tan(np.radians(30.0) / 2)
+        px = ((col + 0.5) / RES * 2 - 1) * half
+        py = (1 - (row + 0.5) / RES * 2) * half
+        d = fwd[None] + px[:, None] * right[None] + py[:, None] * up[None]
+        o = np.broadcast_to(eye, d.shape)
+    elif order == "train":
+        v = rng.normal(size=(rays, 3))
+        o = v / np.linalg.norm(v, axis=1, keepdims=True) * rng.uniform(3, 4, (rays, 1))
+        d = rng.uniform(-0.5, 0.5, (rays, 3)) - o
+    else:
+        raise ValueError(order)
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        t0, t1 = (-1 - o) / d, (1 - o) / d
+    t_near = np.minimum(t0, t1).max(axis=1)
+    t_far = np.maximum(t0, t1).min(axis=1)
+    t_far = np.maximum(t_far, t_near)
+    frac = (np.arange(steps) + 0.5) / steps
+    t = t_near[None, :] + frac[:, None] * (t_far - t_near)[None, :]        # [steps, rays]
+    pts = o[None] + t[..., None] * d[None]
+    return torch.from_numpy(pts.reshape(-1, 3).astype(np.float32)).to(dev)
+
+
 def triplane_rows_and_checks(phase: str, launches: dict) -> list:
     """K18 forward and backward against their plain versions at the phase's recorded
     calls (the last training step's), timed, with their bounds."""
@@ -6422,17 +6815,14 @@ def triplane_rows_and_checks(phase: str, launches: dict) -> list:
     got = triplane._sample_fwd(coords, flat, multiscale, out_lods)
     want = triplane.triplane_sample_plain(coords, planes, multiscale, out_lods)
     fwd_err = float((got - want).abs().max())
-    rows = triplane_rows(coords, planes)
-    width = got.shape[1]
-    ops_point = 3 * lods * (40 + 11 * f_dim) + (3 * f_dim * (lods - 1) if multiscale == "sum"
-                                                else 0)
+    work = triplane_fwd_work(coords, planes, multiscale, out_lods)
+    rows = work["rows_touched"]
     fwd = kernel_row("triplane_fwd", "wisp_tpu_torch/csrc/triplane.cu",
                      "wisp_tpu/models/grids/triplanar_grid.py:29", fwd_err, 1e-6,
                      timed(lambda: triplane._sample_fwd(coords, flat, multiscale, out_lods)),
                      timed(lambda: triplane.triplane_sample_plain(coords, planes, multiscale,
                                                                   out_lods), iters=5),
-                     nbytes=n * 12 + n * width * 4 + sum(rows) * f_dim * 4,
-                     ops=n * ops_point)
+                     nbytes=work["bytes"], ops=work["ops"])
     bcoords, shapes, bmulti, grad_out = NEW_GRID_CALLS[phase, "triplane_bwd"]
     gk = triplane.triplane_sample_bwd(bcoords, shapes, bmulti, grad_out)
     gp = triplane.triplane_sample_bwd_plain(bcoords, shapes, bmulti, grad_out)
@@ -6617,7 +7007,8 @@ def new_grid_phase(dev, phase: str, config: str, step_kernels: dict, frame_kerne
     require(math.isfinite(metrics["psnr"]), f"bad {phase} validation PSNR {metrics}")
 
     # -- the frame: counts from 0, one 512x512 frame, counts read right after -------------
-    renderer.render_lookat(pipeline, f=EYE)          # warm-up
+    with recording_frame_chunk(phase):               # warm-up (K18: a chunk's call kept)
+        renderer.render_lookat(pipeline, f=EYE)
     torch.cuda.synchronize()
     chunk_valid = []
     trace = tracer.trace
@@ -6747,9 +7138,10 @@ def run() -> dict:
                                                 "libwisp_scatter_max_v1.so")
     scatter_back_bwd_v1_build = start_baseline_build(SCATTER_BACK_BWD_V1_SRC,
                                                      "libwisp_scatter_back_bwd_v1.so")
+    triplane_v1_build = start_baseline_build(TRIPLANE_V1_SRC, "libwisp_triplane_v1.so")
     kernels.build(verbose=True)
     global THREEPASS, HASHGRID_V1, HASHGRID_QUERY_V1, OCTREE_V1, MARCH_GRAD_V1, MESH_V1, \
-        SPHERE_TRACE_V1, WALK_PROBE, SCATTER_SEG_V1, FEEDBACK_GATHER_V1
+        SPHERE_TRACE_V1, WALK_PROBE, SCATTER_SEG_V1, FEEDBACK_GATHER_V1, TRIPLANE_V1
     THREEPASS = ThreePass(threepass_build)
     HASHGRID_V1 = HashGridV1(hashgrid_v1_build)
     HASHGRID_QUERY_V1 = HashGridQueryV1(hashgrid_query_v1_build)
@@ -6761,6 +7153,7 @@ def run() -> dict:
     WALK_PROBE = WalkDesign(finish_baseline_build(walk_probe_build, "the walk probe"), "")
     SCATTER_SEG_V1 = ScatterSegV1(scatter_rows_v1_build, integrate_seg_v1_build)
     FEEDBACK_GATHER_V1 = FeedbackGatherV1(scatter_max_v1_build, scatter_back_bwd_v1_build)
+    TRIPLANE_V1 = TriplaneV1(triplane_v1_build)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in str(kernels.BUILD_INFO.get("log", "")).splitlines()
              if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
@@ -6797,6 +7190,9 @@ def run() -> dict:
     t0 = time.perf_counter()
     feedback_gather_info = feedback_gather_phase()
     phases["phase_s"]["feedback and gather"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add_k18_design(phases["kernels"], triplane_design_phase())
+    phases["phase_s"]["K18 beside its first design"] = time.perf_counter() - t0
     print(json.dumps({"kernels": phases["kernels"]}), flush=True)
     for line in phases["lines"]:
         print(json.dumps(line), flush=True)

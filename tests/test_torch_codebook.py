@@ -99,7 +99,8 @@ def _points(n=800, seed=3):
 
 
 def _in_mode(grid, mode):
-    """A JAX grid's copy, or the port's grid itself, in ``mode``."""
+    """A grid in ``mode``: JAX's eval and bake return copies, as the port's bake does; the
+    port's eval switches the grid itself."""
     if mode == "eval":
         return grid.eval()
     if mode == "baked":
@@ -262,6 +263,31 @@ def test_trace_and_grads_match_jax():
     assert np.linalg.norm(np.asarray(jgrads[".nef.grid.dictionary[1]"])) > 0
 
 
+def test_bake_returns_a_copy_as_jax_does():
+    """``bake()`` returns a baked copy, as JAX's does (codebook_grid.py:96-102): the copy's
+    features are JAX's baked indices and it renders as JAX's baked grid; the grid itself
+    keeps its logits bit for bit, stays in training mode and still trains."""
+    jgrid = _jax_grid()
+    jbaked = jgrid.bake()
+    grid = _port_grid(jgrid)
+    before = [f.detach().clone() for f in grid.features]
+    baked = grid.bake()
+    assert baked is not grid and baked.baked and baked.mode == "baked"
+    for got, want in zip(baked.features, jbaked.features):
+        np.testing.assert_array_equal(np_of(got), np.asarray(want))
+        assert not got.requires_grad
+    want, _ = _jax_forward("baked")
+    with torch.no_grad():
+        got = baked.interpolate(torch.from_numpy(_points()), LODS - 1)
+    np.testing.assert_allclose(np_of(got), want[-1], atol=1e-6, rtol=0)
+    assert not grid.baked and grid.mode == "train"
+    assert all(torch.equal(a, b) and a.requires_grad for a, b in zip(grid.features, before))
+    grid.interpolate(torch.from_numpy(_points()), LODS - 1).square().sum().backward()
+    assert all(f.grad is not None and float(f.grad.abs().max()) > 0 for f in grid.features)
+    assert all(d.data_ptr() != e.data_ptr() for d, e in zip(grid.dictionary,
+                                                            baked.dictionary))
+
+
 TINY = ["--device", "cpu", "--dataset.num-views", "2", "--dataset.height", "8",
         "--dataset.width", "8", "--dataset-transform.num-samples", "256",
         "--tracker.tensorboard", "false", "--tracker.run-name", "run"]
@@ -311,7 +337,7 @@ def test_yaml_trains_saves_and_resumes(tmp_path):
     for i in opt["state"]:
         for name, t in opt["state"][i].items():
             assert torch.equal(torch.as_tensor(t), torch.as_tensor(ropt["state"][i][name]))
-    grid.bake()
+    grid = pipeline.nef.grid = grid.bake()
     x = torch.rand((500, 3), generator=torch.Generator().manual_seed(0)) * 2.0 - 1.0
     with torch.no_grad():
         want = grid.interpolate(x, grid.num_lods - 1)

@@ -119,6 +119,16 @@ def test_new_grid_configs_read_back(tmp_path, capsys, config, grid):
     assert config_to_dict(again) == config_to_dict(cfg)
 
 
+def test_nglod_app_refuses_the_triplanar_grid_naming_its_item():
+    """main_nglod's grid union has no TriplanarGrid yet (JAX's app takes it): the front end
+    refuses it with NotImplementedError naming ROADMAP Queue 1, item 7, as the app's
+    docstring promises, not as an unknown constructor."""
+    from wisp_tpu_torch.app.nglod import main_nglod
+    nglod = str(ROOT / "app/nglod/configs/nglod_octree.yaml")
+    with pytest.raises(NotImplementedError, match=r"TriplanarGrid.*Queue 1, item 7"):
+        main_nglod.parse_args(["--config", nglod, "--grid.constructor", "TriplanarGrid"])
+
+
 @pytest.mark.parametrize("args,match", [
     (["--config", OCTREE, "--trainer.save-valid-imgs", "true"], "save_valid_imgs"),
     (["--config", OCTREE, "--tracer.early-stop", "0.01"], "early_stop"),

@@ -384,6 +384,47 @@ def test_integrate_bwd_kernel(dev, r, s, with_depth):
         assert (d.grad - wd).abs().max().item() <= 1e-5 * max(1.0, wd.abs().max().item())
 
 
+@pytest.mark.parametrize("r,s,ce,with_depth", [(200, 77, 5, False), (64, 512, 16, True),
+                                                (33, 40, 1, True), (0, 40, 3, False)])
+def test_integrate_bwd_kernel_with_extra(dev, r, s, ce, with_depth):
+    """K4's backward with extra columns (extra = alpha * sum w*f): the gradients of density,
+    colour and the columns within 1e-5 of the largest entry of autograd through the plain
+    version (float32 sums in another order); through ``integrate``'s autograd too, where a
+    loss on the extra output reaches density, colour and the columns in one launch."""
+    g = torch.Generator(device="cpu").manual_seed(9 + ce)
+    density = (torch.rand(r, s, generator=g) * 20).to(dev)
+    deltas = (torch.rand(r, 1, generator=g) * 0.02).to(dev)
+    depths = torch.rand(r, s, generator=g).cumsum(-1).to(dev)
+    mask = (torch.rand(r, s, generator=g) < 0.5).to(dev)
+    color = torch.rand(r, s, 3, generator=g).to(dev)
+    extra = torch.randn(r, s, ce, generator=g).to(dev)
+    g_rgb = torch.randn(r, 3, generator=g).to(dev)
+    g_alpha = torch.randn(r, 1, generator=g).to(dev)
+    g_depth = torch.randn(r, 1, generator=g).to(dev) if with_depth else None
+    g_extra = torch.randn(r, ce, generator=g).to(dev)
+    bg = (1.0, 0.5, 0.0)
+    got = integrate_bwd(density, deltas, depths, mask, color, bg, g_rgb, g_alpha, g_depth,
+                        extra, g_extra)
+    want = integrate_bwd_plain(density, deltas, depths, mask, color, bg, g_rgb, g_alpha,
+                               g_depth, extra, g_extra)
+    assert [t.shape for t in got] == [(r, s), (r, s, 3), (r, s, ce)]
+    for a, b in zip(got, want):
+        if r:
+            assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item())
+    d, c, e = (t.clone().requires_grad_(True) for t in (density, color, extra))
+    before = kernels.LAUNCHES["integrate_bwd"]
+    out = integrate(d, deltas, depths, mask, c, bg, extra=e, with_depth=with_depth)
+    loss = (out["rgb"] * g_rgb).sum() + (out["alpha"] * g_alpha).sum() \
+        + (out["extra"] * g_extra).sum()
+    if with_depth:
+        loss = loss + (out["depth"] * g_depth).sum()
+    loss.backward()
+    assert kernels.LAUNCHES["integrate_bwd"] == before + 1
+    if r:
+        for t, b in zip((d, c, e), want):
+            assert (t.grad - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item())
+
+
 def _feedback_samples(dev, k, level, seed):
     """k points in [-1.2, 1.2]^3, a quarter on exact cell faces, relu'd densities (the
     field's density column: a [k, 16] buffer's column 0) and a mask."""
@@ -2607,11 +2648,15 @@ def _triplane_coords(n, dev, seed):
 @pytest.mark.parametrize("f_dim,n_lods,out_lods,multiscale,n", [
     (1, 1, 1, "sum", 1000), (2, 2, 2, "cat", 1037), (3, 3, 4, "cat", 999),
     (4, 4, 4, "sum", 4096), (4, 2, 4, "cat", 1), (5, 4, 4, "sum", 777), (6, 1, 3, "cat", 500),
-    (7, 3, 3, "sum", 333), (8, 4, 4, "cat", 2048), (8, 3, 3, "sum", 0)])
+    (7, 3, 3, "sum", 333), (8, 4, 4, "cat", 2048), (8, 3, 3, "sum", 0),
+    (1, 2, 5, "cat", 1), (2, 3, 6, "cat", 0), (3, 2, 3, "cat", 4099), (4, 4, 7, "cat", 3000),
+    (5, 1, 2, "cat", 1), (6, 5, 6, "cat", 129), (7, 2, 4, "cat", 70_000),
+    (8, 4, 6, "cat", 1), (4, 6, 6, "sum", 70_000), (4, 5, 5, "sum", 1)])
 def test_triplane_kernels(dev, f_dim, n_lods, out_lods, multiscale, n):
-    """K18 forward within 1e-6 of its plain version (F 1-8, 1-4 LODs, 'sum' and 'cat'
-    padded past the given LODs, ragged and empty calls), one launch; its backward within
-    1e-5 of the largest entry of the plain one's (the atomics add in no fixed order)."""
+    """K18 forward within 1e-6 of its plain version (F 1-8, 1-6 LODs, 'sum' and 'cat'
+    padded past the given LODs, ragged and empty calls, N = 0 and 1), one launch; its
+    backward within 1e-5 of the largest entry of the plain one's (the atomics add in no
+    fixed order)."""
     from wisp_tpu_torch.ops.triplane import (triplane_sample, triplane_sample_bwd,
                                              triplane_sample_bwd_plain, triplane_sample_plain)
     planes = _triplanes(f_dim, n_lods, dev, seed=60 + f_dim)
@@ -2633,6 +2678,102 @@ def test_triplane_kernels(dev, f_dim, n_lods, out_lods, multiscale, n):
     scale = max(float(b.abs().max()) for b in g_p)
     for a, b in zip(g_k, g_p):
         assert a.shape == b.shape and float((a - b).abs().max()) <= 1e-5 * max(scale, 1e-30)
+
+
+@pytest.fixture(scope="module")
+def triplane_v1():
+    """K18's first design (csrc/baselines/triplane_v1.cu), built beside the library."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import chip_smoke
+    return chip_smoke.TriplaneV1(chip_smoke.start_baseline_build(
+        chip_smoke.TRIPLANE_V1_SRC, "libwisp_triplane_v1.so"))
+
+
+def _yaml_planes(dev, seed):
+    """nerf_triplanar_lego_proxy.yaml's planes: 4 LODs from 2^5, F = 4 (std 0.1)."""
+    g = torch.Generator().manual_seed(seed)
+    return [tuple((torch.randn(2 ** l + 1, 2 ** l + 1, 4, generator=g) * 0.1).to(dev)
+                  for _ in range(3)) for l in range(5, 9)]
+
+
+def _triplane_bwd_shared(widths, f_dim):
+    """K18 backward's shared-LOD counts to hold: none, and 1-2 leading LODs where they fit."""
+    from wisp_tpu_torch.ops.triplane import BWD_SHARED_BYTES
+    counts, total = [0], 0
+    for k, w in enumerate(widths[:2]):
+        total += w * w * f_dim * 4
+        if total <= BWD_SHARED_BYTES:
+            counts.append(k + 1)
+    return counts
+
+
+def _check_triplane(coords, planes, multiscale, out_lods, v1, cot_seed, long_sums=False):
+    """K18 forward bit-equal to its plain version and to its first design; its backward at
+    each option, and the first design's, within 1e-5 of the largest entry of
+    chip_smoke.triplane_bwd_f64 (the plain version's float32 terms summed in float64: a
+    render chunk's coarse rows take ~10^6 adds, whose float32 sums in two orders differ by
+    more than that). With ``long_sums`` (such a chunk) the first design's backward is not
+    held: its single float32 chains of ~10^6 adds a row miss the float64 sum by more than
+    1e-5 of its largest entry, as the plain version's do; the new kernel's warp combine
+    shortens them."""
+    import chip_smoke
+    from wisp_tpu_torch.ops.triplane import _sample_fwd, triplane_sample_bwd, triplane_sample_plain
+    flat = [p for lod in planes for p in lod]
+    got = _sample_fwd(coords, flat, multiscale, out_lods)
+    want = triplane_sample_plain(coords, planes, multiscale, out_lods)
+    assert torch.equal(got, want)
+    assert torch.equal(v1.sample(coords, flat, multiscale, out_lods), want)
+    shapes = [tuple(p.shape) for p in flat]
+    cot = torch.randn(want.shape, generator=torch.Generator().manual_seed(cot_seed)).to(
+        coords.device)
+    del got, want
+    g_p = chip_smoke.triplane_bwd_f64(coords, shapes, multiscale, cot)
+    tol = 1e-5 * max(max(float(b.abs().max()) for b in g_p), 1e-30)
+    widths = [sh[0] for sh in shapes[::3]]
+    for n_shared in _triplane_bwd_shared(widths, shapes[0][2]):
+        g_k = triplane_sample_bwd(coords, shapes, multiscale, cot, n_shared)
+        for a, b in zip(g_k, g_p):
+            assert float((a.double() - b).abs().max()) <= tol, n_shared
+    if not long_sums:
+        for a, b in zip(v1.sample_bwd(coords, shapes, multiscale, cot), g_p):
+            assert float((a.double() - b).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("order,rays", [("train", 512), ("render", 512), ("render", 16_384)])
+def test_triplane_kernels_at_the_yaml_geometry(dev, triplane_v1, order, rays):
+    """K18 at nerf_triplanar_lego_proxy.yaml's planes on batches in both sample orders
+    (chip_smoke.triplane_coords, 512 steps a ray, step-major): a training step's 262,144
+    samples and a render chunk's 8,388,608 (and a render batch of the step's size). The
+    forward bit-equal to the plain version and to the first design; the backward, with and
+    without shared LODs, within 1e-5 of the largest entry of the float64 sum of its terms."""
+    import chip_smoke
+    coords = chip_smoke.triplane_coords(order, rays, 512, dev, seed=72)
+    _check_triplane(coords, _yaml_planes(dev, seed=73), "sum", 4, triplane_v1, cot_seed=74,
+                    long_sums=rays > 512)
+
+
+def test_triplane_kernels_on_borders_and_outside(dev, triplane_v1):
+    """K18 on coordinates exactly on every LOD's cell borders, on the box's faces, and far
+    outside [-1, 1] (the fold's period 4 at +-3, +-5, +-1e3, and the values next to +-1),
+    at the yaml's planes ('sum') and at 3 LODs of F = 6 ('cat' padded to 5): the forward
+    bit-equal to the plain version and to the first design, the backward with and without
+    shared LODs within 1e-5 of the largest entry of the float64 sum of its terms."""
+    rng = np.random.default_rng(75)
+    borders = np.concatenate([-1.0 + 2.0 * np.arange(2 ** l + 1) / 2 ** l for l in range(2, 9)])
+    specials = np.asarray([-1.0, 1.0, np.nextafter(np.float32(1), np.float32(2)),
+                           np.nextafter(np.float32(-1), np.float32(-2)),
+                           np.nextafter(np.float32(1), np.float32(0)), 0.0, -0.0, 3.0, -3.0,
+                           5.0, -5.0, 1e3, -1e3, 2.0, -2.0], np.float32)
+    values = np.concatenate([borders, specials]).astype(np.float32)
+    pts = rng.choice(values, size=(20_000, 3)).astype(np.float32)
+    pts[:5000, 0] = rng.uniform(-1.5, 1.5, 5000)
+    coords = torch.from_numpy(pts).to(dev)
+    _check_triplane(coords, _yaml_planes(dev, seed=76), "sum", 4, triplane_v1, cot_seed=77)
+    g = torch.Generator().manual_seed(78)
+    planes = [tuple(torch.randn(2 ** l + 1, 2 ** l + 1, 6, generator=g).to(dev)
+                    for _ in range(3)) for l in range(2, 5)]
+    _check_triplane(coords, planes, "cat", 5, triplane_v1, cot_seed=79)
 
 
 def test_triplanar_grid_on_the_card(dev):

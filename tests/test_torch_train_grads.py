@@ -99,3 +99,64 @@ def test_trace_gradients_match_jax(carve_seed, compaction):
         assert got is not None, path
         np.testing.assert_allclose(np_of(got), np.asarray(want), atol=TRACE_ATOL, rtol=0,
                                    err_msg=path)
+
+
+def _feat_pair(compaction):
+    """The small JAX pipeline with an extra channel 'feat' [N, 4] (test_torch_render's
+    field) and the port's pipeline with the same weights."""
+    from test_torch_render import JFeatNeRF, TFeatNeRF
+    from test_torch_helpers import NEF_KW
+    jpipe = jax_pipeline(carve_seed=5, compaction=compaction)
+    jpipe = jpipe.replace(nef=JFeatNeRF(grid=jpipe.nef.grid, key=jax.random.PRNGKey(4),
+                                        **NEF_KW))
+    params, config = params_from_jax(jpipe)
+    tpipe = build_pipeline(params, config, device="cpu")
+    tnef = TFeatNeRF(grid=tpipe.nef.grid, device="cpu", **NEF_KW)
+    tnef.load_state_dict(tpipe.nef.state_dict())
+    tpipe.nef = tnef
+    return jpipe, tpipe
+
+
+@pytest.mark.parametrize("compaction", [0.5, 0.0])
+def test_extra_channel_gradients_match_jax(compaction):
+    """A loss on an extra channel (and on rgb) trains the field as JAX's does: the gradient
+    of every parameter through the channel itself and through the weights (the extra
+    output is alpha * sum w*f), against jax.grad of the JAX trace. Before the port passed
+    the extras undetached, the loss on 'feat' reached no parameter."""
+    jpipe, tpipe = _feat_pair(compaction)
+    n_rays = 64
+    jr, tr = both_rays(*ray_arrays(n_rays, seed=12))
+    rng = np.random.default_rng(13)
+    g_feat = rng.normal(size=(n_rays, 4)).astype(np.float32)
+    g_rgb = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    channels = ["rgb", "feat"]
+    spec = TreeSpec(jpipe)
+
+    def jloss(diff):
+        rb = spec.unflatten(diff, spec.nondiff)(rays=jr, channels=channels)
+        return jnp.sum(rb.feat * g_feat) + jnp.sum(rb.rgb * g_rgb)
+
+    jgrads = jax.jit(jax.grad(jloss))(dict(spec.diff))
+    rb = tpipe(rays=tr, channels=channels)
+    ((rb.feat * torch.from_numpy(g_feat)).sum() + (rb.rgb * torch.from_numpy(g_rgb)).sum()
+     ).backward()
+    tgrads = {n: p.grad for n, p in tpipe.named_parameters()}
+    assert set(port_name(k) for k in jgrads) == set(tgrads)
+    for path, want in jgrads.items():
+        got = tgrads[port_name(path)]
+        assert got is not None, path
+        np.testing.assert_allclose(np_of(got), np.asarray(want), atol=TRACE_ATOL, rtol=0,
+                                   err_msg=path)
+    assert max(float(np.abs(np.asarray(w)).max()) for w in jgrads.values()) > 10 * TRACE_ATOL
+
+
+def test_segmented_trace_refuses_extra_channel_gradients():
+    """The segmented trace does not differentiate extra channels (ROADMAP Queue 3): it
+    raises where a gradient would need them, and renders them without one."""
+    _, tpipe = _feat_pair(0.5)
+    _, tr = both_rays(*ray_arrays(32, seed=14))
+    kw = dict(rays=tr, channels=["rgb", "feat"], seg_early_stop=1e-3, seg_count=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
+        tpipe(**kw)
+    with torch.no_grad():
+        assert tpipe(**kw).feat.shape == (32, 4)

@@ -16,6 +16,9 @@ rays come from numpy seeds, and JAX's results are jitted and shared at module sc
   of 8x8, 256 rays a batch): two steps, a ``save_model`` -> ``--pretrained`` round trip and
   a ``resume`` that restore the planes and the optimizer bit for bit.
 * ``AxisAlignedBBoxAS`` (its level-0 'ray' march) and ``HashGrid.from_octree`` against JAX.
+* K18's library yardstick (``chip_smoke.triplane_library``: ``F.grid_sample`` with
+  reflection padding at the negated coordinates, one call a (LOD, plane)) against the
+  plain version, forward and the planes' gradient, at the yaml's planes.
 """
 
 import functools
@@ -274,3 +277,32 @@ def test_hash_grid_from_octree_matches_jax():
     want = jax.jit(lambda g, c: g.interpolate(c, 2))(jgrid, jnp.asarray(x))
     np.testing.assert_allclose(np_of(grid.interpolate(torch.from_numpy(x), 2)),
                                np.asarray(want), atol=1e-6, rtol=0)
+
+
+def test_grid_sample_sequence_is_the_triplane_sample():
+    """K18's library yardstick computes the plain version's function: at the yaml's planes
+    (4 LODs from 2^5, F = 4, its init std 0.01, 'sum') and seeded points inside and outside
+    [-1, 1] (both sides of the fold, period 4), each plane permuted to [1, F, W, W] and
+    ``F.grid_sample(plane, -coords, 'bilinear', 'reflection', align_corners=True)`` a
+    (LOD, plane), summed over the LODs, is within 1e-5 of ``triplane_sample_plain``, and so
+    is its planes' gradient (within 1e-5 of the largest entry): the two compute the corner
+    coordinates in other orders, so they agree up to rounding, not bit for bit."""
+    import chip_smoke
+    from wisp_tpu_torch.ops.triplane import triplane_sample_plain
+    rng = np.random.default_rng(80)
+    flat = [torch.from_numpy((0.01 * rng.normal(size=(2 ** l + 1, 2 ** l + 1, 4)))
+                             .astype(np.float32)).requires_grad_(True)
+            for l in range(5, 9) for _ in range(3)]
+    coords = torch.from_numpy(rng.uniform(-1.7, 1.7, (5000, 3)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(5000, 12)).astype(np.float32))
+    planes = [tuple(flat[3 * i:3 * i + 3]) for i in range(4)]
+    want = triplane_sample_plain(coords, planes, "sum", 4)
+    want_grads = torch.autograd.grad(want, flat, cot)
+    permuted = [p.permute(2, 0, 1)[None] for p in flat]
+    got = chip_smoke.triplane_library(coords, permuted, "sum")
+    got_grads = torch.autograd.grad(got, flat, cot)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float(want.abs().max()) > 0.01
+    scale = max(float(g.abs().max()) for g in want_grads)
+    for a, b in zip(got_grads, want_grads):
+        assert float((a - b).abs().max()) <= 1e-5 * scale

@@ -18,7 +18,10 @@
 // K4 (backward) — the autodiff of the same compositing. With gw_i = g_rgb.c_i +
 // (g_alpha - g_rgb.bg) + g_depth*t_i (the cotangent of w_i) and T_i = exp(-sum_prev_i):
 // dL/dtau_i = T_i*exp(-tau_i)*gw_i - sum_{k>i} w_k*gw_k, dL/ddensity_i = dL/dtau_i*delta*m_i
-// and dL/dcolor_i = w_i*g_rgb. JAX differentiates the inclusive-sum-minus-tau form, whose
+// and dL/dcolor_i = w_i*g_rgb; with extra columns (extra_out = alpha * E, E = sum_i w_i
+// f_i) gw_i also gains g_e.(E + alpha f_i) and dL/df_i = alpha*w_i*g_e, alpha and E summed
+// in the first pass (a kernel instance of its own, so that the main path, which has no
+// extras, runs none of that code). JAX differentiates the inclusive-sum-minus-tau form, whose
 // gradient equals this one in exact arithmetic but not in rounding. Bound on this card:
 // bytes (it reads what the forward reads, plus 16 bytes a ray of cotangents, and writes
 // 16 bytes a sample) at ~40 flops a sample. Design: one warp per ray, two passes over the
@@ -264,21 +267,28 @@ constexpr int kBwdWarps = 8;  // warps (rays) per block of the backward
 
 // kSeg: the segment form (K6c): A = acc_tau[r] inside the exponent, g_acc (may be null:
 // zero) added to every dL/dtau_i, dL/dA written to grad_acc; bg is unused (zero).
-template <bool kSeg>
+// kExtra (K4 only): the Ce extra columns f_i [R,S,Ce] with their cotangent g_e [R,Ce] of
+// extra_out = alpha * E, E = sum_i w_i f_i. Pass 1 then also sums alpha and E; the
+// cotangent of w_i gains sum_k g_ek (E_k + alpha f_ik) (g_e.E joins the ray's constant
+// term), and grad_extra_i = alpha * w_i * g_e.
+template <bool kSeg, bool kExtra>
 __global__ void integrate_bwd_kernel(const float* __restrict__ density,
                                      const float* __restrict__ deltas,
                                      const float* __restrict__ depths,
                                      const uint8_t* __restrict__ mask,
                                      const float* __restrict__ color,
+                                     const float* __restrict__ extra, int Ce,
                                      const float* __restrict__ acc_tau, int R, int S,
                                      float bg0, float bg1, float bg2,
                                      const float* __restrict__ g_rgb,
                                      const float* __restrict__ g_alpha,
                                      const float* __restrict__ g_depth,
                                      const float* __restrict__ g_acc,
+                                     const float* __restrict__ g_extra,
                                      float* __restrict__ grad_density,
                                      float* __restrict__ grad_color,
-                                     float* __restrict__ grad_acc) {
+                                     float* __restrict__ grad_acc,
+                                     float* __restrict__ grad_extra) {
   extern __shared__ float chunk_start[];  // [kBwdWarps][nchunks] optical depth
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
@@ -292,11 +302,20 @@ __global__ void integrate_bwd_kernel(const float* __restrict__ density,
   const float gr2 = g_rgb != nullptr ? g_rgb[3 * r + 2] : 0.0f;
   const float ga = g_alpha != nullptr ? g_alpha[r] : 0.0f;
   const float gd = g_depth != nullptr ? g_depth[r] : 0.0f;
-  const float g_const = kSeg ? ga : ga - (gr0 * bg0 + gr1 * bg1 + gr2 * bg2);
+  float g_const = kSeg ? ga : ga - (gr0 * bg0 + gr1 * bg1 + gr2 * bg2);
   const float A = kSeg ? acc_tau[r] : 0.0f;
   const float gacc = (kSeg && g_acc != nullptr) ? g_acc[r] : 0.0f;
+  float ge[kMaxExtra], ex[kMaxExtra];
+  float alpha_x = 0.0f;
+  if (kExtra) {
+#pragma unroll
+    for (int k = 0; k < kMaxExtra; ++k) {
+      ge[k] = k < Ce ? g_extra[r * Ce + k] : 0.0f;
+      ex[k] = 0.0f;
+    }
+  }
 
-  // pass 1: the optical depth before each chunk
+  // pass 1: the optical depth before each chunk (and, with extras, alpha and E)
   float carry = 0.0f;
   for (int ci = 0; ci < nchunks; ++ci) {
     const int s = ci * 32 + lane;
@@ -310,9 +329,22 @@ __global__ void integrate_bwd_kernel(const float* __restrict__ density,
       if (lane >= off) incl += y;
     }
     if (lane == 0) starts[ci] = carry;
+    if (kExtra && s < S) {
+      const float w = expf(-((incl + carry) - tau)) * (1.0f - expf(-tau));
+      alpha_x += w;
+#pragma unroll
+      for (int k = 0; k < kMaxExtra; ++k)
+        if (k < Ce) ex[k] += w * extra[o * Ce + k];
+    }
     carry += __shfl_sync(wisp::kFullMask, incl, 31);
   }
   __syncwarp();
+  if (kExtra) {
+    alpha_x = warp_sum(alpha_x);
+#pragma unroll
+    for (int k = 0; k < kMaxExtra; ++k)
+      if (k < Ce) g_const += ge[k] * warp_sum(ex[k]);
+  }
 
   // pass 2: chunks in reverse, suffix sums of w*gw carried from the later chunks
   float later = 0.0f;
@@ -337,6 +369,17 @@ __global__ void integrate_bwd_kernel(const float* __restrict__ density,
       const float c0 = color[3 * o], c1 = color[3 * o + 1], c2 = color[3 * o + 2];
       gw = gr0 * c0 + gr1 * c1 + gr2 * c2 + g_const;
       if (g_depth != nullptr) gw += gd * depths[o];
+      if (kExtra) {
+        float xf = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kMaxExtra; ++k) {
+          if (k < Ce) {
+            xf += ge[k] * extra[o * Ce + k];
+            grad_extra[o * Ce + k] = alpha_x * w * ge[k];
+          }
+        }
+        gw += alpha_x * xf;
+      }
       b = w * gw;
       grad_color[3 * o] = w * gr0;
       grad_color[3 * o + 1] = w * gr1;
@@ -364,21 +407,39 @@ __global__ void integrate_bwd_kernel(const float* __restrict__ density,
 
 // g_rgb [R,3], g_alpha [R], g_depth [R] (each may be null: a zero cotangent; depths may
 // be null when g_depth is); grad_density [R,S] and grad_color [R,S,3] are written whole.
+// extra [R,S,Ce] and g_extra [R,Ce], the extra columns and their cotangent, with
+// grad_extra [R,S,Ce] written whole: all three null (Ce = 0) for none.
 WISP_EXPORT int wisp_integrate_bwd(const float* density, const float* deltas,
                                    const float* depths, const uint8_t* mask,
-                                   const float* color, int R, int S, float bg0, float bg1,
-                                   float bg2, const float* g_rgb, const float* g_alpha,
-                                   const float* g_depth, float* grad_density,
-                                   float* grad_color, void* stream) {
+                                   const float* color, const float* extra, int R, int S,
+                                   int Ce, float bg0, float bg1, float bg2, const float* g_rgb,
+                                   const float* g_alpha, const float* g_depth,
+                                   const float* g_extra, float* grad_density,
+                                   float* grad_color, float* grad_extra, void* stream) {
   if (g_depth != nullptr && depths == nullptr) return (int)cudaErrorInvalidValue;
+  if (Ce < 0 || Ce > kMaxExtra) return (int)cudaErrorInvalidValue;
+  const bool with_extra = Ce > 0;
+  if ((long long)R * S > 0 &&
+      (with_extra != (extra != nullptr) || with_extra != (g_extra != nullptr) ||
+       with_extra != (grad_extra != nullptr)))
+    return (int)cudaErrorInvalidValue;
   const int nchunks = (S + 31) / 32;
   const size_t smem = (size_t)kBwdWarps * nchunks * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   if ((long long)R * S > 0) {
-    integrate_bwd_kernel<false><<<wisp::ceil_div(R, kBwdWarps), kBwdWarps * 32, smem,
-                                  (cudaStream_t)stream>>>(
-        density, deltas, depths, mask, color, nullptr, R, S, bg0, bg1, bg2, g_rgb, g_alpha,
-        g_depth, nullptr, grad_density, grad_color, nullptr);
+    const unsigned blocks = wisp::ceil_div(R, kBwdWarps);
+    if (with_extra)
+      integrate_bwd_kernel<false, true><<<blocks, kBwdWarps * 32, smem,
+                                          (cudaStream_t)stream>>>(
+          density, deltas, depths, mask, color, extra, Ce, nullptr, R, S, bg0, bg1, bg2,
+          g_rgb, g_alpha, g_depth, nullptr, g_extra, grad_density, grad_color, nullptr,
+          grad_extra);
+    else
+      integrate_bwd_kernel<false, false><<<blocks, kBwdWarps * 32, smem,
+                                           (cudaStream_t)stream>>>(
+          density, deltas, depths, mask, color, nullptr, 0, nullptr, R, S, bg0, bg1, bg2,
+          g_rgb, g_alpha, g_depth, nullptr, nullptr, grad_density, grad_color, nullptr,
+          nullptr);
   }
   return (int)cudaGetLastError();
 }
@@ -444,10 +505,10 @@ WISP_EXPORT int wisp_integrate_seg_bwd(const float* density, const float* deltas
   const size_t smem = (size_t)kBwdWarps * nchunks * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   if (R > 0) {
-    integrate_bwd_kernel<true><<<wisp::ceil_div(R, kBwdWarps), kBwdWarps * 32, smem,
-                                 (cudaStream_t)stream>>>(
-        density, deltas, depths, mask, color, acc_tau, R, S, 0.0f, 0.0f, 0.0f, g_rgb,
-        g_alpha, g_depth, g_acc, grad_density, grad_color, grad_acc);
+    integrate_bwd_kernel<true, false><<<wisp::ceil_div(R, kBwdWarps), kBwdWarps * 32, smem,
+                                        (cudaStream_t)stream>>>(
+        density, deltas, depths, mask, color, nullptr, 0, acc_tau, R, S, 0.0f, 0.0f, 0.0f,
+        g_rgb, g_alpha, g_depth, g_acc, nullptr, grad_density, grad_color, grad_acc, nullptr);
   }
   return (int)cudaGetLastError();
 }

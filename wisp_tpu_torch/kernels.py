@@ -79,9 +79,10 @@ _SIGNATURES = {
     # extra_out stream
     "wisp_integrate_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P,
                            _P, _P],
-    # density deltas depths mask color R S bg0 bg1 bg2 g_rgb g_alpha g_depth grad_density
-    # grad_color stream
-    "wisp_integrate_bwd": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
+    # density deltas depths mask color extra R S Ce bg0 bg1 bg2 g_rgb g_alpha g_depth g_extra
+    # grad_density grad_color grad_extra stream
+    "wisp_integrate_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P,
+                           _P, _P, _P],
     # density deltas depths mask color extra acc_tau R S Ce rgb alpha depth extra_out acc_out
     # stream
     "wisp_integrate_seg_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -133,8 +134,8 @@ _SIGNATURES = {
                             _P],
     # coords N n_lods out_lods F planes (host struct) sum vec out stream
     "wisp_triplane_fwd": [_P, _L, _I, _I, _I, _P, _I, _I, _P, _P],
-    # coords N n_lods out_lods F grads (host struct) sum vec grad_out stream
-    "wisp_triplane_bwd": [_P, _L, _I, _I, _I, _P, _I, _I, _P, _P],
+    # coords N n_lods out_lods F grads (host struct) sum vec grad_out n_shared stream
+    "wisp_triplane_bwd": [_P, _L, _I, _I, _I, _P, _I, _I, _P, _I, _P],
     # n_lods K F mode lods (host struct) stream
     "wisp_codebook_resolve": [_I, _I, _I, _I, _P, _P],
     # n_lods K F mode shared lods (host struct) stream

@@ -11,8 +11,9 @@ call (K19, ``ops/codebook.py codebook_resolve``) in one of JAX's three modes:
   a the argmax of softmax(logits) and c = (1 - s_a) + s_a; gradients reach the logits
   through the softmax and the dictionary through its chosen rows;
 * eval (``eval()``, torch's own switch of ``training``): E = D[argmax(logits)];
-* baked (``bake()``): the logits collapse, in place, to their argmax as float indices
-  [V_i] that no longer train; E = D[index].
+* baked (``bake()``, which returns a baked copy and leaves the grid training, as JAX's):
+  the copy's logits are collapsed to their argmax as float indices [V_i] that no longer
+  train; E = D[index].
 
 ``OctreeGrid``'s 'linear' fused query (``octree_query_interp``) and 'closest' gather then
 read E where an octree grid reads its features (``feature_tables``). E lives in a buffer
@@ -24,6 +25,7 @@ the reference kept for parity, ROADMAP Queue 3).
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional
 
 import numpy as np
@@ -99,13 +101,20 @@ class CodebookOctreeGrid(OctreeGrid):
         return self
 
     def bake(self) -> "CodebookOctreeGrid":
-        """Collapse each LOD's logits to their argmax, as float indices [V_i] that no longer
-        train (in place; returns the grid)."""
-        self.features = nn.ParameterList([
-            nn.Parameter(torch.argmax(f.detach(), dim=-1).to(torch.float32),
-                         requires_grad=False) for f in self.features])
-        self.baked = True
-        return self
+        """A baked copy of the grid (JAX's ``bake``, codebook_grid.py:96-102): each LOD's
+        logits collapsed to their argmax, as float indices [V_i] that no longer train; the
+        copy's other tables are copies of the grid's at this call. The grid itself is left
+        as it is, and trains on."""
+        features = [nn.Parameter(torch.argmax(f.detach(), dim=-1).to(torch.float32),
+                                 requires_grad=False) for f in self.features]
+        logits, self.features = self.features, nn.ParameterList()
+        try:
+            new = copy.deepcopy(self)
+        finally:
+            self.features = logits
+        new.features = nn.ParameterList(features)
+        new.baked = True
+        return new
 
     def __getstate__(self):
         state = dict(super().__getstate__())

@@ -6,10 +6,10 @@ computes it); w = exp(-sum_prev)*(1-exp(-tau)); rgb = bg*(1-alpha) + sum w*c; al
 depth = sum w*t; hit = alpha > 0; each extra channel alpha * sum w*f. On a CUDA tensor
 ``integrate`` launches ``csrc/integrate.cu``, on a CPU tensor it runs ``integrate_plain``.
 
-``integrate`` is differentiable in density and colour: on the card its backward is K4
-backward (``integrate_bwd``), on the CPU autograd through the plain version. Extra channels
-take no gradient (training asks for rgb and alpha only): the call raises if one would need
-it.
+``integrate`` is differentiable in density, colour and the extra channels (each extra
+output alpha * sum w*f passes its cotangent to the weights, so to density, and to f): on
+the card its backward is K4 backward (``integrate_bwd``, with the extra columns where the
+call has them), on the CPU autograd through the plain version.
 
 ``integrate_segment`` is one depth segment of the segmented trace (K6b forward, K6c
 backward; packed_rf_tracer.py _trace_segmented :362-375, :385): the same compositing with
@@ -17,7 +17,8 @@ the optical depth ``acc_tau`` [R] of the segments before carried into the expone
 w = exp(-(acc_tau + sum_prev))*(1-exp(-tau)). It returns the segment's partial sums (rgb
 without background, alpha, depth, extra columns not scaled by alpha) and ``acc_tau`` plus
 the segment's optical depth, and is differentiable in density, colour and ``acc_tau``, so
-that autograd chains the segments.
+that autograd chains the segments; the extra columns take no gradient there (ROADMAP
+Queue 3): the call raises where one would need it.
 """
 
 from __future__ import annotations
@@ -84,31 +85,38 @@ def _integrate_fwd(density, deltas, depths, mask, color, bg_color, extra, with_d
 
 
 def integrate_bwd_plain(density, deltas, depths, mask, color, bg_color, g_rgb,
-                        g_alpha=None, g_depth=None):
+                        g_alpha=None, g_depth=None, extra=None, g_extra=None):
     """Plain PyTorch version of ``integrate_bwd``: autograd through ``integrate_plain``."""
     with torch.enable_grad():
         d = density.detach().requires_grad_(True)
         c = color.detach().requires_grad_(True)
-        out = integrate_plain(d, deltas, depths, mask, c, bg_color,
+        e = None if extra is None else extra.detach().requires_grad_(True)
+        out = integrate_plain(d, deltas, depths, mask, c, bg_color, e,
                               with_depth=g_depth is not None)
         outs, grads = [], []
-        for name, g in (("rgb", g_rgb), ("alpha", g_alpha), ("depth", g_depth)):
+        for name, g in (("rgb", g_rgb), ("alpha", g_alpha), ("depth", g_depth),
+                        ("extra", g_extra)):
             if g is not None:
                 outs.append(out[name])
-                grads.append(g)
-        gd, gc = torch.autograd.grad(outs, (d, c), grads, allow_unused=True)
-    return (torch.zeros_like(density) if gd is None else gd,
-            torch.zeros_like(color) if gc is None else gc)
+                grads.append(g.reshape(out[name].shape))
+        inputs = (d, c) if e is None else (d, c, e)
+        got = torch.autograd.grad(outs, inputs, grads, allow_unused=True)
+    got = tuple(torch.zeros_like(t) if g is None else g for g, t in zip(got, inputs))
+    return got
 
 
 def integrate_bwd(density, deltas, depths, mask, color, bg_color, g_rgb,
-                  g_alpha=None, g_depth=None):
+                  g_alpha=None, g_depth=None, extra=None, g_extra=None):
     """K4 backward: the gradients of density [R, S] and colour [R, S, 3] from the
-    cotangents of rgb [R, 3], alpha [R, 1] and depth [R, 1] (each may be None: zero). The
-    kernel on the card, the plain version on the CPU."""
+    cotangents of rgb [R, 3], alpha [R, 1] and depth [R, 1] (each may be None: zero); with
+    ``extra`` [R, S, Ce] and its output's cotangent ``g_extra`` [R, Ce] (both or neither),
+    also the gradient of ``extra``, and the extra output's share in density's. The kernel
+    on the card, the plain version on the CPU."""
+    if (extra is None) != (g_extra is None):
+        raise ValueError("integrate_bwd: extra and g_extra go together")
     if not density.is_cuda:
         return integrate_bwd_plain(density, deltas, depths, mask, color, bg_color, g_rgb,
-                                   g_alpha, g_depth)
+                                   g_alpha, g_depth, extra, g_extra)
     r, s = density.shape
     deltas = deltas.reshape(-1)
     kernels.check(density, "density", torch.float32, (r, s))
@@ -116,9 +124,15 @@ def integrate_bwd(density, deltas, depths, mask, color, bg_color, g_rgb,
     kernels.check(depths, "depths", torch.float32, (r, s))
     kernels.check(mask, "mask", torch.bool, (r, s))
     kernels.check(color, "color", torch.float32, (r, s, 3))
+    ce = 0
+    if extra is not None:
+        ce = extra.shape[-1]
+        kernels.check(extra, "extra", torch.float32, (r, s, ce))
+        if not 0 < ce <= MAX_EXTRA:
+            raise ValueError(f"integrate_bwd: 1..{MAX_EXTRA} extra columns, got {ce}")
     gs = []
     for name, g, width in (("g_rgb", g_rgb, 3), ("g_alpha", g_alpha, 1),
-                           ("g_depth", g_depth, 1)):
+                           ("g_depth", g_depth, 1), ("g_extra", g_extra, ce)):
         if g is not None:
             g = g.reshape(r, width).contiguous()
             kernels.check(g, name, torch.float32, (r, width))
@@ -129,35 +143,45 @@ def integrate_bwd(density, deltas, depths, mask, color, bg_color, g_rgb,
         raise ValueError(f"integrate_bwd: at most 8192 steps a ray, got {s}")
     grad_density = torch.empty((r, s), dtype=torch.float32, device=density.device)
     grad_color = torch.empty((r, s, 3), dtype=torch.float32, device=density.device)
+    grad_extra = None if extra is None else torch.empty_like(extra)
     kernels.launch("wisp_integrate_bwd", "integrate_bwd", density.data_ptr(),
                    deltas.data_ptr(), depths.data_ptr(), mask.data_ptr(), color.data_ptr(),
-                   r, s, *(float(b) for b in bg_color), *(kernels.ptr(g) for g in gs),
-                   grad_density.data_ptr(), grad_color.data_ptr())
-    return grad_density, grad_color
+                   kernels.ptr(extra), r, s, ce, *(float(b) for b in bg_color),
+                   *(kernels.ptr(g) for g in gs), grad_density.data_ptr(),
+                   grad_color.data_ptr(), kernels.ptr(grad_extra))
+    if extra is None:
+        return grad_density, grad_color
+    return grad_density, grad_color, grad_extra
 
 
 class _IntegrateFn(torch.autograd.Function):
-    """K4 forward with K4 backward as the gradient of density and colour (extra channels,
-    hit: none)."""
+    """K4 forward with K4 backward as the gradient of density, colour and the extra
+    channels (hit: none)."""
 
     @staticmethod
     def forward(ctx, density, color, deltas, depths, mask, bg_color, extra, with_depth):
         out = _integrate_fwd(density, deltas, depths, mask, color, bg_color, extra,
                              with_depth)
-        ctx.save_for_backward(density, color, deltas, depths, mask)
+        ctx.save_for_backward(density, color, deltas, depths, mask, extra)
         ctx.bg_color = bg_color
         ctx.keys = tuple(out)
-        ctx.mark_non_differentiable(*(out[k] for k in ("hit", "extra") if k in out))
+        ctx.mark_non_differentiable(out["hit"])
         ctx.set_materialize_grads(False)
         return tuple(out.values())
 
     @staticmethod
     def backward(ctx, *grads):
-        density, color, deltas, depths, mask = ctx.saved_tensors
+        density, color, deltas, depths, mask, extra = ctx.saved_tensors
         g = dict(zip(ctx.keys, grads))
-        gd, gc = integrate_bwd(density, deltas, depths, mask, color, ctx.bg_color,
-                               g.get("rgb"), g.get("alpha"), g.get("depth"))
-        return gd, gc, None, None, None, None, None, None
+        g_extra = g.get("extra")
+        if g_extra is None:
+            extra = None
+        elif extra is not None:
+            g_extra = g_extra.contiguous()
+        got = integrate_bwd(density, deltas, depths, mask, color, ctx.bg_color, g.get("rgb"),
+                            g.get("alpha"), g.get("depth"), extra, g_extra)
+        ge = got[2] if len(got) > 2 else None
+        return got[0], got[1], None, None, None, None, ge, None
 
 
 def integrate(density: torch.Tensor, deltas: torch.Tensor, depths: torch.Tensor,
@@ -167,10 +191,7 @@ def integrate(density: torch.Tensor, deltas: torch.Tensor, depths: torch.Tensor,
     """Composite per-sample density [R, S], colour [R, S, 3] and optional extra channels
     [R, S, Ce] along each ray; ``deltas`` is the per-ray step [R] or [R, 1]. Returns rgb
     [R, 3], alpha [R, 1], hit [R, 1] bool, depth [R, 1] (if ``with_depth``) and extra
-    [R, Ce] (if given). Differentiable in density and colour, not in ``extra``."""
-    if extra is not None and extra.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("integrate: extra channels take no gradient (not ported); "
-                                  "pass them detached")
+    [R, Ce] (if given). Differentiable in density, colour and ``extra``."""
     if not density.is_cuda:
         return integrate_plain(density, deltas, depths, mask, color, bg_color, extra,
                                with_depth)
@@ -325,8 +346,9 @@ def integrate_segment(density: torch.Tensor, deltas: torch.Tensor, depths: torch
     ``with_depth``) and the extra columns' partial sums [R, Ce] (if given). Differentiable
     in density, colour and ``acc_tau``, not in ``extra``."""
     if extra is not None and extra.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("integrate_segment: extra channels take no gradient (not "
-                                  "ported); pass them detached")
+        raise NotImplementedError("integrate_segment: extra channels take no gradient in the "
+                                  "segmented trace (not ported, ROADMAP Queue 3); pass them "
+                                  "detached")
     if not density.is_cuda:
         return integrate_segment_plain(density, deltas, depths, mask, color, acc_tau, extra,
                                        with_depth)

@@ -7,17 +7,22 @@ A LOD holds three planes [W, W, F] (W = 2^l + 1): ``fmx`` sampled at (y, z), ``f
 (x, z), ``fmz`` at (x, y), the first coordinate of each pair along the plane's width. Both
 coordinates are folded into [-1, 1] by JAX's ``_reflect``, |mod(x + 1, 4) - 2| - 1 with the
 floor semantics of ``jnp.mod``: inside [-1, 1] it maps x to -x, so every plane is sampled at
-negated coordinates (a fold the port keeps for parity; it is not ``grid_sample``'s
-reflection padding, which is the identity there). Then x = (u + 1) * 0.5 * (W - 1), the
-corners floor(x) clipped to [0, W - 1] and min(x0 + 1, W - 1), and the blend
-p00 (1-fx)(1-fy) + p01 fx(1-fy) + p10 (1-fx) fy + p11 fx fy, in JAX's order.
+negated coordinates (a fold the port keeps for parity). Outside [-1, 1] it reflects with
+period 4, as ``grid_sample``'s reflection padding does, so one library sequence computes
+the same function up to rounding: each plane permuted to [1, F, W, W] and
+``F.grid_sample(plane, -coords, 'bilinear', 'reflection', align_corners=True)``, one call
+a (LOD, plane), summed over the LODs (``chip_smoke.py`` times it as K18's yardstick; the
+port does not call it). Then x = (u + 1) * 0.5 * (W - 1), the corners floor(x) clipped to
+[0, W - 1] and min(x0 + 1, W - 1), and the blend p00 (1-fx)(1-fy) + p01 fx(1-fy) + p10
+(1-fx) fy + p11 fx fy, in JAX's order.
 
 ``triplane_sample`` is the entry point: on a CPU tensor it runs ``triplane_sample_plain``
 (PyTorch's autograd gives the planes' gradient); on a CUDA tensor it launches K18's
 forward (``csrc/triplane.cu``) and, where a plane needs a gradient, goes through an
 ``autograd.Function`` whose backward launches K18's backward (``triplane_sample_bwd``).
 The gradient with respect to the coordinates is not ported: asking for it on the card
-raises (a NeRF's triplanar grid takes none, ``position_input: false``).
+raises (a NeRF's triplanar grid takes none, ``position_input: false``). A host rule picks
+the coarse LODs the backward kernel sums in shared memory (``bwd_shared_lods``).
 """
 
 from __future__ import annotations
@@ -30,6 +35,11 @@ import torch
 from wisp_tpu_torch import kernels
 
 MAX_LODS = 16  # LOD slots in the kernels' argument block (csrc/triplane.cu kMaxLods)
+MAX_PLANE_FLOATS = 2 ** 31 - 1  # a plane's W^2 F floats are indexed with an int
+# bwd_shared_lods: the leading LODs of one plane summed in shared memory, while they take at
+# most this many bytes together and their rows take at least this many adds on average
+BWD_SHARED_BYTES = 100 * 1024
+BWD_SHARED_MIN_ADDS = 64
 
 Planes = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
@@ -104,6 +114,9 @@ def _plane_block(tensors: Sequence[torch.Tensor], f_dim: int) -> _Planes:
     for i, t in enumerate(tensors):
         w = t.shape[0]
         kernels.check(t, f"planes[{i}]", torch.float32, (w, w, f_dim))
+        if w * w * f_dim > MAX_PLANE_FLOATS:
+            raise ValueError(f"triplane: a plane of {w} x {w} x {f_dim} floats is too large "
+                             f"(at most {MAX_PLANE_FLOATS})")
         if i % 3:
             if w != block.w[i // 3]:
                 raise ValueError(f"triplane: the planes of LOD {i // 3} differ in size")
@@ -111,6 +124,19 @@ def _plane_block(tensors: Sequence[torch.Tensor], f_dim: int) -> _Planes:
             block.w[i // 3] = w
         block.p[i] = t.data_ptr()
     return block
+
+
+def bwd_shared_lods(n: int, widths: Sequence[int], f_dim: int) -> int:
+    """The leading LODs whose plane gradients K18's backward sums in each block's shared
+    memory (one plane a block): while they fit ``BWD_SHARED_BYTES`` together and their
+    rows take at least ``BWD_SHARED_MIN_ADDS`` adds a call on average (4 corners a point)."""
+    k, total = 0, 0
+    for w in widths:
+        total += w * w * f_dim * 4
+        if total > BWD_SHARED_BYTES or 4 * n < BWD_SHARED_MIN_ADDS * w * w:
+            break
+        k += 1
+    return k
 
 
 def _check(coords, n_lods, multiscale_type, out_lods):
@@ -137,12 +163,14 @@ def _sample_fwd(coords, flat_planes, multiscale_type, out_lods):
 
 
 def triplane_sample_bwd(coords: torch.Tensor, shapes: Sequence[Tuple[int, int, int]],
-                        multiscale_type: str, grad_out: torch.Tensor) -> List[torch.Tensor]:
+                        multiscale_type: str, grad_out: torch.Tensor,
+                        n_shared: Optional[int] = None) -> List[torch.Tensor]:
     """The planes' gradient of ``triplane_sample`` (K18 backward) for the cotangent
     ``grad_out`` ([N, 3F] for 'sum', [N, 3F * out_lods] for 'cat'): one [W, W, F] float32
     table a plane, in the order of ``shapes`` (fmx, fmy, fmz a LOD), each row the sum over
     points of w_c * g. On the card the tables are views of one buffer that one fill
-    zeroes; the kernel adds with atomics, in no fixed order."""
+    zeroes; the kernel adds with atomics, in no fixed order. ``n_shared``: the leading
+    LODs the kernel sums in shared memory first (None takes ``bwd_shared_lods``)."""
     if not coords.is_cuda:
         return triplane_sample_bwd_plain(coords, shapes, multiscale_type, grad_out)
     n, n_lods, f_dim = coords.shape[0], len(shapes) // 3, shapes[0][2]
@@ -155,9 +183,11 @@ def triplane_sample_bwd(coords: torch.Tensor, shapes: Sequence[Tuple[int, int, i
     if n:
         block = _plane_block(grads, f_dim)
         vec = kernels.vector_width(f_dim, [g.data_ptr() for g in grads] + [grad_out.data_ptr()])
+        if n_shared is None:
+            n_shared = bwd_shared_lods(n, [sh[0] for sh in shapes[::3]], f_dim)
         kernels.launch("wisp_triplane_bwd", "triplane_bwd", coords.data_ptr(), n, n_lods,
                        max(out_lods, n_lods), f_dim, ctypes.addressof(block),
-                       int(multiscale_type == "sum"), vec, grad_out.data_ptr())
+                       int(multiscale_type == "sum"), vec, grad_out.data_ptr(), int(n_shared))
     return grads
 
 

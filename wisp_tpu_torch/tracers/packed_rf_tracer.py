@@ -10,7 +10,9 @@ unchanged (empty slots are dropped by the scatter-back) at the cost of one read 
 valid count per trace.
 
 ``trace`` builds an autograd graph when gradients are enabled: the backward runs K4
-backward, the scatter-back's one gather of colour and density and K1 backward. Rendering
+backward, the scatter-back's one gather of colour and density and K1 backward. Extra
+channels are differentiable as in JAX (K4's backward with their columns); the segmented
+trace refuses to differentiate them (ROADMAP Queue 3). Rendering
 wraps its calls in ``torch.no_grad``. ``key`` (a ``torch.Generator``, or the jitter [R, S]
 itself) jitters the march depths; ``density_feedback`` adds ``density_max_grid``, the
 per-cell max of the kept samples' densities (K5, the cell lookup inside its launch).
@@ -181,9 +183,9 @@ class PackedRFTracer(BaseTracer):
 
         extra = None
         if extra_channels:
-            # extra channels are integrated without a gradient (training asks for none)
-            extra = torch.cat([back(out[ch].detach()) for ch in sorted(extra_channels)],
-                              dim=-1)
+            # differentiable, as JAX's: a loss on an extra channel reaches the field through
+            # the channel and through the weights (K4's backward with extra columns)
+            extra = torch.cat([back(out[ch]) for ch in sorted(extra_channels)], dim=-1)
         res = integrate(density, mr.deltas, depths, mask, color, bg_color,
                         extra=None if extra is None else extra.contiguous(),
                         with_depth="depth" in channels)
@@ -256,8 +258,13 @@ class PackedRFTracer(BaseTracer):
 
             extra = None
             if extra_names:
-                extra = torch.cat([back(out[ch].detach()) for ch in extra_names],
-                                  dim=-1).contiguous()
+                if torch.is_grad_enabled() and any(out[k].requires_grad
+                                                   for k in ["density", *extra_names]):
+                    raise NotImplementedError(
+                        "the segmented trace (seg_early_stop > 0) does not differentiate "
+                        "extra channels (ROADMAP Queue 3): render them under torch.no_grad(), "
+                        "or trace without the segmented cull")
+                extra = torch.cat([back(out[ch]) for ch in extra_names], dim=-1).contiguous()
             # culled samples have no slot: their density is 0 after the scatter-back, so
             # the march's mask composites as JAX's mask & live does
             color, density = _back_field(out, idx, n, s_g)
